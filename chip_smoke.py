@@ -21,11 +21,36 @@ non-zero without printing a result:
               refine through the plain raster must agree.
   5. golden - the reference acceptance recipe (10 deg/axis + 20 mm) on a
               bumpy sphere at 640x480 recovers to under 1 degree.
+  6. nn-kernel - the flash-NN kernels nn_flash_packed (full scan) and
+              nn_flash_gated (chunk pruning) against their plain PyTorch
+              versions on the card, on the 524,288 lifted, morton-ordered
+              hypothesis points of one NN refine's first pass, against the
+              raw scene cloud and its 2 mm voxel twin, at gates 0.1 m and
+              5 mm: idx and dist^2 bit for bit (every query for the full
+              scan, the in-gate ones for the gated kernel), validity
+              everywhere, gated == full scan in the gate; queries whose
+              rounded dist^2 lies within float32 rounding of the gate are
+              counted apart (see gate_band). Median times of
+              kernel and plain, and the share of chunks the gated kernel
+              skipped.
+  7. nn-slice - PoseRefiner(scene="nn_bruteforce") on the bench workload in
+              bench.py's three NN configurations (2 mm voxel scene, raw
+              cloud, cascade (2.0, 16) + 4 full-resolution iterations); the
+              gated kernel's launch counter must rise, the poses stay
+              finite, mean fitness > 0.9, median translation error < 0.25 x
+              the start. Wall and device time, poses/s, scene points. The
+              2 mm refine through the plain NN must agree with the kernel
+              path, and the same refine against a full-scan scene
+              (SceneNN backend "flash") drives nn_flash_packed.
+  8. nn-golden - the golden recipe of phase 5 with scene="nn_bruteforce":
+              fitness > 0.7; prints the rotation error.
 
 The two lines before the last are the card line from nvidia-smi and a JSON
-object of the kernels; the last line is {"ok": true, "device": {...}}.
+object of the three kernels (rasterize, nn_flash_packed, nn_flash_gated);
+the last line is {"ok": true, "device": {...}}.
 """
 
+import functools
 import json
 import os
 import subprocess
@@ -48,6 +73,13 @@ VERDICT_DEG = 3.0
 MISMATCH_GATE = 1e-4
 # kernel path vs plain path (tests/test_torch_slice.py bounds)
 MAX_DROT_DEG, MAX_DT_MM, MAX_DFIT = 0.1, 0.2, 5e-3
+# bench.py:354-358: (label, refiner options, ICP iterations)
+NN_CONFIGS = (
+    ("2mm", dict(scene_voxel_mm=2.0), ITERS),
+    ("raw", dict(), ITERS),
+    ("cascade", dict(scene_cascade=(2.0, 16)), 4),
+)
+NN_GATES = (0.1, 0.005)
 
 
 def check(ok, msg):
@@ -113,6 +145,105 @@ def compare_raster(torch, RC, name, tris, poses, width, height, proj, roi, plain
     return k, dict(mismatch=mism, max_abs_err=err, ms=k_ms, plain_ms=p_ms)
 
 
+def refine_ms(torch, fn, reps=5):
+    """Median wall ms and CUDA-event ms of fn() over reps runs."""
+    walls, dev_ms = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        dev_ms.append(a.elapsed_time(b))
+    return float(np.median(walls)) * 1e3, float(np.median(dev_ms))
+
+
+def agreement(rotation_angle_deg, truth, a, b, fit_a, fit_b):
+    """Verdict agreement (rotation < 3 deg and translation < 2 mm) and the
+    largest rotation, translation and fitness deltas between two refines."""
+    err_a = rotation_angle_deg(a, truth) < VERDICT_DEG
+    err_b = rotation_angle_deg(b, truth) < VERDICT_DEG
+    mm_a = np.linalg.norm(a[:, :3, 3] - truth[:3, 3], axis=-1) < 2.0
+    mm_b = np.linalg.norm(b[:, :3, 3] - truth[:3, 3], axis=-1) < 2.0
+    agree = float(((err_a == err_b) & (mm_a == mm_b)).mean())
+    return (agree, float(rotation_angle_deg(a, b).max()),
+            float(np.abs(a[:, :3, 3] - b[:, :3, 3]).max()), float(np.abs(fit_a - fit_b).max()))
+
+
+def gate_band(queries, dist_sq, g2):
+    """Queries whose rounded dist^2 lies within 2^-20 |q|^2 of the squared
+    gate (a bound on the score's float32 rounding error, about 16 ULPs of
+    |q|^2). There the rounded score, not the true distance, decides
+    validity, and the gated kernel - the JAX one as this one - prunes by
+    true distance: a query 0.6 um outside a 5 mm gate can score inside it
+    and lose its neighbour's chunk. Both kernels are exact outside this
+    band."""
+    qq = (queries * queries).sum(dim=-1)
+    return (dist_sq - g2).abs() <= qq * 2.0 ** -20
+
+
+def nn_kernel_phase(torch, NF, SceneNN, K, scene_depth, queries):
+    """Both flash-NN kernels against their plain versions on the first-pass
+    queries; returns {kernel name: stats of the 2 mm scene at the 0.1 m
+    gate, with max_abs_err over every comparison}."""
+    dev = queries.device
+    nq = queries.shape[0]
+    out = {}
+    max_err = {"nn_flash_packed": 0.0, "nn_flash_gated": 0.0}
+    for label, voxel in (("raw", 0.0), ("2mm", 2.0)):
+        sc = SceneNN.from_depth(scene_depth, K, 0.1, voxel_mm=voxel, device=dev)
+        table, boxes, balls = sc.flash_table, sc.flash_boxes, sc.flash_balls
+        n_chunks = table.shape[1] // NF.S_CHUNK
+        p_ms, (pi, pd) = median_ms(torch, lambda: NF.nn_flash_packed_plain(queries, table), 1,
+                                   warm=0)
+        k_ms, (ki, kd) = median_ms(torch, lambda: NF.nn_flash_packed_cuda(queries, table), 20)
+        err = float((kd - pd).abs().max())
+        idx_bad = int((ki != pi).sum())
+        max_err["nn_flash_packed"] = max(max_err["nn_flash_packed"], err)
+        phase("nn-kernel", f"nn_flash_packed {label} scene: {sc.points.shape[0]} points "
+              f"({n_chunks} chunks) x {nq} queries: idx_mismatch={idx_bad} "
+              f"max_abs_err={err} kernel_ms={k_ms} plain_ms={p_ms}")
+        check(torch.equal(ki, pi) and torch.equal(kd, pd),
+              f"nn_flash_packed {label}: kernel != plain")
+        if label == "2mm":
+            out["nn_flash_packed"] = dict(ms=k_ms, plain_ms=p_ms)
+        for gate in NN_GATES:
+            g2 = NF.gate_sq(gate)
+            scanned = torch.empty(-(-nq // NF.Q_TILE), dtype=torch.int32, device=dev)
+            gk_ms, (gi, gd) = median_ms(torch, lambda: NF.nn_flash_gated_cuda(
+                queries, table, boxes, balls, gate, scanned=scanned), 20)
+            gp_ms, (qi, qd) = median_ms(torch, lambda: NF.nn_flash_gated_plain(
+                queries, table, gate), 1, warm=0)
+            band = gate_band(queries, pd, g2)
+            inside = (qd < g2) & ~band
+            n_in = int(inside.sum())
+            err = float((gd[inside] - qd[inside]).abs().max()) if n_in else 0.0
+            idx_bad = int((gi[inside] != qi[inside]).sum())
+            valid_bad = int((((gd < g2) != (qd < g2)) & ~band).sum())
+            vs_full = int((gi[inside] != ki[inside]).sum() + (gd[inside] != kd[inside]).sum())
+            band_diff = int((band & ((gi != qi) | ((gd < g2) != (qd < g2)))).sum())
+            skipped = 1.0 - float(scanned.sum()) / (scanned.numel() * n_chunks)
+            max_err["nn_flash_gated"] = max(max_err["nn_flash_gated"], err)
+            phase("nn-kernel", f"nn_flash_gated {label} scene, gate {gate} m: in_gate={n_in}/{nq} "
+                  f"gate_band={int(band.sum())} (of which differ {band_diff}) "
+                  f"idx_mismatch={idx_bad} validity_mismatch={valid_bad} "
+                  f"vs_full_scan_mismatch={vs_full} max_abs_err={err} "
+                  f"chunks_skipped={skipped} kernel_ms={gk_ms} plain_ms={gp_ms}")
+            check(0 < n_in, f"nn_flash_gated {label} {gate}: no in-gate query")
+            check(idx_bad == 0 and err == 0.0 and valid_bad == 0,
+                  f"nn_flash_gated {label} {gate}: kernel != plain")
+            check(vs_full == 0, f"nn_flash_gated {label} {gate}: gated != full scan in the gate")
+            if label == "2mm" and gate == 0.1:
+                out["nn_flash_gated"] = dict(ms=gk_ms, plain_ms=gp_ms)
+    for name, e in max_err.items():
+        out[name]["max_abs_err"] = e
+    return out
+
+
 def main():
     import torch
 
@@ -128,6 +259,15 @@ def main():
     from pose_refine_tpu_torch import _build, geometry, mesh
     from pose_refine_tpu_torch.ops import rasterize_cuda as RC
     from pose_refine_tpu_torch.pipeline import refine_poses
+    from pose_refine_tpu_torch.scene import nn_flash as NF
+    from pose_refine_tpu_torch.scene.nn import SceneNN
+
+    def reset_counts():
+        RC.launches = NF.packed_launches = NF.gated_launches = 0
+
+    def counts():
+        return {"rasterize": RC.launches, "nn_flash_packed": NF.packed_launches,
+                "nn_flash_gated": NF.gated_launches}
     from pose_refine_tpu_torch.utils.metrics import rotation_angle_deg
 
     # 1. card
@@ -256,8 +396,113 @@ def main():
           f"fitness {float(g_res.fitness)}")
     check(g_err < 1.0, f"golden recovery error {g_err} deg >= 1")
 
+    # 6. the flash-NN kernels against their plain versions on the queries
+    # of one NN refine's first association pass (captured through the
+    # query override; 0 iterations = the scoring pass alone)
+    nn_ref = ptt.PoseRefiner(model, K=K, device="cuda", scene="nn_bruteforce",
+                             scene_voxel_mm=2.0, **CFG)
+    nn_ref.set_scene_depth(scene)
+    seen = []
+
+    def capture(src):
+        seen.append(src.reshape(-1, 3).clone())
+        return nn_ref.scene.query(src)
+
+    refine_poses(nn_ref.tris, poses, nn_ref.scene, nn_ref.proj, nn_ref._K_render_t,
+                 width=nn_ref.render_w, height=nn_ref.render_h, max_points=nn_ref.max_points,
+                 criteria=ptt.ICPConvergenceCriteria(max_iteration=0), window=nn_ref.window,
+                 stride=nn_ref.stride, roi=nn_ref.roi, query=capture)
+    queries = seen[0]
+    check(queries.shape == (N_POSES * nn_ref.max_points, 3) and bool(torch.isfinite(queries).all()),
+          f"first-pass queries {tuple(queries.shape)}")
+    nn_stats = nn_kernel_phase(torch, NF, SceneNN, K, scene, queries)
+
+    # 7. the NN slice end to end through the gated kernel
+    nn_launches = {}
+    for label, kw, iters in NN_CONFIGS:
+        ref = ptt.PoseRefiner(model, K=K, device="cuda", scene="nn_bruteforce", **kw, **CFG)
+        t0 = time.perf_counter()
+        ref.set_scene_depth(scene)
+        torch.cuda.synchronize()
+        build_ms = (time.perf_counter() - t0) * 1e3
+        crit_nn = ptt.ICPConvergenceCriteria(max_iteration=iters)
+        reset_counts()
+        nn_refined, nn_res = ref.refine(poses, crit_nn)
+        torch.cuda.synchronize()
+        c = counts()
+        check(c["nn_flash_gated"] > 0 and c["rasterize"] > 0,
+              f"nn-slice {label}: launches {c}")
+        if label == "2mm":
+            nn_launches["nn_flash_gated"] = c["nn_flash_gated"]
+        nn_np = nn_refined.cpu().numpy()
+        check(nn_np.shape == (N_POSES, 4, 4) and np.isfinite(nn_np).all(),
+              f"nn-slice {label}: refined poses not finite (N, 4, 4)")
+        nn_fit = nn_res.fitness.cpu().numpy()
+        nn_mm = np.linalg.norm(nn_np[:, :3, 3] - truth[:3, 3], axis=-1)
+        wall_ms, dev_ms = refine_ms(torch, lambda: ref.refine(poses, crit_nn))
+        n_pts = ref.scene.points.shape[0]
+        coarse = "" if ref._scene_coarse is None else \
+            f" (coarse twin {ref._scene_coarse.points.shape[0]})"
+        phase("nn-slice", f"{label}: {N_POSES} poses, scene {n_pts} points{coarse}, "
+              f"build_ms={build_ms} iters={iters}: wall_ms={wall_ms} device_ms={dev_ms} "
+              f"poses_per_s={N_POSES / wall_ms * 1e3} translation_err_mm median="
+              f"{float(np.median(nn_mm))} (start {float(np.median(start_mm))}) "
+              f"recovered<{VERDICT_DEG}deg={float((rotation_angle_deg(nn_np, truth) < VERDICT_DEG).mean())} "
+              f"mean_fitness={float(nn_fit.mean())} launches={c}")
+        check(float(nn_fit.mean()) > 0.9, f"nn-slice {label}: mean fitness {float(nn_fit.mean())}")
+        check(float(np.median(nn_mm)) < 0.25 * float(np.median(start_mm)),
+              f"nn-slice {label}: the refine did not pull the translations toward the truth")
+        if label != "2mm":
+            continue
+        # the same refine through the plain NN, and against a full-scan scene
+        rp = functools.partial(
+            refine_poses, ref.tris, poses, width=ref.render_w, height=ref.render_h,
+            max_points=ref.max_points, criteria=crit_nn, window=ref.window, stride=ref.stride,
+            roi=ref.roi, proj=ref.proj, K=ref._K_render_t)
+        t0 = time.perf_counter()
+        p_refined, p_res = rp(scene=ref.scene, query=functools.partial(ref.scene.query, plain=True))
+        torch.cuda.synchronize()
+        p_wall = (time.perf_counter() - t0) * 1e3
+        agree, d_rot, d_t, d_fit = agreement(rotation_angle_deg, truth, nn_np,
+                                             p_refined.cpu().numpy(), nn_fit,
+                                             p_res.fitness.cpu().numpy())
+        phase("nn-slice", f"2mm through the plain NN: wall_ms={p_wall} verdict_agreement={agree} "
+              f"max_drot_deg={d_rot} max_dt_mm={d_t} max_dfit={d_fit}")
+        check(agree == 1.0 and d_rot <= MAX_DROT_DEG and d_t <= MAX_DT_MM and d_fit <= MAX_DFIT,
+              "nn-slice: kernel path and plain path disagree")
+        flash = SceneNN.from_depth(scene, K, ref.max_dist_diff, voxel_mm=2.0,
+                                   backend="flash", device=dev)
+        reset_counts()
+        f_refined, f_res = rp(scene=flash)
+        torch.cuda.synchronize()
+        c = counts()
+        nn_launches["nn_flash_packed"] = c["nn_flash_packed"]
+        check(c["nn_flash_packed"] > 0, f"nn-slice full-scan scene: launches {c}")
+        agree, d_rot, d_t, d_fit = agreement(rotation_angle_deg, truth, nn_np,
+                                             f_refined.cpu().numpy(), nn_fit,
+                                             f_res.fitness.cpu().numpy())
+        f_wall, f_dev = refine_ms(torch, lambda: rp(scene=flash))
+        phase("nn-slice", f"2mm against the full-scan scene (nn_flash_packed): wall_ms={f_wall} "
+              f"device_ms={f_dev} verdict_agreement={agree} max_drot_deg={d_rot} "
+              f"max_dt_mm={d_t} max_dfit={d_fit} launches={c}")
+        check(agree == 1.0 and d_rot <= MAX_DROT_DEG and d_t <= MAX_DT_MM and d_fit <= MAX_DFIT,
+              "nn-slice: the gated and the full-scan scene disagree")
+
+    # 8. golden recovery against an NN scene
+    nn_golden = ptt.PoseRefiner(bumpy, K=K, device="cuda", scene="nn_bruteforce")
+    nn_golden.set_scene_depth(depth2)
+    ng_pose, ng_res = nn_golden.refine(pose1)
+    ng_err = float(rotation_angle_deg(ng_pose.cpu().numpy(), pose2))
+    ng_dt = float(np.abs(ng_pose.cpu().numpy()[:3, 3] - pose2[:3, 3]).max())
+    phase("nn-golden", f"bumpy sphere 640x480, scene {nn_golden.scene.points.shape[0]} points: "
+          f"rotation error {ng_err} deg, translation error {ng_dt} mm, "
+          f"fitness {float(ng_res.fitness)}")
+    check(np.isfinite(ng_err) and float(ng_res.fitness) > 0.7,
+          f"nn golden fitness {float(ng_res.fitness)} <= 0.7")
+
     print(card_line)
     max_err = max(s["max_abs_err"] for s in (scene_stats, hyp_stats, pp_stats))
+    nn_sources = dict(route="cuda", source="pose_refine_tpu_torch/csrc/nn_flash.cu")
     print(json.dumps({"kernels": [{
         "name": "rasterize",
         "route": "cuda",
@@ -267,6 +512,14 @@ def main():
         "max_abs_err": max_err,
         "ms": hyp_stats["ms"],
         "plain_ms": hyp_stats["plain_ms"],
+    }, {
+        "name": "nn_flash_packed", **nn_sources,
+        "replaces": "pose_refine_tpu/scene/nn_pallas.py:101",
+        "launches": nn_launches["nn_flash_packed"], **nn_stats["nn_flash_packed"],
+    }, {
+        "name": "nn_flash_gated", **nn_sources,
+        "replaces": "pose_refine_tpu/scene/nn_pallas.py:326",
+        "launches": nn_launches["nn_flash_gated"], **nn_stats["nn_flash_gated"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

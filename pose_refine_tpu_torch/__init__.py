@@ -2,8 +2,9 @@
 
 Batch depth rasterization of pose hypotheses (a hand-written CUDA kernel,
 ``csrc/rasterize.cu``) plus batched point-to-plane ICP against a projective
-scene, on an NVIDIA GPU or, with the kernels' plain PyTorch versions, on the
-CPU. Every public entry point takes an explicit ``device=``. The package
+scene or a nearest-neighbour scene (exact NN by the flash-NN kernels,
+``csrc/nn_flash.cu``), on an NVIDIA GPU or, with the kernels' plain PyTorch
+versions, on the CPU. Every public entry point takes an explicit ``device=``. The package
 imports torch and never jax.
 """
 
@@ -25,6 +26,7 @@ from pose_refine_tpu_torch.mesh import (  # noqa: F401
 from pose_refine_tpu_torch.ops.rasterize import rasterize_dense  # noqa: F401
 from pose_refine_tpu_torch.ops.rasterize_cuda import rasterize, rasterize_plain  # noqa: F401
 from pose_refine_tpu_torch.pipeline import PoseRefiner, refine_poses  # noqa: F401
+from pose_refine_tpu_torch.scene.nn import SceneNN  # noqa: F401
 from pose_refine_tpu_torch.scene.projective import SceneProjective  # noqa: F401
 
 __version__ = "0.1.0"

@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels at first use.
 
-Every ``csrc/*.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into one
-shared library with a plain C interface, loaded with ``ctypes``. Nothing
-includes PyTorch's headers, so a build takes seconds. The library lands in
+Every ``csrc/*.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``), one
+process per source, all started together, and the objects are linked into
+one shared library with a plain C interface, loaded with ``ctypes``.
+Nothing includes PyTorch's headers, so a build takes seconds. The library lands in
 ``_build/<hash>/`` inside the package (git-ignored); the hash covers the
 sources and the flags, so an edited kernel rebuilds and an unchanged one
 loads from disk. Only sources in the repository are compiled, and a failed
@@ -26,15 +27,16 @@ LIB_NAME = "libprt_kernels.so"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers / spills per kernel, kept in nvcc.log
 )
 
 # C entry points: name -> (argtypes, restype). Pointers and the stream are
 # c_void_p: a bare Python int would be passed as a 32-bit int.
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "prt_rasterize": ((_P, _I, _I, _P, _I, _I, _I, _I, _I, _P), _I),
+    "prt_nn_flash": ((_P, _I, _P, _I, _P, _P, _I, _F, _I, _P, _P, _P, _P), _I),
     "prt_error_string": ((_I,), ctypes.c_char_p),
 }
 
@@ -67,20 +69,35 @@ def build_info_key() -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds):
+    """Run the commands in parallel; [(cmd, returncode, output)]."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    return [(c, p.returncode, out) for c, p, out in zip(cmds, procs, outs)]
+
+
 def _compile(out_dir: Path) -> dict:
     nvcc = _nvcc()
-    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
+    cu = [p for p in _sources() if p.suffix == ".cu"]
     out_dir.mkdir(parents=True, exist_ok=True)
+    objs = [out_dir / f".{p.stem}.{os.getpid()}.o" for p in cu]  # nvcc links only *.o
     tmp = out_dir / f".{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp), *cu]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    steps = _run_all([[nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", "-o", str(o), str(p)]
+                      for p, o in zip(cu, objs)])
+    if all(rc == 0 for _c, rc, _out in steps):
+        steps += _run_all([[nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                            "-o", str(tmp), *map(str, objs)]])
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    (out_dir / "nvcc.log").write_text(" ".join(cmd) + "\n" + log)
-    if proc.returncode != 0:
+    log = "".join(" ".join(c) + "\n" + out for c, _rc, out in steps)
+    (out_dir / "nvcc.log").write_text(log)
+    for o in objs:
+        o.unlink(missing_ok=True)
+    failed = [rc for _c, rc, _out in steps if rc != 0]
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{log}")
+        raise RuntimeError(f"nvcc failed (exit {failed[0]}):\n{log}")
     os.replace(tmp, out_dir / LIB_NAME)
     return {"seconds": seconds, "log": log}
 

@@ -1,11 +1,13 @@
 """End-to-end batched pose refinement: render -> lift -> associate -> solve
-(PyTorch port of the projective path of ``pose_refine_tpu/pipeline.py``).
+(PyTorch port of ``pose_refine_tpu/pipeline.py``).
 
 ``refine_poses`` is the body of the JAX package's ``refine_poses_jit`` for
 the window lift and point-to-plane ICP; ``PoseRefiner`` is its refiner for
-``scene="projective"``, with the same host-side planning (auto ROI, auto
-lift sizes, warnings). Options the port does not carry yet raise
-``NotImplementedError`` naming the ROADMAP item that will carry them.
+projective scenes and nearest-neighbour scenes (``scene="nn"`` /
+``"nn_bruteforce"``, with ``scene_voxel_mm`` and ``scene_cascade``), with
+the same host-side planning (auto ROI, auto lift sizes, warnings). Options
+the port does not carry yet raise ``NotImplementedError`` naming the
+ROADMAP item that will carry them.
 """
 
 from __future__ import annotations
@@ -19,28 +21,37 @@ import torch
 from pose_refine_tpu_torch import geometry, icp
 from pose_refine_tpu_torch.device import DeviceLike, resolve_device
 from pose_refine_tpu_torch.mesh import Model, morton_order, simplify_vertex_clustering
-from pose_refine_tpu_torch.ops.depth_to_cloud import compact_topk, window_cloud_batched
+from pose_refine_tpu_torch.ops.depth_to_cloud import (
+    compact_topk,
+    morton_key,
+    window_cloud_batched,
+)
 from pose_refine_tpu_torch.ops.rasterize_cuda import rasterize
+from pose_refine_tpu_torch.scene.nn import SceneNN, voxel_downsample
 from pose_refine_tpu_torch.scene.projective import SceneProjective
+
+NN_SCENES = ("nn", "nn_kdtree", "nn_bruteforce")
 
 logger = logging.getLogger("pose_refine_tpu_torch")
 
 
-def refine_poses(tris, init_poses, scene: SceneProjective, proj, K, *,
+def refine_poses(tris, init_poses, scene: Union[SceneProjective, SceneNN], proj, K, *,
                  width: int, height: int, max_points: int,
                  criteria: icp.ICPConvergenceCriteria, window: int = 256,
                  stride: int = 2, roi=(0, 0, 0, 0),
-                 raster: Optional[Callable] = None):
+                 raster: Optional[Callable] = None, query: Optional[Callable] = None):
     """Render N poses, lift each render to a cloud, run batched ICP.
 
     All tensors on one device. Returns (refined_poses (N, 4, 4),
     RegistrationResult batch), refined = T_icp @ init with the ICP
     translation rescaled from meters to the pose's millimeters.
     ``raster`` replaces the rasterizer (default: ops.rasterize_cuda.rasterize,
-    the kernel on CUDA tensors); chip_smoke.py passes the plain version to
-    hold the kernel path against it.
+    the kernel on CUDA tensors) and ``query`` the association (default:
+    scene.query); chip_smoke.py passes the plain versions to hold the
+    kernel path against them.
     """
     raster = rasterize if raster is None else raster
+    query = scene.query if query is None else query
     depth = raster(tris, init_poses, width, height, proj, roi=roi)
     out_h, out_w = depth.shape[1:]
 
@@ -49,12 +60,19 @@ def refine_poses(tris, init_poses, scene: SceneProjective, proj, K, *,
     clouds, valids, _n = window_cloud_batched(
         depth, K, window=window, stride=stride, tl_x=roi[0], tl_y=roi[1]
     )
+    # NN scenes take the clouds in morton order of the window grid, so the
+    # flash kernel's query tiles are local patches its chunk pruning can
+    # bound; projective association is an image gather, order-free
+    nn_order = isinstance(scene, SceneNN)
     if max_points < wh * ww:
-        # projective association is an image gather: point order does not
-        # matter, so no morton reorder (order_shape=None)
-        clouds, valids, _n = compact_topk(clouds, valids, max_points)
+        clouds, valids, _n = compact_topk(
+            clouds, valids, max_points, order_shape=(wh, ww) if nn_order else None)
+    elif nn_order:
+        code = morton_key(torch.arange(wh * ww, device=clouds.device), wh, ww)
+        perm = torch.argsort(code, stable=True)
+        clouds, valids = clouds[:, perm], valids[:, perm]
 
-    results, _clouds = icp._icp_run(clouds, valids, scene.query, criteria)
+    results, _clouds = icp._icp_run(clouds, valids, query, criteria)
     # ICP acts on camera-space clouds in meters (common.h:53); poses carry
     # mm translations: scale t_icp to mm before left-composing
     T_mm = results.transformation.clone()
@@ -71,7 +89,9 @@ def _unported(name: str, value, default, item: str):
 
 
 class PoseRefiner:
-    """Refine batches of pose hypotheses of one model against a scene depth.
+    """Refine batches of pose hypotheses of one model against a scene depth
+    (``scene="projective"``) or a scene cloud searched by exact nearest
+    neighbour (``scene="nn"`` / ``"nn_bruteforce"``).
 
     Example:
         refiner = PoseRefiner("obj_06.ply", K=LINEMOD_K, device="cuda")
@@ -97,6 +117,8 @@ class PoseRefiner:
         render_scale: int = 1,
         decimate_mm: float = 0.0,
         scene_voxel_mm: float = 0.0,
+        scene_stride: int = 1,
+        scene_pool="auto",
         scene_cascade=None,
         robust_delta: float = 0.0,
         coarse_iters: int = 0,
@@ -104,18 +126,46 @@ class PoseRefiner:
         devices=None,
         device: DeviceLike = None,
     ):
-        if scene in ("nn", "nn_kdtree", "nn_bruteforce"):
-            _unported("scene", scene, "projective", "A9")
-        if scene != "projective":
+        if scene not in ("projective", *NN_SCENES):
             raise ValueError(
                 f"unknown scene kind {scene!r}: expected 'projective', "
                 "'nn', 'nn_kdtree' or 'nn_bruteforce'"
             )
+        if scene == "nn_kdtree":  # the kd traversal
+            _unported("scene", scene, "nn", "A9")
+        self.scene_kind = scene
         if lift not in ("window", "compact"):
             raise ValueError(f"unknown lift {lift!r}: expected 'window' or 'compact'")
         _unported("lift", lift, "window", "A14")
-        _unported("scene_voxel_mm", float(scene_voxel_mm), 0.0, "A9")
-        _unported("scene_cascade", scene_cascade, None, "A9")
+        # scene_voxel_mm: voxel-downsample the NN scene cloud at build time
+        # (exact-NN cost is O(queries x scene)); no effect on projective scenes
+        self.scene_voxel_mm = float(scene_voxel_mm)
+        # the device-built NN scene of track() (scene_stride, scene_pool)
+        _unported("scene_stride", int(scene_stride), 1, "A10")
+        _unported("scene_pool", scene_pool, "auto", "A10")
+        # scene_cascade=(coarse_voxel_mm, coarse_iters): refine() first runs
+        # coarse_iters against a coarse_voxel_mm-voxelized twin of the NN
+        # scene, then the caller's criteria against the full-resolution scene
+        if scene_cascade is not None:
+            if scene not in NN_SCENES:
+                raise ValueError(
+                    "scene_cascade is an NN-scene feature (exact-NN cost "
+                    "scales with scene size; the projective gather is "
+                    f"size-free) - scene={scene!r} does not support it"
+                )
+            cv, ci = scene_cascade
+            if float(cv) <= 0.0 or int(ci) < 1:
+                raise ValueError(
+                    f"scene_cascade wants (coarse_voxel_mm > 0, "
+                    f"coarse_iters >= 1), got {scene_cascade!r}")
+            if float(scene_voxel_mm) > 0.0 and float(cv) <= float(scene_voxel_mm):
+                raise ValueError(
+                    f"scene_cascade coarse voxel ({cv} mm) must be coarser "
+                    f"than scene_voxel_mm ({scene_voxel_mm} mm) - otherwise "
+                    "the coarse pass is the fine pass")
+            scene_cascade = (float(cv), int(ci))
+        self.scene_cascade = scene_cascade
+        self._scene_coarse = None
         _unported("robust_delta", float(robust_delta), 0.0, "A14")
         _unported("coarse_iters", int(coarse_iters), 0, "A14")
         if estimation not in ("point_to_plane", "point_to_point"):
@@ -330,22 +380,75 @@ class PoseRefiner:
         host = (scene_depth.cpu().numpy() if isinstance(scene_depth, torch.Tensor)
                 else np.asarray(scene_depth))
         self._prepare_frame(host)
-        self.scene = SceneProjective.from_depth(
-            host, self.K, self.max_dist_diff, device=self.device
+        if self.scene_kind == "projective":
+            self.scene = SceneProjective.from_depth(
+                host, self.K, self.max_dist_diff, device=self.device
+            )
+        else:
+            # "nn" and "nn_bruteforce" both take the gated flash kernel on
+            # every device; the JAX package picks its kd traversal for "nn"
+            # on its CPU, which is not ported yet (ROADMAP A9)
+            self.scene = SceneNN.from_depth(
+                host, self.K, self.max_dist_diff, voxel_mm=self.scene_voxel_mm,
+                device=self.device,
+            )
+            if self.scene_cascade is not None:
+                self._scene_coarse = SceneNN.from_depth(
+                    host, self.K, self.max_dist_diff, voxel_mm=self.scene_cascade[0],
+                    device=self.device,
+                )
+        logger.info("scene built: kind=%s, %s", self.scene_kind, type(self.scene).__name__)
+        return self
+
+    def set_scene_depths(self, scene_depths):
+        raise NotImplementedError(
+            "set_scene_depths (stacked multi-frame scenes) is not ported to "
+            "pose_refine_tpu_torch yet (ROADMAP A15)"
         )
-        logger.info("scene built: projective %dx%d", self.scene.width, self.scene.height)
+
+    def set_scene_cloud(self, points, normals):
+        """NN scene directly from (P, 3) points and normals in meters
+        (numpy or tensors), with the refiner's scene_voxel_mm and
+        scene_cascade."""
+        if self._auto_window or self._auto_points:
+            # auto lift sizes come from an observed DEPTH image; a bare
+            # cloud gives no object extent to tune from
+            raise ValueError(
+                "window='auto'/max_points='auto' require set_scene_depth; "
+                "pass explicit window/max_points to use set_scene_cloud"
+            )
+        points, normals = (
+            x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+            for x in (points, normals)
+        )
+        if self.scene_voxel_mm > 0.0:
+            points, normals = voxel_downsample(points, normals, self.scene_voxel_mm / 1000.0)
+        self.scene = SceneNN.from_cloud(points, normals, self.max_dist_diff, device=self.device)
+        if self.scene_cascade is not None:
+            cp, cn = voxel_downsample(points, normals, self.scene_cascade[0] / 1000.0)
+            self._scene_coarse = SceneNN.from_cloud(cp, cn, self.max_dist_diff,
+                                                    device=self.device)
+        self._check_saturation = True
         return self
 
     def refine(self, init_poses,
                criteria: icp.ICPConvergenceCriteria = icp.ICPConvergenceCriteria(),
-               schedule=None, with_covariance: bool = False, scene_ids=None):
+               schedule=None, with_covariance: bool = False, scene_ids=None,
+               _scene=None):
         """(N, 4, 4) or (4, 4) hypotheses -> (refined poses, RegistrationResult),
-        tensors on the refiner's device."""
+        tensors on the refiner's device.
+
+        With ``scene_cascade=(coarse_voxel_mm, coarse_iters)`` a coarse
+        pre-pass of coarse_iters iterations against the voxelized twin of
+        the scene runs first; ``criteria`` then governs the full-resolution
+        pass. ``_scene`` (internal) refines against that scene instead of
+        the refiner's, with no pre-pass."""
         _unported("schedule", schedule, None, "A14")
         _unported("with_covariance", with_covariance, False, "A14")
         _unported("scene_ids", scene_ids, None, "A15")
-        if self.scene is None:  # usage error: must survive python -O
-            raise RuntimeError("set_scene_depth first")
+        scene = self.scene if _scene is None else _scene
+        if scene is None:  # usage error: must survive python -O
+            raise RuntimeError("set_scene_depth / set_scene_cloud first")
         init = torch.as_tensor(init_poses, dtype=torch.float32, device=self.device)
         if tuple(init.shape[-2:]) != (4, 4) or init.dim() not in (2, 3):
             raise ValueError(
@@ -355,8 +458,12 @@ class PoseRefiner:
         squeeze = init.dim() == 2
         if squeeze:
             init = init[None]
+        if self._scene_coarse is not None and _scene is None:
+            coarse = icp.ICPConvergenceCriteria(
+                criteria.relative_fitness, criteria.relative_rmse, self.scene_cascade[1])
+            init, _ = self.refine(init, coarse, _scene=self._scene_coarse)
         refined, results = refine_poses(
-            self.tris, init, self.scene, self.proj, self._K_render_t,
+            self.tris, init, scene, self.proj, self._K_render_t,
             width=self.render_w, height=self.render_h,
             max_points=self.max_points, criteria=criteria,
             window=self.window, stride=self.stride, roi=self.roi,

@@ -19,6 +19,8 @@ import torch
 import pose_refine_tpu_torch as ptt
 from pose_refine_tpu_torch import _build, geometry, mesh
 from pose_refine_tpu_torch.ops import rasterize_cuda as RC
+from pose_refine_tpu_torch.scene import nn_flash as NF
+from pose_refine_tpu_torch.scene.nn import SceneNN
 
 torch.set_num_threads(2)
 
@@ -59,11 +61,20 @@ def test_rasterize_on_cuda_raises_without_card(no_card):
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
-    """The wrapper launches the kernel or raises; it never computes on the
-    CPU itself."""
+    """The wrappers launch their kernel or raise; they never compute on the
+    CPU themselves."""
     coef = torch.zeros((1, 16, 4))
     with pytest.raises(ValueError, match="CUDA tensor"):
         RC.raster_coef_cuda(coef, 8, 8, 8, (0, 0, 0, 0))
+    table = NF.pack_scene(torch.zeros((5, 3)))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        NF.nn_flash_packed_cuda(torch.zeros((3, 3)), table)
+
+
+def test_nn_scene_on_cuda_raises_without_card(no_card):
+    pts = torch.rand((50, 3))
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        SceneNN.from_cloud(pts, pts, device="cuda")
 
 
 def test_build_without_nvcc_raises(no_card):
@@ -78,7 +89,7 @@ def test_build_without_nvcc_raises(no_card):
 def test_build_key_covers_sources_and_flags():
     key = _build.build_info_key()
     assert len(key) == 16 and key == _build.build_info_key()
-    assert [p.name for p in _build._sources()] == ["rasterize.cu"]
+    assert [p.name for p in _build._sources()] == ["nn_flash.cu", "rasterize.cu"]
 
 
 def test_package_imports_without_jax():
@@ -98,6 +109,18 @@ def test_no_module_of_the_port_imports_jax():
     for path in (REPO / "pose_refine_tpu_torch").rglob("*.py"):
         for line in path.read_text().splitlines():
             assert not pattern.match(line), f"{path}: {line}"
+
+
+def test_profile_port_needs_a_card(no_card):
+    """The profiling script exits non-zero on a machine without a card;
+    like chip_smoke.py it imports no jax."""
+    sys.path.insert(0, str(REPO))
+    import profile_port
+
+    assert profile_port.main() == 2
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|pose_refine_tpu)(\.|\s|$)")
+    for name in ("profile_port.py", "chip_smoke.py"):
+        assert not any(pattern.match(ln) for ln in (REPO / name).read_text().splitlines())
 
 
 @pytest.mark.cuda
@@ -127,3 +150,53 @@ def test_kernel_matches_plain_on_card(card, case):
     assert got.shape == want.shape and got.dtype == torch.int32
     assert (got > 0).sum() > 10000
     assert torch.equal(got, want)
+
+
+def nn_case(card, seed=2, n_scene=20000, n_query=70000):
+    """A kd-ordered random scene and clustered queries around it, some
+    beyond a 5 mm gate, with a partial last query tile."""
+    rng = np.random.default_rng(seed)
+    pts = (rng.normal(size=(n_scene, 3)) * [0.05, 0.05, 0.02] + [0, 0, 0.3]).astype(np.float32)
+    scene = SceneNN.from_cloud(pts, pts, 0.005, device=card)
+    q = pts[rng.integers(0, n_scene, n_query)] + rng.normal(0, 0.004, (n_query, 3))
+    q[:300] += 1.0  # whole tiles with no in-gate neighbour
+    return scene, torch.as_tensor(q.astype(np.float32), device=card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gate", [0.1, 0.005])
+def test_nn_kernels_match_plain_on_card(card, gate):
+    """Both flash-NN kernels against their plain versions: the full scan
+    bit for bit on every query, the gated kernel on every in-gate query
+    and on validity everywhere."""
+    scene, q = nn_case(card)
+    table = scene.flash_table
+    before = (NF.packed_launches, NF.gated_launches)
+    ki, kd = NF.nn_flash_packed(q, table)
+    gi, gd = NF.nn_flash_gated(q, table, scene.flash_boxes, scene.flash_balls, gate)
+    torch.cuda.synchronize()
+    assert (NF.packed_launches, NF.gated_launches) == (before[0] + 1, before[1] + 1)
+    pi, pd = NF.nn_flash_packed_plain(q, table)
+    assert torch.equal(ki, pi) and torch.equal(kd, pd)
+    g2 = NF.gate_sq(gate)
+    # outside the band where float32 rounding of the score, not the true
+    # distance, puts a query in or out of the gate (chip_smoke.gate_band)
+    sure = (pd - g2).abs() > (q * q).sum(-1) * 2.0 ** -20
+    inside = (pd < g2) & sure
+    assert 0 < int(inside.sum()) < q.shape[0]
+    assert torch.equal(gi[inside], pi[inside]) and torch.equal(gd[inside], pd[inside])
+    assert torch.equal((gd < g2)[sure], (pd < g2)[sure])
+
+
+@pytest.mark.cuda
+def test_nn_query_through_kernel_on_card(card):
+    scene, q = nn_case(card, seed=3, n_query=5000)
+    before = NF.gated_launches
+    dst, nrm, valid = scene.query(q.reshape(50, 100, 3))
+    torch.cuda.synchronize()
+    assert NF.gated_launches == before + 1
+    pdst, pnrm, pvalid = scene.query(q.reshape(50, 100, 3), plain=True)
+    assert not bool(valid.reshape(-1)[:300].any()) and int((valid != pvalid).sum()) <= 2
+    both = valid & pvalid
+    assert torch.equal(dst[both], pdst[both]) and torch.equal(nrm[both], pnrm[both])
+    assert bool(torch.isfinite(dst).all())

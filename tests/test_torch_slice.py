@@ -113,7 +113,7 @@ def test_single_pose_refine_squeezes(workload):
 
 @pytest.mark.parametrize(
     "kwargs,item",
-    [({"scene": "nn"}, "A9"), ({"lift": "compact"}, "A14"), ({"robust_delta": 0.01}, "A14"),
+    [({"scene": "nn_kdtree"}, "A9"), ({"lift": "compact"}, "A14"), ({"robust_delta": 0.01}, "A14"),
      ({"coarse_iters": 4}, "A14"), ({"estimation": "point_to_point"}, "A14"),
      ({"devices": 2}, "A13")],
 )
