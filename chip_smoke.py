@@ -44,18 +44,41 @@ non-zero without printing a result:
               (SceneNN backend "flash") drives nn_flash_packed.
   8. nn-golden - the golden recipe of phase 5 with scene="nn_bruteforce":
               fitness > 0.7; prints the rotation error.
+  9. gather - the association's row-gather kernel against its plain
+              version at three shapes: the bench projective scene (307,200
+              rows) at the 524,288 first-pass pixels, the raw NN scene
+              (29,440 rows) and the device-built 640x480 NN scene (307,200
+              rows) at the 524,288 first-pass neighbours. Bit for bit;
+              median times of both.
+ 10. track  - bench.py's tracking workload (bench.py:258-304): 12
+              pre-rendered frames drifting +-0.035 rad / +-5 mm per frame,
+              TrackingSession(n_hypotheses=16, process_noise=(2 deg, 5 mm))
+              with step_async + flush (median of 3 sessions after a warm
+              one) and with step, for scene="projective" and for
+              scene="nn_bruteforce" with scene_voxel_mm=2 (auto scene_pool).
+              Launch counts of every kernel in one session, the synchronizing
+              CUDA calls of one steady-state step_async, n_rejected, final
+              errors; the first frame through the kernels must agree with
+              the same frame through the plain versions (raster, NN, gather).
+ 11. track-golden - tests/test_tracking.py's drift recipe on the bumpy
+              sphere at 640x480, 5 frames, both scene kinds: every frame
+              accepted, final rotation error < 1 deg, translation < 6 mm.
 
 The two lines before the last are the card line from nvidia-smi and a JSON
-object of the three kernels (rasterize, nn_flash_packed, nn_flash_gated);
-the last line is {"ok": true, "device": {...}}.
+object of the four kernels (rasterize, nn_flash_packed, nn_flash_gated,
+gather_rows); the last line is {"ok": true, "device": {...}}.
 """
 
+import collections
 import functools
 import json
+import logging
 import os
 import subprocess
 import sys
 import time
+import traceback
+import warnings
 
 import numpy as np
 
@@ -80,6 +103,14 @@ NN_CONFIGS = (
     ("cascade", dict(scene_cascade=(2.0, 16)), 4),
 )
 NN_GATES = (0.1, 0.005)
+# bench.py:265-296's tracking workload: frames, hypotheses, drift, noise
+N_TRACK, N_HYP, TRACK_SEED = 12, 16, 9
+TRACK_DRIFT = (0.035, 5.0)  # rad per Euler axis, mm per axis, per frame
+TRACK_NOISE = (float(np.radians(2.0)), 0.005)
+TRACK_CONFIGS = (
+    ("projective", dict(scene="projective")),
+    ("nn", dict(scene="nn_bruteforce", scene_voxel_mm=2.0)),
+)
 
 
 def check(ok, msg):
@@ -244,6 +275,94 @@ def nn_kernel_phase(torch, NF, SceneNN, K, scene_depth, queries):
     return out
 
 
+def gather_phase(torch, G, tables):
+    """The row-gather kernel against its plain version on each (label,
+    table, idx); returns the stats of the first (the bench projective
+    association) with max_abs_err over all."""
+    out, max_err = None, 0.0
+    for label, table, idx in tables:
+        k_ms, k = median_ms(torch, lambda: G.gather_rows_cuda(table, idx), 20)
+        p_ms, p = median_ms(torch, lambda: G.gather_rows_plain(table, idx), 20)
+        err = float((k - p).abs().max())
+        n = idx.numel()
+        mbytes = n * (2 * 4 * G.ROW + idx.element_size()) / 1e6
+        phase("gather", f"{label}: table {tuple(table.shape)} x {n} {idx.dtype} indices: "
+              f"equal={torch.equal(k, p)} max_abs_err={err} kernel_ms={k_ms} plain_ms={p_ms} "
+              f"traffic_MB={mbytes} kernel_GB_s={mbytes / k_ms} plain_GB_s={mbytes / p_ms}")
+        check(torch.equal(k, p), f"gather {label}: kernel != plain")
+        max_err = max(max_err, err)
+        if out is None:
+            out = dict(ms=k_ms, plain_ms=p_ms)
+    out["max_abs_err"] = max_err
+    return out
+
+
+def track_frames(geometry, raster, truth):
+    """bench.py's pre-rendered tracking frames: the truth drifts by up to
+    TRACK_DRIFT per frame (rng seed 9); (truths, (H, W) int32 mm numpy
+    frames) rendered by ``raster`` (a pose batch -> depth batch)."""
+    rng = np.random.default_rng(TRACK_SEED)
+    t, truths, frames = truth.copy(), [], []
+    rot, mm = TRACK_DRIFT
+    for _ in range(N_TRACK):
+        d = geometry.euler_to_rotation(rng.uniform(-rot, rot, 3).astype(np.float32)).numpy()
+        t = geometry.pose_from_Rt(d @ t[:3, :3],
+                                  t[:3, 3] + rng.uniform(-mm, mm, 3).astype(np.float32)).numpy()
+        truths.append(t.copy())
+        frames.append(raster(t[None])[0].cpu().numpy())
+    return truths, frames
+
+
+def track_session(ptt, refiner, start, frames, pipelined=True):
+    """One TrackingSession over every frame, as bench.py runs it: (ms per
+    frame over the whole loop, session, last TrackStep)."""
+    session = ptt.TrackingSession(refiner, start, n_hypotheses=N_HYP,
+                                  process_noise=TRACK_NOISE, seed=TRACK_SEED)
+    t0 = time.perf_counter()
+    if pipelined:
+        for f in frames:
+            session.step_async(f)
+        last = session.flush()
+    else:
+        for f in frames:
+            last = session.step(f)
+    return (time.perf_counter() - t0) * 1e3 / len(frames), session, last
+
+
+def first_hypotheses(ptt, start):
+    """The hypotheses a TrackingSession of track_session samples for its
+    first frame."""
+    tracker = ptt.PoseTracker(start, process_noise=TRACK_NOISE)
+    tracker.predict()
+    return tracker.hypotheses(N_HYP, seed=np.random.default_rng(TRACK_SEED))
+
+
+def sync_sites(torch, fn):
+    """Run fn() under torch.cuda.set_sync_debug_mode("warn"): the
+    synchronizing CUDA calls it made, as a Counter of the call chain inside
+    this checkout ('file:line <- file:line ...', innermost first). Only the
+    mode's own per-call warning counts (its one-time notice that it is a
+    prototype does not)."""
+    sites = collections.Counter()
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing" in str(message):
+            chain = [f"{os.path.relpath(f.filename, REPO)}:{f.lineno}"
+                     for f in reversed(traceback.extract_stack())
+                     if f.filename.startswith(REPO + os.sep)]
+            sites[" <- ".join(chain[1:4]) or f"{filename}:{lineno}"] += 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sites
+
+
 def main():
     import torch
 
@@ -257,17 +376,19 @@ def main():
     check(os.path.dirname(os.path.dirname(os.path.abspath(ptt.__file__))) == REPO,
           f"pose_refine_tpu_torch imported from {ptt.__file__}, not from this checkout")
     from pose_refine_tpu_torch import _build, geometry, mesh
+    from pose_refine_tpu_torch.ops import gather as G
     from pose_refine_tpu_torch.ops import rasterize_cuda as RC
     from pose_refine_tpu_torch.pipeline import refine_poses
     from pose_refine_tpu_torch.scene import nn_flash as NF
     from pose_refine_tpu_torch.scene.nn import SceneNN
+    from pose_refine_tpu_torch.scene.projective import _project_gate
 
     def reset_counts():
-        RC.launches = NF.packed_launches = NF.gated_launches = 0
+        RC.launches = NF.packed_launches = NF.gated_launches = G.launches = 0
 
     def counts():
         return {"rasterize": RC.launches, "nn_flash_packed": NF.packed_launches,
-                "nn_flash_gated": NF.gated_launches}
+                "nn_flash_gated": NF.gated_launches, "gather_rows": G.launches}
     from pose_refine_tpu_torch.utils.metrics import rotation_angle_deg
 
     # 1. card
@@ -313,11 +434,13 @@ def main():
 
     # 4. the slice end to end through the kernel
     crit = ptt.ICPConvergenceCriteria(max_iteration=ITERS)
-    RC.launches = 0
+    reset_counts()
     refined, res = refiner.refine(poses, crit)
     torch.cuda.synchronize()
-    launches = RC.launches
-    check(launches > 0, "refine did not launch the raster kernel")
+    slice_counts = counts()
+    launches = slice_counts["rasterize"]
+    check(launches > 0 and slice_counts["gather_rows"] > 0,
+          f"refine did not launch the raster and gather kernels: {slice_counts}")
     refined_np = refined.cpu().numpy()
     check(refined_np.shape == (N_POSES, 4, 4) and np.isfinite(refined_np).all(),
           "refined poses not finite (N, 4, 4)")
@@ -350,7 +473,7 @@ def main():
           f"translation_err_mm median={float(np.median(err_mm))} "
           f"p90={float(np.percentile(err_mm, 90))} (start median "
           f"{float(np.median(start_mm))}) mean_fitness={float(fit.mean())} "
-          f"raster_launches={launches}")
+          f"launches={slice_counts}")
     check(float(fit.mean()) > 0.9, f"mean fitness {float(fit.mean())} too low")
     check(float(np.median(err_mm)) < 0.25 * float(np.median(start_mm)),
           "the refine did not pull the translations toward the truth")
@@ -430,7 +553,7 @@ def main():
         nn_refined, nn_res = ref.refine(poses, crit_nn)
         torch.cuda.synchronize()
         c = counts()
-        check(c["nn_flash_gated"] > 0 and c["rasterize"] > 0,
+        check(c["nn_flash_gated"] > 0 and c["rasterize"] > 0 and c["gather_rows"] > 0,
               f"nn-slice {label}: launches {c}")
         if label == "2mm":
             nn_launches["nn_flash_gated"] = c["nn_flash_gated"]
@@ -500,6 +623,114 @@ def main():
     check(np.isfinite(ng_err) and float(ng_res.fitness) > 0.7,
           f"nn golden fitness {float(ng_res.fitness)} <= 0.7")
 
+    # 9. the association's row gather against its plain version: the bench
+    # scene at the first-pass queries' pixels, and the raw and the
+    # device-built NN scenes at their nearest neighbours
+    K_t = torch.as_tensor(K, device=dev)
+    pixels = []
+
+    def capture_pixels(table, idx):
+        pixels.append(idx)
+        return G.gather_rows_plain(table, idx)
+
+    sc = refiner.scene
+    _project_gate(sc.table, sc.K, sc.max_dist_diff, sc.height, sc.width, queries,
+                  gather=capture_pixels)
+    raw_nn = SceneNN.from_depth(scene, K, 0.1, device=dev)
+    frame_nn = SceneNN.from_depth_device(torch.as_tensor(scene, device=dev), K_t, 0.1)
+
+    def neighbours(s):
+        return NF.nn_flash_gated(queries, s.flash_table, s.flash_boxes, s.flash_balls,
+                                 s.max_dist_diff)[0]
+
+    gather_stats = gather_phase(torch, G, [
+        ("bench projective scene", sc.table, pixels[0]),
+        ("raw NN scene", raw_nn.table, neighbours(raw_nn)),
+        ("device-built 640x480 NN scene", frame_nn.table, neighbours(frame_nn)),
+    ])
+
+    # 10. bench.py's tracking workload through TrackingSession
+    truths, frames = track_frames(
+        geometry, lambda p: RC.rasterize(tris, torch.as_tensor(p, device=dev), WIDTH, HEIGHT,
+                                         proj), truth)
+    hyps0 = first_hypotheses(ptt, truth)
+    control = sync_sites(torch, lambda: torch.ones(1, device=dev).item())
+    check(sum(control.values()) >= 1, f"the sync counter missed an .item(): {dict(control)}")
+    track_counts = {}
+    pkg_log = logging.getLogger("pose_refine_tpu_torch")
+    for label, kw in TRACK_CONFIGS:
+        ref = ptt.PoseRefiner(model, K=K, device="cuda", **kw, **CFG)
+        level = pkg_log.level
+        pkg_log.setLevel(logging.ERROR)  # the once-per-frame lift-budget warning
+        try:
+            track_session(ptt, ref, truth, frames)  # warm
+            reset_counts()
+            _ms, session, last = track_session(ptt, ref, truth, frames)
+            torch.cuda.synchronize()
+            c = track_counts[label] = counts()
+            a_ms = sorted(track_session(ptt, ref, truth, frames)[0] for _ in range(3))[1]
+            s_ms = sorted(track_session(ptt, ref, truth, frames, pipelined=False)[0]
+                          for _ in range(3))[1]
+            probe = ptt.TrackingSession(ref, truth, n_hypotheses=N_HYP,
+                                        process_noise=TRACK_NOISE, seed=TRACK_SEED)
+            probe.step_async(frames[0])
+            probe.step_async(frames[1])
+            syncs = sync_sites(torch, lambda: probe.step_async(frames[2]))
+            probe.flush()
+        finally:
+            pkg_log.setLevel(level)
+        t_err = float(np.linalg.norm(last.pose[:3, 3] - truths[-1][:3, 3]))
+        r_err = float(rotation_angle_deg(last.pose, truths[-1]))
+        pool = "" if label == "projective" else f" scene_pool={ref._scene_pool_cache}"
+        phase("track", f"{label}: {N_TRACK} frames x {N_HYP} hypotheses, roi={ref.roi} "
+              f"window={ref.window} max_points={ref.max_points}{pool}: "
+              f"step_async_ms_per_frame={a_ms} step_ms_per_frame={s_ms} "
+              f"n_rejected={session.n_rejected} final_translation_err_mm={t_err} "
+              f"final_rotation_err_deg={r_err} (icosphere: rotation unobservable) "
+              f"launches={c} syncs_in_one_step_async={sum(syncs.values())} {dict(syncs)}")
+        check(c["rasterize"] > 0 and c["gather_rows"] > 0
+              and (label == "projective" or c["nn_flash_gated"] > 0),
+              f"track {label}: launches {c}")
+        check(np.isfinite(last.pose).all() and t_err < 20.0,
+              f"track {label}: final translation error {t_err} mm")
+        # the first frame through the kernels against the plain versions
+        k_out = ref.track(frames[0], hyps0, with_covariance=True)
+        p_out = ref.track(frames[0], hyps0, with_covariance=True, _plain=True)
+        agree, d_rot, d_t, d_fit = agreement(
+            rotation_angle_deg, truths[0], k_out[0].cpu().numpy(), p_out[0].cpu().numpy(),
+            k_out[1].fitness.cpu().numpy(), p_out[1].fitness.cpu().numpy())
+        d_cov = float(((k_out[2].covariance - p_out[2].covariance).abs().amax(dim=(1, 2))
+                       / p_out[2].covariance.abs().amax(dim=(1, 2))).max())
+        phase("track", f"{label}: first frame through the plain versions: "
+              f"verdict_agreement={agree} max_drot_deg={d_rot} max_dt_mm={d_t} "
+              f"max_dfit={d_fit} max_rel_dcov={d_cov}")
+        check(agree == 1.0 and d_rot <= MAX_DROT_DEG and d_t <= MAX_DT_MM and d_fit <= MAX_DFIT,
+              f"track {label}: kernel path and plain path disagree")
+
+    # 11. tests/test_tracking.py's drift recipe on the bumpy sphere at 640x480
+    rng = np.random.default_rng(7)
+    g_truth, g_truths, g_frames = pose2.copy(), [], []
+    for _ in range(5):
+        d = geometry.euler_to_rotation(rng.uniform(-0.02, 0.02, 3).astype(np.float32)).numpy()
+        g_truth = geometry.pose_from_Rt(
+            d @ g_truth[:3, :3], g_truth[:3, 3] + rng.uniform(-3, 3, 3).astype(np.float32)).numpy()
+        g_truths.append(g_truth)
+        g_frames.append(RC.rasterize(bumpy.tris, g_truth[None], WIDTH, HEIGHT, proj,
+                                     device="cuda")[0].cpu().numpy())
+    for label, scene_kind in (("projective", "projective"), ("nn", "nn_bruteforce")):
+        session = ptt.TrackingSession(
+            ptt.PoseRefiner(bumpy, K=K, device="cuda", scene=scene_kind, max_points=4096),
+            pose2, n_hypotheses=3, seed=1)
+        steps = [session.step(f) for f in g_frames]
+        accepted = [s.accepted for s in steps]
+        r_err = float(rotation_angle_deg(steps[-1].pose, g_truths[-1]))
+        t_err = float(np.abs(steps[-1].pose[:3, 3] - g_truths[-1][:3, 3]).max())
+        phase("track-golden", f"{label}: bumpy sphere 640x480, 5 frames x 3 hypotheses: "
+              f"accepted={accepted} fitness={[round(s.fitness, 4) for s in steps]} "
+              f"final rotation error {r_err} deg, translation error {t_err} mm")
+        check(all(accepted) and r_err < 1.0 and t_err < 6.0,
+              f"track-golden {label}: accepted {accepted}, {r_err} deg, {t_err} mm")
+
     print(card_line)
     max_err = max(s["max_abs_err"] for s in (scene_stats, hyp_stats, pp_stats))
     nn_sources = dict(route="cuda", source="pose_refine_tpu_torch/csrc/nn_flash.cu")
@@ -520,6 +751,13 @@ def main():
         "name": "nn_flash_gated", **nn_sources,
         "replaces": "pose_refine_tpu/scene/nn_pallas.py:326",
         "launches": nn_launches["nn_flash_gated"], **nn_stats["nn_flash_gated"],
+    }, {
+        "name": "gather_rows",
+        "route": "cuda",
+        "source": "pose_refine_tpu_torch/csrc/gather.cu",
+        "replaces": "scripts/probe_pallas_gather.py:29",
+        "launches": track_counts["projective"]["gather_rows"],
+        **gather_stats,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

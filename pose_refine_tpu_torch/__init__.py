@@ -3,18 +3,26 @@
 Batch depth rasterization of pose hypotheses (a hand-written CUDA kernel,
 ``csrc/rasterize.cu``) plus batched point-to-plane ICP against a projective
 scene or a nearest-neighbour scene (exact NN by the flash-NN kernels,
-``csrc/nn_flash.cu``), on an NVIDIA GPU or, with the kernels' plain PyTorch
-versions, on the CPU. Every public entry point takes an explicit ``device=``. The package
-imports torch and never jax.
+``csrc/nn_flash.cu``; the association's row gather, ``csrc/gather.cu``),
+with its pose uncertainty, per-frame tracking (``PoseRefiner.track``) and
+the filtered ``TrackingSession``, on an NVIDIA GPU or, with the kernels'
+plain PyTorch versions, on the CPU. Every public entry point takes an
+explicit ``device=``. The package imports torch and never jax.
 """
 
 from pose_refine_tpu_torch import geometry  # noqa: F401
 from pose_refine_tpu_torch.device import resolve_device  # noqa: F401
 from pose_refine_tpu_torch.geometry import LINEMOD_K, compute_proj  # noqa: F401
 from pose_refine_tpu_torch.icp import (  # noqa: F401
+    DEPTH_QUANT_SIGMA_M,
+    LATERAL_QUANT_COEFF,
+    RENDER_COV_INFLATION,
     ICPConvergenceCriteria,
+    PoseUncertainty,
     RegistrationResult,
     icp_point_to_plane,
+    pose_covariance,
+    pose_information,
 )
 from pose_refine_tpu_torch.mesh import (  # noqa: F401
     Model,
@@ -23,10 +31,23 @@ from pose_refine_tpu_torch.mesh import (  # noqa: F401
     make_icosphere,
     simplify_vertex_clustering,
 )
+from pose_refine_tpu_torch.ops.gather import gather_rows  # noqa: F401
 from pose_refine_tpu_torch.ops.rasterize import rasterize_dense  # noqa: F401
 from pose_refine_tpu_torch.ops.rasterize_cuda import rasterize, rasterize_plain  # noqa: F401
-from pose_refine_tpu_torch.pipeline import PoseRefiner, refine_poses  # noqa: F401
+from pose_refine_tpu_torch.pipeline import (  # noqa: F401
+    PendingResult,
+    PoseRefiner,
+    refine_poses,
+    track_poses,
+    track_poses_nn,
+)
 from pose_refine_tpu_torch.scene.nn import SceneNN  # noqa: F401
 from pose_refine_tpu_torch.scene.projective import SceneProjective  # noqa: F401
+from pose_refine_tpu_torch.tracking import (  # noqa: F401
+    MultiObjectSession,
+    TrackingSession,
+    TrackStep,
+)
+from pose_refine_tpu_torch.utils.fusion import CHI2_6_99, PoseTracker  # noqa: F401
 
 __version__ = "0.1.0"

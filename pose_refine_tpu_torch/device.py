@@ -17,9 +17,28 @@ from __future__ import annotations
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 DeviceLike = Optional[Union[str, torch.device]]
+
+
+def to_device(x, device: torch.device, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``x`` (a tensor, a numpy array or a nested sequence) as a tensor on
+    ``device``. Host data bound for a card is staged through pinned memory
+    and copied without blocking: a copy from pageable memory synchronises
+    the stream, which would hold an enqueue back until the card has
+    finished its earlier work."""
+    if isinstance(x, torch.Tensor):
+        t = x
+    else:
+        a = np.asarray(x)
+        t = torch.from_numpy(a if a.flags.writeable and a.flags.c_contiguous else a.copy())
+    if dtype is not None and t.device.type == "cpu":
+        t = t.to(dtype)
+    if device.type == "cuda" and t.device.type == "cpu":
+        t = t.pin_memory().to(device, non_blocking=True)
+    return t.to(device=device, dtype=dtype)
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:

@@ -48,6 +48,19 @@ class RegistrationResult(NamedTuple):
     n_points: Optional[torch.Tensor] = None
 
 
+class PoseUncertainty(NamedTuple):
+    """Per-pose Laplace / Gauss-Newton uncertainty (beyond parity; the
+    reference's results carry only fitness and rmse, icp.h:26-36), from one
+    extra association pass at the final cloud (``refine_poses(...,
+    with_information=True)``). Twist order [omega, t] in [rad, m]
+    (icp.h:157-163)."""
+
+    information: torch.Tensor  # (..., 6, 6) J^T J (unscaled)
+    sigma2: torch.Tensor       # (...,) unbiased residual variance
+    count: torch.Tensor        # (...,) inlier count
+    covariance: torch.Tensor   # (..., 6, 6) sigma2 * inv(info + relative ridge)
+
+
 def _solve_damped(AtA: torch.Tensor, Atb: torch.Tensor, penalty: float = 0.01):
     """(AtA + penalty*I) x = Atb in f32 Cholesky + one refinement step,
     standing in for the reference's f64 LDLT (icp.cpp:29-45). Batched over
@@ -134,6 +147,57 @@ def _icp_run(cloud, valid, query_fn: Callable, criteria: ICPConvergenceCriteria,
             T = torch.where(hold, T, upd @ T)
         done = new_done
     return RegistrationResult(T, fitness, rmse, n_total), cloud
+
+
+def pose_information(cloud, valid, query_fn: Callable, robust_delta: float = 0.0,
+                     estimation: str = "point_to_plane"):
+    """Gauss-Newton information of refined poses: one association and
+    reduction pass at the given (already transformed) (..., P, 3) clouds,
+    with the solver's rows [p x n, n]. Returns (info (..., 6, 6) = J^T J,
+    sigma2 (...) = sum(b^2) / max(n - 6, 1), count (...) = n inliers).
+    ``pose_covariance`` turns them into sigma2 * inv(info)."""
+    if estimation == "point_to_point":
+        raise NotImplementedError(
+            "pose_information for estimation='point_to_point' is not ported yet (ROADMAP A14)")
+    if estimation != "point_to_plane":
+        raise ValueError(f"unknown estimation {estimation!r}")
+    if float(robust_delta) != 0.0:
+        raise NotImplementedError("robust_delta (Huber IRLS) is not ported yet (ROADMAP A14)")
+    cloud = torch.as_tensor(cloud, dtype=torch.float32)
+    valid = torch.as_tensor(valid, dtype=torch.bool, device=cloud.device)
+    dst, nrm, q_valid = query_fn(cloud)
+    v, _diff, b, arow = _weighted_rows(cloud, valid, dst, nrm, q_valid)
+    info = arow.transpose(-1, -2) @ arow
+    count = v.sum(dim=-1)
+    sigma2 = ((b * v) ** 2).sum(dim=-1) / (count - 6.0).clamp(min=1.0)
+    return info, sigma2, count
+
+
+# Calibration of the Laplace covariance for rendered-pipeline measurements
+# (the JAX package's constants, icp.py:563-591, and their rationale there):
+# the render -> lift -> ICP residuals are quantization-correlated, which the
+# curvature underestimates, so the covariance is inflated x9 (x3 std) and
+# the residual variance floored at the integer-mm depth quantization plus
+# the lateral pixel pitch ~0.29 z / fx at the render intrinsics.
+RENDER_COV_INFLATION = 9.0
+DEPTH_QUANT_SIGMA_M = 2.9e-4
+LATERAL_QUANT_COEFF = 0.29
+
+
+def pose_covariance(info, sigma2, rel_ridge: float = 1e-6, inflation: float = 1.0,
+                    sigma2_floor: float = 0.0):
+    """inflation * max(sigma2, sigma2_floor) * inv(info + ridge I) with a
+    relative ridge (trace(info)/6 * rel_ridge): unconstrained directions
+    come back as large variances, not inf/NaN. Batched over leading axes;
+    ``inv_ex`` keeps the singularity check off the host."""
+    info = torch.as_tensor(info, dtype=torch.float32)
+    scale = info.diagonal(dim1=-2, dim2=-1).sum(dim=-1) / 6.0
+    ridge = (scale * rel_ridge).clamp(min=1e-30)
+    eye = torch.eye(6, dtype=info.dtype, device=info.device)
+    M = info + ridge[..., None, None] * eye
+    sigma2 = torch.as_tensor(sigma2, dtype=info.dtype, device=info.device).clamp(min=sigma2_floor)
+    inv, _info = torch.linalg.inv_ex(M)
+    return (inflation * sigma2)[..., None, None] * inv
 
 
 def icp_point_to_plane(cloud, valid, query_fn: Callable,

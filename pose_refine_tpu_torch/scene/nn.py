@@ -1,13 +1,15 @@
 """Nearest-neighbour data association (Scene_nn equivalent,
 pcd_scene.h:48-137; PyTorch port of ``pose_refine_tpu/scene/nn.py``).
 
-The scene is built on the host from a depth image or a cloud (numpy, as in
+``from_depth`` / ``from_cloud`` build the scene on the host (numpy, as in
 the reference and the JAX package): points + LINEMOD normals, an optional
 voxel downsample, and the kd-tree reorder, whose point order makes
-consecutive 128-point chunks spatially tight. The device holds the packed
-result table and the flash-NN tables. A query is exact NN by the gated
-flash kernel (``backend="bruteforce"``, the JAX package's choice on an
-accelerator) or the full scan (``backend="flash"``), then one row gather;
+consecutive 128-point chunks spatially tight. ``from_depth_device`` builds
+it on the device for the tracking path: the strided or pooled pixel grid in
+Morton order. The device holds the packed result table and the flash-NN
+tables. A query is exact NN by the gated flash kernel
+(``backend="bruteforce"``, the JAX package's choice on an accelerator) or
+the full scan (``backend="flash"``), then one row gather (``ops/gather.py``);
 a neighbour is accepted iff dist^2 < max_dist_diff^2 (pcd_scene.h:127).
 
 The kd traversal (``backend="kdtree"``) is not ported yet (ROADMAP A9).
@@ -16,16 +18,22 @@ The kd traversal (``backend="kdtree"``) is not ported yet (ROADMAP A9).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
 from pose_refine_tpu_torch.device import DeviceLike, resolve_device
-from pose_refine_tpu_torch.ops.normals import _OFFSETS
+from pose_refine_tpu_torch.ops.depth_to_cloud import depth_image_to_points
+from pose_refine_tpu_torch.ops.gather import gather_rows, gather_rows_plain
+from pose_refine_tpu_torch.ops.normals import _OFFSETS, estimate_normals
 from pose_refine_tpu_torch.scene import nn_flash
 from pose_refine_tpu_torch.scene.kdtree import build_kdtree
 
 BACKENDS = ("bruteforce", "flash")
+# from_depth_device's pooling keeps a block's pixels within this depth (m)
+# of its nearest valid pixel (JAX nn.py's pool_depth_tol default)
+POOL_DEPTH_TOL_M = 0.005
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,6 +103,70 @@ class SceneNN:
             p, n = voxel_downsample(p, n, voxel_mm / 1000.0)
         return cls.from_cloud(p, n, max_dist_diff, leaf_size, backend, device=device)
 
+    @classmethod
+    def from_depth_device(cls, depth, K, max_dist_diff: float = 0.1, stride: int = 1,
+                          perm=None, pool: int = 1) -> "SceneNN":
+        """The NN scene built wholly on ``depth``'s device, with no host
+        synchronisation (JAX nn.py:146-255): the tracking path rebuilds it
+        every frame. No compaction and no kd tree: LINEMOD normals at full
+        resolution, then the strided (``stride``) or centroid-pooled
+        (``pool``, see _pool_scene_grid) pixel grid is the scene, in the
+        Morton order ``perm`` of that grid (``_grid_morton_perm``; pass it
+        as a device tensor, cached per grid shape, or it is uploaded here).
+
+        Invalid pixels are parked at their 128-row chunk's first valid
+        point and normal, which keeps chunk boxes tight around the real
+        geometry and is exact (a parked row that wins a tie returns its
+        anchor's row data); a chunk with no valid pixel parks at 1e6 m,
+        where it never wins and its box always prunes. For every query whose
+        nearest valid pixel lies in the gate the result equals the
+        host-built scene of the same points. K: (3, 3) float32 on the
+        device."""
+        if stride > 1 and pool > 1:
+            raise ValueError("stride and pool are alternative downsamplers; set only one > 1")
+        depth = torch.as_tensor(depth)
+        dev = depth.device
+        nrm = estimate_normals(depth, K)  # full-resolution stencil
+        pts, mask = depth_image_to_points(depth, K)
+        if stride != 1:
+            pts, nrm, mask = (x[::stride, ::stride] for x in (pts, nrm, mask))
+        if pool > 1:
+            pts, nrm, mask = _pool_scene_grid(pts, nrm, mask, int(pool), POOL_DEPTH_TOL_M)
+        h, w = mask.shape
+        if perm is None:
+            perm = torch.as_tensor(_grid_morton_perm(h, w), device=dev)
+        p = pts.reshape(-1, 3)[perm]
+        n = nrm.reshape(-1, 3)[perm]
+        m = mask.reshape(-1)[perm]
+
+        chunk = nn_flash.S_CHUNK
+        nr = p.shape[0]
+        pad = (-nr) % chunk
+        if pad:
+            p = torch.cat([p, p.new_zeros((pad, 3))])
+            n = torch.cat([n, n.new_zeros((pad, 3))])
+            m = torch.cat([m, m.new_zeros((pad,))])
+        mc = m.reshape(-1, chunk)
+        pc = p.reshape(-1, chunk, 3)
+        nc = n.reshape(-1, chunk, 3)
+        first = mc.to(torch.int8).argmax(dim=1)[:, None, None].expand(-1, 1, 3)
+        has_valid = mc.any(dim=1)[:, None, None]
+        park_p = torch.where(has_valid, torch.gather(pc, 1, first), 1.0e6)
+        park_n = torch.where(has_valid, torch.gather(nc, 1, first), 0.0)
+        p_tab = torch.where(mc[..., None], pc, park_p).reshape(-1, 3)[:nr]
+        n_tab = torch.where(mc[..., None], nc, park_n).reshape(-1, 3)[:nr]
+        flash_table = nn_flash.pack_scene(p_tab)
+        return cls(
+            points=p_tab,
+            normals=n_tab,
+            table=torch.cat([p_tab, n_tab, p_tab.new_zeros((nr, 2))], dim=1),
+            flash_table=flash_table,
+            flash_boxes=nn_flash.chunk_boxes(flash_table),
+            flash_balls=nn_flash.ball_table(flash_table),
+            max_dist_diff=float(max_dist_diff),
+            backend="bruteforce",
+        )
+
     def to(self, device) -> "SceneNN":
         dev = resolve_device(device)
         return dataclasses.replace(
@@ -115,19 +187,65 @@ class SceneNN:
             idx, dist_sq = nn_flash.nn_flash_gated(src, self.flash_table, self.flash_boxes,
                                                    self.flash_balls, self.max_dist_diff)
         valid = dist_sq < nn_flash.gate_sq(self.max_dist_diff)
-        rows = gather_rows(self.table, idx)
+        # the index is clamped into the table before the gather: the flash
+        # kernels return indices into the padded flash table, and the gated
+        # kernel's guard value IBIG - 1 lies past any table (the JAX
+        # package's jnp.take reads NaN rows there). A clamped row is finite,
+        # and its query is invalid under the gate.
+        rows = (gather_rows_plain if plain else gather_rows)(self.table, idx)
         return rows[..., 0:3], rows[..., 3:6], valid
 
 
-def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """table[idx] with idx clamped into [0, P) first. The flash kernels
-    return indices into the padded flash table, and the gated kernel's
-    guard value IBIG - 1 is out of range of any table: gathered unclamped,
-    the JAX package's jnp.take reads NaN rows there, and a CUDA gather a
-    device-side assert. A clamped row is finite, and its query is invalid
-    under the gate."""
-    flat = idx.reshape(-1).clamp(0, table.shape[0] - 1)
-    return torch.index_select(table, 0, flat).reshape(*idx.shape, table.shape[1])
+def _pool_scene_grid(pts, nrm, mask, pool: int, depth_tol: float):
+    """Depth-aware centroid pooling of a depth-grid scene over pool x pool
+    pixel blocks, the on-device counterpart of voxel_downsample (JAX
+    nn.py:466-513): only pixels within depth_tol (m) of their block's
+    nearest valid pixel enter the block's centroid and renormalized mean
+    normal, so a block across a depth edge keeps its foreground sheet
+    instead of a ghost point between the surfaces. Returns the (H/pool,
+    W/pool) point and normal grids and the mask of blocks with a point."""
+    h, w = mask.shape
+    ph, pw = (-h) % pool, (-w) % pool
+    if ph or pw:
+        pts = torch.nn.functional.pad(pts, (0, 0, 0, pw, 0, ph))
+        nrm = torch.nn.functional.pad(nrm, (0, 0, 0, pw, 0, ph))
+        mask = torch.nn.functional.pad(mask, (0, pw, 0, ph))
+    bh, bw = mask.shape[0] // pool, mask.shape[1] // pool
+
+    def blocks(img):  # (H, W, ...) -> (H/pool, W/pool, ..., pool * pool)
+        b = img.reshape(bh, pool, bw, pool, *img.shape[2:]).movedim((1, 3), (-2, -1))
+        return b.reshape(*b.shape[:-2], pool * pool)
+
+    z = torch.where(mask, pts[..., 2], torch.inf)
+    zmin = blocks(z).amin(dim=-1)
+    zmin_up = zmin.repeat_interleave(pool, 0).repeat_interleave(pool, 1)
+    v = (mask & (pts[..., 2] <= zmin_up + depth_tol)).to(torch.float32)
+    cnt = blocks(v).sum(dim=-1)
+    pts_c = blocks(pts * v[..., None]).sum(dim=-1) / cnt.clamp(min=1.0)[..., None]
+    n_sum = blocks(nrm * v[..., None]).sum(dim=-1)
+    n_len = torch.linalg.vector_norm(n_sum, dim=-1, keepdim=True)
+    return pts_c, n_sum / n_len.clamp(min=1e-12), cnt > 0.0
+
+
+@functools.lru_cache(maxsize=64)
+def _grid_morton_perm(h: int, w: int) -> np.ndarray:
+    """Morton (Z-curve) permutation of the row-major (h, w) pixel grid, in
+    numpy, once per grid shape (JAX nn.py:585-606): gathered by it, 128-row
+    chunks of the grid cover compact pixel squares, the tight chunk boxes
+    the gated kernel's pruning needs."""
+    yy, xx = np.meshgrid(
+        np.arange(h, dtype=np.uint32), np.arange(w, dtype=np.uint32), indexing="ij"
+    )
+
+    def spread(v):  # interleave 16 bits with 1-bit gaps
+        v = (v | (v << 8)) & np.uint32(0x00FF00FF)
+        v = (v | (v << 4)) & np.uint32(0x0F0F0F0F)
+        v = (v | (v << 2)) & np.uint32(0x33333333)
+        v = (v | (v << 1)) & np.uint32(0x55555555)
+        return v
+
+    code = spread(xx) | (spread(yy) << np.uint32(1))
+    return np.argsort(code.reshape(-1), kind="stable")
 
 
 def _depth_scene_arrays_host(depth, K, radius: int = 5,

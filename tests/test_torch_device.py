@@ -18,9 +18,11 @@ import torch
 
 import pose_refine_tpu_torch as ptt
 from pose_refine_tpu_torch import _build, geometry, mesh
+from pose_refine_tpu_torch.ops import gather as G
 from pose_refine_tpu_torch.ops import rasterize_cuda as RC
 from pose_refine_tpu_torch.scene import nn_flash as NF
 from pose_refine_tpu_torch.scene.nn import SceneNN
+from pose_refine_tpu_torch.utils.metrics import rotation_angle_deg
 
 torch.set_num_threads(2)
 
@@ -69,6 +71,8 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     table = NF.pack_scene(torch.zeros((5, 3)))
     with pytest.raises(ValueError, match="CUDA tensors"):
         NF.nn_flash_packed_cuda(torch.zeros((3, 3)), table)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        G.gather_rows_cuda(torch.zeros((4, 8)), torch.zeros(3, dtype=torch.int64))
 
 
 def test_nn_scene_on_cuda_raises_without_card(no_card):
@@ -89,7 +93,7 @@ def test_build_without_nvcc_raises(no_card):
 def test_build_key_covers_sources_and_flags():
     key = _build.build_info_key()
     assert len(key) == 16 and key == _build.build_info_key()
-    assert [p.name for p in _build._sources()] == ["nn_flash.cu", "rasterize.cu"]
+    assert [p.name for p in _build._sources()] == ["gather.cu", "nn_flash.cu", "rasterize.cu"]
 
 
 def test_package_imports_without_jax():
@@ -200,3 +204,56 @@ def test_nn_query_through_kernel_on_card(card):
     both = valid & pvalid
     assert torch.equal(dst[both], pdst[both]) and torch.equal(nrm[both], pnrm[both])
     assert bool(torch.isfinite(dst).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,dtype", [(307200, torch.int64), (29440, torch.int32),
+                                        (5, torch.int64)])
+def test_gather_kernel_matches_plain_on_card(card, rows, dtype):
+    """The row gather at the bench association's shapes (a 640x480
+    projective table, the raw NN scene; 256 x 2048 indices) and on a tiny
+    table with out-of-range indices: a gather rounds nothing, so the kernel
+    equals its plain version bit for bit."""
+    gen = torch.Generator(device=card).manual_seed(rows)
+    table = torch.randn((rows, 8), generator=gen, device=card)
+    idx = torch.randint(-3, rows + 3, (256, 2048), generator=gen, device=card).to(dtype)
+    before = G.launches
+    got = G.gather_rows(table, idx)
+    torch.cuda.synchronize()
+    assert G.launches == before + 1
+    assert got.shape == (256, 2048, 8)
+    assert torch.equal(got, G.gather_rows_plain(table, idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", ["projective", "nn_bruteforce"])
+def test_track_through_kernels_on_card(card, scene):
+    """One track() per scene kind on the card: the raster, gather and (NN)
+    gated flash-NN kernels launch, and the frame through the kernels agrees
+    with the same frame through their plain versions."""
+    m = mesh.make_bumpy_sphere(radius=50.0, subdivisions=4)
+    R = np.array([[0.34768538, 0.93761126, 0.0],
+                  [0.70540612, -0.26157897, -0.65877056],
+                  [-0.61767070, 0.22904489, -0.75234390]], np.float32)
+    truth = geometry.pose_from_Rt(R, np.array([0, 0, 300], np.float32))
+    proj = geometry.compute_proj(geometry.LINEMOD_K, 640, 480, device=card)
+    frame = RC.rasterize(m.tris, truth[None], 640, 480, proj, device="cuda")[0]
+    rng = np.random.default_rng(0)
+    ang = geometry.euler_to_rotation(rng.uniform(-0.05, 0.05, (8, 3)).astype(np.float32))
+    hyps = geometry.pose_from_Rt(ang @ truth[:3, :3],
+                                 truth[:3, 3] + rng.uniform(-5, 5, (8, 3)).astype(np.float32))
+    ref = ptt.PoseRefiner(m, K=geometry.LINEMOD_K, device="cuda", scene=scene,
+                          scene_voxel_mm=2.0 if scene != "projective" else 0.0)
+    before = (RC.launches, G.launches, NF.gated_launches)
+    refined, res, unc = ref.track(frame.cpu().numpy(), hyps, with_covariance=True)
+    torch.cuda.synchronize()
+    after = (RC.launches, G.launches, NF.gated_launches)
+    assert after[0] > before[0] and after[1] > before[1]
+    assert (after[2] > before[2]) == (scene != "projective")
+    assert refined.is_cuda and bool(torch.isfinite(refined).all())
+    assert float(res.fitness.min()) > 0.7 and bool(torch.isfinite(unc.covariance).all())
+    p_refined, p_res, _ = ref.track(frame.cpu().numpy(), hyps, with_covariance=True, _plain=True)
+    a, b = refined.cpu().numpy(), p_refined.cpu().numpy()
+    assert rotation_angle_deg(a, b).max() <= 0.1
+    assert np.abs(a[:, :3, 3] - b[:, :3, 3]).max() <= 0.2
+    assert float((res.fitness - p_res.fitness).abs().max()) <= 5e-3

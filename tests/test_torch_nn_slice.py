@@ -224,9 +224,10 @@ def test_scene_cascade_validation(kwargs, match):
 
 @pytest.mark.parametrize(
     "kwargs,item",
-    [({"scene_stride": 2}, "A10"), ({"scene_pool": 2}, "A10")],
+    [({"devices": 2}, "A13"), ({"lift": "compact"}, "A14")],
 )
 def test_unported_nn_options_raise(kwargs, item):
+    # scene_stride and scene_pool are ported with track() (test_torch_track.py)
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         ptt.PoseRefiner(mesh.make_icosphere(40.0, 1), K=small_K(), width=W, height=H,
                         device="cpu", scene="nn", **kwargs)

@@ -125,10 +125,12 @@ def test_unported_refiner_options_raise(kwargs, item):
 
 @pytest.mark.parametrize(
     "kwargs,item",
-    [({"with_covariance": True}, "A14"), ({"schedule": [(0.2, 5)]}, "A14"),
-     ({"scene_ids": [0]}, "A15")],
+    [({"schedule": [(0.2, 5)], "with_covariance": True}, "A14"),
+     ({"schedule": [(0.2, 5)]}, "A14"), ({"scene_ids": [0]}, "A15")],
 )
 def test_unported_refine_options_raise(workload, kwargs, item):
+    # with_covariance is ported (tests/test_torch_track.py); a schedule
+    # beside it still raises
     m, K, truth, poses, scene = workload
     tref = ptt.PoseRefiner(m, K=K, width=W, height=H, device="cpu", **CFG)
     tref.set_scene_depth(scene)
