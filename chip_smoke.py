@@ -63,10 +63,37 @@ non-zero without printing a result:
  11. track-golden - tests/test_tracking.py's drift recipe on the bumpy
               sphere at 640x480, 5 frames, both scene kinds: every frame
               accepted, final rotation error < 1 deg, translation < 6 mm.
+ 12. multiscene - scripts/verify_multiscene.py --full's 4 frames (bumpy
+              sphere, truths +-0.4 rad / +-20 mm around z = 400 mm) stacked
+              by set_scene_depths, 64 hypotheses per frame (+-0.12 rad /
+              +-10 mm), one refine with scene ids on the card, bench
+              refiner: the script's bar (< 4 deg, < 4 mm, fitness > 0.5),
+              the plain path and per-frame refines within the slice bounds.
+     multiscene-nn - the same with scene="nn_bruteforce", scene_voxel_mm=2:
+              stacked B3 against its plain version and against single-frame
+              B3 on each frame's columns at the refine's first-pass queries.
+ 13. multimodel - scripts/demo_multi.py's two models (the benchmark model
+              and a bumpy sphere (60, 4)), 256 hypotheses [0, 1] * 128
+              against the bench scene: rank-1 is model 0 within 2 mm; the
+              plain path agrees.
+ 14. multi-track - tests/test_tracking.py's two objects at 640x480 in 12
+              composite frames, MultiObjectSession with 16 hypotheses each:
+              every step accepted within 6 mm, ms per frame, 0 synchronizing
+              calls in a steady-state step_async; the first frame's track
+              through the plain versions agrees.
+ 15. mxu    - P1 on its probe (probes/mxu_nn.py, scripts/probe_mxu_nn.py's
+              262,144 queries): B2 and P1 times, P1 against its plain version
+              and against B2 up to near-ties.
+
+Each kernel is timed by CUDA events (median of 20 launches; plain versions
+fewer) beside its bound: the least time the card could take for the same
+work, from the bytes it must move and the operations it must do on this
+run's inputs at the H100's published peaks (see bound()).
 
 The two lines before the last are the card line from nvidia-smi and a JSON
-object of the four kernels (rasterize, nn_flash_packed, nn_flash_gated,
-gather_rows); the last line is {"ok": true, "device": {...}}.
+object of the five kernels (rasterize, nn_flash_packed, nn_flash_gated with
+its stacked launches apart, gather_rows, nn_flash_mxu); the last line is
+{"ok": true, "device": {...}}.
 """
 
 import collections
@@ -111,6 +138,14 @@ TRACK_CONFIGS = (
     ("projective", dict(scene="projective")),
     ("nn", dict(scene="nn_bruteforce", scene_voxel_mm=2.0)),
 )
+# scripts/verify_multiscene.py --full: 4 frames, truths +-0.4 rad / +-20 mm
+# around z = 400 mm (seed 7); 64 hypotheses per frame +-0.12 rad / +-10 mm
+MS_FRAMES, MS_PER_FRAME = 4, 64
+# tests/test_tracking.py:187-227's two objects, drifting per frame (seed 13)
+MT_FRAMES, MT_HYP, MT_DRIFT = 12, 16, (0.015, 2.0)
+# the card's peak rates (H100 SXM data sheet, 700 W): HBM bytes/s, FP32
+# lane instructions/s (67 TFLOP/s counts an FMA as 2), TF32 tensor flop/s
+HBM_BPS, FP32_IPS, TF32_FLOPS = 3.35e12, 67e12 / 2, 495e12
 
 
 def check(ok, msg):
@@ -168,12 +203,14 @@ def compare_raster(torch, RC, name, tris, poses, width, height, proj, roi, plain
     mism = (k != p).float().mean().item()
     err = (k.to(torch.int64) - p.to(torch.int64)).abs().max().item()
     covered = int((p > 0).sum())
+    r_bound = raster_bound(coef, out_w, out_h, height, roi)
     phase("kernel", f"{name}: N={poses.shape[0]} T={coef.shape[2]} out={out_w}x{out_h} "
           f"roi={roi} covered_px={covered} mismatch={mism} max_abs_err={err} "
-          f"kernel_ms={k_ms} plain_ms={p_ms} setup_ms={setup_ms}")
+          f"kernel_ms={k_ms} plain_ms={p_ms} setup_ms={setup_ms} bound_ms={r_bound['bound_ms']} "
+          f"({r_bound['bound_by']})")
     check(covered > 0, f"{name}: empty render")
     check(mism < MISMATCH_GATE, f"{name}: kernel/plain mismatch {mism}")
-    return k, dict(mismatch=mism, max_abs_err=err, ms=k_ms, plain_ms=p_ms)
+    return k, dict(mismatch=mism, max_abs_err=err, ms=k_ms, plain_ms=p_ms, **r_bound)
 
 
 def refine_ms(torch, fn, reps=5):
@@ -195,11 +232,12 @@ def refine_ms(torch, fn, reps=5):
 
 def agreement(rotation_angle_deg, truth, a, b, fit_a, fit_b):
     """Verdict agreement (rotation < 3 deg and translation < 2 mm) and the
-    largest rotation, translation and fitness deltas between two refines."""
+    largest rotation, translation and fitness deltas between two refines;
+    ``truth`` is one (4, 4) pose or one per row."""
     err_a = rotation_angle_deg(a, truth) < VERDICT_DEG
     err_b = rotation_angle_deg(b, truth) < VERDICT_DEG
-    mm_a = np.linalg.norm(a[:, :3, 3] - truth[:3, 3], axis=-1) < 2.0
-    mm_b = np.linalg.norm(b[:, :3, 3] - truth[:3, 3], axis=-1) < 2.0
+    mm_a = np.linalg.norm(a[:, :3, 3] - truth[..., :3, 3], axis=-1) < 2.0
+    mm_b = np.linalg.norm(b[:, :3, 3] - truth[..., :3, 3], axis=-1) < 2.0
     agree = float(((err_a == err_b) & (mm_a == mm_b)).mean())
     return (agree, float(rotation_angle_deg(a, b).max()),
             float(np.abs(a[:, :3, 3] - b[:, :3, 3]).max()), float(np.abs(fit_a - fit_b).max()))
@@ -235,13 +273,15 @@ def nn_kernel_phase(torch, NF, SceneNN, K, scene_depth, queries):
         err = float((kd - pd).abs().max())
         idx_bad = int((ki != pi).sum())
         max_err["nn_flash_packed"] = max(max_err["nn_flash_packed"], err)
+        p_bound = nn_bound(nq, float(nq) * table.shape[1])
         phase("nn-kernel", f"nn_flash_packed {label} scene: {sc.points.shape[0]} points "
               f"({n_chunks} chunks) x {nq} queries: idx_mismatch={idx_bad} "
-              f"max_abs_err={err} kernel_ms={k_ms} plain_ms={p_ms}")
+              f"max_abs_err={err} kernel_ms={k_ms} plain_ms={p_ms} "
+              f"bound_ms={p_bound['bound_ms']}")
         check(torch.equal(ki, pi) and torch.equal(kd, pd),
               f"nn_flash_packed {label}: kernel != plain")
         if label == "2mm":
-            out["nn_flash_packed"] = dict(ms=k_ms, plain_ms=p_ms)
+            out["nn_flash_packed"] = dict(ms=k_ms, plain_ms=p_ms, **p_bound)
         for gate in NN_GATES:
             g2 = NF.gate_sq(gate)
             scanned = torch.empty(-(-nq // NF.Q_TILE), dtype=torch.int32, device=dev)
@@ -258,18 +298,21 @@ def nn_kernel_phase(torch, NF, SceneNN, K, scene_depth, queries):
             vs_full = int((gi[inside] != ki[inside]).sum() + (gd[inside] != kd[inside]).sum())
             band_diff = int((band & ((gi != qi) | ((gd < g2) != (qd < g2)))).sum())
             skipped = 1.0 - float(scanned.sum()) / (scanned.numel() * n_chunks)
+            pairs = float(scanned.sum()) * NF.S_CHUNK * NF.Q_TILE
+            g_bound = nn_bound(nq, pairs, balls.shape[1])
             max_err["nn_flash_gated"] = max(max_err["nn_flash_gated"], err)
             phase("nn-kernel", f"nn_flash_gated {label} scene, gate {gate} m: in_gate={n_in}/{nq} "
                   f"gate_band={int(band.sum())} (of which differ {band_diff}) "
                   f"idx_mismatch={idx_bad} validity_mismatch={valid_bad} "
                   f"vs_full_scan_mismatch={vs_full} max_abs_err={err} "
-                  f"chunks_skipped={skipped} kernel_ms={gk_ms} plain_ms={gp_ms}")
+                  f"chunks_skipped={skipped} kernel_ms={gk_ms} plain_ms={gp_ms} "
+                  f"bound_ms={g_bound['bound_ms']}")
             check(0 < n_in, f"nn_flash_gated {label} {gate}: no in-gate query")
             check(idx_bad == 0 and err == 0.0 and valid_bad == 0,
                   f"nn_flash_gated {label} {gate}: kernel != plain")
             check(vs_full == 0, f"nn_flash_gated {label} {gate}: gated != full scan in the gate")
             if label == "2mm" and gate == 0.1:
-                out["nn_flash_gated"] = dict(ms=gk_ms, plain_ms=gp_ms)
+                out["nn_flash_gated"] = dict(ms=gk_ms, plain_ms=gp_ms, **g_bound)
     for name, e in max_err.items():
         out[name]["max_abs_err"] = e
     return out
@@ -283,16 +326,24 @@ def gather_phase(torch, G, tables):
     for label, table, idx in tables:
         k_ms, k = median_ms(torch, lambda: G.gather_rows_cuda(table, idx), 20)
         p_ms, p = median_ms(torch, lambda: G.gather_rows_plain(table, idx), 20)
+        # one PyTorch call of the same function: the indices are in range
+        check(bool(((idx >= 0) & (idx < table.shape[0])).all()), f"gather {label}: index range")
+        lib_ms, _ = median_ms(torch, lambda: table.index_select(0, idx), 20)
         err = float((k - p).abs().max())
         n = idx.numel()
         mbytes = n * (2 * 4 * G.ROW + idx.element_size()) / 1e6
+        # the least traffic: the indices read, the rows written, and each
+        # table row that this run's indices name read once
+        n_read = int(idx.unique().numel())
+        g_bound = bound(n_bytes=n * (4 * G.ROW + idx.element_size()) + n_read * 4 * G.ROW)
         phase("gather", f"{label}: table {tuple(table.shape)} x {n} {idx.dtype} indices: "
               f"equal={torch.equal(k, p)} max_abs_err={err} kernel_ms={k_ms} plain_ms={p_ms} "
+              f"index_select_ms={lib_ms} bound_ms={g_bound['bound_ms']} "
               f"traffic_MB={mbytes} kernel_GB_s={mbytes / k_ms} plain_GB_s={mbytes / p_ms}")
         check(torch.equal(k, p), f"gather {label}: kernel != plain")
         max_err = max(max_err, err)
         if out is None:
-            out = dict(ms=k_ms, plain_ms=p_ms)
+            out = dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, **g_bound)
     out["max_abs_err"] = max_err
     return out
 
@@ -363,6 +414,134 @@ def sync_sites(torch, fn):
     return sites
 
 
+def bound(n_bytes=0.0, n_instr=0.0, n_tensor_flop=0.0):
+    """The least time in ms the card could take: bytes moved (each input
+    read once, each output written once) over HBM_BPS, FP32 instructions
+    over FP32_IPS, tensor-core flop over TF32_FLOPS; the largest, and
+    which of bytes or operations it is."""
+    t_bytes = n_bytes / HBM_BPS
+    t_ops = max(n_instr / FP32_IPS, n_tensor_flop / TF32_FLOPS)
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def raster_bound(coef, out_w, out_h, height, roi):
+    """B1's bound at one input: the coefficient table read and the int32
+    framebuffer written, against 8 FP32 instructions (beta, gamma, alpha)
+    at every pixel of every clamped triangle box the kernel walks."""
+    rx, ry = roi[0], roi[1]
+    xs, ys, xm, ym = coef[:, 9], coef[:, 10], coef[:, 11], coef[:, 12]
+    x0, x1 = xs.clamp(min=rx).ceil(), xm.clamp(max=rx + out_w - 1).floor()
+    y0 = ys.clamp(min=height - ry - out_h).ceil()
+    y1 = ym.clamp(max=height - 1 - ry).floor()
+    ok = (xs <= xm) & (ys <= ym)
+    area = ((x1 - x0 + 1).clamp(min=0) * (y1 - y0 + 1).clamp(min=0) * ok).double().sum()
+    n_px = coef.shape[0] * out_w * out_h
+    return bound(n_bytes=coef.numel() * 4 + n_px * 4, n_instr=8 * float(area))
+
+
+def nn_bound(nq, pairs, n_balls=0):
+    """B2/B3's bound: 6 FP32 instructions per scored (query, point) pair
+    (|s|^2 - 2 q.s as 3 FMAs with -2q taken once, the compare, the selects
+    of score and index) and, for B3, 8 per (query, ball) of the first pass;
+    the queries read and the outputs written are bytes the operations
+    dwarf."""
+    return bound(n_bytes=nq * (12 + 8), n_instr=6 * pairs + 8 * nq * n_balls)
+
+
+def multiscene_workload(geometry, mesh, raster):
+    """scripts/verify_multiscene.py --full's frames with MS_PER_FRAME
+    hypotheses per frame: (bumpy sphere (50, 3), truths (4, 4, 4), (4, H, W)
+    int32 mm frames rendered by ``raster`` (a pose batch -> depth batch),
+    hypotheses (256, 4, 4), scene ids (256,)), the script's draw order."""
+    m = mesh.make_bumpy_sphere(radius=50.0, subdivisions=3)
+    rng = np.random.default_rng(7)
+    base = geometry.pose_from_Rt(np.eye(3, dtype=np.float32), np.float32([0, 0, 400])).numpy()
+    truths = []
+    for _ in range(MS_FRAMES):
+        d_rot = geometry.euler_to_rotation(rng.uniform(-0.4, 0.4, 3).astype(np.float32)).numpy()
+        t = base[:3, 3] + rng.uniform(-20, 20, 3).astype(np.float32)
+        truths.append(geometry.pose_from_Rt(d_rot @ base[:3, :3], t).numpy())
+    truths = np.stack(truths)
+    frames = raster(m.tris, truths).cpu().numpy()
+    hyps, ids = [], []
+    for k, truth in enumerate(truths):
+        for _ in range(MS_PER_FRAME):
+            d = geometry.euler_to_rotation(rng.uniform(-0.12, 0.12, 3).astype(np.float32)).numpy()
+            hyps.append(geometry.pose_from_Rt(
+                d @ truth[:3, :3], truth[:3, 3] + rng.uniform(-10, 10, 3).astype(np.float32)
+            ).numpy())
+            ids.append(k)
+    return m, truths, frames, np.stack(hyps).astype(np.float32), np.asarray(ids, np.int32)
+
+
+def worst_errors(rotation_angle_deg, refined, truths):
+    """verify_multiscene.py's bar terms: the worst rotation error (deg) and
+    the worst per-axis translation error (mm) against per-row truths."""
+    return (float(rotation_angle_deg(refined, truths).max()),
+            float(np.abs(refined[:, :3, 3] - truths[:, :3, 3]).max()))
+
+
+def stacked_nn_kernel_phase(torch, NF, stack, src, ids):
+    """Stacked B3 against its plain version and against single-frame B3 on
+    each frame's own table (its columns of the stack, indices offset by
+    k * frame_rows), at the (N, P, 3) first-pass queries of an NN refine
+    with per-pose frame ids: returns the kernel's stats and bound."""
+    n, p = src.shape[:2]
+    flat = src.reshape(-1, 3).contiguous()
+    table, boxes, balls = stack.flash_table, stack.flash_boxes, stack.flash_balls
+    gate, k_frames, rows = stack.max_dist_diff, stack.n_scenes, stack.frame_rows
+    g2 = NF.gate_sq(gate)
+    fid = ids.to(torch.int32).contiguous()
+    scanned = torch.empty(n * -(-p // NF.Q_TILE), dtype=torch.int32, device=src.device)
+    k_ms, (gi, gd) = median_ms(torch, lambda: NF.nn_flash_gated_cuda(
+        flat, table, boxes, balls, gate, scanned=scanned, frame_id=fid, frames=k_frames,
+        per_pose=p), 20)
+    p_ms, (qi, qd) = median_ms(torch, lambda: NF.nn_flash_gated_plain(
+        src, table, gate, frame_id=fid, frames=k_frames), 1, warm=0)
+    qi, qd = qi.reshape(-1), qd.reshape(-1)
+    band = gate_band(flat, qd, g2)
+    inside = (qd < g2) & ~band
+    n_in = int(inside.sum())
+    err = float((gd[inside] - qd[inside]).abs().max()) if n_in else 0.0
+    idx_bad = int((gi[inside] != qi[inside]).sum())
+    valid_bad = int((((gd < g2) != (qd < g2)) & ~band).sum())
+    single_bad = 0
+    per_frame_chunks, cb = rows // NF.S_CHUNK, rows // NF.UB_BALL
+    for k in range(k_frames):
+        poses_k = (ids == k).nonzero()[:, 0]
+        if not len(poses_k):
+            continue
+        qk = src[poses_k].reshape(-1, 3).contiguous()
+        si, sd = NF.nn_flash_gated_cuda(
+            qk, table[:, k * rows:(k + 1) * rows].contiguous(),
+            boxes[k * per_frame_chunks:(k + 1) * per_frame_chunks].contiguous(),
+            balls[:, k * cb:(k + 1) * cb].contiguous(), gate)
+        ins = inside.reshape(n, p)[poses_k].reshape(-1)
+        gk, dk = gi.reshape(n, p)[poses_k].reshape(-1), gd.reshape(n, p)[poses_k].reshape(-1)
+        single_bad += int((gk[ins] != si[ins] + k * rows).sum() + (dk[ins] != sd[ins]).sum())
+    skipped = 1.0 - float(scanned.sum()) / (scanned.numel() * per_frame_chunks)
+    pairs = float(scanned.sum()) * NF.S_CHUNK * NF.Q_TILE
+    phase("multiscene-nn", f"stacked nn_flash_gated: {k_frames} frames x {rows} rows, {n} poses x "
+          f"{p} queries, gate {gate} m: in_gate={n_in}/{n * p} gate_band={int(band.sum())} "
+          f"idx_mismatch={idx_bad} validity_mismatch={valid_bad} "
+          f"vs_single_frame_mismatch={single_bad} max_abs_err={err} chunks_skipped={skipped} "
+          f"kernel_ms={k_ms} plain_ms={p_ms}")
+    check(0 < n_in, "stacked nn_flash_gated: no in-gate query")
+    check(idx_bad == 0 and err == 0.0 and valid_bad == 0, "stacked nn_flash_gated: kernel != plain")
+    check(single_bad == 0, "stacked nn_flash_gated != single-frame nn_flash_gated on its frame")
+    return dict(stacked_ms=k_ms, stacked_plain_ms=p_ms, stacked_max_abs_err=err,
+                stacked_bound_ms=nn_bound(n * p, pairs, cb)["bound_ms"])
+
+
+def composite(torch, depths):
+    """Min-nonzero composite of (K, H, W) depth renders: several objects in
+    one sensor frame (tests/test_tracking.py:178)."""
+    big = torch.iinfo(depths.dtype).max
+    out = torch.where(depths > 0, depths, big).amin(dim=0)
+    return torch.where(out == big, 0, out)
+
+
 def main():
     import torch
 
@@ -379,16 +558,21 @@ def main():
     from pose_refine_tpu_torch.ops import gather as G
     from pose_refine_tpu_torch.ops import rasterize_cuda as RC
     from pose_refine_tpu_torch.pipeline import refine_poses
+    from pose_refine_tpu_torch.probes import mxu_nn
     from pose_refine_tpu_torch.scene import nn_flash as NF
+    from pose_refine_tpu_torch.scene import nn_mxu as NM
     from pose_refine_tpu_torch.scene.nn import SceneNN
     from pose_refine_tpu_torch.scene.projective import _project_gate
 
     def reset_counts():
         RC.launches = NF.packed_launches = NF.gated_launches = G.launches = 0
+        NF.stacked_launches = NM.launches = 0
 
     def counts():
         return {"rasterize": RC.launches, "nn_flash_packed": NF.packed_launches,
-                "nn_flash_gated": NF.gated_launches, "gather_rows": G.launches}
+                "nn_flash_gated": NF.gated_launches,
+                "nn_flash_gated_stacked": NF.stacked_launches, "gather_rows": G.launches,
+                "nn_flash_mxu": NM.launches}
     from pose_refine_tpu_torch.utils.metrics import rotation_angle_deg
 
     # 1. card
@@ -731,9 +915,223 @@ def main():
         check(all(accepted) and r_err < 1.0 and t_err < 6.0,
               f"track-golden {label}: accepted {accepted}, {r_err} deg, {t_err} mm")
 
+    # 12. stacked scenes: verify_multiscene.py --full's frames, one refine
+    # of 256 hypotheses routed to their frames by scene ids on the card
+    render = functools.partial(RC.rasterize, width=WIDTH, height=HEIGHT, proj=proj, device=dev)
+    ms_mesh, ms_truths, ms_frames, ms_hyps, ms_ids = multiscene_workload(
+        geometry, mesh, lambda tris, p: render(tris, torch.as_tensor(p, device=dev)))
+    ms_hyps_t = torch.as_tensor(ms_hyps, device=dev)
+    ms_ids_t = torch.as_tensor(ms_ids, device=dev)
+    ms_rows = ms_truths[ms_ids]
+    stacked_stats, ms_launches = {}, {}
+    for label, kw in (("multiscene", dict(scene="projective")),
+                      ("multiscene-nn", dict(scene="nn_bruteforce", scene_voxel_mm=2.0))):
+        ref = ptt.PoseRefiner(ms_mesh, K=K, device="cuda", **kw, **CFG)
+        t0 = time.perf_counter()
+        ref.set_scene_depths(ms_frames)
+        torch.cuda.synchronize()
+        build_ms = (time.perf_counter() - t0) * 1e3
+        stack = ref.scene
+        reset_counts()
+        ms_refined, ms_res = ref.refine(ms_hyps_t, crit, scene_ids=ms_ids_t)
+        torch.cuda.synchronize()
+        c = ms_launches[label] = counts()
+        check(c["rasterize"] > 0 and c["gather_rows"] > 0
+              and (label == "multiscene" or c["nn_flash_gated_stacked"] > 0),
+              f"{label}: launches {c}")
+        ms_np = ms_refined.cpu().numpy()
+        ms_fit = ms_res.fitness.cpu().numpy()
+        check(ms_np.shape == (len(ms_ids), 4, 4) and np.isfinite(ms_np).all(),
+              f"{label}: refined poses not finite")
+        w_deg, w_mm = worst_errors(rotation_angle_deg, ms_np, ms_rows)
+        wall_ms, dev_ms = refine_ms(torch, lambda: ref.refine(ms_hyps_t, crit, scene_ids=ms_ids_t))
+        phase(label, f"{MS_FRAMES} frames x {MS_PER_FRAME} hypotheses, one refine, roi={ref.roi} "
+              f"window={ref.window} max_points={ref.max_points}, scene build_ms={build_ms}: "
+              f"wall_ms={wall_ms} device_ms={dev_ms} poses_per_s={len(ms_ids) / wall_ms * 1e3} "
+              f"worst_rotation_err_deg={w_deg} worst_translation_err_mm={w_mm} "
+              f"min_fitness={float(ms_fit.min())} launches={c}")
+        check(w_deg < 4.0 and w_mm < 4.0 and float(ms_fit.min()) > 0.5,
+              f"{label}: verify_multiscene's bar missed ({w_deg} deg, {w_mm} mm, "
+              f"fitness {float(ms_fit.min())})")
+        rp = functools.partial(
+            refine_poses, ref.tris, ms_hyps_t, stack, ref.proj, ref._K_render_t,
+            width=ref.render_w, height=ref.render_h, max_points=ref.max_points,
+            window=ref.window, stride=ref.stride, roi=ref.roi, scene_ids=ms_ids_t)
+        if label == "multiscene-nn":
+            seen = []
+            q_at = stack.query_at(ms_ids_t)
+
+            def capture(src):
+                seen.append(src.clone())
+                return q_at(src)
+
+            rp(criteria=ptt.ICPConvergenceCriteria(max_iteration=0), query=capture)
+            stacked_stats = stacked_nn_kernel_phase(torch, NF, stack, seen[0], ms_ids_t)
+        # the same refine through the plain versions (raster, NN, gather)
+        t0 = time.perf_counter()
+        p_refined, p_res = rp(criteria=crit, raster=RC.rasterize_plain,
+                              query=stack.query_at(ms_ids_t, plain=True))
+        torch.cuda.synchronize()
+        p_wall = (time.perf_counter() - t0) * 1e3
+        agree, d_rot, d_t, d_fit = agreement(rotation_angle_deg, ms_rows, ms_np,
+                                             p_refined.cpu().numpy(), ms_fit,
+                                             p_res.fitness.cpu().numpy())
+        phase(label, f"through the plain versions: wall_ms={p_wall} verdict_agreement={agree} "
+              f"max_drot_deg={d_rot} max_dt_mm={d_t} max_dfit={d_fit}")
+        check(agree == 1.0 and d_rot <= MAX_DROT_DEG and d_t <= MAX_DT_MM and d_fit <= MAX_DFIT,
+              f"{label}: kernel path and plain path disagree")
+        if label != "multiscene":
+            continue
+        # every frame's hypotheses refined against that frame alone (a lane
+        # of the stack; the same plan and the same batch, so the ICP sums
+        # run the same kernels: a batch of 64 reduces in another order)
+        lanes = np.empty_like(ms_np)
+        lane_fit = np.empty_like(ms_fit)
+        for k in range(MS_FRAMES):
+            rows = ms_ids == k
+            l_ref, l_res = ref.refine(ms_hyps_t, crit, _scene=stack.lane(k))
+            lanes[rows] = l_ref.cpu().numpy()[rows]
+            lane_fit[rows] = l_res.fitness.cpu().numpy()[rows]
+        agree, d_rot, d_t, d_fit = agreement(rotation_angle_deg, ms_rows, ms_np, lanes, ms_fit,
+                                             lane_fit)
+        phase(label, f"against per-frame refines: verdict_agreement={agree} max_drot_deg={d_rot} "
+              f"max_dt_mm={d_t} max_dfit={d_fit}")
+        check(agree == 1.0 and d_rot <= MAX_DROT_DEG and d_t <= MAX_DT_MM and d_fit <= MAX_DFIT,
+              "multiscene: the stacked refine and the per-frame refines disagree")
+
+    # 13. several meshes in one batch: scripts/demo_multi.py's two models,
+    # 256 hypotheses of models [0, 1] * 128 against the bench scene
+    other = mesh.make_bumpy_sphere(radius=60.0, subdivisions=4)
+    mm_ref = ptt.MultiModelRefiner([model, other], K=K, device="cuda", render_scale=2,
+                                   max_points=2048, window=128, stride=2, decimate_mm=2.0)
+    mm_ref.set_scene_depth(scene)
+    mm_ids = np.array([0, 1] * (N_POSES // 2), np.int32)
+    reset_counts()
+    mm_refined, mm_res = mm_ref.refine(mm_ids, poses, criteria=crit)
+    torch.cuda.synchronize()
+    mm_launches = counts()
+    check(mm_launches["rasterize"] > 0 and mm_launches["gather_rows"] > 0,
+          f"multimodel: launches {mm_launches}")
+    mm_np = mm_refined.cpu().numpy()
+    mm_fit = mm_res.fitness.cpu().numpy()
+    check(np.isfinite(mm_np).all(), "multimodel: refined poses not finite")
+    best = int(ptt.PoseRefiner.rank(mm_res)[0])
+    best_mm = float(np.linalg.norm(mm_np[best, :3, 3] - truth[:3, 3]))
+    wall_ms, dev_ms = refine_ms(torch, lambda: mm_ref.refine(mm_ids, poses, criteria=crit))
+    mm_tris, _p, _sq = mm_ref._per_pose_tris(mm_ids, poses)
+    phase("multimodel", f"{N_POSES} hypotheses of 2 models (per-pose table "
+          f"{tuple(mm_tris.shape)}), roi={mm_ref.roi}: wall_ms={wall_ms} device_ms={dev_ms} "
+          f"poses_per_s={N_POSES / wall_ms * 1e3} mean_fitness model 0 "
+          f"{float(mm_fit[mm_ids == 0].mean())} model 1 {float(mm_fit[mm_ids == 1].mean())}; "
+          f"rank-1 is model {mm_ids[best]} with translation error {best_mm} mm "
+          f"(icosphere: rotation unobservable) launches={mm_launches}")
+    check(mm_ids[best] == 0 and best_mm < 2.0,
+          f"multimodel: rank-1 is model {mm_ids[best]}, {best_mm} mm")
+    p_refined, p_res = refine_poses(
+        mm_tris, poses, mm_ref.scene, mm_ref.proj, mm_ref._K_render_t, width=mm_ref.render_w,
+        height=mm_ref.render_h, max_points=mm_ref.max_points, criteria=crit,
+        window=mm_ref.window, stride=mm_ref.stride, roi=mm_ref.roi, raster=RC.rasterize_plain,
+        query=functools.partial(mm_ref.scene.query, plain=True))
+    agree, d_rot, d_t, d_fit = agreement(rotation_angle_deg, truth, mm_np, p_refined.cpu().numpy(),
+                                         mm_fit, p_res.fitness.cpu().numpy())
+    phase("multimodel", f"through the plain versions: verdict_agreement={agree} "
+          f"max_drot_deg={d_rot} max_dt_mm={d_t} max_dfit={d_fit}")
+    check(agree == 1.0 and d_rot <= MAX_DROT_DEG and d_t <= MAX_DT_MM and d_fit <= MAX_DFIT,
+          "multimodel: kernel path and plain path disagree")
+
+    # 14. two objects in one stream: MultiObjectSession, one track per frame
+    bumpy40 = mesh.make_bumpy_sphere(radius=40.0, subdivisions=3)
+    ico30 = mesh.make_icosphere(radius=30.0, subdivisions=3)
+    starts = np.stack([pose2, pose2])
+    starts[0, :3, 3], starts[1, :3, 3] = [-45.0, 0.0, 300.0], [45.0, 0.0, 300.0]
+    rng = np.random.default_rng(13)
+    mt_truths, mt_frames, cur = [], [], starts.copy()
+    rot, mm = MT_DRIFT
+    for _ in range(MT_FRAMES):
+        for i in range(2):
+            d = geometry.euler_to_rotation(rng.uniform(-rot, rot, 3).astype(np.float32)).numpy()
+            cur[i] = geometry.pose_from_Rt(
+                d @ cur[i][:3, :3], cur[i][:3, 3] + rng.uniform(-mm, mm, 3).astype(np.float32)
+            ).numpy()
+        mt_truths.append(cur.copy())
+        mt_frames.append(composite(torch, torch.cat([
+            render(m.tris, torch.as_tensor(t[None], device=dev))
+            for m, t in zip((bumpy40, ico30), cur)])).cpu().numpy())
+    mt_ref = ptt.MultiModelRefiner([bumpy40, ico30], K=K, device="cuda", **CFG)
+
+    def multi_session(pipelined=True):
+        session = ptt.MultiObjectSession(mt_ref, [(0, starts[0]), (1, starts[1])],
+                                         n_hypotheses=MT_HYP, seed=13)
+        t0 = time.perf_counter()
+        if pipelined:
+            steps = [session.step_async(f) for f in mt_frames][1:] + [session.flush()]
+        else:
+            steps = [session.step(f) for f in mt_frames]
+        return (time.perf_counter() - t0) * 1e3 / MT_FRAMES, steps
+
+    level = pkg_log.level
+    pkg_log.setLevel(logging.ERROR)
+    try:
+        multi_session()  # warm
+        reset_counts()
+        _ms, mt_steps = multi_session()
+        torch.cuda.synchronize()
+        mt_launches = counts()
+        a_ms = sorted(multi_session()[0] for _ in range(3))[1]
+        s_ms = sorted(multi_session(pipelined=False)[0] for _ in range(3))[1]
+        probe = ptt.MultiObjectSession(mt_ref, [(0, starts[0]), (1, starts[1])],
+                                       n_hypotheses=MT_HYP, seed=13)
+        probe.step_async(mt_frames[0])
+        probe.step_async(mt_frames[1])
+        syncs = sync_sites(torch, lambda: probe.step_async(mt_frames[2]))
+        probe.flush()
+    finally:
+        pkg_log.setLevel(level)
+    accepted = [[s.accepted for s in steps] for steps in mt_steps]
+    t_errs = [max(float(np.linalg.norm(s.pose[:3, 3] - t[:3, 3])) for s, t in zip(steps, truths))
+              for steps, truths in zip(mt_steps, mt_truths)]
+    phase("multi-track", f"2 objects x {MT_HYP} hypotheses, {MT_FRAMES} frames, one track per "
+          f"frame, roi={mt_ref.roi}: step_async_ms_per_frame={a_ms} step_ms_per_frame={s_ms} "
+          f"all_accepted={all(map(all, accepted))} max_translation_err_mm={max(t_errs)} "
+          f"final={t_errs[-1]} (icosphere: rotation unobservable) launches={mt_launches} "
+          f"syncs_in_one_step_async={sum(syncs.values())} {dict(syncs)}")
+    check(mt_launches["rasterize"] > 0 and mt_launches["gather_rows"] > 0,
+          f"multi-track: launches {mt_launches}")
+    check(all(map(all, accepted)) and max(t_errs) < 6.0,
+          f"multi-track: accepted {accepted}, translation errors {t_errs}")
+    check(sum(syncs.values()) == 0, f"multi-track: synchronizing calls in step_async {dict(syncs)}")
+    # the first frame's hypotheses through the kernels and the plain versions
+    mt_hyps, mt_ids = [], []
+    for i in range(2):
+        tracker = ptt.PoseTracker(starts[i])
+        tracker.predict()
+        mt_hyps.append(tracker.hypotheses(MT_HYP, seed=np.random.default_rng(i)))
+        mt_ids += [i] * MT_HYP
+    mt_hyps, mt_ids = np.concatenate(mt_hyps), np.asarray(mt_ids, np.int32)
+    k_out = mt_ref.track(mt_frames[0], mt_ids, mt_hyps, with_covariance=True)
+    p_out = mt_ref.track(mt_frames[0], mt_ids, mt_hyps, with_covariance=True, _plain=True)
+    agree, d_rot, d_t, d_fit = agreement(
+        rotation_angle_deg, mt_truths[0][mt_ids], k_out[0].cpu().numpy(), p_out[0].cpu().numpy(),
+        k_out[1].fitness.cpu().numpy(), p_out[1].fitness.cpu().numpy())
+    phase("multi-track", f"first frame through the plain versions: verdict_agreement={agree} "
+          f"max_drot_deg={d_rot} max_dt_mm={d_t} max_dfit={d_fit}")
+    check(agree == 1.0 and d_rot <= MAX_DROT_DEG and d_t <= MAX_DT_MM and d_fit <= MAX_DFIT,
+          "multi-track: kernel path and plain path disagree")
+
+    # 15. P1 on its probe: scripts/probe_mxu_nn.py's workload at full size
+    reset_counts()
+    mxu = mxu_nn.run(device=dev)
+    phase("mxu", " ".join(f"{k}={v}" for k, v in mxu.items()))
+    check(mxu["launches"]["nn_flash_mxu"] > 0 and mxu["launches"]["nn_flash_packed"] > 0,
+          f"mxu: launches {mxu['launches']}")
+    check(mxu["b2_near_ties"] and mxu["b2_dist_in_band"] and mxu["plain_near_ties"]
+          and mxu["plain_dist_in_band"], "mxu: a disagreement outside the near-tie band")
+    mxu_pairs = float(mxu["queries"]) * mxu["table_columns"]
+
     print(card_line)
     max_err = max(s["max_abs_err"] for s in (scene_stats, hyp_stats, pp_stats))
-    nn_sources = dict(route="cuda", source="pose_refine_tpu_torch/csrc/nn_flash.cu")
+    nn_sources = dict(route="cuda", source="pose_refine_tpu_torch/csrc/nn_flash.cu",
+                      library_ms=None)
     print(json.dumps({"kernels": [{
         "name": "rasterize",
         "route": "cuda",
@@ -743,6 +1141,10 @@ def main():
         "max_abs_err": max_err,
         "ms": hyp_stats["ms"],
         "plain_ms": hyp_stats["plain_ms"],
+        "bound_ms": hyp_stats["bound_ms"],
+        "bound_by": hyp_stats["bound_by"],
+        "library_ms": None,
+        "launches_multimodel": mm_launches["rasterize"],
     }, {
         "name": "nn_flash_packed", **nn_sources,
         "replaces": "pose_refine_tpu/scene/nn_pallas.py:101",
@@ -751,6 +1153,8 @@ def main():
         "name": "nn_flash_gated", **nn_sources,
         "replaces": "pose_refine_tpu/scene/nn_pallas.py:326",
         "launches": nn_launches["nn_flash_gated"], **nn_stats["nn_flash_gated"],
+        "launches_stacked": ms_launches["multiscene-nn"]["nn_flash_gated_stacked"],
+        **stacked_stats,
     }, {
         "name": "gather_rows",
         "route": "cuda",
@@ -758,6 +1162,21 @@ def main():
         "replaces": "scripts/probe_pallas_gather.py:29",
         "launches": track_counts["projective"]["gather_rows"],
         **gather_stats,
+    }, {
+        "name": "nn_flash_mxu",
+        "route": "cuda",
+        "source": "pose_refine_tpu_torch/csrc/nn_mxu.cu",
+        "replaces": "scripts/probe_mxu_nn.py:57",
+        "launches": mxu["launches"]["nn_flash_mxu"],
+        "max_abs_err": mxu["max_abs_err"],
+        "ms": mxu["p1_ms"],
+        "plain_ms": mxu["p1_plain_ms"],
+        # the least argmin work a pair needs on the CUDA cores: one min of
+        # the score and one compare to find the rare chunks that improve it
+        # (the index update runs only there), against the 3xTF32 product's
+        # 3 x 4 useful MACs a pair on the tensor cores
+        **bound(n_instr=2 * mxu_pairs, n_tensor_flop=24 * mxu_pairs),
+        "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -4,9 +4,11 @@ Batch depth rasterization of pose hypotheses (a hand-written CUDA kernel,
 ``csrc/rasterize.cu``) plus batched point-to-plane ICP against a projective
 scene or a nearest-neighbour scene (exact NN by the flash-NN kernels,
 ``csrc/nn_flash.cu``; the association's row gather, ``csrc/gather.cu``),
-with its pose uncertainty, per-frame tracking (``PoseRefiner.track``) and
-the filtered ``TrackingSession``, on an NVIDIA GPU or, with the kernels'
-plain PyTorch versions, on the CPU. Every public entry point takes an
+with its pose uncertainty, stacked scenes (``set_scene_depths``), several
+meshes in one batch (``MultiModelRefiner``), per-frame tracking
+(``PoseRefiner.track``), the filtered ``TrackingSession`` and
+``MultiObjectSession``, on an NVIDIA GPU or, with the kernels' plain
+PyTorch versions, on the CPU. Every public entry point takes an
 explicit ``device=``. The package imports torch and never jax.
 """
 
@@ -35,14 +37,18 @@ from pose_refine_tpu_torch.ops.gather import gather_rows  # noqa: F401
 from pose_refine_tpu_torch.ops.rasterize import rasterize_dense  # noqa: F401
 from pose_refine_tpu_torch.ops.rasterize_cuda import rasterize, rasterize_plain  # noqa: F401
 from pose_refine_tpu_torch.pipeline import (  # noqa: F401
+    MultiModelRefiner,
     PendingResult,
     PoseRefiner,
     refine_poses,
     track_poses,
     track_poses_nn,
 )
-from pose_refine_tpu_torch.scene.nn import SceneNN  # noqa: F401
-from pose_refine_tpu_torch.scene.projective import SceneProjective  # noqa: F401
+from pose_refine_tpu_torch.scene.nn import SceneNN, SceneNNStack  # noqa: F401
+from pose_refine_tpu_torch.scene.projective import (  # noqa: F401
+    SceneProjective,
+    SceneProjectiveStack,
+)
 from pose_refine_tpu_torch.tracking import (  # noqa: F401
     MultiObjectSession,
     TrackingSession,

@@ -36,7 +36,8 @@ NVCC_FLAGS = (
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SIGNATURES = {
     "prt_rasterize": ((_P, _I, _I, _P, _I, _I, _I, _I, _I, _P), _I),
-    "prt_nn_flash": ((_P, _I, _P, _I, _P, _P, _I, _F, _I, _P, _P, _P, _P), _I),
+    "prt_nn_flash": ((_P, _I, _P, _I, _P, _P, _I, _F, _I, _P, _I, _I, _P, _P, _P, _P), _I),
+    "prt_nn_mxu": ((_P, _I, _P, _I, _P, _P, _P), _I),
     "prt_gather_rows": ((_P, _L, _P, _I, _L, _P, _P), _I),
     "prt_error_string": ((_I,), ctypes.c_char_p),
 }

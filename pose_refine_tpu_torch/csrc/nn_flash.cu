@@ -20,8 +20,7 @@
 // kernels' tie rule (per-lane strict `<`, then the smallest index among the
 // lanes that hold the row minimum).
 //
-// Pruning (kPrune), nn_pallas.py:240-305 with frames = 1 and one band per
-// tile:
+// Pruning (kPrune), nn_pallas.py:240-305 with one band per tile:
 //   pass 1: ub(q) = min_b |q - c_b| + r_b over the 32-point balls of the
 //           scene table (centre = box centre, r = half diagonal), clamped
 //           to the gate; the tile's radius is the max over its queries;
@@ -32,6 +31,20 @@
 // Threads of a partial last tile hold no query and take no part in the
 // tile's box or radius. The JAX wrapper's tile size and sub-tile bands,
 // and its group merge of chunk boxes, are TPU tuning and are not carried.
+//
+// Stacked frames (kPrune, nn_pallas.py:252-255, 302-309): the table holds
+// `frames` equal-width per-frame regions side by side, the boxes and balls
+// frame-major. A frame id windows the ball pass, the box test and the chunk
+// scan to its frame's region, so a query costs one frame's scan, and the
+// index it returns is the stacked column (frame-local + fid * frame_rows),
+// as the Pallas kernel returns it. The JAX package vmaps a frame id per
+// pose; here `frame_id` holds one id per pose and the grid is 2-D,
+// (tiles of one pose's `per_pose` queries, poses), so a tile never mixes
+// two poses' frames. Ids are clamped to [0, frames). Without `frame_id` the
+// grid is the 1-D one over all queries and every query takes frame 0, the
+// Pallas kernel's default fid. With frames = 1 and no `frame_id` the
+// single-frame instantiation (kStacked = false) runs, which carries none of
+// the frame arithmetic.
 //
 // Arithmetic matches the JAX kernels as XLA compiles them on the CPU, which
 // contracts the 3-term sums into fused multiply-adds:
@@ -82,39 +95,56 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-template <bool kPrune>
+// kStacked = false is the single-frame kernel (frames = 1, no frame_id):
+// the frame arguments are compile-time 0/1 there, so it is the same loop as
+// before stacked frames were added.
+template <bool kPrune, bool kStacked>
 __global__ void __launch_bounds__(kTile)
 nn_flash_kernel(const float* __restrict__ q, int nq, const float* __restrict__ table,
                 int s_pad, const float* __restrict__ boxes, const float* __restrict__ balls,
-                int n_balls, float gate2, int* __restrict__ idx_out,
-                float* __restrict__ dist_out, int* __restrict__ scanned) {
+                int n_balls, float gate2, const int* __restrict__ frame_id, int frames,
+                int per_pose, int* __restrict__ idx_out, float* __restrict__ dist_out,
+                int* __restrict__ scanned) {
   __shared__ float4 stage[kChunk];
   __shared__ float part[7][kWarps];
   const int tid = threadIdx.x;
-  const int i = blockIdx.x * kTile + tid;
-  const bool active = i < nq;
+  // the query range and frame of this tile: all queries and frame 0, or
+  // one pose's queries (blockIdx.y) and that pose's frame
+  int fid = 0, first = 0, n_local = nq;
+  if (kStacked && frame_id != nullptr) {
+    fid = min(max(frame_id[blockIdx.y], 0), frames - 1);
+    first = blockIdx.y * per_pose;
+    n_local = per_pose;
+  }
+  const int local = blockIdx.x * kTile + tid;
+  const bool active = local < n_local;
+  const int i = first + local;
   float qx = 0.0f, qy = 0.0f, qz = 0.0f;
   if (active) {
     qx = q[3 * (size_t)i];
     qy = q[3 * (size_t)i + 1];
     qz = q[3 * (size_t)i + 2];
   }
-  const int n_chunks = s_pad / kChunk;
+  const int n_frames = kStacked ? frames : 1;
+  const int n_chunks = s_pad / kChunk / n_frames;  // chunks of one frame
+  const int c_first = kStacked ? fid * n_chunks : 0;
 
   float lo_x = 0.f, lo_y = 0.f, lo_z = 0.f, hi_x = 0.f, hi_y = 0.f, hi_z = 0.f, tile_r2 = 0.f;
   if (kPrune) {
-    // pass 1: per-query NN distance upper bound over the balls
-    // [cx; cy; cz; r] (4, n_balls), staged through shared memory
+    // pass 1: per-query NN distance upper bound over the frame's balls
+    // [cx; cy; cz; r] (4, n_balls), staged through shared memory; the
+    // frame's balls are [fid * nb_frame, (fid + 1) * nb_frame)
+    const int nb_frame = kStacked ? n_balls / frames : n_balls;
     float ub = kBig;
-    for (int b0 = 0; b0 < n_balls; b0 += kChunk) {
+    for (int b0 = 0; b0 < nb_frame; b0 += kChunk) {
       __syncthreads();
-      const int b = b0 + tid;
-      if (b < n_balls) {
+      const int b = (kStacked ? fid * nb_frame : 0) + b0 + tid;
+      if (b0 + tid < nb_frame) {
         stage[tid] = make_float4(balls[b], balls[(size_t)n_balls + b],
                                  balls[2 * (size_t)n_balls + b], balls[3 * (size_t)n_balls + b]);
       }
       __syncthreads();
-      const int nb = min(kChunk, n_balls - b0);
+      const int nb = min(kChunk, nb_frame - b0);
       for (int k = 0; k < nb; ++k) {
         const float4 c = stage[k];
         const float d = __fadd_rn(
@@ -150,7 +180,7 @@ nn_flash_kernel(const float* __restrict__ q, int nq, const float* __restrict__ t
   float best = kBig;
   int bidx = 0;
   int n_scanned = 0;
-  for (int c = 0; c < n_chunks; ++c) {
+  for (int c = c_first; c < c_first + n_chunks; ++c) {
     if (kPrune) {
       const float* bx = boxes + 8 * (size_t)c;  // [xlo ylo zlo 0 xhi yhi zhi 0]
       const float dx = fmaxf(fmaxf(__fsub_rn(bx[0], hi_x), __fsub_rn(lo_x, bx[4])), 0.0f);
@@ -189,30 +219,43 @@ nn_flash_kernel(const float* __restrict__ q, int nq, const float* __restrict__ t
       dist_out[i] = d;
     }
   }
-  if (scanned != nullptr && tid == 0) scanned[blockIdx.x] = n_scanned;
+  if (scanned != nullptr && tid == 0) {
+    scanned[kStacked ? blockIdx.y * gridDim.x + blockIdx.x : blockIdx.x] = n_scanned;
+  }
 }
 
 }  // namespace
 
 // Nearest scene point of nq queries (nq, 3) against the pack_scene table
 // (8, s_pad), on `stream`. prune != 0 runs the gated kernel with the chunk
-// boxes (s_pad/128, 8), the balls (4, n_balls) and the squared gate; prune
-// == 0 the full scan (boxes, balls and gate2 unused). Writes idx (nq,)
+// boxes (s_pad/128, 8), the balls (4, n_balls) and the squared gate, over a
+// table of `frames` stacked frames: with frame_id (nq / per_pose,) int32
+// each pose's per_pose queries take their pose's frame, without it (null)
+// every query takes frame 0. prune == 0 runs the full scan (boxes, balls,
+// gate2 and the frame arguments unused; frames must be 1). Writes idx (nq,)
 // int32 and dist (nq,) f32; when `scanned` is not null, also the number of
-// chunks each tile scanned (ceil(nq/128),) int32. Returns the cudaError_t
-// of the launch (0 = ok).
+// chunks each tile scanned (one int32 per tile, pose-major). Returns the
+// cudaError_t of the launch (0 = ok).
 extern "C" int prt_nn_flash(const float* queries, int nq, const float* table, int s_pad,
                             const float* boxes, const float* balls, int n_balls, float gate2,
-                            int prune, int* idx, float* dist, int* scanned, void* stream) {
+                            int prune, const int* frame_id, int frames, int per_pose,
+                            int* idx, float* dist, int* scanned, void* stream) {
   if (nq <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int grid = (nq + kTile - 1) / kTile;
-  if (prune) {
-    nn_flash_kernel<true><<<grid, kTile, 0, s>>>(queries, nq, table, s_pad, boxes, balls,
-                                                 n_balls, gate2, idx, dist, scanned);
+  dim3 grid((nq + kTile - 1) / kTile);
+  if (frame_id != nullptr) grid = dim3((per_pose + kTile - 1) / kTile, nq / per_pose);
+  if (prune && (frames != 1 || frame_id != nullptr)) {
+    nn_flash_kernel<true, true><<<grid, kTile, 0, s>>>(queries, nq, table, s_pad, boxes, balls,
+                                                       n_balls, gate2, frame_id, frames,
+                                                       per_pose, idx, dist, scanned);
+  } else if (prune) {
+    nn_flash_kernel<true, false><<<grid, kTile, 0, s>>>(queries, nq, table, s_pad, boxes, balls,
+                                                        n_balls, gate2, nullptr, 1, nq, idx,
+                                                        dist, scanned);
   } else {
-    nn_flash_kernel<false><<<grid, kTile, 0, s>>>(queries, nq, table, s_pad, boxes, balls,
-                                                  n_balls, gate2, idx, dist, scanned);
+    nn_flash_kernel<false, false><<<grid, kTile, 0, s>>>(queries, nq, table, s_pad, boxes,
+                                                         balls, n_balls, gate2, nullptr, 1, nq,
+                                                         idx, dist, scanned);
   }
   return (int)cudaGetLastError();
 }

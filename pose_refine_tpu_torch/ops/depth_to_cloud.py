@@ -20,14 +20,14 @@ _MORTON_CODE_CAP = 1 << 28
 
 
 def depth_image_to_points(depth, K, stride: int = 1, tl_x: int = 0, tl_y: int = 0):
-    """(H, W) int depth in mm -> ((H/s, W/s, 3) float32 points in m,
-    (H/s, W/s) bool mask). Point math matches dep2pcd (common.h:47-61):
-    z = dep/1000, x = (u - cx)/fx * z, y = (v - cy)/fy * z; dep == 0 ->
-    invalid."""
+    """(..., H, W) int depth in mm -> ((..., H/s, W/s, 3) float32 points in
+    m, (..., H/s, W/s) bool mask). Point math matches dep2pcd
+    (common.h:47-61): z = dep/1000, x = (u - cx)/fx * z, y = (v - cy)/fy *
+    z; dep == 0 -> invalid."""
     depth = torch.as_tensor(depth)
     if stride != 1:
-        depth = depth[::stride, ::stride]
-    h, w = depth.shape
+        depth = depth[..., ::stride, ::stride]
+    h, w = depth.shape[-2:]
     K = torch.as_tensor(K, dtype=torch.float32, device=depth.device)
     u = torch.arange(w, dtype=torch.float32, device=depth.device)[None, :] * stride + tl_x
     v = torch.arange(h, dtype=torch.float32, device=depth.device)[:, None] * stride + tl_y

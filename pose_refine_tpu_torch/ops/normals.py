@@ -19,7 +19,8 @@ _OFFSETS = ((-1, -1), (0, -1), (1, -1), (-1, 0), (1, 0), (-1, 1), (0, 1), (1, 1)
 
 def estimate_normals(depth, K, radius: int = 5, difference_threshold: int = 50,
                      distance_threshold: int = 2000) -> torch.Tensor:
-    """(H, W) int depth (mm) + K -> (H, W, 3) float32 normals; 0 where invalid.
+    """(..., H, W) int depth (mm) + K -> (..., H, W, 3) float32 normals; 0
+    where invalid (a leading batch of frames shares K).
 
     Matches get_normal (common.cpp:17-107) including its quirks: the center
     gate is d < distance_threshold (zero-depth pixels are NOT excluded, the
@@ -27,22 +28,22 @@ def estimate_normals(depth, K, radius: int = 5, difference_threshold: int = 50,
     is rows/cols [r, dim - r - 2] (its loops stop at dim - r - 1, exclusive).
     """
     depth = torch.as_tensor(depth).to(torch.int32)
-    h, w = depth.shape
+    h, w = depth.shape[-2:]
     dev = depth.device
     K = torch.as_tensor(K, dtype=torch.float32, device=dev)
     r = radius
 
-    pad = torch.zeros((h + 2 * r, w + 2 * r), dtype=torch.int32, device=dev)
-    pad[r : r + h, r : r + w] = depth  # zero padding; only the interior is kept
+    # zero padding; only the interior is kept
+    pad = torch.nn.functional.pad(depth, (r, r, r, r))
 
-    a0 = torch.zeros((h, w), dtype=torch.int32, device=dev)
+    a0 = torch.zeros(depth.shape, dtype=torch.int32, device=dev)
     a1 = torch.zeros_like(a0)
     a3 = torch.zeros_like(a0)
     b0 = torch.zeros_like(a0)
     b1 = torch.zeros_like(a0)
     for ox, oy in _OFFSETS:
         dx, dy = ox * r, oy * r
-        neighbor = pad[r + dy : r + dy + h, r + dx : r + dx + w]
+        neighbor = pad[..., r + dy : r + dy + h, r + dx : r + dx + w]
         delta = neighbor - depth
         f = (delta.abs() < difference_threshold).to(torch.int32)
         a0 = a0 + f * (dx * dx)

@@ -10,8 +10,10 @@ projective scenes and nearest-neighbour scenes (``scene="nn"`` /
 ``"nn_bruteforce"``, with ``scene_voxel_mm``, ``scene_cascade``,
 ``scene_stride`` and ``scene_pool``), with the same host-side planning (auto
 ROI, auto lift sizes, warnings), ``refine``, ``track`` and their enqueueing
-twins. Options the port does not carry yet raise ``NotImplementedError``
-naming the ROADMAP item that will carry them.
+twins, and stacked scenes (``set_scene_depths`` + ``refine(scene_ids=)``).
+``MultiModelRefiner`` refines hypotheses of several meshes in one batch.
+Options the port does not carry yet raise ``NotImplementedError`` naming
+the ROADMAP item that will carry them.
 """
 
 from __future__ import annotations
@@ -32,33 +34,45 @@ from pose_refine_tpu_torch.ops.depth_to_cloud import (
     window_cloud_batched,
 )
 from pose_refine_tpu_torch.ops.rasterize_cuda import rasterize, rasterize_plain
-from pose_refine_tpu_torch.scene.nn import SceneNN, _grid_morton_perm, voxel_downsample
-from pose_refine_tpu_torch.scene.projective import SceneProjective
+from pose_refine_tpu_torch.scene.nn import (
+    SceneNN,
+    SceneNNStack,
+    _grid_morton_perm,
+    voxel_downsample,
+)
+from pose_refine_tpu_torch.scene.projective import SceneProjective, SceneProjectiveStack
 
 NN_SCENES = ("nn", "nn_kdtree", "nn_bruteforce")
+STACKS = (SceneProjectiveStack, SceneNNStack)
 
 logger = logging.getLogger("pose_refine_tpu_torch")
 
 
-def refine_poses(tris, init_poses, scene: Union[SceneProjective, SceneNN], proj, K, *,
+def refine_poses(tris, init_poses, scene: Union[SceneProjective, SceneNN, SceneProjectiveStack,
+                                                SceneNNStack], proj, K, *,
                  width: int, height: int, max_points: int,
                  criteria: icp.ICPConvergenceCriteria, window: int = 256,
                  stride: int = 2, roi=(0, 0, 0, 0), with_information: bool = False,
-                 raster: Optional[Callable] = None, query: Optional[Callable] = None):
+                 scene_ids=None, raster: Optional[Callable] = None,
+                 query: Optional[Callable] = None):
     """Render N poses, lift each render to a cloud, run batched ICP.
 
-    All tensors on one device. Returns (refined_poses (N, 4, 4),
-    RegistrationResult batch), refined = T_icp @ init with the ICP
-    translation rescaled from meters to the pose's millimeters.
-    with_information=True appends an icp.PoseUncertainty batch from one
-    extra association pass at the final clouds (JAX pipeline.py:193-226).
+    All tensors on one device. ``tris`` is (T, 3, 3) or per pose (N, T, 3,
+    3). Returns (refined_poses (N, 4, 4), RegistrationResult batch),
+    refined = T_icp @ init with the ICP translation rescaled from meters to
+    the pose's millimeters. with_information=True appends an
+    icp.PoseUncertainty batch from one extra association pass at the final
+    clouds (JAX pipeline.py:193-226). A stacked scene takes ``scene_ids``,
+    an (N,) integer tensor of each pose's frame: every association pass is
+    one batched ``scene.query_at(scene_ids)`` over all poses.
     ``raster`` replaces the rasterizer (default: ops.rasterize_cuda.rasterize,
     the kernel on CUDA tensors) and ``query`` the association (default:
-    scene.query); chip_smoke.py passes the plain versions to hold the
-    kernel path against them.
+    scene.query, or scene.query_at(scene_ids)); chip_smoke.py passes the
+    plain versions to hold the kernel path against them.
     """
     raster = rasterize if raster is None else raster
-    query = scene.query if query is None else query
+    if query is None:
+        query = scene.query if scene_ids is None else scene.query_at(scene_ids)
     depth = raster(tris, init_poses, width, height, proj, roi=roi)
     out_h, out_w = depth.shape[1:]
 
@@ -70,7 +84,7 @@ def refine_poses(tris, init_poses, scene: Union[SceneProjective, SceneNN], proj,
     # NN scenes take the clouds in morton order of the window grid, so the
     # flash kernel's query tiles are local patches its chunk pruning can
     # bound; projective association is an image gather, order-free
-    nn_order = isinstance(scene, SceneNN)
+    nn_order = isinstance(scene, (SceneNN, SceneNNStack))
     if max_points < wh * ww:
         clouds, valids, _n = compact_topk(
             clouds, valids, max_points, order_shape=(wh, ww) if nn_order else None)
@@ -597,10 +611,31 @@ class PoseRefiner:
         return self
 
     def set_scene_depths(self, scene_depths):
-        raise NotImplementedError(
-            "set_scene_depths (stacked multi-frame scenes) is not ported to "
-            "pose_refine_tpu_torch yet (ROADMAP A15)"
-        )
+        """Build one stacked scene from (K, H, W) mm depth frames, so that
+        one refine() routes each hypothesis to its own frame through
+        ``scene_ids`` (JAX pipeline.py:917-964): a SceneProjectiveStack, or
+        a SceneNNStack for the NN kinds (with scene_voxel_mm). Planning
+        (auto ROI, window, points) uses the union of the frames' objects,
+        their max-projection, so every frame's object stays in the crop."""
+        if self.scene_cascade is not None and self.scene_kind != "projective":
+            raise ValueError(
+                "scene_cascade is per-frame (a coarse voxel twin); it does not compose with "
+                "stacked NN scenes - drop one of the two")
+        frames = _host(scene_depths)
+        if frames.ndim != 3 or frames.shape[0] < 1:
+            raise ValueError(f"set_scene_depths wants (K, H, W) frames, got {frames.shape}")
+        self._prepare_frame(frames.max(axis=0))
+        if self.scene_kind == "projective":
+            self.scene = SceneProjectiveStack.from_depths(frames, self.K, self.max_dist_diff,
+                                                          device=self.device)
+        else:
+            self.scene = SceneNNStack.from_depths(frames, self.K, self.max_dist_diff,
+                                                  voxel_mm=self.scene_voxel_mm,
+                                                  device=self.device)
+        self._scene_coarse = None
+        logger.info("scene built: kind=%s x%d frames (stacked)", self.scene_kind,
+                    self.scene.n_scenes)
+        return self
 
     def set_scene_cloud(self, points, normals):
         """NN scene directly from (P, 3) points and normals in meters
@@ -627,6 +662,34 @@ class PoseRefiner:
         self._check_saturation = True
         return self
 
+    def _scene_ids(self, scene, scene_ids, n_poses: int):
+        """Validate refine()'s scene_ids against the scene (JAX
+        pipeline.py:1055-1092): an (N,) int32 tensor on the refiner's
+        device for a stacked scene, None otherwise. Host ids are
+        range-checked; ids on the card are checked by shape only (a
+        readback would wait for the card) and clamped in query_at."""
+        if not isinstance(scene, STACKS):
+            if scene_ids is not None:
+                raise ValueError(
+                    "scene_ids is only valid with a stacked multi-frame scene "
+                    "(set_scene_depths); this refiner holds a single scene")
+            return None
+        if scene_ids is None:
+            raise ValueError(
+                "the scene is a stacked multi-frame table (set_scene_depths): refine() "
+                "needs scene_ids - one frame index per hypothesis")
+        if not _on_card(scene_ids):
+            ids = np.asarray(_host(scene_ids)).astype(np.int32)
+            if ids.size and (ids.min() < 0 or ids.max() >= scene.n_scenes):
+                raise ValueError(f"scene_ids must be in [0, {scene.n_scenes}), got "
+                                 f"[{ids.min()}, {ids.max()}]")
+            scene_ids = ids
+        if tuple(scene_ids.shape) not in ((), (n_poses,)):
+            raise ValueError(f"scene_ids shape {tuple(scene_ids.shape)} does not match the "
+                             f"{n_poses}-pose batch")
+        ids = to_device(scene_ids, self.device, torch.int32)
+        return ids.expand(n_poses).contiguous()
+
     def refine(self, init_poses,
                criteria: icp.ICPConvergenceCriteria = icp.ICPConvergenceCriteria(),
                schedule=None, with_covariance: bool = False, scene_ids=None,
@@ -636,14 +699,26 @@ class PoseRefiner:
         icp.PoseUncertainty batch (render-calibrated Laplace covariance,
         twist [omega, t] in [rad, m]).
 
+        scene_ids: required after :meth:`set_scene_depths` - the frame index
+        of each hypothesis, (N,) (or one for all), routing every pose to its
+        own frame within the one batch. Host ids are range-checked; ids on
+        the card are checked by shape only, and an out-of-range one clamps
+        to the nearest frame (it associates against frame 0 or K - 1).
+
         With ``scene_cascade=(coarse_voxel_mm, coarse_iters)`` a coarse
         pre-pass of coarse_iters iterations against the voxelized twin of
         the scene runs first; ``criteria`` then governs the full-resolution
         pass, which alone computes the covariance. ``_scene`` (internal)
         refines against that scene instead of the refiner's, with no
         pre-pass."""
+        return self._refine(self.tris, init_poses, criteria, schedule, with_covariance,
+                            scene_ids, _scene)
+
+    def _refine(self, tris, init_poses, criteria=icp.ICPConvergenceCriteria(), schedule=None,
+                with_covariance: bool = False, scene_ids=None, _scene=None):
+        """refine() rendering ``tris``: the refiner's (T, 3, 3) mesh, or
+        MultiModelRefiner's (N, T, 3, 3) per-pose tables."""
         _unported("schedule", schedule, None, "A14")
-        _unported("scene_ids", scene_ids, None, "A15")
         scene = self.scene if _scene is None else _scene
         if scene is None:  # usage error: must survive python -O
             raise RuntimeError("set_scene_depth / set_scene_cloud first")
@@ -656,16 +731,17 @@ class PoseRefiner:
         squeeze = init.dim() == 2
         if squeeze:
             init = init[None]
+        ids = self._scene_ids(scene, scene_ids, init.shape[0])
         if self._scene_coarse is not None and _scene is None:
             coarse = icp.ICPConvergenceCriteria(
                 criteria.relative_fitness, criteria.relative_rmse, self.scene_cascade[1])
-            init, _ = self.refine(init, coarse, _scene=self._scene_coarse)
+            init, _ = self._refine(tris, init, coarse, _scene=self._scene_coarse)
         out = refine_poses(
-            self.tris, init, scene, self.proj, self._K_render_t,
+            tris, init, scene, self.proj, self._K_render_t,
             width=self.render_w, height=self.render_h,
             max_points=self.max_points, criteria=criteria,
             window=self.window, stride=self.stride, roi=self.roi,
-            with_information=with_covariance,
+            with_information=with_covariance, scene_ids=ids,
         )
         self._warn_if_saturated(out[1])
         return tuple(map(_first, out)) if squeeze else out
@@ -700,6 +776,13 @@ class PoseRefiner:
         ``_pack_outputs`` (sessions) returns the (N, 71) session buffer
         instead; ``_plain`` runs the kernels' plain versions (raster, NN,
         gather), the reference a kernel path is held against."""
+        return self._track(self.tris, frame_depth, init_poses, criteria, with_covariance,
+                           _pack_outputs, _plain)
+
+    def _track(self, tris, frame_depth, init_poses, criteria=icp.ICPConvergenceCriteria(),
+               with_covariance: bool = False, _pack_outputs: bool = False,
+               _plain: bool = False):
+        """track() rendering ``tris`` (see _refine)."""
         if self.scene_cascade is not None:
             raise ValueError(
                 "scene_cascade applies to set_scene_depth/set_scene_cloud + refine (it "
@@ -726,8 +809,7 @@ class PoseRefiner:
         kw = dict(width=self.render_w, height=self.render_h, max_points=self.max_points,
                   criteria=criteria, window=self.window, stride=self.stride, roi=self.roi,
                   with_information=with_covariance, pack_outputs=_pack_outputs, plain=_plain)
-        args = (self.tris, init, frame, self.proj, self._K_render_t, self._K_t,
-                self.max_dist_diff)
+        args = (tris, init, frame, self.proj, self._K_render_t, self._K_t, self.max_dist_diff)
         if self.scene_kind == "projective":
             out = track_poses(*args, **kw)
         else:
@@ -754,8 +836,12 @@ class PoseRefiner:
         (with_covariance implied) is copied to pinned host memory behind the
         frame's work, so ``wait()`` blocks only until that copy lands and
         returns (host buffer,)."""
-        packed = self.track(frame_depth, init_poses, criteria, with_covariance=True,
-                            _pack_outputs=True)
+        return self._pin(self.track(frame_depth, init_poses, criteria, with_covariance=True,
+                                    _pack_outputs=True))
+
+    def _pin(self, packed) -> PendingResult:
+        """A PendingResult of a card buffer copied to pinned host memory
+        behind the work that writes it (a host buffer as it is)."""
         if packed.device.type == "cuda":
             host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
             host.copy_(packed, non_blocking=True)
@@ -767,3 +853,79 @@ class PoseRefiner:
         """Hypothesis re-ranking: best-first indices by (fitness, -rmse)
         (icp.h:26-36); tensors or host arrays."""
         return np.lexsort((_host(results.inlier_rmse), -_host(results.fitness)))
+
+
+class MultiModelRefiner(PoseRefiner):
+    """Refine hypotheses of several models against one scene in one batch
+    (JAX pipeline.py:1513-1611). Each model is decimated (decimate_mm),
+    Morton-ordered and padded with zero-area triangles at its first vertex
+    to the largest triangle count; the (M, T, 3, 3) table stays on the
+    device, and refine()/track() gather each pose's model by id into the
+    (N, T, 3, 3) per-pose table the raster kernel takes. A padding triangle
+    has zero area, gets an empty box in triangle_setup and covers no pixel.
+
+    Memory: the per-pose table is N x T x 36 bytes (256 hypotheses of a
+    31k-triangle mesh ~ 290 MB): decimate heavy meshes or split the batch.
+
+    Example:
+        refiner = MultiModelRefiner([model_a, model_b], K=K, device="cuda")
+        refiner.set_scene_depth(depth)
+        refined, res = refiner.refine([0, 0, 1, 1], poses)
+    """
+
+    def __init__(self, models, K, **kwargs):
+        models = [Model.load(m) if isinstance(m, str) else m for m in models]
+        if not models:
+            raise ValueError("MultiModelRefiner needs at least one model")
+        super().__init__(models[0], K, **kwargs)
+        self.models = models
+        tables = []
+        for m in models:
+            rm = simplify_vertex_clustering(m, self.decimate_mm) if self.decimate_mm > 0.0 else m
+            tables.append(rm.tris[morton_order(rm.tris)])
+        tmax = max(t.shape[0] for t in tables)
+        padded = [np.concatenate([t, np.broadcast_to(t[:1, :1, :], (tmax - len(t), 3, 3))])
+                  for t in tables]
+        self.tris_table = torch.as_tensor(np.stack(padded), device=self.device)  # (M, T, 3, 3)
+
+    def _per_pose_tris(self, model_ids, init_poses):
+        """Validate (model_ids, poses) and gather the per-pose triangle
+        tables: (tris (N, T, 3, 3), poses (N, 4, 4), squeeze). Ids are read
+        on the host (a card tensor is read back) and range-checked."""
+        ids = np.asarray(_host(model_ids), np.int64).reshape(-1)
+        if ids.size and (ids.min() < 0 or ids.max() >= len(self.models)):
+            raise ValueError(f"model_ids must be in [0, {len(self.models)}), got "
+                             f"[{ids.min()}, {ids.max()}]")
+        poses = to_device(init_poses, self.device, torch.float32)
+        squeeze = poses.dim() == 2
+        if squeeze:
+            poses = poses[None]
+        if poses.shape[0] != ids.shape[0]:
+            raise ValueError(f"{ids.shape[0]} model ids for {poses.shape[0]} poses")
+        tris = self.tris_table.index_select(0, to_device(ids, self.device))
+        return tris, poses, squeeze
+
+    def refine(self, model_ids, init_poses=None, **kwargs):
+        """(model_ids (N,), init_poses (N, 4, 4)) -> refine()'s outputs; a
+        scalar id with one (4, 4) pose returns unbatched results."""
+        if init_poses is None:
+            raise TypeError("MultiModelRefiner.refine(model_ids, init_poses)")
+        tris, poses, squeeze = self._per_pose_tris(model_ids, init_poses)
+        out = self._refine(tris, poses, **kwargs)
+        return tuple(map(_first, out)) if squeeze else out
+
+    def track(self, frame_depth, model_ids, init_poses=None, **kwargs):
+        """track() with per-pose models: (frame_depth, model_ids (N,),
+        init_poses (N, 4, 4))."""
+        if init_poses is None:
+            raise TypeError("MultiModelRefiner.track(frame_depth, model_ids, init_poses)")
+        tris, poses, squeeze = self._per_pose_tris(model_ids, init_poses)
+        out = self._track(tris, frame_depth, poses, **kwargs)
+        return tuple(map(_first, out)) if squeeze else out
+
+    def track_packed_async(self, frame_depth, model_ids, init_poses,
+                           criteria: icp.ICPConvergenceCriteria = icp.ICPConvergenceCriteria()
+                           ) -> PendingResult:
+        """PoseRefiner.track_packed_async with per-pose models."""
+        return self._pin(self.track(frame_depth, model_ids, init_poses, criteria=criteria,
+                                    with_covariance=True, _pack_outputs=True))

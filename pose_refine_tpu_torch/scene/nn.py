@@ -12,7 +12,9 @@ tables. A query is exact NN by the gated flash kernel
 the full scan (``backend="flash"``), then one row gather (``ops/gather.py``);
 a neighbour is accepted iff dist^2 < max_dist_diff^2 (pcd_scene.h:127).
 
-The kd traversal (``backend="kdtree"``) is not ported yet (ROADMAP A9).
+``SceneNNStack`` stacks K frames into one set of tables; its query windows
+the gated kernel to each pose's frame. The kd traversal
+(``backend="kdtree"``) is not ported yet (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -95,12 +97,7 @@ class SceneNN:
         (centroid point + renormalized mean normal per voxel)."""
         if isinstance(depth, torch.Tensor):
             depth = depth.cpu().numpy()
-        pts, nrm, mask = _depth_scene_arrays_host(depth, K)
-        m = mask.reshape(-1)
-        p = pts.reshape(-1, 3)[m]
-        n = nrm.reshape(-1, 3)[m]
-        if voxel_mm > 0.0:
-            p, n = voxel_downsample(p, n, voxel_mm / 1000.0)
+        [(p, n)] = _host_clouds([depth], K, voxel_mm)
         return cls.from_cloud(p, n, max_dist_diff, leaf_size, backend, device=device)
 
     @classmethod
@@ -194,6 +191,132 @@ class SceneNN:
         # and its query is invalid under the gate.
         rows = (gather_rows_plain if plain else gather_rows)(self.table, idx)
         return rows[..., 0:3], rows[..., 3:6], valid
+
+
+def _host_clouds(depths, K, voxel_mm: float):
+    """(points, normals) of the valid pixels of each (H, W) mm frame of
+    ``depths``, voxel-downsampled when voxel_mm > 0 (the host pipeline of
+    SceneNN.from_depth)."""
+    out = []
+    for d in depths:
+        pts, nrm, mask = _depth_scene_arrays_host(d, K)
+        m = mask.reshape(-1)
+        p, n = pts.reshape(-1, 3)[m], nrm.reshape(-1, 3)[m]
+        if voxel_mm > 0.0:
+            p, n = voxel_downsample(p, n, voxel_mm / 1000.0)
+        out.append((p, n))
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class SceneNNStack:
+    """K NN scene frames in one set of tables, addressed per pose by a scene
+    id (JAX nn.py:309-452): the NN twin of SceneProjectiveStack.
+
+    Every frame is kd-reordered as its own SceneNN would be, then padded to
+    the widest frame's S_CHUNK multiple (``frame_rows``), so the flash
+    table is K equal-width regions side by side and the gated kernel
+    windows its ball pass, box test and chunk scan to a pose's frame: a pose
+    costs one frame's scan, and its neighbour is the one the frame's own
+    scene gives, ties included. Both backends take the gated kernel, as the
+    JAX package's stack does on an accelerator (the kd traversal binds
+    per-scene trees)."""
+
+    table: torch.Tensor        # (K*rows, 8) [pcd xyz, normal xyz, 0, 0]; pad rows zero
+    points: torch.Tensor       # (K*rows, 3) pad rows parked at 1e6 m
+    flash_table: torch.Tensor  # (8, K*rows) per-frame pack_scene tables, side by side
+    flash_boxes: torch.Tensor  # (K*rows/128, 8) per-frame chunk boxes, frame-major
+    flash_balls: torch.Tensor  # (4, K*rows/32) per-frame bounding balls, frame-major
+    max_dist_diff: float       # the gate in meters, a host float
+    frame_rows: int = 0
+    n_scenes: int = 1
+    backend: str = "bruteforce"
+
+    @classmethod
+    def from_clouds(cls, clouds, normals, max_dist_diff: float = 0.1, leaf_size: int = 10,
+                    backend: str = "bruteforce", device: DeviceLike = None) -> "SceneNNStack":
+        """Build from K (points, normals) pairs (lists of (P_k, 3) arrays in
+        meters): kd reorder per frame on the host, tables uploaded to
+        ``device``."""
+        if backend not in BACKENDS:
+            raise ValueError(
+                f"SceneNNStack supports the 'bruteforce'/'flash' backends, not {backend!r} "
+                "(the kd traversal binds per-scene trees)")
+        if len(clouds) != len(normals) or not len(clouds):
+            raise ValueError("from_clouds wants equal-length non-empty lists")
+        dev = resolve_device(device)
+        ordered = []
+        for p, n in zip(clouds, normals):
+            tree = build_kdtree(np.asarray(p), np.asarray(n), leaf_size)
+            ordered.append((tree.points, tree.normals))
+        rows = max(len(p) for p, _ in ordered)
+        rows += (-rows) % nn_flash.S_CHUNK
+        packed, far = [], []
+        for p, n in ordered:
+            pad = rows - len(p)
+            packed.append(np.concatenate([
+                np.concatenate([p, n, np.zeros((len(p), 2), np.float32)], 1),
+                np.zeros((pad, 8), np.float32)], 0))
+            far.append(np.concatenate([p, np.full((pad, 3), 1.0e6, np.float32)], 0))
+        flash_table = torch.cat([nn_flash.pack_scene(p, rows=rows) for p, _ in ordered],
+                                dim=1).to(dev)
+        return cls(
+            table=torch.as_tensor(np.concatenate(packed), device=dev),
+            points=torch.as_tensor(np.concatenate(far), device=dev),
+            flash_table=flash_table,
+            # rows is a chunk multiple, so the boxes and balls of the stacked
+            # table are the per-frame ones, frame-major
+            flash_boxes=nn_flash.chunk_boxes(flash_table),
+            flash_balls=nn_flash.ball_table(flash_table),
+            max_dist_diff=float(max_dist_diff),
+            frame_rows=int(rows),
+            n_scenes=len(ordered),
+            backend=backend,
+        )
+
+    @classmethod
+    def from_depths(cls, depths, K, max_dist_diff: float = 0.1, leaf_size: int = 10,
+                    backend: str = "bruteforce", voxel_mm: float = 0.0,
+                    device: DeviceLike = None) -> "SceneNNStack":
+        """Build from (K, H, W) mm depth frames: SceneNN.from_depth's host
+        pipeline per frame (points, LINEMOD normals, optional voxel
+        downsample), stacked."""
+        if isinstance(depths, torch.Tensor):
+            depths = depths.cpu().numpy()
+        frames = np.asarray(depths)
+        if frames.ndim != 3 or frames.shape[0] < 1:
+            raise ValueError(f"from_depths wants (K, H, W) frames, got {frames.shape}")
+        clouds = _host_clouds(frames, K, voxel_mm)
+        if any(not len(p) for p, _ in clouds):
+            raise ValueError("a scene frame has no valid depth pixels - cannot stack an empty "
+                             "NN scene")
+        return cls.from_clouds([p for p, _ in clouds], [n for _, n in clouds], max_dist_diff,
+                               leaf_size, backend, device=device)
+
+    def query_at(self, sids, plain: bool = False):
+        """The query bound to per-pose scene ids: ``sids`` a scalar or an
+        (N,) integer tensor (one id per pose of (N, ..., 3) sources),
+        clamped to [0, n_scenes) on its device, never read back (JAX
+        nn.py:416-452). All poses go to the gated kernel in one launch.
+        Returns query(src) -> (dst, normal, valid); plain=True runs the
+        kernels' plain versions."""
+        sids = torch.as_tensor(sids, device=self.table.device)
+        sids = sids.clamp(0, self.n_scenes - 1).to(torch.int32)
+
+        def query(src):
+            if plain:
+                idx, dist_sq = nn_flash.nn_flash_gated_plain(
+                    src, self.flash_table, self.max_dist_diff, frame_id=sids,
+                    frames=self.n_scenes)
+            else:
+                idx, dist_sq = nn_flash.nn_flash_gated(
+                    src, self.flash_table, self.flash_boxes, self.flash_balls,
+                    self.max_dist_diff, frame_id=sids, frames=self.n_scenes)
+            valid = dist_sq < nn_flash.gate_sq(self.max_dist_diff)
+            rows = (gather_rows_plain if plain else gather_rows)(self.table, idx)
+            return rows[..., 0:3], rows[..., 3:6], valid
+
+        return query
 
 
 def _pool_scene_grid(pts, nrm, mask, pool: int, depth_tol: float):

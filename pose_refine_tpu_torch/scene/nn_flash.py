@@ -10,7 +10,10 @@
   It prunes by true distance and reports the rounded score, so a query
   whose NN lies within float32 rounding of the gate (about 16 ULPs of
   |q|^2) may come out invalid where the full scan finds it valid - the
-  Pallas kernel's behaviour too.
+  Pallas kernel's behaviour too. Over a stacked table of ``frames``
+  equal-width frames (``scene.nn.SceneNNStack``) it windows every loop to
+  one frame, chosen per pose by ``frame_id``, and returns stacked-table
+  indices.
 
 Both score a pair as |s|^2 - 2 q.s over the field-major ``pack_scene``
 table and keep the smallest index among equal scores. The arithmetic is
@@ -39,16 +42,19 @@ Q_TILE = 128    # queries per CTA of the CUDA kernels (one per thread)
 # them to show the main path went through the kernels)
 packed_launches = 0
 gated_launches = 0
+stacked_launches = 0  # the gated launches over a stacked table (frames > 1)
 
 
-def pack_scene(scene_pts) -> torch.Tensor:
+def pack_scene(scene_pts, rows=None) -> torch.Tensor:
     """(S, 3) points -> (8, S_pad) field-major [x, y, z, |s|^2, 0, 0, 0, 0]
     table. Pad columns repeat the last real point with |s|^2 = BIG, so they
     never win and chunk boxes stay tight. |s|^2 is ((x*x + y*y) + z*z),
-    each step rounded, as the JAX pack_scene and its numpy twin compute it."""
+    each step rounded, as the JAX pack_scene and its numpy twin compute it.
+    ``rows`` pads to that column count instead of the next S_CHUNK multiple
+    (a stacked scene pads every frame to its widest frame)."""
     s = torch.as_tensor(scene_pts, dtype=torch.float32)
     ns = s.shape[0]
-    spad = (-ns) % S_CHUNK
+    spad = (-ns) % S_CHUNK if rows is None else rows - ns
     ssq = s[:, 0] * s[:, 0] + s[:, 1] * s[:, 1] + s[:, 2] * s[:, 2]
     tab = torch.zeros((8, ns + spad), dtype=torch.float32, device=s.device)
     tab[:3, :ns] = s.T
@@ -159,19 +165,32 @@ def gate_sq(max_dist) -> float:
     return float(g * g)
 
 
-def _check_frames(frames: int):
-    if frames != 1:
-        raise NotImplementedError(
-            "stacked multi-frame NN scenes (frames > 1) are not ported to "
-            "pose_refine_tpu_torch yet (ROADMAP A15)"
-        )
-
-
 def _flat(queries):
     q = torch.as_tensor(queries, dtype=torch.float32)
     if q.shape[-1] != 3:
         raise ValueError(f"queries must be (..., 3), got {tuple(q.shape)}")
     return q.reshape(-1, 3), q.shape[:-1]
+
+
+def _frame_ids(frame_id, shape, frames: int, device):
+    """The per-pose frame ids of queries of batch ``shape`` (without the
+    trailing 3) as an (N,) int32 tensor on ``device``, clamped to [0,
+    frames), and the queries per pose: a scalar id takes every query as one
+    pose, an (N,) id the leading axis as the poses (the JAX package's vmap
+    over poses, written out). None is frame 0, the JAX kernel's default."""
+    if frames < 1:
+        raise ValueError(f"frames must be >= 1, got {frames}")
+    nq = int(np.prod(shape, dtype=np.int64))
+    fid = torch.as_tensor(0 if frame_id is None else frame_id, device=device)
+    if fid.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"frame_id must be integer, got {fid.dtype}")
+    if fid.dim() == 0:
+        fid = fid.reshape(1)
+    elif fid.dim() != 1 or len(shape) < 2 or shape[0] != fid.shape[0]:
+        raise ValueError(f"frame_id {tuple(fid.shape)} must be a scalar or one id per pose "
+                         f"of (N, ..., 3) queries, got queries {tuple(shape)} + (3,)")
+    per_pose = nq // fid.shape[0] if fid.shape[0] else 0
+    return fid.clamp(0, frames - 1).to(torch.int32), per_pose
 
 
 def nn_flash_packed_plain(queries, scene_table):
@@ -183,22 +202,40 @@ def nn_flash_packed_plain(queries, scene_table):
     return idx.reshape(shape), dist.reshape(shape)
 
 
-def nn_flash_gated_plain(queries, scene_table, max_dist, frames: int = 1):
+def nn_flash_gated_plain(queries, scene_table, max_dist, frame_id=None, frames: int = 1):
     """Plain PyTorch version of the gated kernel on any device: the exact NN
     of every query (no pruning, so it needs no boxes or balls), with
     dist_sq = BIG where the NN lies outside the gate - the kernel's
     contract, under which a query is valid iff dist_sq < max_dist^2. The
     kernel agrees with it on every in-gate idx and dist_sq and on validity,
-    except within float32 rounding of the gate (see the module note)."""
-    _check_frames(frames)
+    except within float32 rounding of the gate (see the module note).
+
+    Stacked tables (``frames`` > 1): each pose's queries are scanned
+    against its frame's columns alone (``frame_id``, see nn_flash_gated),
+    never the whole stack, where another frame's or a pad column could win;
+    the index is the stacked column."""
     flat, shape = _flat(queries)
-    best, idx = _scan_plain(flat, scene_table)
+    fid, per_pose = _frame_ids(frame_id, shape, frames, flat.device)
+    rows = scene_table.shape[1] // frames
+    best = torch.full((flat.shape[0],), BIG, dtype=torch.float32, device=flat.device)
+    idx = torch.zeros((flat.shape[0],), dtype=torch.int32, device=flat.device)
+    pose_of = torch.arange(flat.shape[0], device=flat.device) // max(per_pose, 1)
+    for k in range(frames):
+        sel = (fid[pose_of] == k).nonzero()[:, 0] if frames > 1 else None
+        q = flat if sel is None else flat[sel]
+        b, i = _scan_plain(q, scene_table[:, k * rows:(k + 1) * rows])
+        i = torch.where(b < BIG, i + k * rows, 0)  # no hit: index 0, as the kernels leave it
+        if sel is None:
+            best, idx = b, i
+        else:
+            best[sel], idx[sel] = b, i
     dist = torch.clamp(best + _sum_sq(flat), min=0.0)
     dist = torch.where((best < BIG) & (dist < gate_sq(max_dist)), dist, BIG)
     return idx.reshape(shape), dist.reshape(shape)
 
 
-def _launch(flat, scene_table, boxes, balls, gate2: float, prune: bool, scanned=None):
+def _launch(flat, scene_table, boxes, balls, gate2: float, prune: bool, scanned=None,
+            frame_id=None, frames: int = 1, per_pose: int = 0):
     """Launch csrc/nn_flash.cu on the current stream, without
     synchronising. Returns (idx (Q,) int32, dist_sq (Q,) float32)."""
     dev = flat.device
@@ -207,6 +244,9 @@ def _launch(flat, scene_table, boxes, balls, gate2: float, prune: bool, scanned=
     tensors = {"queries": flat, "scene_table": scene_table}
     if prune:
         tensors.update(boxes=boxes, balls=balls)
+    if frame_id is not None and (frame_id.device != dev or frame_id.dtype != torch.int32
+                                 or frame_id.dim() != 1 or not frame_id.is_contiguous()):
+        raise ValueError(f"frame_id must be a contiguous (N,) int32 tensor on {dev}")
     for name, t in tensors.items():
         if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(
@@ -226,9 +266,16 @@ def _launch(flat, scene_table, boxes, balls, gate2: float, prune: bool, scanned=
         if balls.dim() != 2 or balls.shape[0] != 4 or balls.shape[1] == 0:
             raise ValueError(f"balls must be (4, Nb) from ball_table, got {tuple(balls.shape)}")
         n_balls = balls.shape[1]
+        if s_pad % (frames * S_CHUNK) or n_balls % frames:
+            raise ValueError(f"a table of {s_pad} columns and {n_balls} balls is not {frames} "
+                             f"equal frames of S_CHUNK={S_CHUNK} multiples")
     nq = flat.shape[0]
     if nq >= 2 ** 31 or 8 * s_pad >= 2 ** 31:
         raise ValueError(f"too large for int32 sizes: {nq} queries, {s_pad} scene columns")
+    if frame_id is not None and (frame_id.shape[0] * per_pose != nq
+                                 or frame_id.shape[0] > 65535):
+        raise ValueError(f"{frame_id.shape[0]} poses of {per_pose} queries do not cover "
+                         f"{nq} queries in at most 65535 poses")
     from pose_refine_tpu_torch._build import load_kernels
 
     lib, _info = load_kernels()
@@ -241,7 +288,8 @@ def _launch(flat, scene_table, boxes, balls, gate2: float, prune: bool, scanned=
         err = lib.prt_nn_flash(
             flat.data_ptr(), nq, scene_table.data_ptr(), s_pad,
             boxes.data_ptr() if prune else None, balls.data_ptr() if prune else None,
-            n_balls, gate2, int(prune), idx.data_ptr(), dist.data_ptr(),
+            n_balls, gate2, int(prune), None if frame_id is None else frame_id.data_ptr(),
+            frames, per_pose, idx.data_ptr(), dist.data_ptr(),
             None if scanned is None else scanned.data_ptr(), stream,
         )
     if err != 0:
@@ -258,14 +306,19 @@ def nn_flash_packed_cuda(flat, scene_table):
     return out
 
 
-def nn_flash_gated_cuda(flat, scene_table, boxes, balls, max_dist, scanned=None):
+def nn_flash_gated_cuda(flat, scene_table, boxes, balls, max_dist, scanned=None,
+                        frame_id=None, frames: int = 1, per_pose: int = 0):
     """The gated kernel on (Q, 3) CUDA queries; raises for CPU tensors.
-    ``scanned`` (ceil(Q/128),) int32, if given, receives the number of
-    chunks each query tile scanned."""
-    global gated_launches
+    ``scanned`` (one int32 per tile: ceil(Q/128), or N * ceil(per_pose/128)
+    with frame ids), if given, receives the number of chunks each query tile
+    scanned. ``frame_id`` (N,) int32 in [0, frames), if given, is the frame
+    of each pose's ``per_pose`` consecutive queries (a stacked table);
+    launches of a stacked table are also counted in ``stacked_launches``."""
+    global gated_launches, stacked_launches
     out = _launch(flat, scene_table, boxes, balls, gate_sq(max_dist), prune=True,
-                  scanned=scanned)
+                  scanned=scanned, frame_id=frame_id, frames=frames, per_pose=per_pose)
     gated_launches += 1
+    stacked_launches += frames > 1
     return out
 
 
@@ -280,17 +333,27 @@ def nn_flash_packed(queries, scene_table):
     return idx.reshape(shape), dist.reshape(shape)
 
 
-def nn_flash_gated(queries, scene_table, boxes, balls, max_dist, frames: int = 1):
+def nn_flash_gated(queries, scene_table, boxes, balls, max_dist, frame_id=None,
+                   frames: int = 1):
     """Gate-exact NN: equal to nn_flash_packed for every query whose NN lies
     within max_dist (meters, a Python float: the gate never costs a host
     synchronisation); queries with no scene point inside the gate are
     invalid (dist_sq >= max_dist^2). boxes from chunk_boxes and balls from
     ball_table, both built once per scene. CUDA: the kernel; CPU: the plain
-    version."""
-    _check_frames(frames)
+    version.
+
+    Stacked scenes: ``frames`` = K equal-width per-frame tables side by
+    side (boxes and balls frame-major), and ``frame_id`` the frame each
+    query associates against - a scalar for all queries, or an (N,) tensor
+    of one id per pose of (N, ..., 3) queries (ids are clamped to [0, K);
+    on a card they never leave it). None is frame 0. Indices come back as
+    stacked-table columns (frame-local + fid * S_pad / K)."""
     flat, shape = _flat(queries)
     if flat.device.type == "cpu":
-        return nn_flash_gated_plain(queries, scene_table, max_dist)
-    idx, dist = nn_flash_gated_cuda(flat.contiguous(), scene_table, boxes, balls, max_dist)
+        return nn_flash_gated_plain(queries, scene_table, max_dist, frame_id, frames)
+    fid, per_pose = (None, 0) if frame_id is None else \
+        _frame_ids(frame_id, shape, frames, flat.device)
+    idx, dist = nn_flash_gated_cuda(flat.contiguous(), scene_table, boxes, balls, max_dist,
+                                    frame_id=fid, frames=frames, per_pose=per_pose)
     return idx.reshape(shape), dist.reshape(shape)
 

@@ -5,6 +5,9 @@ image via the camera intrinsics (PyTorch port of
 The scene is one packed (H*W, 8) float32 table of
 [point xyz | normal xyz | 0 0] rows, so the per-point query is a single row
 gather (depth_scene.h:7-49), the kernel of ``ops/gather.py`` on a card.
+``SceneProjectiveStack`` holds K same-shape frames in one (K*H*W, 8) table
+and routes each pose to its frame by adding its frame's row offset to the
+gather index.
 """
 
 from __future__ import annotations
@@ -21,13 +24,13 @@ from pose_refine_tpu_torch.ops.normals import estimate_normals
 
 
 def _build_projective_table(depth: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
-    """Points + normals of an (H, W) depth image as the packed (H*W, 8)
-    table."""
+    """Points + normals of an (H, W) depth image, or of a (K, H, W) stack
+    of them, as the packed (H*W, 8) or (K*H*W, 8) table."""
     pts, _mask = depth_image_to_points(depth, K)
     nrm = estimate_normals(depth, K)
-    h, w = pts.shape[:2]
-    pad = torch.zeros((h * w, 2), dtype=torch.float32, device=pts.device)
-    return torch.cat([pts.reshape(-1, 3), nrm.reshape(-1, 3), pad], dim=1)
+    pts, nrm = pts.reshape(-1, 3), nrm.reshape(-1, 3)
+    pad = torch.zeros((pts.shape[0], 2), dtype=torch.float32, device=pts.device)
+    return torch.cat([pts, nrm, pad], dim=1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,12 +94,13 @@ class SceneProjective:
         )
 
 
-def _project_gate(table, K, max_dist_diff, h: int, w: int, src, base: int = 0,
+def _project_gate(table, K, max_dist_diff, h: int, w: int, src, base=0,
                   gather=gather_rows):
     """The projective query core (depth_scene.h:29-48): pcd2dep rounding
     (truncation toward zero), pixel bounds check, one packed row gather at
-    the clipped pixel (offset by ``base`` rows for stacked tables), scene
-    z > 0 and |dz| <= gate."""
+    the clipped pixel (offset by ``base`` rows for stacked tables: an int,
+    or a tensor broadcast against the pixel index), scene z > 0 and |dz| <=
+    gate."""
     xyd = geometry.pcd2dep(src, K)
     x, y = xyd[..., 0], xyd[..., 1]
     inb = (x >= 0) & (x < w) & (y >= 0) & (y < h)
@@ -106,3 +110,70 @@ def _project_gate(table, K, max_dist_diff, h: int, w: int, src, base: int = 0,
     nrm = rows[..., 3:6]
     valid = inb & (dst[..., 2] > 0) & ((src[..., 2] - dst[..., 2]).abs() <= max_dist_diff)
     return dst, nrm, valid
+
+
+@dataclasses.dataclass(frozen=True)
+class SceneProjectiveStack:
+    """K same-shape projective scene frames in one flat (K*H*W, 8) table,
+    addressed per pose by a scene id (JAX projective.py:117-196).
+
+    The reference runs concurrent ICPs against different scene frames on
+    one CUDA stream each (README.md:15); here one batch serves them all:
+    each pose's row gather is offset by its frame's H*W rows, so a pose
+    costs the same gather as against a single scene."""
+
+    table: torch.Tensor          # (K*H*W, 8) float32: [pcd xyz, normal xyz, 0, 0]
+    K: torch.Tensor              # (3, 3) float32 (one camera)
+    max_dist_diff: torch.Tensor  # () float32
+    height: int = 480
+    width: int = 640
+    n_scenes: int = 1
+
+    @classmethod
+    def from_depths(cls, depths, K, max_dist_diff: float = 0.1,
+                    device: DeviceLike = None) -> "SceneProjectiveStack":
+        """Build from (K, H, W) mm depth frames: the per-frame dep2pcd and
+        LINEMOD normals of SceneProjective.from_depth, batched over the
+        frames, on ``device``."""
+        dev = resolve_device(device)
+        depths = torch.as_tensor(depths, device=dev)
+        if depths.dim() != 3:
+            raise ValueError(f"from_depths wants (K, H, W) frames, got {tuple(depths.shape)}")
+        k, h, w = depths.shape
+        K = torch.as_tensor(K, dtype=torch.float32, device=dev)
+        return cls(
+            table=_build_projective_table(depths, K),
+            K=K,
+            max_dist_diff=torch.full((), float(max_dist_diff), dtype=torch.float32, device=dev),
+            height=int(h),
+            width=int(w),
+            n_scenes=int(k),
+        )
+
+    def lane(self, i: int) -> SceneProjective:
+        """Frame ``i`` as a standalone SceneProjective (a view of its rows):
+        the parity anchor, refine(scene_ids=ids) equals refining each pose
+        against its lane."""
+        hw = self.height * self.width
+        return SceneProjective(table=self.table[i * hw:(i + 1) * hw], K=self.K,
+                               max_dist_diff=self.max_dist_diff, height=self.height,
+                               width=self.width)
+
+    def query_at(self, sids, plain: bool = False):
+        """The query bound to per-pose scene ids: ``sids`` a scalar or an
+        (N,) integer tensor (one id per pose of (N, ..., 3) sources),
+        clamped to [0, n_scenes) on its device - ids on a card are checked
+        by shape only and never read back, so an out-of-range id associates
+        against the nearest frame (JAX projective.py:177-196). Returns
+        query(src) -> (dst, normal, valid). plain=True gathers with the
+        kernel's plain version."""
+        sids = torch.as_tensor(sids, device=self.table.device)
+        base = sids.clamp(0, self.n_scenes - 1).to(torch.int64) * (self.height * self.width)
+        gather = gather_rows_plain if plain else gather_rows
+
+        def query(src):
+            b = base.reshape(base.shape + (1,) * (src.dim() - 1 - base.dim()))
+            return _project_gate(self.table, self.K, self.max_dist_diff, self.height,
+                                 self.width, src, base=b, gather=gather)
+
+        return query

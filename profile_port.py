@@ -14,6 +14,11 @@ around one refine, the number of device kernels, their summed time and
 its share of the unprofiled wall time (the device busy share); then the
 eight kernels with the most device time.
 
+Then the stacked-scene cells multiscene-proj-4x64 and multiscene-nn-4x64
+(chip_smoke.py's [multiscene] workload: 4 frames x 64 hypotheses in one
+refine with scene ids) and the multi-model cell multimodel-256 (256
+hypotheses of two meshes against the bench scene), with the same line.
+
 Then the tracking cells, one frame of bench.py's tracking workload (16
 hypotheses, chip_smoke.TRACK_CONFIGS: projective, and NN with a 2 mm
 voxel): the whole track() (with the covariance and the packed session
@@ -88,7 +93,7 @@ def main():
     from pose_refine_tpu_torch import geometry, icp, mesh
     from pose_refine_tpu_torch.ops import rasterize_cuda as RC
     from pose_refine_tpu_torch.ops.depth_to_cloud import compact_topk, window_cloud_batched
-    from pose_refine_tpu_torch.scene.nn import SceneNN
+    from pose_refine_tpu_torch.scene.nn import SceneNN, SceneNNStack
     from pose_refine_tpu_torch.scene.projective import SceneProjective
 
     def lift_fn(ref, depth, nn: bool):
@@ -114,29 +119,61 @@ def main():
     cells += [(f"nn-{label}", dict(scene="nn_bruteforce", **kw), iters)
               for label, kw, iters in CS.NN_CONFIGS]
 
-    for cell, kw, iters in cells:
-        ref = ptt.PoseRefiner(model, K=K, device="cuda", **kw, **CS.CFG)
-        t0 = time.perf_counter()
-        ref.set_scene_depth(scene)
-        torch.cuda.synchronize()
-        build_ms = (time.perf_counter() - t0) * 1e3
-        crit = ptt.ICPConvergenceCriteria(max_iteration=iters)
-        ref.refine(poses, crit)  # warm
-        wall_ms, span_ms = CS.refine_ms(torch, lambda: ref.refine(poses, crit))
-
+    def refine_cell(cell, ref, build_ms, refine, tris, hyps, query, crit):
+        """One refine cell's line: wall, device span, stages, profile."""
+        nn = isinstance(ref.scene, (SceneNN, SceneNNStack))
+        refine()  # warm
+        wall_ms, span_ms = CS.refine_ms(torch, refine)
         rw, rh = ref.render_w, ref.render_h
         raster_ms, depth = event_ms(
-            torch, lambda: RC.rasterize(ref.tris, poses, rw, rh, ref.proj, roi=ref.roi))
-        lift_ms, (clouds, valids, _) = event_ms(torch, lift_fn(ref, depth, cell != "projective"))
-        icp_ms, _ = event_ms(torch, lambda: icp._icp_run(clouds, valids, ref.scene.query, crit))
-        query_ms, _ = event_ms(torch, lambda: ref.scene.query(clouds), reps=10)
+            torch, lambda: RC.rasterize(tris, hyps, rw, rh, ref.proj, roi=ref.roi))
+        lift_ms, (clouds, valids, _) = event_ms(torch, lift_fn(ref, depth, nn))
+        icp_ms, _ = event_ms(torch, lambda: icp._icp_run(clouds, valids, query, crit))
+        query_ms, _ = event_ms(torch, lambda: query(clouds), reps=10)
         pts = getattr(ref.scene, "points", None)
         size = f"{pts.shape[0]} points" if pts is not None else "projective"
-        print_kernels(torch, cell, lambda: ref.refine(poses, crit), wall_ms,
+        print_kernels(torch, cell, refine, wall_ms,
                       f"scene {size}, build_ms={build_ms} wall_ms={wall_ms} "
-                      f"device_span_ms={span_ms} poses_per_s={CS.N_POSES / wall_ms * 1e3} "
+                      f"device_span_ms={span_ms} poses_per_s={hyps.shape[0] / wall_ms * 1e3} "
                       f"raster_ms={raster_ms} lift_ms={lift_ms} icp_ms={icp_ms} "
                       f"one_query_ms={query_ms}")
+
+    def built(ref, build):
+        """(refiner, host ms of build(refiner), its scene build)."""
+        t0 = time.perf_counter()
+        build(ref)
+        torch.cuda.synchronize()
+        return ref, (time.perf_counter() - t0) * 1e3
+
+    for cell, kw, iters in cells:
+        ref, build_ms = built(ptt.PoseRefiner(model, K=K, device="cuda", **kw, **CS.CFG),
+                              lambda r: r.set_scene_depth(scene))
+        crit = ptt.ICPConvergenceCriteria(max_iteration=iters)
+        refine_cell(cell, ref, build_ms, lambda: ref.refine(poses, crit), ref.tris, poses,
+                    ref.scene.query, crit)
+
+    # the stacked-scene and multi-model cells (chip_smoke.py's [multiscene],
+    # [multiscene-nn] and [multimodel])
+    crit = ptt.ICPConvergenceCriteria(max_iteration=CS.ITERS)
+    ms_mesh, _truths, ms_frames, ms_hyps, ms_ids = CS.multiscene_workload(
+        geometry, mesh, lambda tris, p: RC.rasterize(
+            torch.as_tensor(tris, device=dev), torch.as_tensor(p, device=dev), CS.WIDTH,
+            CS.HEIGHT, proj))
+    ms_hyps, ms_ids = torch.as_tensor(ms_hyps, device=dev), torch.as_tensor(ms_ids, device=dev)
+    for cell, kw in (("multiscene-proj-4x64", dict()),
+                     ("multiscene-nn-4x64", dict(scene="nn_bruteforce", scene_voxel_mm=2.0))):
+        ref, build_ms = built(ptt.PoseRefiner(ms_mesh, K=K, device="cuda", **kw, **CS.CFG),
+                              lambda r: r.set_scene_depths(ms_frames))
+        refine_cell(cell, ref, build_ms, lambda: ref.refine(ms_hyps, crit, scene_ids=ms_ids),
+                    ref.tris, ms_hyps, ref.scene.query_at(ms_ids), crit)
+    other = mesh.make_bumpy_sphere(radius=60.0, subdivisions=4)
+    mm_ids = np.array([0, 1] * (CS.N_POSES // 2), np.int32)
+    ref, build_ms = built(ptt.MultiModelRefiner(
+        [model, other], K=K, device="cuda", render_scale=2, max_points=2048, window=128,
+        stride=2, decimate_mm=2.0), lambda r: r.set_scene_depth(scene))
+    mm_tris = ref._per_pose_tris(mm_ids, poses)[0]
+    refine_cell("multimodel-256", ref, build_ms, lambda: ref.refine(mm_ids, poses, criteria=crit),
+                mm_tris, poses, ref.scene.query, crit)
 
     # the tracking cells: one frame of bench.py's tracking workload
     _truths, frames = CS.track_frames(

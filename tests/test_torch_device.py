@@ -21,7 +21,8 @@ from pose_refine_tpu_torch import _build, geometry, mesh
 from pose_refine_tpu_torch.ops import gather as G
 from pose_refine_tpu_torch.ops import rasterize_cuda as RC
 from pose_refine_tpu_torch.scene import nn_flash as NF
-from pose_refine_tpu_torch.scene.nn import SceneNN
+from pose_refine_tpu_torch.scene import nn_mxu as NM
+from pose_refine_tpu_torch.scene.nn import SceneNN, SceneNNStack
 from pose_refine_tpu_torch.utils.metrics import rotation_angle_deg
 
 torch.set_num_threads(2)
@@ -73,6 +74,8 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         NF.nn_flash_packed_cuda(torch.zeros((3, 3)), table)
     with pytest.raises(ValueError, match="CUDA tensors"):
         G.gather_rows_cuda(torch.zeros((4, 8)), torch.zeros(3, dtype=torch.int64))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        NM.nn_flash_mxu_cuda(torch.zeros((3, 3)), NM.pack_scene_mxu(torch.zeros((5, 3))))
 
 
 def test_nn_scene_on_cuda_raises_without_card(no_card):
@@ -93,7 +96,8 @@ def test_build_without_nvcc_raises(no_card):
 def test_build_key_covers_sources_and_flags():
     key = _build.build_info_key()
     assert len(key) == 16 and key == _build.build_info_key()
-    assert [p.name for p in _build._sources()] == ["gather.cu", "nn_flash.cu", "rasterize.cu"]
+    assert [p.name for p in _build._sources()] == ["gather.cu", "nn_flash.cu", "nn_mxu.cu",
+                                                   "rasterize.cu"]
 
 
 def test_package_imports_without_jax():
@@ -257,3 +261,94 @@ def test_track_through_kernels_on_card(card, scene):
     assert rotation_angle_deg(a, b).max() <= 0.1
     assert np.abs(a[:, :3, 3] - b[:, :3, 3]).max() <= 0.2
     assert float((res.fitness - p_res.fitness).abs().max()) <= 5e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gate", [0.1, 0.005])
+def test_stacked_nn_kernel_matches_plain_on_card(card, gate):
+    """B3 over a stack of three frames of different sizes, 6 poses of 1,000
+    queries (not a tile multiple, so a flat grid would mix frames), frame
+    ids out of range included (clamped): equal to its plain version on
+    every in-gate query outside the gate's rounding band and on validity,
+    and to single-frame B3 on each frame's own table, indices offset by
+    the frame's first column."""
+    rng = np.random.default_rng(4)
+    clouds = [(rng.normal(size=(n, 3)) * [0.04, 0.04, 0.02] + [0, 0, 0.3 + 0.01 * k])
+              .astype(np.float32) for k, n in enumerate((3000, 5000, 1700))]
+    stack = SceneNNStack.from_clouds(clouds, clouds, gate, device=card)
+    fid = torch.tensor([0, 1, 2, 1, -4, 9], dtype=torch.int32, device=card)
+    src = np.stack([clouds[min(max(int(f), 0), 2)][rng.integers(0, 1700, 1000)]
+                    for f in fid.cpu()]) + rng.normal(0, 0.004, (6, 1000, 3))
+    src[3, :200] += 1.0  # whole tiles with no in-gate neighbour
+    q = torch.as_tensor(src.astype(np.float32), device=card)
+    before = (NF.gated_launches, NF.stacked_launches)
+    gi, gd = NF.nn_flash_gated(q, stack.flash_table, stack.flash_boxes, stack.flash_balls,
+                               gate, frame_id=fid, frames=3)
+    torch.cuda.synchronize()
+    assert (NF.gated_launches, NF.stacked_launches) == (before[0] + 1, before[1] + 1)
+    pi, pd = NF.nn_flash_gated_plain(q, stack.flash_table, gate, frame_id=fid, frames=3)
+    g2 = NF.gate_sq(gate)
+    sure = (pd - g2).abs() > (q * q).sum(-1) * 2.0 ** -20
+    inside = (pd < g2) & sure
+    assert 0 < int(inside.sum()) < q[..., 0].numel()
+    assert torch.equal(gi[inside], pi[inside]) and torch.equal(gd[inside], pd[inside])
+    assert torch.equal((gd < g2)[sure], (pd < g2)[sure])
+    rows = stack.frame_rows
+    for n, f in enumerate(fid.clamp(0, 2).tolist()):
+        one = SceneNN.from_cloud(clouds[f], clouds[f], gate, device=card)
+        si, sd = NF.nn_flash_gated(q[n], one.flash_table, one.flash_boxes, one.flash_balls, gate)
+        m = inside[n]
+        assert torch.equal(gi[n][m], si[m] + f * rows) and torch.equal(gd[n][m], sd[m])
+
+
+@pytest.mark.cuda
+def test_mxu_kernel_matches_plain_on_card(card):
+    """P1 against its plain version (float64 product) and against B2 on a
+    structured cloud: every idx disagreement is a near-tie and every dist^2
+    within the band (scene/nn_mxu.py). The band is ~1.2e-7 m^2 in dist^2,
+    tens of um in distance at a 1 mm neighbour, so disagreements are a
+    fraction of a percent here (75 of 70,001 against the plain version on
+    an H100); the count bound only catches a kernel gone astray."""
+    rng = np.random.default_rng(6)
+    pts = (rng.normal(size=(20000, 3)) * [0.05, 0.05, 0.02] + [0, 0, 0.3]).astype(np.float32)
+    pts = pts[np.lexsort((pts[:, 0], pts[:, 1], pts[:, 2]))]
+    q = torch.as_tensor((pts[rng.integers(0, 20000, 70001)]
+                         + rng.normal(0, 0.003, (70001, 3))).astype(np.float32), device=card)
+    table = NM.pack_scene_mxu(pts).to(card)
+    before = NM.launches
+    ki, kd = NM.nn_flash_mxu(q, table)
+    torch.cuda.synchronize()
+    assert NM.launches == before + 1 and ki.dtype == torch.int32 and kd.shape == (70001,)
+    pi, pd = NM.nn_flash_mxu_plain(q, table)
+    n_diff, ties_ok, dist_ok = NM.near_ties(q, pts, ki, kd, pi, pd)
+    assert ties_ok and dist_ok and n_diff < 700
+    bi, bd = NF.nn_flash_packed(q, NF.pack_scene(pts).to(card))
+    n_diff, ties_ok, dist_ok = NM.near_ties(q, pts, ki, kd, bi, bd)
+    assert ties_ok and dist_ok and n_diff < 700
+
+
+@pytest.mark.cuda
+def test_padding_triangles_write_no_pixel_on_card(card):
+    """A MultiModelRefiner's zero-area padding triangles get an empty box and
+    write no pixel in the raster kernel: the smaller mesh rendered through
+    its padded row of the (M, T, 3, 3) table equals its own render, for a
+    per-pose batch of both models."""
+    K = geometry.LINEMOD_K
+    big = mesh.make_bumpy_sphere(radius=50.0, subdivisions=3)
+    small = mesh.make_icosphere(radius=30.0, subdivisions=2)
+    ref = ptt.MultiModelRefiner([big, small], K=K, device=card, decimate_mm=0.0)
+    n_small = len(small.tris)
+    assert ref.tris_table.shape[1] > n_small
+    pose = geometry.pose_from_Rt(np.eye(3, dtype=np.float32),
+                                 np.array([0, 0, 300], np.float32)).to(card)
+    poses = pose[None].expand(4, 4, 4).contiguous()
+    ids = [0, 1, 1, 0]
+    tris, _poses, _squeeze = ref._per_pose_tris(ids, poses)
+    before = RC.launches
+    got = RC.rasterize(tris, poses, 640, 480, ref.proj)
+    torch.cuda.synchronize()
+    assert RC.launches == before + 1
+    alone = RC.rasterize(ref.tris_table[1, :n_small], pose[None], 640, 480, ref.proj)[0]
+    assert int((alone > 0).sum()) > 1000
+    assert torch.equal(got[1], alone) and torch.equal(got[2], alone)
+    assert not torch.equal(got[0], alone)

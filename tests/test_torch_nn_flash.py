@@ -160,5 +160,15 @@ def test_wrappers_refuse_what_they_cannot_launch():
         NF.nn_flash_packed_cuda(q, table)
     with pytest.raises(ValueError, match="CUDA tensors"):
         NF.nn_flash_gated_cuda(q, table, NF.chunk_boxes(table), NF.ball_table(table), 0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
-        NF.nn_flash_gated(q, table, NF.chunk_boxes(table), NF.ball_table(table), 0.1, frames=2)
+    # frames=2 without frame_id windows to frame 0, JAX's default fid
+    # (nn_pallas.py:444-446): a stack whose frame 1 holds the queries'
+    # points finds nothing for them in the gate
+    near = np.full((128, 3), 0.3, np.float32)
+    stacked = torch.cat([table, NF.pack_scene(near)], dim=1)
+    q = torch.full((4, 3), 0.3)
+    idx, dist = NF.nn_flash_gated(q, stacked, NF.chunk_boxes(stacked), NF.ball_table(stacked),
+                                  0.1, frames=2)
+    assert (dist == NF.BIG).all()
+    idx, dist = NF.nn_flash_gated(q, stacked, NF.chunk_boxes(stacked), NF.ball_table(stacked),
+                                  0.1, frame_id=1, frames=2)
+    assert (idx == 128).all() and (dist == 0.0).all()

@@ -234,7 +234,9 @@ def test_unported_nn_options_raise(kwargs, item):
 
 
 def test_set_scene_depths_raises():
+    """set_scene_depths takes (K, H, W) frames; one (H, W) frame is the JAX
+    package's ValueError (tests/test_multiscene.py:144)."""
     ref = ptt.PoseRefiner(mesh.make_icosphere(40.0, 1), K=small_K(), width=W, height=H,
                           device="cpu", scene="nn")
-    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
-        ref.set_scene_depths(np.zeros((2, H, W), np.int32))
+    with pytest.raises(ValueError, match="K, H, W"):
+        ref.set_scene_depths(np.zeros((H, W), np.int32))

@@ -220,6 +220,9 @@ def test_failed_step_leaves_session_unchanged(session_setup, monkeypatch):
     assert session.flush().accepted and session.n_frames == 2
 
 
-def test_multi_object_session_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
-        ptt.MultiObjectSession(None, [])
+def test_multi_object_session_raises(bumpy):
+    """A MultiObjectSession needs a MultiModelRefiner (JAX
+    tests/test_tracking.py:269)."""
+    ref = ptt.PoseRefiner(bumpy, K=small_K(), device="cpu", **SESSION_CFG)
+    with pytest.raises(ValueError, match="MultiModelRefiner"):
+        ptt.MultiObjectSession(ref, [(0, np.eye(4, dtype=np.float32))])
