@@ -32,7 +32,11 @@ non-zero without printing a result:
               rounded dist^2 lies within float32 rounding of the gate are
               counted apart (see gate_band). Median times of
               kernel and plain, and the share of chunks the gated kernel
-              skipped.
+              skipped. Then the tie-stress inputs of probes/nn_ties.py
+              (equal scores across the scan's group, warp-part and chunk
+              boundaries, scores of +-0, pad columns, partial tiles) through
+              nn_flash_packed, nn_flash_gated and the stacked nn_flash_gated:
+              bit for bit.
   7. nn-slice - PoseRefiner(scene="nn_bruteforce") on the bench workload in
               bench.py's three NN configurations (2 mm voxel scene, raw
               cloud, cascade (2.0, 16) + 4 full-resolution iterations); the
@@ -60,6 +64,9 @@ non-zero without printing a result:
               CUDA calls of one steady-state step_async, n_rejected, final
               errors; the first frame through the kernels must agree with
               the same frame through the plain versions (raster, NN, gather).
+              For the NN scene, nn_flash_gated alone at the tracking shape
+              (the first frame's first-pass queries against its device-built
+              scene): against its plain version, time, chunks skipped, bound.
  11. track-golden - tests/test_tracking.py's drift recipe on the bumpy
               sphere at 640x480, 5 frames, both scene kinds: every frame
               accepted, final rotation error < 1 deg, translation < 6 mm.
@@ -255,17 +262,77 @@ def gate_band(queries, dist_sq, g2):
     return (dist_sq - g2).abs() <= qq * 2.0 ** -20
 
 
+def first_pass_queries(torch, ptt, refine_poses, ref, scene, poses):
+    """The (N * max_points, 3) lifted points that ``ref``'s refine of
+    ``poses`` sends to ``scene`` in its first association pass (captured
+    through the query override; 0 iterations = the scoring pass alone)."""
+    seen = []
+
+    def capture(src):
+        seen.append(src.reshape(-1, 3).contiguous().clone())
+        return scene.query(src)
+
+    refine_poses(ref.tris, poses, scene, ref.proj, ref._K_render_t, width=ref.render_w,
+                 height=ref.render_h, max_points=ref.max_points,
+                 criteria=ptt.ICPConvergenceCriteria(max_iteration=0), window=ref.window,
+                 stride=ref.stride, roi=ref.roi, query=capture)
+    return seen[0]
+
+
+def gated_kernel_check(torch, NF, name, label, queries, sc, gate, full=None):
+    """B3 against its plain version on one (queries, scene, gate): idx and
+    dist^2 bit for bit on the in-gate queries outside the gate's rounding
+    band, validity outside it, and (with ``full`` = B2's (idx, dist^2))
+    gated == full scan in the gate. Prints one [name] line; returns the
+    kernel's stats, its bound from the chunks it scanned, and max_abs_err."""
+    table, boxes, balls = sc.flash_table, sc.flash_boxes, sc.flash_balls
+    nq, n_chunks, g2 = queries.shape[0], table.shape[1] // NF.S_CHUNK, NF.gate_sq(gate)
+    scanned = torch.empty(-(-nq // NF.Q_TILE), dtype=torch.int32, device=queries.device)
+    gk_ms, (gi, gd) = median_ms(torch, lambda: NF.nn_flash_gated_cuda(
+        queries, table, boxes, balls, gate, scanned=scanned), 20)
+    gp_ms, (qi, qd) = median_ms(torch, lambda: NF.nn_flash_gated_plain(queries, table, gate), 1,
+                                warm=0)
+    # the band is drawn around the ungated dist^2: the full scan's where
+    # given, else the plain gated one (BIG outside the gate, never in the band)
+    band = gate_band(queries, qd if full is None else full[1], g2)
+    inside = (qd < g2) & ~band
+    n_in = int(inside.sum())
+    err = float((gd[inside] - qd[inside]).abs().max()) if n_in else 0.0
+    idx_bad = int((gi[inside] != qi[inside]).sum())
+    valid_bad = int((((gd < g2) != (qd < g2)) & ~band).sum())
+    band_diff = int((band & ((gi != qi) | ((gd < g2) != (qd < g2)))).sum())
+    skipped = 1.0 - float(scanned.sum()) / (scanned.numel() * n_chunks)
+    g_bound = nn_bound(nq, float(scanned.sum()) * NF.S_CHUNK * NF.Q_TILE, balls.shape[1])
+    vs_full = ""
+    if full is not None:
+        n_full = int((gi[inside] != full[0][inside]).sum() + (gd[inside] != full[1][inside]).sum())
+        vs_full = f"vs_full_scan_mismatch={n_full} "
+        check(n_full == 0, f"nn_flash_gated {label} {gate}: gated != full scan in the gate")
+    phase(name, f"nn_flash_gated {label}, {table.shape[1]} columns ({n_chunks} chunks) x {nq} "
+          f"queries, gate {gate} m: in_gate={n_in}/{nq} "
+          f"gate_band={int(band.sum())} (of which differ {band_diff}) "
+          f"idx_mismatch={idx_bad} validity_mismatch={valid_bad} {vs_full}max_abs_err={err} "
+          f"chunks_skipped={skipped} kernel_ms={gk_ms} plain_ms={gp_ms} "
+          f"bound_ms={g_bound['bound_ms']}")
+    check(0 < n_in, f"nn_flash_gated {label} {gate}: no in-gate query")
+    check(idx_bad == 0 and err == 0.0 and valid_bad == 0,
+          f"nn_flash_gated {label} {gate}: kernel != plain")
+    return dict(ms=gk_ms, plain_ms=gp_ms, max_abs_err=err, chunks_skipped=skipped, **g_bound)
+
+
 def nn_kernel_phase(torch, NF, SceneNN, K, scene_depth, queries):
     """Both flash-NN kernels against their plain versions on the first-pass
     queries; returns {kernel name: stats of the 2 mm scene at the 0.1 m
-    gate, with max_abs_err over every comparison}."""
+    gate, with max_abs_err over every comparison and the raw scene's time
+    and bound as raw_ms / raw_bound_ms}."""
     dev = queries.device
     nq = queries.shape[0]
     out = {}
     max_err = {"nn_flash_packed": 0.0, "nn_flash_gated": 0.0}
+    raw = {}
     for label, voxel in (("raw", 0.0), ("2mm", 2.0)):
         sc = SceneNN.from_depth(scene_depth, K, 0.1, voxel_mm=voxel, device=dev)
-        table, boxes, balls = sc.flash_table, sc.flash_boxes, sc.flash_balls
+        table = sc.flash_table
         n_chunks = table.shape[1] // NF.S_CHUNK
         p_ms, (pi, pd) = median_ms(torch, lambda: NF.nn_flash_packed_plain(queries, table), 1,
                                    warm=0)
@@ -282,40 +349,52 @@ def nn_kernel_phase(torch, NF, SceneNN, K, scene_depth, queries):
               f"nn_flash_packed {label}: kernel != plain")
         if label == "2mm":
             out["nn_flash_packed"] = dict(ms=k_ms, plain_ms=p_ms, **p_bound)
+        else:
+            raw["nn_flash_packed"] = dict(raw_ms=k_ms, raw_bound_ms=p_bound["bound_ms"])
         for gate in NN_GATES:
-            g2 = NF.gate_sq(gate)
-            scanned = torch.empty(-(-nq // NF.Q_TILE), dtype=torch.int32, device=dev)
-            gk_ms, (gi, gd) = median_ms(torch, lambda: NF.nn_flash_gated_cuda(
-                queries, table, boxes, balls, gate, scanned=scanned), 20)
-            gp_ms, (qi, qd) = median_ms(torch, lambda: NF.nn_flash_gated_plain(
-                queries, table, gate), 1, warm=0)
-            band = gate_band(queries, pd, g2)
-            inside = (qd < g2) & ~band
-            n_in = int(inside.sum())
-            err = float((gd[inside] - qd[inside]).abs().max()) if n_in else 0.0
-            idx_bad = int((gi[inside] != qi[inside]).sum())
-            valid_bad = int((((gd < g2) != (qd < g2)) & ~band).sum())
-            vs_full = int((gi[inside] != ki[inside]).sum() + (gd[inside] != kd[inside]).sum())
-            band_diff = int((band & ((gi != qi) | ((gd < g2) != (qd < g2)))).sum())
-            skipped = 1.0 - float(scanned.sum()) / (scanned.numel() * n_chunks)
-            pairs = float(scanned.sum()) * NF.S_CHUNK * NF.Q_TILE
-            g_bound = nn_bound(nq, pairs, balls.shape[1])
-            max_err["nn_flash_gated"] = max(max_err["nn_flash_gated"], err)
-            phase("nn-kernel", f"nn_flash_gated {label} scene, gate {gate} m: in_gate={n_in}/{nq} "
-                  f"gate_band={int(band.sum())} (of which differ {band_diff}) "
-                  f"idx_mismatch={idx_bad} validity_mismatch={valid_bad} "
-                  f"vs_full_scan_mismatch={vs_full} max_abs_err={err} "
-                  f"chunks_skipped={skipped} kernel_ms={gk_ms} plain_ms={gp_ms} "
-                  f"bound_ms={g_bound['bound_ms']}")
-            check(0 < n_in, f"nn_flash_gated {label} {gate}: no in-gate query")
-            check(idx_bad == 0 and err == 0.0 and valid_bad == 0,
-                  f"nn_flash_gated {label} {gate}: kernel != plain")
-            check(vs_full == 0, f"nn_flash_gated {label} {gate}: gated != full scan in the gate")
+            g = gated_kernel_check(torch, NF, "nn-kernel", f"{label} scene", queries, sc, gate,
+                                   full=(ki, kd))
+            max_err["nn_flash_gated"] = max(max_err["nn_flash_gated"], g.pop("max_abs_err"))
+            g.pop("chunks_skipped")
             if label == "2mm" and gate == 0.1:
-                out["nn_flash_gated"] = dict(ms=gk_ms, plain_ms=gp_ms, **g_bound)
+                out["nn_flash_gated"] = g
+            elif gate == 0.1:
+                raw["nn_flash_gated"] = dict(raw_ms=g["ms"], raw_bound_ms=g["bound_ms"])
     for name, e in max_err.items():
-        out[name]["max_abs_err"] = e
+        out[name].update(raw[name], max_abs_err=e)
     return out
+
+
+def nn_tie_phase(torch, NF, nn_ties, dev):
+    """The tie-stress inputs (probes/nn_ties.py) through B2, B3 and stacked
+    B3 against their plain versions: idx and dist^2 bit for bit on every
+    query (the gate holds them all, none within its rounding band)."""
+    gate, g2 = nn_ties.GATE_M, NF.gate_sq(nn_ties.GATE_M)
+    done = []
+    for name, (table, q) in nn_ties.cases().items():
+        table, q = table.to(dev), q.to(dev)
+        both = nn_ties.stacked(table)
+        pairs = q.reshape(2, -1, 3)
+        fid = torch.tensor([0, 1], dtype=torch.int32, device=dev)
+        runs = {
+            "packed": (NF.nn_flash_packed(q, table), NF.nn_flash_packed_plain(q, table)),
+            "gated": (NF.nn_flash_gated(q, table, NF.chunk_boxes(table), NF.ball_table(table),
+                                        gate),
+                      NF.nn_flash_gated_plain(q, table, gate)),
+            "stacked": (NF.nn_flash_gated(pairs, both, NF.chunk_boxes(both), NF.ball_table(both),
+                                          gate, frame_id=fid, frames=2),
+                        NF.nn_flash_gated_plain(pairs, both, gate, frame_id=fid, frames=2)),
+        }
+        torch.cuda.synchronize()
+        for kernel, ((ki, kd), (pi, pd)) in runs.items():
+            check(bool((pd < g2).all()) and not bool(gate_band(q, pd.reshape(-1), g2).any()),
+                  f"tie-stress {name}: a query outside the gate or in its band")
+            check(torch.equal(ki, pi) and torch.equal(kd.view(torch.int32), pd.view(torch.int32)),
+                  f"tie-stress {name}: {kernel} kernel != plain "
+                  f"({int((ki != pi).sum())} idx, {int((kd != pd).sum())} dist^2 differ)")
+        done.append(f"{name} ({table.shape[1]} columns x {q.shape[0]} queries)")
+    phase("nn-kernel", f"tie-stress inputs, B2 / B3 / stacked B3 == plain bit for bit on idx and "
+          f"dist^2: {', '.join(done)}")
 
 
 def gather_phase(torch, G, tables):
@@ -441,12 +520,20 @@ def raster_bound(coef, out_w, out_h, height, roi):
 
 
 def nn_bound(nq, pairs, n_balls=0):
-    """B2/B3's bound: 6 FP32 instructions per scored (query, point) pair
-    (|s|^2 - 2 q.s as 3 FMAs with -2q taken once, the compare, the selects
-    of score and index) and, for B3, 8 per (query, ball) of the first pass;
-    the queries read and the outputs written are bytes the operations
-    dwarf."""
-    return bound(n_bytes=nq * (12 + 8), n_instr=6 * pairs + 8 * nq * n_balls)
+    """B2/B3's bound: 4 FP32 instructions per scored (query, point) pair,
+    what the least kernel of this function must issue: |s|^2 - 2 q.s as 3
+    FMAs (-2q taken once) and one min of the score. A strict-`<` argmin
+    needs no compare or select per pair (the same argument as for
+    nn_flash_mxu's 2 a pair): the compare that finds the groups that improve
+    the minimum is shared by a group of points (csrc/nn_flash.cu spends 2
+    instructions per 16 pairs on it, 0.125 a pair) and goes to nothing as
+    the group grows, so it is the kernel's cost and not the bound's. So is
+    the fourth arithmetic instruction of the bit-exact kernel, which rounds
+    q'y*sy apart as the reference does (FMUL, 2 FFMA, FADD). For B3, 8 more
+    per (query, ball) of the first pass; the queries read and the outputs
+    written are bytes the operations dwarf. A kernel that reads under this
+    bound means the bound is wrong."""
+    return bound(n_bytes=nq * (12 + 8), n_instr=4 * pairs + 8 * nq * n_balls)
 
 
 def multiscene_workload(geometry, mesh, raster):
@@ -558,7 +645,7 @@ def main():
     from pose_refine_tpu_torch.ops import gather as G
     from pose_refine_tpu_torch.ops import rasterize_cuda as RC
     from pose_refine_tpu_torch.pipeline import refine_poses
-    from pose_refine_tpu_torch.probes import mxu_nn
+    from pose_refine_tpu_torch.probes import mxu_nn, nn_ties
     from pose_refine_tpu_torch.scene import nn_flash as NF
     from pose_refine_tpu_torch.scene import nn_mxu as NM
     from pose_refine_tpu_torch.scene.nn import SceneNN
@@ -709,20 +796,11 @@ def main():
     nn_ref = ptt.PoseRefiner(model, K=K, device="cuda", scene="nn_bruteforce",
                              scene_voxel_mm=2.0, **CFG)
     nn_ref.set_scene_depth(scene)
-    seen = []
-
-    def capture(src):
-        seen.append(src.reshape(-1, 3).clone())
-        return nn_ref.scene.query(src)
-
-    refine_poses(nn_ref.tris, poses, nn_ref.scene, nn_ref.proj, nn_ref._K_render_t,
-                 width=nn_ref.render_w, height=nn_ref.render_h, max_points=nn_ref.max_points,
-                 criteria=ptt.ICPConvergenceCriteria(max_iteration=0), window=nn_ref.window,
-                 stride=nn_ref.stride, roi=nn_ref.roi, query=capture)
-    queries = seen[0]
+    queries = first_pass_queries(torch, ptt, refine_poses, nn_ref, nn_ref.scene, poses)
     check(queries.shape == (N_POSES * nn_ref.max_points, 3) and bool(torch.isfinite(queries).all()),
           f"first-pass queries {tuple(queries.shape)}")
     nn_stats = nn_kernel_phase(torch, NF, SceneNN, K, scene, queries)
+    nn_tie_phase(torch, NF, nn_ties, dev)
 
     # 7. the NN slice end to end through the gated kernel
     nn_launches = {}
@@ -890,6 +968,20 @@ def main():
               f"max_dfit={d_fit} max_rel_dcov={d_cov}")
         check(agree == 1.0 and d_rot <= MAX_DROT_DEG and d_t <= MAX_DT_MM and d_fit <= MAX_DFIT,
               f"track {label}: kernel path and plain path disagree")
+        if label != "nn":
+            continue
+        # B3 at the tracking shape: the first frame's first-pass queries
+        # against the scene the tracker builds from that frame on the card
+        pool = ref._scene_pool_cache
+        track_scene = SceneNN.from_depth_device(
+            torch.as_tensor(frames[0], device=dev), ref._K_t, ref.max_dist_diff,
+            perm=ref._scene_perm(frames[0].shape, pool), pool=pool)
+        track_q = first_pass_queries(torch, ptt, refine_poses, ref, track_scene,
+                                     torch.as_tensor(hyps0, device=dev))
+        check(track_q.shape == (N_HYP * ref.max_points, 3), f"track queries {track_q.shape}")
+        track_b3 = gated_kernel_check(
+            torch, NF, "track", f"tracking shape (pool {pool})", track_q, track_scene,
+            ref.max_dist_diff, full=NF.nn_flash_packed_cuda(track_q, track_scene.flash_table))
 
     # 11. tests/test_tracking.py's drift recipe on the bumpy sphere at 640x480
     rng = np.random.default_rng(7)
@@ -1155,6 +1247,9 @@ def main():
         "launches": nn_launches["nn_flash_gated"], **nn_stats["nn_flash_gated"],
         "launches_stacked": ms_launches["multiscene-nn"]["nn_flash_gated_stacked"],
         **stacked_stats,
+        "launches_track": track_counts["nn"]["nn_flash_gated"],
+        "track_ms": track_b3["ms"], "track_bound_ms": track_b3["bound_ms"],
+        "track_chunks_skipped": track_b3["chunks_skipped"],
     }, {
         "name": "gather_rows",
         "route": "cuda",

@@ -36,7 +36,7 @@ S_CHUNK = 128   # scene points per chunk (the kernels' shared-memory stage)
 BIG = 3.0e38    # score / dist^2 sentinel
 IBIG = 2 ** 30
 UB_BALL = 32    # scene points per bounding ball of the gated kernel's pass 1
-Q_TILE = 128    # queries per CTA of the CUDA kernels (one per thread)
+Q_TILE = 128    # queries per CTA of the CUDA kernels (the pruning tile)
 
 # kernel launches by the _cuda entry points (chip_smoke.py resets and reads
 # them to show the main path went through the kernels)
@@ -256,6 +256,9 @@ def _launch(flat, scene_table, boxes, balls, gate2: float, prune: bool, scanned=
             or scene_table.shape[1] == 0:
         raise ValueError(f"scene_table must be (8, S_pad) from pack_scene, got "
                          f"{tuple(scene_table.shape)}")
+    if scene_table.data_ptr() % 16:
+        raise ValueError("scene_table must be 16-byte aligned (the kernel copies it 16 bytes "
+                         "at a time)")
     s_pad = scene_table.shape[1]
     n_balls = 0
     if prune:

@@ -20,6 +20,7 @@ import pose_refine_tpu_torch as ptt
 from pose_refine_tpu_torch import _build, geometry, mesh
 from pose_refine_tpu_torch.ops import gather as G
 from pose_refine_tpu_torch.ops import rasterize_cuda as RC
+from pose_refine_tpu_torch.probes import nn_ties
 from pose_refine_tpu_torch.scene import nn_flash as NF
 from pose_refine_tpu_torch.scene import nn_mxu as NM
 from pose_refine_tpu_torch.scene.nn import SceneNN, SceneNNStack
@@ -299,6 +300,47 @@ def test_stacked_nn_kernel_matches_plain_on_card(card, gate):
         si, sd = NF.nn_flash_gated(q[n], one.flash_table, one.flash_boxes, one.flash_balls, gate)
         m = inside[n]
         assert torch.equal(gi[n][m], si[m] + f * rows) and torch.equal(gd[n][m], sd[m])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["random", "duplicates", "equidistant", "zeros",
+                                  "one_chunk_pads"])
+def test_nn_kernels_keep_ties_on_card(card, name):
+    """The tie-stress inputs (equal scores across the scan's group,
+    warp-part and chunk boundaries, scores of +-0, pad columns, partial
+    tiles) through B2, B3 and stacked B3: idx and dist^2 equal the plain
+    versions bit for bit; the gate holds every query."""
+    table, q = (t.to(card) for t in nn_ties.cases()[name])
+    gate = nn_ties.GATE_M
+    pi, pd = NF.nn_flash_packed_plain(q, table)
+    assert bool((pd < NF.gate_sq(gate)).all())
+    ki, kd = NF.nn_flash_packed(q, table)
+    gi, gd = NF.nn_flash_gated(q, table, NF.chunk_boxes(table), NF.ball_table(table), gate)
+    both = nn_ties.stacked(table)
+    pairs = q.reshape(2, -1, 3)
+    fid = torch.tensor([0, 1], dtype=torch.int32, device=card)
+    si, sd = NF.nn_flash_gated(pairs, both, NF.chunk_boxes(both), NF.ball_table(both), gate,
+                               frame_id=fid, frames=2)
+    torch.cuda.synchronize()
+    for i, d in ((ki, kd), (gi, gd)):
+        assert torch.equal(i, pi) and torch.equal(d.view(torch.int32), pd.view(torch.int32))
+    wi, wd = NF.nn_flash_gated_plain(pairs, both, gate, frame_id=fid, frames=2)
+    assert torch.equal(si, wi) and torch.equal(sd.view(torch.int32), wd.view(torch.int32))
+    # frame 1 is frame 0 reversed: a lone minimum maps to the mirrored
+    # column, a tie to the smallest column of the reversed order
+    half = table.shape[1]
+    assert bool((si[1] >= half).all()) and bool((si[0] < half).all())
+
+
+@pytest.mark.cuda
+def test_nn_kernel_refuses_an_unaligned_table_on_card(card):
+    """The kernel copies the scene table 16 bytes at a time: a contiguous
+    table that starts 4 bytes into its storage raises, it is not launched."""
+    flat = torch.zeros(8 * 128 + 1, device=card)
+    table = flat[1:].view(8, 128)
+    assert table.is_contiguous() and table.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        NF.nn_flash_packed(torch.zeros((4, 3), device=card), table)
 
 
 @pytest.mark.cuda

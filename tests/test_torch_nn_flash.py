@@ -5,6 +5,9 @@ versions of B2 (nn_flash_packed) and B3 (nn_flash_gated) bit for bit on
 every idx and dist^2 the JAX kernels promise (all of them for B2; the
 in-gate queries for B3, and validity everywhere)."""
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -12,6 +15,7 @@ import pytest
 import torch
 
 from pose_refine_tpu.scene import nn_pallas as JP
+from pose_refine_tpu_torch.probes import nn_ties
 from pose_refine_tpu_torch.scene import nn_flash as NF
 
 torch.set_num_threads(2)
@@ -172,3 +176,121 @@ def test_wrappers_refuse_what_they_cannot_launch():
     idx, dist = NF.nn_flash_gated(q, stacked, NF.chunk_boxes(stacked), NF.ball_table(stacked),
                                   0.1, frame_id=1, frames=2)
     assert (idx == 128).all() and (dist == 0.0).all()
+
+
+# The cases below test the scan's ALGORITHM (its arithmetic, grouping, merge
+# and tie rule, written again in torch), not the compiled kernel: no CUDA
+# source runs without a card. The gate for the kernel itself is the
+# `cuda`-marked tie-stress case of tests/test_torch_device.py and
+# chip_smoke.py's [nn-kernel] phase, which hold the kernel against the plain
+# version on the same nn_ties inputs. Only the sizes that shape the order are
+# read from csrc/nn_flash.cu: points of a chunk per warp (kPart = kChunk /
+# kWarps) and points per argmin group (kGroup); the number of chunk buffers
+# changes no result. A change of the kernel's merge or rescan order must be
+# made here as well.
+_CU = (Path(NF.__file__).parents[1] / "csrc" / "nn_flash.cu").read_text()
+_K = {name: int(re.search(rf"constexpr int {name} = (\d+);", _CU).group(1))
+      for name in ("kChunk", "kTile", "kGroup")}
+SCAN_PART, SCAN_GROUP = _K["kChunk"] // (_K["kTile"] // 32), _K["kGroup"]
+
+
+def scan_emulated(flat, table, chunks=None):
+    """The CUDA scan's arithmetic and order in torch, on the CPU: n = -2q
+    taken once, score = |s|^2 + fma(nz, sz, fma(nx, sx, ny*sy)) with
+    addcmul as the FMA; warp w of 4 takes columns [32w, 32w + 32) of every
+    scanned chunk in groups of 16, keeps the running minimum of a group and,
+    where it improves strictly, the group's first column; the four parts
+    merge by (score, column); the winning group is scored again and the
+    first column equal to the minimum taken. Returns (score, idx) as
+    NF._scan_plain does."""
+    n = flat * -2.0
+    nx, ny, nz = n[:, 0:1], n[:, 1:2], n[:, 2:3]
+
+    def score(cols):  # (Q, len(cols)) for column indices (Q, G) or (G,)
+        sx, sy, sz, ss = (table[k][cols] for k in range(4))
+        return ss + torch.addcmul(torch.addcmul(ny * sy, nx, sx), nz, sz)
+
+    n_chunks = table.shape[1] // NF.S_CHUNK
+    chunks = range(n_chunks) if chunks is None else chunks
+    nq = flat.shape[0]
+    best = torch.full((nq,), NF.BIG)
+    col = torch.zeros((nq,), dtype=torch.int64)
+    for w in range(NF.S_CHUNK // SCAN_PART):
+        w_best = torch.full((nq,), NF.BIG)
+        w_col = torch.zeros((nq,), dtype=torch.int64)
+        for c in chunks:
+            for g in range(0, SCAN_PART, SCAN_GROUP):
+                a = c * NF.S_CHUNK + w * SCAN_PART + g
+                m = torch.minimum(w_best, score(torch.arange(a, a + SCAN_GROUP)).amin(dim=1))
+                w_col = torch.where(m < w_best, a, w_col)
+                w_best = m
+        take = (w_best < best) | ((w_best == best) & (w_col < col))
+        best, col = torch.where(take, w_best, best), torch.where(take, w_col, col)
+    again = score(col[:, None] + torch.arange(SCAN_GROUP)[None, :])
+    equal = again == best[:, None]
+    k = equal.to(torch.int8).argmax(dim=1)
+    hit = best < NF.BIG
+    assert bool(equal.any(dim=1)[hit].all())
+    found = again.gather(1, k[:, None])[:, 0]
+    return (torch.where(hit, found, NF.BIG),
+            torch.where(hit, col + k, 0).to(torch.int32))
+
+
+TIE_CASES = nn_ties.cases()
+
+
+@pytest.mark.parametrize("name", sorted(TIE_CASES))
+def test_emulated_scan_matches_plain(name):
+    """The redesigned scan (grouped minimum, index found afterwards, warp
+    parts merged) returns what the dense argmin returns, bit for bit, on
+    inputs built to tie across its boundaries."""
+    table, q = TIE_CASES[name]
+    want_s, want_i = NF._scan_plain(q, table)
+    got_s, got_i = scan_emulated(q, table)
+    assert torch.equal(got_i, want_i)
+    # equal as numbers: a score of zero may differ in sign (a sum of signed
+    # zeros does not commute with the scaling by -2), which dist^2 drops
+    assert torch.equal(got_s, want_s)
+    qq = NF._sum_sq(q)
+    got_d, want_d = torch.clamp(got_s + qq, min=0.0), torch.clamp(want_s + qq, min=0.0)
+    assert torch.equal(got_d.view(torch.int32), want_d.view(torch.int32))
+    nonzero = want_s != 0
+    assert torch.equal(got_s.view(torch.int32)[nonzero], want_s.view(torch.int32)[nonzero])
+    assert int((want_s < NF.BIG).sum()) == q.shape[0]
+
+
+@pytest.mark.parametrize("name", ["duplicates", "zeros", "one_chunk_pads"])
+def test_tie_cases_hold_ties(name):
+    """The inputs do what they are for: queries whose minimal score is
+    reached by more than one column, and the plain version takes the first."""
+    table, q = TIE_CASES[name]
+    best, idx = NF._scan_plain(q, table)
+    minimal = NF._score(q, *(table[k][None, :] for k in range(4))) == best[:, None]
+    assert int((minimal.sum(dim=1) > 1).sum()) >= 2
+    assert torch.equal(minimal.to(torch.int8).argmax(dim=1).to(torch.int32), idx)
+    if name == "zeros":
+        bits = best.view(torch.int32)
+        assert bool((best == 0).all()) and bool((bits < 0).any()) and bool((bits == 0).any())
+
+
+def test_emulated_scan_over_the_surviving_chunks():
+    """Scanning only the chunks that hold some query's minimum (what the
+    gated kernel's pruning does) leaves those queries' results unchanged."""
+    table, q = TIE_CASES["duplicates"]
+    want_s, want_i = NF._scan_plain(q, table)
+    keep = sorted({int(i) // NF.S_CHUNK for i in want_i})
+    got_s, got_i = scan_emulated(q, table, chunks=keep)
+    assert torch.equal(got_i, want_i) and torch.equal(got_s, want_s)
+
+
+def test_emulated_scan_matches_jax_kernel():
+    """The emulated scan against the JAX kernel in interpret mode on the
+    duplicated-point case: idx and dist^2 bit for bit."""
+    table, q = TIE_CASES["duplicates"]
+    i0, d0 = map(np.asarray, JP.nn_flash_packed(q.numpy(), jnp.asarray(table.numpy()),
+                                                interpret=True))
+    best, idx = scan_emulated(q, table)
+    dist = torch.clamp(best + NF._sum_sq(q), min=0.0)
+    np.testing.assert_array_equal(idx.numpy(), i0)
+    np.testing.assert_array_equal(dist.numpy(), d0)
+
