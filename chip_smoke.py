@@ -12,15 +12,21 @@ non-zero without printing a result:
               at the slice's shapes: the observed-scene render (1 pose,
               640x480), the 256 hypothesis renders (320x240 in the auto ROI),
               and the same batch as a per-pose (N, T, 3, 3) table. Mismatch
-              fraction must stay below 1e-4; median times of both.
+              fraction must stay below 1e-4; median times of both, and the
+              kernel alone (see alone_ms).
   4. slice  - PoseRefiner.set_scene_depth + refine on the bench workload
               (256 hypotheses +-10 deg/axis +-20 mm around the reference
               viewpoint, render_scale 2, decimate 4 mm, window 128 / stride 2,
-              2048 points, 24 ICP iterations) through the kernel; the launch
-              counter must rise. Wall and device time, poses/s. The same
-              refine through the plain raster must agree.
+              2048 points, 24 ICP iterations) through the kernels; the launch
+              counters of the raster and of the fused ICP pass must rise.
+              Wall and device time, poses/s. The same refine through the
+              plain raster must agree; so must the one through the plain
+              query and the fused pass's plain version (hold_paths). The loop
+              of before the fused pass (own query=, matrix products) is
+              printed beside it, verdicts held (report_old_loop).
   5. golden - the reference acceptance recipe (10 deg/axis + 20 mm) on a
-              bumpy sphere at 640x480 recovers to under 1 degree.
+              bumpy sphere at 640x480 recovers to under 1 degree, and agrees
+              with the same refine through the plain versions.
   6. nn-kernel - the flash-NN kernels nn_flash_packed (full scan) and
               nn_flash_gated (chunk pruning) against their plain PyTorch
               versions on the card, on the 524,288 lifted, morton-ordered
@@ -53,7 +59,7 @@ non-zero without printing a result:
               rows) at the 524,288 first-pass pixels, the raw NN scene
               (29,440 rows) and the device-built 640x480 NN scene (307,200
               rows) at the 524,288 first-pass neighbours. Bit for bit;
-              median times of both.
+              median times of both, and the kernel alone.
  10. track  - bench.py's tracking workload (bench.py:258-304): 12
               pre-rendered frames drifting +-0.035 rad / +-5 mm per frame,
               TrackingSession(n_hypotheses=16, process_noise=(2 deg, 5 mm))
@@ -84,22 +90,46 @@ non-zero without printing a result:
               against the bench scene: rank-1 is model 0 within 2 mm; the
               plain path agrees.
  14. multi-track - tests/test_tracking.py's two objects at 640x480 in 12
-              composite frames, MultiObjectSession with 16 hypotheses each:
-              every step accepted within 6 mm, ms per frame, 0 synchronizing
-              calls in a steady-state step_async; the first frame's track
-              through the plain versions agrees.
- 15. mxu    - P1 on its probe (probes/mxu_nn.py, scripts/probe_mxu_nn.py's
+              composite frames, MultiObjectSession with 16 hypotheses each
+              and a start prior of one frame's motion: every step accepted
+              and within 6 mm at every frame, through step_async and through
+              step(), ms per frame, 0 synchronizing calls in a steady-state
+              step_async; the first frame's track through the plain versions
+              agrees. Printed, not held: the same sessions under the
+              filter's default 5 deg / 20 mm prior over 8 seeds.
+
+A kernel path is held against a plain path (the plain version of every
+kernel, the fused ICP pass's among them) by hold_paths(): 100% verdict
+agreement and every pose within 0.1 deg, 0.2 mm and 5e-3 of fitness. Misses
+are collected and fail the run at its end.
+ 15. assoc-reduce - the fused association + reduction kernel of an ICP pass
+              (ops/icp_reduce.py) against its plain version at the slice
+              shape (256 x 2,048 against the 307,200-row table), the tracking
+              shape (16 x 2,048), a stacked projective table with a row
+              offset per pose (4 frames), the indexed front end on the gated
+              flash-NN kernel's output for the 2 mm and raw bench clouds and
+              a stacked NN table, and edge inputs (a pose with no valid
+              point, points at z = 0, behind the camera and NaN, border
+              pixels, a gate that rejects everything): every sum equal to
+              the plain version's bit for bit (so the count exactly), each
+              float sum within 2e-6 x the sum of its absolute terms of its
+              float64 value, two launches bit for bit. Times with the
+              wrapper and alone.
+ 16. mxu    - P1 on its probe (probes/mxu_nn.py, scripts/probe_mxu_nn.py's
               262,144 queries): B2 and P1 times, P1 against its plain version
               and against B2 up to near-ties.
 
-Each kernel is timed by CUDA events (median of 20 launches; plain versions
-fewer) beside its bound: the least time the card could take for the same
+Each kernel is timed by CUDA events (median of 20 launches, the wrapper's
+host time included; plain versions fewer; B1, P2 and the fused pass also
+alone, 20 launches between one pair of events behind a busy card) beside its
+bound: the least time the card could take for the same
 work, from the bytes it must move and the operations it must do on this
 run's inputs at the H100's published peaks (see bound()).
 
 The two lines before the last are the card line from nvidia-smi and a JSON
-object of the five kernels (rasterize, nn_flash_packed, nn_flash_gated with
-its stacked launches apart, gather_rows, nn_flash_mxu); the last line is
+object of the six kernels (rasterize, nn_flash_packed, nn_flash_gated with
+its stacked launches apart, gather_rows, assoc_reduce, nn_flash_mxu); the
+last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -150,9 +180,16 @@ TRACK_CONFIGS = (
 MS_FRAMES, MS_PER_FRAME = 4, 64
 # tests/test_tracking.py:187-227's two objects, drifting per frame (seed 13)
 MT_FRAMES, MT_HYP, MT_DRIFT = 12, 16, (0.015, 2.0)
+# the sessions start from the poses of the frame before the first, so their
+# prior is one frame's motion (the filter's per-frame process noise, 1 deg /
+# 5 mm), not the filter's default prior for a detector's pose (5 deg / 20 mm)
+MT_INIT_COV = np.diag([np.radians(1.0) ** 2] * 3 + [0.005 ** 2] * 3)
 # the card's peak rates (H100 SXM data sheet, 700 W): HBM bytes/s, FP32
 # lane instructions/s (67 TFLOP/s counts an FMA as 2), TF32 tensor flop/s
 HBM_BPS, FP32_IPS, TF32_FLOPS = 3.35e12, 67e12 / 2, 495e12
+# the fused ICP pass: each float sum against its float64 value, relative to
+# the sum of its absolute terms
+SUMS_BAR = 2e-6
 
 
 def check(ok, msg):
@@ -182,6 +219,30 @@ def median_ms(torch, fn, reps, warm=1):
     return float(np.median(ts)), out
 
 
+def alone_ms(torch, fn, launches=20, rounds=5):
+    """A kernel's time alone in ms: ``launches`` calls of fn() between one
+    pair of CUDA events, queued behind matrix products that keep the card
+    busy for a few ms, so every launch is enqueued before the first one
+    starts and the wrapper's host time is not in the span; median of
+    ``rounds``. The inputs stay in the L2 cache between launches, as the ICP
+    loop finds them."""
+    busy = torch.ones((4096, 4096), device="cuda")
+    ts = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        busy @ busy
+        busy @ busy
+        a.record()
+        for _ in range(launches):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        ts.append(a.elapsed_time(b) / launches)
+    return float(np.median(ts))
+
+
 def workload(geometry, mesh):
     """(model, full-res tris, truth, 256 hypotheses): scripts/_workload.py's
     construction with the same seed and draw order."""
@@ -205,6 +266,7 @@ def compare_raster(torch, RC, name, tris, poses, width, height, proj, roi, plain
     coef = RC.triangle_setup(tris, poses, proj, width, height, roi)
     setup_ms, _ = median_ms(torch, lambda: RC.triangle_setup(tris, poses, proj, width, height, roi), 10)
     k_ms, k = median_ms(torch, lambda: RC.raster_coef_cuda(coef, out_w, out_h, height, roi), 20)
+    a_ms = alone_ms(torch, lambda: RC.raster_coef_cuda(coef, out_w, out_h, height, roi))
     p_ms, p = median_ms(torch, lambda: RC.raster_coef_plain(coef, out_w, out_h, height, roi),
                         plain_reps, warm=0)
     mism = (k != p).float().mean().item()
@@ -213,11 +275,13 @@ def compare_raster(torch, RC, name, tris, poses, width, height, proj, roi, plain
     r_bound = raster_bound(coef, out_w, out_h, height, roi)
     phase("kernel", f"{name}: N={poses.shape[0]} T={coef.shape[2]} out={out_w}x{out_h} "
           f"roi={roi} covered_px={covered} mismatch={mism} max_abs_err={err} "
-          f"kernel_ms={k_ms} plain_ms={p_ms} setup_ms={setup_ms} bound_ms={r_bound['bound_ms']} "
+          f"kernel_ms={k_ms} kernel_alone_ms={a_ms} plain_ms={p_ms} setup_ms={setup_ms} "
+          f"bound_ms={r_bound['bound_ms']} "
           f"({r_bound['bound_by']})")
     check(covered > 0, f"{name}: empty render")
     check(mism < MISMATCH_GATE, f"{name}: kernel/plain mismatch {mism}")
-    return k, dict(mismatch=mism, max_abs_err=err, ms=k_ms, plain_ms=p_ms, **r_bound)
+    return k, dict(mismatch=mism, max_abs_err=err, ms=k_ms, alone_ms=a_ms, plain_ms=p_ms,
+                   **r_bound)
 
 
 def refine_ms(torch, fn, reps=5):
@@ -238,16 +302,56 @@ def refine_ms(torch, fn, reps=5):
 
 
 def agreement(rotation_angle_deg, truth, a, b, fit_a, fit_b):
-    """Verdict agreement (rotation < 3 deg and translation < 2 mm) and the
-    largest rotation, translation and fitness deltas between two refines;
-    ``truth`` is one (4, 4) pose or one per row."""
+    """Two refines of the same hypotheses side by side: the share of poses
+    with equal verdicts (rotation < 3 deg and translation < 2 mm of
+    ``truth``, one (4, 4) pose or one per row), and over the poses the
+    (median, max) of the rotation (deg), translation (mm, worst axis) and
+    fitness deltas."""
     err_a = rotation_angle_deg(a, truth) < VERDICT_DEG
     err_b = rotation_angle_deg(b, truth) < VERDICT_DEG
     mm_a = np.linalg.norm(a[:, :3, 3] - truth[..., :3, 3], axis=-1) < 2.0
     mm_b = np.linalg.norm(b[:, :3, 3] - truth[..., :3, 3], axis=-1) < 2.0
-    agree = float(((err_a == err_b) & (mm_a == mm_b)).mean())
-    return (agree, float(rotation_angle_deg(a, b).max()),
-            float(np.abs(a[:, :3, 3] - b[:, :3, 3]).max()), float(np.abs(fit_a - fit_b).max()))
+
+    def spread(x):
+        return float(np.median(x)), float(np.max(x))
+
+    return dict(agree=float(((err_a == err_b) & (mm_a == mm_b)).mean()),
+                rot=spread(rotation_angle_deg(a, b)),
+                t=spread(np.abs(a[:, :3, 3] - b[:, :3, 3]).max(axis=-1)),
+                fit=spread(np.abs(fit_a - fit_b)))
+
+
+def hold_paths(name, what, stats, failures, extra=""):
+    """Print one comparison of two paths (agreement()'s values) and hold it
+    to the bounds of a kernel path against a plain path at every pose: 100%
+    verdict agreement, the largest rotation delta within MAX_DROT_DEG, the
+    largest translation delta within MAX_DT_MM, the largest fitness delta
+    within MAX_DFIT. The plain version of every kernel computes its
+    kernel's function bit for bit or to the last bits (the fused ICP pass:
+    term by term in the kernel's summation order), so the two paths run the
+    same ICP, at the hypotheses that do not converge too. A miss is
+    appended to ``failures``, so one run shows every comparison before it
+    fails."""
+    phase(name, f"{what}: {extra}verdict_agreement={stats['agree']} (median, max) "
+          f"drot_deg={stats['rot']} dt_mm={stats['t']} dfit={stats['fit']}")
+    if not (stats["agree"] == 1.0 and stats["rot"][1] <= MAX_DROT_DEG
+            and stats["t"][1] <= MAX_DT_MM and stats["fit"][1] <= MAX_DFIT):
+        failures.append(f"{name}: {what}: the two paths disagree")
+
+
+def report_old_loop(name, stats, failures):
+    """Print how far the loop of before the fused pass (a bare ``query=``:
+    query, row gather, each pass reduced by matrix products) lands from the
+    default loop on the same hypotheses, and hold the verdicts. Its float
+    sums differ from the fused pass's in their last bits, and an ICP turns
+    that into whole iterations at the hypotheses that do not converge (a
+    pixel that flips its association, the 1e-5 latch): the deltas are this
+    workload's sensitivity to summation order, not an error of either."""
+    phase(name, f"the loop of before the fused pass (own query=, matrix products) against "
+          f"the default: verdict_agreement={stats['agree']} (median, max) "
+          f"drot_deg={stats['rot']} dt_mm={stats['t']} dfit={stats['fit']}")
+    if stats["agree"] != 1.0:
+        failures.append(f"{name}: the loop of before the fused pass changes a verdict")
 
 
 def gate_band(queries, dist_sq, g2):
@@ -262,20 +366,26 @@ def gate_band(queries, dist_sq, g2):
     return (dist_sq - g2).abs() <= qq * 2.0 ** -20
 
 
-def first_pass_queries(torch, ptt, refine_poses, ref, scene, poses):
-    """The (N * max_points, 3) lifted points that ``ref``'s refine of
-    ``poses`` sends to ``scene`` in its first association pass (captured
-    through the query override; 0 iterations = the scoring pass alone)."""
-    seen = []
+def first_pass_clouds(ptt, refine_poses, ref, scene, poses, scene_ids=None):
+    """The (N, max_points, 3) lifted clouds and (N, max_points) valid masks
+    that ``ref``'s refine of ``poses`` hands to its first ICP pass against
+    ``scene`` (captured through the association's fused reduce; 0 iterations
+    = the scoring pass alone)."""
+    from pose_refine_tpu_torch import icp
 
-    def capture(src):
-        seen.append(src.reshape(-1, 3).contiguous().clone())
-        return scene.query(src)
+    seen = []
+    query, reduce = (scene.query, scene.reduce) if scene_ids is None else \
+        (scene.query_at(scene_ids), scene.reduce_at(scene_ids))
+
+    def capture(cloud, valid):
+        seen.append((cloud.clone(), valid.clone()))
+        return reduce(cloud, valid)
 
     refine_poses(ref.tris, poses, scene, ref.proj, ref._K_render_t, width=ref.render_w,
                  height=ref.render_h, max_points=ref.max_points,
                  criteria=ptt.ICPConvergenceCriteria(max_iteration=0), window=ref.window,
-                 stride=ref.stride, roi=ref.roi, query=capture)
+                 stride=ref.stride, roi=ref.roi, scene_ids=scene_ids,
+                 query=icp.Association(query, capture))
     return seen[0]
 
 
@@ -404,6 +514,7 @@ def gather_phase(torch, G, tables):
     out, max_err = None, 0.0
     for label, table, idx in tables:
         k_ms, k = median_ms(torch, lambda: G.gather_rows_cuda(table, idx), 20)
+        a_ms = alone_ms(torch, lambda: G.gather_rows_cuda(table, idx))
         p_ms, p = median_ms(torch, lambda: G.gather_rows_plain(table, idx), 20)
         # one PyTorch call of the same function: the indices are in range
         check(bool(((idx >= 0) & (idx < table.shape[0])).all()), f"gather {label}: index range")
@@ -416,14 +527,74 @@ def gather_phase(torch, G, tables):
         n_read = int(idx.unique().numel())
         g_bound = bound(n_bytes=n * (4 * G.ROW + idx.element_size()) + n_read * 4 * G.ROW)
         phase("gather", f"{label}: table {tuple(table.shape)} x {n} {idx.dtype} indices: "
-              f"equal={torch.equal(k, p)} max_abs_err={err} kernel_ms={k_ms} plain_ms={p_ms} "
+              f"equal={torch.equal(k, p)} max_abs_err={err} kernel_ms={k_ms} "
+              f"kernel_alone_ms={a_ms} plain_ms={p_ms} "
               f"index_select_ms={lib_ms} bound_ms={g_bound['bound_ms']} "
               f"traffic_MB={mbytes} kernel_GB_s={mbytes / k_ms} plain_GB_s={mbytes / p_ms}")
         check(torch.equal(k, p), f"gather {label}: kernel != plain")
         max_err = max(max_err, err)
         if out is None:
-            out = dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, **g_bound)
+            out = dict(ms=k_ms, alone_ms=a_ms, plain_ms=p_ms, library_ms=lib_ms, **g_bound)
     out["max_abs_err"] = max_err
+    return out
+
+
+def assoc_reduce_phase(torch, IR, cases):
+    """The fused association + reduction kernel against its plain version
+    (bit for bit, and both against float64) on each case, a dict of: label; kernel(cloud, valid) -> (N, 29), a
+    binding of one of ops/icp_reduce.py's _cuda entry points; assoc(cloud)
+    -> (dst, normal, valid, row indices), the front end's plain version;
+    cloud, valid; the bytes the front end reads a point and a pose beyond
+    the 13 of cloud and mask; its FP32 instructions a point; the count it
+    must find (None: any but 0). Returns {label: stats}, the first with
+    max_abs_err and max_f64_err over all cases."""
+    out, max_abs, max_f64 = {}, 0.0, 0.0
+    for c in cases:
+        label, kernel, cloud, valid = c["label"], c["kernel"], c["cloud"], c["valid"]
+        n, p = cloud.shape[:2]
+
+        def plain():
+            dst, nrm, q_valid, rows = c["assoc"](cloud)
+            return (dst, nrm, q_valid), rows, IR.packed_sums_plain(cloud, valid, dst, nrm, q_valid)
+
+        before = IR.launches
+        k_ms, k = median_ms(torch, lambda: kernel(cloud, valid), 20)
+        check(IR.launches == before + 21, f"assoc-reduce {label}: launches not counted")
+        again = kernel(cloud, valid)
+        a_ms = alone_ms(torch, lambda: kernel(cloud, valid))
+        p_ms, (assoc, rows, want) = median_ms(torch, plain, 3)
+        count_equal, k_err = IR.sums_error(k, cloud, valid, *assoc)
+        _, p_err = IR.sums_error(want, cloud, valid, *assoc)
+        counts_match = count_equal and torch.equal(k[:, 28], want[:, 28])
+        finite = torch.isfinite(k) & torch.isfinite(want)
+        abs_err = float((k - want)[finite].abs().max())
+        bits = torch.equal(k.view(torch.int32), again.view(torch.int32))
+        same = bool(((k == want) | (k.isnan() & want.isnan())).all())
+        n_rows = int(rows.unique().numel())
+        # the least traffic: cloud, mask and the front end's own inputs read
+        # once, each scene row that this run names read once, 29 sums a pose
+        r_bound = bound(n_bytes=n * p * (13 + c["point_bytes"]) + n * (116 + c["pose_bytes"])
+                        + n_rows * 32, n_instr=n * p * c["instr"])
+        total = float(k[:, 28].sum())
+        phase("assoc-reduce", f"{label}: {n} poses x {p} points, table "
+              f"{c['rows']} rows ({n_rows} named), {IR.slabs_for(n, p)} CTAs a pose: "
+              f"count_equal={counts_match} inliers={total} max_f64_err={k_err} "
+              f"(plain f32 {p_err}; bar {SUMS_BAR}) max_abs_err={abs_err} "
+              f"equals_plain_bit_for_bit={same} two_launches_bit_equal={bits} kernel_ms={k_ms} kernel_alone_ms={a_ms} "
+              f"plain_ms={p_ms} bound_ms={r_bound['bound_ms']} ({r_bound['bound_by']}) "
+              f"library=none")
+        check(counts_match, f"assoc-reduce {label}: the count differs from the plain version's")
+        check(k_err <= SUMS_BAR, f"assoc-reduce {label}: a sum lies {k_err} from its float64 "
+              f"value (plain float32: {p_err})")
+        check(same, f"assoc-reduce {label}: the kernel's sums are not the plain version's bit "
+              f"for bit (max_abs_err {abs_err})")
+        check(bits, f"assoc-reduce {label}: two launches differ")
+        want_count = c.get("count")
+        check(total > 0 if want_count is None else total == want_count,
+              f"assoc-reduce {label}: {total} inliers")
+        max_abs, max_f64 = max(max_abs, abs_err), max(max_f64, k_err)
+        out[label] = dict(ms=k_ms, alone_ms=a_ms, plain_ms=p_ms, library_ms=None, **r_bound)
+    out[cases[0]["label"]].update(max_abs_err=max_abs, max_f64_err=max_f64)
     return out
 
 
@@ -641,25 +812,66 @@ def main():
 
     check(os.path.dirname(os.path.dirname(os.path.abspath(ptt.__file__))) == REPO,
           f"pose_refine_tpu_torch imported from {ptt.__file__}, not from this checkout")
-    from pose_refine_tpu_torch import _build, geometry, mesh
+    from pose_refine_tpu_torch import _build, geometry, icp, mesh
     from pose_refine_tpu_torch.ops import gather as G
+    from pose_refine_tpu_torch.ops import icp_reduce as IR
     from pose_refine_tpu_torch.ops import rasterize_cuda as RC
     from pose_refine_tpu_torch.pipeline import refine_poses
     from pose_refine_tpu_torch.probes import mxu_nn, nn_ties
     from pose_refine_tpu_torch.scene import nn_flash as NF
     from pose_refine_tpu_torch.scene import nn_mxu as NM
-    from pose_refine_tpu_torch.scene.nn import SceneNN
-    from pose_refine_tpu_torch.scene.projective import _project_gate
+    from pose_refine_tpu_torch.scene.nn import SceneNN, _rows_in_gate
+    from pose_refine_tpu_torch.scene.projective import SceneProjective, _project_gate
 
     def reset_counts():
         RC.launches = NF.packed_launches = NF.gated_launches = G.launches = 0
-        NF.stacked_launches = NM.launches = 0
+        NF.stacked_launches = NM.launches = IR.launches = 0
 
     def counts():
         return {"rasterize": RC.launches, "nn_flash_packed": NF.packed_launches,
                 "nn_flash_gated": NF.gated_launches,
                 "nn_flash_gated_stacked": NF.stacked_launches, "gather_rows": G.launches,
-                "nn_flash_mxu": NM.launches}
+                "assoc_reduce": IR.launches, "nn_flash_mxu": NM.launches}
+
+    reduce_cases = []
+
+    def projective_case(label, sc, cloud, valid, base=None, count=None):
+        """An [assoc-reduce] case of the projective front end."""
+        def assoc(c):
+            seen = []
+
+            def gather(table, idx):
+                seen.append(idx)
+                return G.gather_rows_plain(table, idx)
+
+            out = _project_gate(sc.table, sc.K, sc.max_dist_diff, sc.height, sc.width, c,
+                                base=0 if base is None else base[:, None], gather=gather)
+            return (*out, seen[0])
+
+        reduce_cases.append(dict(
+            label=label, cloud=cloud, valid=valid, assoc=assoc, rows=sc.table.shape[0],
+            kernel=functools.partial(
+                IR.assoc_reduce_projective_cuda, table=sc.table, K=sc.K,
+                max_dist_diff=sc.max_dist_diff, height=sc.height, width=sc.width, base=base),
+            # pcd2dep (2 divides, 2 products, 4 sums), the gate (3) and the
+            # 86 of the reduction body (see indexed_case)
+            point_bytes=0, pose_bytes=0 if base is None else 8, instr=97, count=count))
+
+    def indexed_case(label, table, gate, cloud, valid, nearest):
+        """An [assoc-reduce] case of the indexed front end on the flash-NN
+        kernels' ``nearest`` = (idx, dist_sq) of ``cloud``."""
+        idx, dist_sq = nearest
+        reduce_cases.append(dict(
+            label=label, cloud=cloud, valid=valid, rows=table.shape[0],
+            assoc=lambda c: (*_rows_in_gate(table, idx, dist_sq, gate, plain=True),
+                             idx.clamp(0, table.shape[0] - 1)),
+            kernel=functools.partial(IR.assoc_reduce_indexed_cuda, table=table, idx=idx,
+                                     dist_sq=dist_sq, gate_sq=NF.gate_sq(gate)),
+            # the reduction body, no fused multiply-add (each term rounds as
+            # the plain version's): 3 diff, 5 residual, 9 cross, 7 mask
+            # products, 21 + 6 products and as many adds, 6 for the squared
+            # distance, 2 more adds; 1 gate
+            point_bytes=idx.element_size() + 4, pose_bytes=0, instr=87))
     from pose_refine_tpu_torch.utils.metrics import rotation_angle_deg
 
     # 1. card
@@ -710,8 +922,10 @@ def main():
     torch.cuda.synchronize()
     slice_counts = counts()
     launches = slice_counts["rasterize"]
-    check(launches > 0 and slice_counts["gather_rows"] > 0,
-          f"refine did not launch the raster and gather kernels: {slice_counts}")
+    check(launches > 0 and slice_counts["assoc_reduce"] == ITERS + 1
+          and slice_counts["gather_rows"] == 0,
+          f"refine did not launch the raster kernel and one fused pass an iteration: "
+          f"{slice_counts}")
     refined_np = refined.cpu().numpy()
     check(refined_np.shape == (N_POSES, 4, 4) and np.isfinite(refined_np).all(),
           "refined poses not finite (N, 4, 4)")
@@ -772,6 +986,22 @@ def main():
           f"max_drot_deg={d_rot} max_dt_mm={d_t} max_dfit={d_fit}")
     check(agree == 1.0 and d_rot <= MAX_DROT_DEG and d_t <= MAX_DT_MM and d_fit <= MAX_DFIT,
           "kernel path and plain path disagree")
+    # the same refine through the plain versions of the association and of
+    # the fused pass, and through the loop of before the fused pass
+    path_failures = []
+    rp = functools.partial(
+        refine_poses, refiner.tris, poses, refiner.scene, refiner.proj, refiner._K_render_t,
+        width=rw, height=rh, max_points=refiner.max_points, criteria=crit,
+        window=refiner.window, stride=refiner.stride, roi=refiner.roi)
+    plain_query = functools.partial(refiner.scene.query, plain=True)
+    a_refined, a_res = rp(query=icp.plain_association(plain_query))
+    hold_paths("slice", "through the plain query and the plain fused pass",
+               agreement(rotation_angle_deg, truth, refined_np, a_refined.cpu().numpy(), fit,
+                         a_res.fitness.cpu().numpy()), path_failures)
+    m_refined, m_res = rp(query=plain_query)
+    report_old_loop("slice", agreement(rotation_angle_deg, truth, refined_np,
+                                       m_refined.cpu().numpy(), fit,
+                                       m_res.fitness.cpu().numpy()), path_failures)
 
     # 5. golden recovery (tests/test_icp.py:22-39 recipe) on the bumpy sphere
     ang = np.float32(10.0 / 180.0 * 3.14)
@@ -790,13 +1020,29 @@ def main():
           f"fitness {float(g_res.fitness)}")
     check(g_err < 1.0, f"golden recovery error {g_err} deg >= 1")
 
+    def golden_plain(ref):
+        """ref's refine of the golden start through the plain versions
+        (raster, NN, gather, fused pass), against ref.refine."""
+        k_pose, k_res = ref.refine(pose1[None])
+        p_pose, p_res = refine_poses(
+            ref.tris, torch.as_tensor(pose1[None], device=dev), ref.scene, ref.proj,
+            ref._K_render_t, width=ref.render_w, height=ref.render_h,
+            max_points=ref.max_points, criteria=ptt.ICPConvergenceCriteria(),
+            window=ref.window, stride=ref.stride, roi=ref.roi, raster=RC.rasterize_plain,
+            query=icp.plain_association(functools.partial(ref.scene.query, plain=True)))
+        return agreement(rotation_angle_deg, pose2, k_pose.cpu().numpy(), p_pose.cpu().numpy(),
+                         k_res.fitness.cpu().numpy(), p_res.fitness.cpu().numpy())
+
+    hold_paths("golden", "through the plain versions", golden_plain(golden), path_failures)
+
     # 6. the flash-NN kernels against their plain versions on the queries
     # of one NN refine's first association pass (captured through the
     # query override; 0 iterations = the scoring pass alone)
     nn_ref = ptt.PoseRefiner(model, K=K, device="cuda", scene="nn_bruteforce",
                              scene_voxel_mm=2.0, **CFG)
     nn_ref.set_scene_depth(scene)
-    queries = first_pass_queries(torch, ptt, refine_poses, nn_ref, nn_ref.scene, poses)
+    nn_cloud, nn_valid = first_pass_clouds(ptt, refine_poses, nn_ref, nn_ref.scene, poses)
+    queries = nn_cloud.reshape(-1, 3)
     check(queries.shape == (N_POSES * nn_ref.max_points, 3) and bool(torch.isfinite(queries).all()),
           f"first-pass queries {tuple(queries.shape)}")
     nn_stats = nn_kernel_phase(torch, NF, SceneNN, K, scene, queries)
@@ -815,10 +1061,12 @@ def main():
         nn_refined, nn_res = ref.refine(poses, crit_nn)
         torch.cuda.synchronize()
         c = counts()
-        check(c["nn_flash_gated"] > 0 and c["rasterize"] > 0 and c["gather_rows"] > 0,
+        check(c["nn_flash_gated"] > 0 and c["rasterize"] > 0
+              and c["assoc_reduce"] == c["nn_flash_gated"],
               f"nn-slice {label}: launches {c}")
         if label == "2mm":
             nn_launches["nn_flash_gated"] = c["nn_flash_gated"]
+            nn_launches["assoc_reduce"] = c["assoc_reduce"]
         nn_np = nn_refined.cpu().numpy()
         check(nn_np.shape == (N_POSES, 4, 4) and np.isfinite(nn_np).all(),
               f"nn-slice {label}: refined poses not finite (N, 4, 4)")
@@ -845,16 +1093,18 @@ def main():
             max_points=ref.max_points, criteria=crit_nn, window=ref.window, stride=ref.stride,
             roi=ref.roi, proj=ref.proj, K=ref._K_render_t)
         t0 = time.perf_counter()
-        p_refined, p_res = rp(scene=ref.scene, query=functools.partial(ref.scene.query, plain=True))
+        nn_plain = functools.partial(ref.scene.query, plain=True)
+        p_refined, p_res = rp(scene=ref.scene, query=icp.plain_association(nn_plain))
         torch.cuda.synchronize()
         p_wall = (time.perf_counter() - t0) * 1e3
-        agree, d_rot, d_t, d_fit = agreement(rotation_angle_deg, truth, nn_np,
-                                             p_refined.cpu().numpy(), nn_fit,
-                                             p_res.fitness.cpu().numpy())
-        phase("nn-slice", f"2mm through the plain NN: wall_ms={p_wall} verdict_agreement={agree} "
-              f"max_drot_deg={d_rot} max_dt_mm={d_t} max_dfit={d_fit}")
-        check(agree == 1.0 and d_rot <= MAX_DROT_DEG and d_t <= MAX_DT_MM and d_fit <= MAX_DFIT,
-              "nn-slice: kernel path and plain path disagree")
+        hold_paths("nn-slice", "2mm through the plain NN and the plain fused pass",
+                   agreement(rotation_angle_deg, truth, nn_np, p_refined.cpu().numpy(), nn_fit,
+                             p_res.fitness.cpu().numpy()),
+                   path_failures, extra=f"wall_ms={p_wall} ")
+        m_refined, m_res = rp(scene=ref.scene, query=ref.scene.query)
+        report_old_loop("nn-slice", agreement(
+            rotation_angle_deg, truth, nn_np, m_refined.cpu().numpy(), nn_fit,
+            m_res.fitness.cpu().numpy()), path_failures)
         flash = SceneNN.from_depth(scene, K, ref.max_dist_diff, voxel_mm=2.0,
                                    backend="flash", device=dev)
         reset_counts()
@@ -863,15 +1113,12 @@ def main():
         c = counts()
         nn_launches["nn_flash_packed"] = c["nn_flash_packed"]
         check(c["nn_flash_packed"] > 0, f"nn-slice full-scan scene: launches {c}")
-        agree, d_rot, d_t, d_fit = agreement(rotation_angle_deg, truth, nn_np,
-                                             f_refined.cpu().numpy(), nn_fit,
-                                             f_res.fitness.cpu().numpy())
         f_wall, f_dev = refine_ms(torch, lambda: rp(scene=flash))
-        phase("nn-slice", f"2mm against the full-scan scene (nn_flash_packed): wall_ms={f_wall} "
-              f"device_ms={f_dev} verdict_agreement={agree} max_drot_deg={d_rot} "
-              f"max_dt_mm={d_t} max_dfit={d_fit} launches={c}")
-        check(agree == 1.0 and d_rot <= MAX_DROT_DEG and d_t <= MAX_DT_MM and d_fit <= MAX_DFIT,
-              "nn-slice: the gated and the full-scan scene disagree")
+        # both scenes feed equal neighbours to the same fused pass
+        hold_paths("nn-slice", "2mm against the full-scan scene (nn_flash_packed)",
+                   agreement(rotation_angle_deg, truth, nn_np, f_refined.cpu().numpy(), nn_fit,
+                             f_res.fitness.cpu().numpy()),
+                   path_failures, extra=f"wall_ms={f_wall} device_ms={f_dev} launches={c} ")
 
     # 8. golden recovery against an NN scene
     nn_golden = ptt.PoseRefiner(bumpy, K=K, device="cuda", scene="nn_bruteforce")
@@ -884,6 +1131,7 @@ def main():
           f"fitness {float(ng_res.fitness)}")
     check(np.isfinite(ng_err) and float(ng_res.fitness) > 0.7,
           f"nn golden fitness {float(ng_res.fitness)} <= 0.7")
+    hold_paths("nn-golden", "through the plain versions", golden_plain(nn_golden), path_failures)
 
     # 9. the association's row gather against its plain version: the bench
     # scene at the first-pass queries' pixels, and the raw and the
@@ -910,6 +1158,31 @@ def main():
         ("raw NN scene", raw_nn.table, neighbours(raw_nn)),
         ("device-built 640x480 NN scene", frame_nn.table, neighbours(frame_nn)),
     ])
+    # the fused pass's cases at the slice shape ([assoc-reduce], below)
+    slice_cloud, slice_valid = first_pass_clouds(ptt, refine_poses, refiner, sc, poses)
+    projective_case("slice shape", sc, slice_cloud, slice_valid)
+    for label, s_nn in (("2 mm NN scene", nn_ref.scene), ("raw NN scene", raw_nn)):
+        indexed_case(label, s_nn.table, s_nn.max_dist_diff, nn_cloud, nn_valid,
+                     s_nn._nearest(nn_cloud))
+    # edge inputs: a pose with no valid point, points at z = 0, behind the
+    # camera and NaN, points that project onto the frame's border pixels
+    # (trunc(v + 0.5) steps at -1 and at the frame's size), a masked row
+    edge_cloud, edge_valid = slice_cloud.clone(), slice_valid.clone()
+    edge_valid[0] = False
+    edge_cloud[1, :3] = torch.tensor([[0.01, 0.01, 0.0], [0.01, 0.01, -0.3],
+                                      [float("nan"), 0.0, 0.3]], device=dev)
+    edge_valid[1, :3] = True
+    fx, fy, cx, cy = (float(K[i, j]) for i, j in ((0, 0), (1, 1), (0, 2), (1, 2)))
+    for i, (u, v) in enumerate(((-1.0, 100.0), (-0.99999, 100.0), (WIDTH, 100.0),
+                                (WIDTH - 1e-4, 100.0), (100.0, -1.0), (100.0, -0.99999),
+                                (100.0, HEIGHT), (100.0, HEIGHT - 1e-4))):
+        edge_cloud[2, i] = torch.tensor([(u - 0.5 - cx) / fx * 0.3, (v - 0.5 - cy) / fy * 0.3,
+                                         0.3], device=dev)
+        edge_valid[2, i] = True
+    projective_case("edge inputs", sc, edge_cloud, edge_valid)
+    shut = SceneProjective(table=sc.table, K=sc.K, height=sc.height, width=sc.width,
+                           max_dist_diff=torch.full((), -1.0, device=dev))
+    projective_case("a gate that rejects everything", shut, slice_cloud, slice_valid, count=0.0)
 
     # 10. bench.py's tracking workload through TrackingSession
     truths, frames = track_frames(
@@ -950,7 +1223,10 @@ def main():
               f"n_rejected={session.n_rejected} final_translation_err_mm={t_err} "
               f"final_rotation_err_deg={r_err} (icosphere: rotation unobservable) "
               f"launches={c} syncs_in_one_step_async={sum(syncs.values())} {dict(syncs)}")
-        check(c["rasterize"] > 0 and c["gather_rows"] > 0
+        # a frame: 30 iterations and the scoring pass through the fused
+        # kernel, the information pass through the row gather
+        check(c["rasterize"] > 0 and c["gather_rows"] == N_TRACK
+              and c["assoc_reduce"] == 31 * N_TRACK
               and (label == "projective" or c["nn_flash_gated"] > 0),
               f"track {label}: launches {c}")
         check(np.isfinite(last.pose).all() and t_err < 20.0,
@@ -958,17 +1234,17 @@ def main():
         # the first frame through the kernels against the plain versions
         k_out = ref.track(frames[0], hyps0, with_covariance=True)
         p_out = ref.track(frames[0], hyps0, with_covariance=True, _plain=True)
-        agree, d_rot, d_t, d_fit = agreement(
-            rotation_angle_deg, truths[0], k_out[0].cpu().numpy(), p_out[0].cpu().numpy(),
-            k_out[1].fitness.cpu().numpy(), p_out[1].fitness.cpu().numpy())
         d_cov = float(((k_out[2].covariance - p_out[2].covariance).abs().amax(dim=(1, 2))
                        / p_out[2].covariance.abs().amax(dim=(1, 2))).max())
-        phase("track", f"{label}: first frame through the plain versions: "
-              f"verdict_agreement={agree} max_drot_deg={d_rot} max_dt_mm={d_t} "
-              f"max_dfit={d_fit} max_rel_dcov={d_cov}")
-        check(agree == 1.0 and d_rot <= MAX_DROT_DEG and d_t <= MAX_DT_MM and d_fit <= MAX_DFIT,
-              f"track {label}: kernel path and plain path disagree")
-        if label != "nn":
+        hold_paths("track", f"{label}: first frame through the plain versions", agreement(
+            rotation_angle_deg, truths[0], k_out[0].cpu().numpy(), p_out[0].cpu().numpy(),
+            k_out[1].fitness.cpu().numpy(), p_out[1].fitness.cpu().numpy()),
+            path_failures, extra=f"max_rel_dcov={d_cov} ")
+        if label == "projective":
+            track_scene = SceneProjective.from_depth(torch.as_tensor(frames[0], device=dev),
+                                                     ref._K_t, ref.max_dist_diff, device=dev)
+            projective_case("tracking shape", track_scene, *first_pass_clouds(
+                ptt, refine_poses, ref, track_scene, torch.as_tensor(hyps0, device=dev)))
             continue
         # B3 at the tracking shape: the first frame's first-pass queries
         # against the scene the tracker builds from that frame on the card
@@ -976,8 +1252,8 @@ def main():
         track_scene = SceneNN.from_depth_device(
             torch.as_tensor(frames[0], device=dev), ref._K_t, ref.max_dist_diff,
             perm=ref._scene_perm(frames[0].shape, pool), pool=pool)
-        track_q = first_pass_queries(torch, ptt, refine_poses, ref, track_scene,
-                                     torch.as_tensor(hyps0, device=dev))
+        track_q = first_pass_clouds(ptt, refine_poses, ref, track_scene,
+                                    torch.as_tensor(hyps0, device=dev))[0].reshape(-1, 3)
         check(track_q.shape == (N_HYP * ref.max_points, 3), f"track queries {track_q.shape}")
         track_b3 = gated_kernel_check(
             torch, NF, "track", f"tracking shape (pool {pool})", track_q, track_scene,
@@ -1028,7 +1304,7 @@ def main():
         ms_refined, ms_res = ref.refine(ms_hyps_t, crit, scene_ids=ms_ids_t)
         torch.cuda.synchronize()
         c = ms_launches[label] = counts()
-        check(c["rasterize"] > 0 and c["gather_rows"] > 0
+        check(c["rasterize"] > 0 and c["assoc_reduce"] == ITERS + 1
               and (label == "multiscene" or c["nn_flash_gated_stacked"] > 0),
               f"{label}: launches {c}")
         ms_np = ms_refined.cpu().numpy()
@@ -1049,34 +1325,32 @@ def main():
             refine_poses, ref.tris, ms_hyps_t, stack, ref.proj, ref._K_render_t,
             width=ref.render_w, height=ref.render_h, max_points=ref.max_points,
             window=ref.window, stride=ref.stride, roi=ref.roi, scene_ids=ms_ids_t)
+        ms_cloud, ms_valid = first_pass_clouds(ptt, refine_poses, ref, stack, ms_hyps_t,
+                                               scene_ids=ms_ids_t)
         if label == "multiscene-nn":
-            seen = []
-            q_at = stack.query_at(ms_ids_t)
-
-            def capture(src):
-                seen.append(src.clone())
-                return q_at(src)
-
-            rp(criteria=ptt.ICPConvergenceCriteria(max_iteration=0), query=capture)
-            stacked_stats = stacked_nn_kernel_phase(torch, NF, stack, seen[0], ms_ids_t)
-        # the same refine through the plain versions (raster, NN, gather)
+            stacked_stats = stacked_nn_kernel_phase(torch, NF, stack, ms_cloud, ms_ids_t)
+            indexed_case("stacked NN table, 4 frames", stack.table, stack.max_dist_diff,
+                         ms_cloud, ms_valid,
+                         stack._nearest_at(stack._frame_ids(ms_ids_t), ms_cloud))
+        else:
+            projective_case("stacked projective table, 4 frames", stack, ms_cloud, ms_valid,
+                            base=stack._base(ms_ids_t))
+        # the same refine through the plain versions (raster, NN, gather,
+        # fused pass)
         t0 = time.perf_counter()
         p_refined, p_res = rp(criteria=crit, raster=RC.rasterize_plain,
-                              query=stack.query_at(ms_ids_t, plain=True))
+                              query=icp.plain_association(stack.query_at(ms_ids_t, plain=True)))
         torch.cuda.synchronize()
         p_wall = (time.perf_counter() - t0) * 1e3
-        agree, d_rot, d_t, d_fit = agreement(rotation_angle_deg, ms_rows, ms_np,
-                                             p_refined.cpu().numpy(), ms_fit,
-                                             p_res.fitness.cpu().numpy())
-        phase(label, f"through the plain versions: wall_ms={p_wall} verdict_agreement={agree} "
-              f"max_drot_deg={d_rot} max_dt_mm={d_t} max_dfit={d_fit}")
-        check(agree == 1.0 and d_rot <= MAX_DROT_DEG and d_t <= MAX_DT_MM and d_fit <= MAX_DFIT,
-              f"{label}: kernel path and plain path disagree")
+        hold_paths(label, "through the plain versions",
+                   agreement(rotation_angle_deg, ms_rows, ms_np, p_refined.cpu().numpy(), ms_fit,
+                             p_res.fitness.cpu().numpy()),
+                   path_failures, extra=f"wall_ms={p_wall} ")
         if label != "multiscene":
             continue
         # every frame's hypotheses refined against that frame alone (a lane
-        # of the stack; the same plan and the same batch, so the ICP sums
-        # run the same kernels: a batch of 64 reduces in another order)
+        # of the stack; the same plan and the same batch, so the fused pass
+        # splits the poses over as many CTAs and sums in the same order)
         lanes = np.empty_like(ms_np)
         lane_fit = np.empty_like(ms_fit)
         for k in range(MS_FRAMES):
@@ -1084,12 +1358,9 @@ def main():
             l_ref, l_res = ref.refine(ms_hyps_t, crit, _scene=stack.lane(k))
             lanes[rows] = l_ref.cpu().numpy()[rows]
             lane_fit[rows] = l_res.fitness.cpu().numpy()[rows]
-        agree, d_rot, d_t, d_fit = agreement(rotation_angle_deg, ms_rows, ms_np, lanes, ms_fit,
-                                             lane_fit)
-        phase(label, f"against per-frame refines: verdict_agreement={agree} max_drot_deg={d_rot} "
-              f"max_dt_mm={d_t} max_dfit={d_fit}")
-        check(agree == 1.0 and d_rot <= MAX_DROT_DEG and d_t <= MAX_DT_MM and d_fit <= MAX_DFIT,
-              "multiscene: the stacked refine and the per-frame refines disagree")
+        hold_paths(label, "against per-frame refines",
+                   agreement(rotation_angle_deg, ms_rows, ms_np, lanes, ms_fit, lane_fit),
+                   path_failures)
 
     # 13. several meshes in one batch: scripts/demo_multi.py's two models,
     # 256 hypotheses of models [0, 1] * 128 against the bench scene
@@ -1102,7 +1373,7 @@ def main():
     mm_refined, mm_res = mm_ref.refine(mm_ids, poses, criteria=crit)
     torch.cuda.synchronize()
     mm_launches = counts()
-    check(mm_launches["rasterize"] > 0 and mm_launches["gather_rows"] > 0,
+    check(mm_launches["rasterize"] > 0 and mm_launches["assoc_reduce"] == ITERS + 1,
           f"multimodel: launches {mm_launches}")
     mm_np = mm_refined.cpu().numpy()
     mm_fit = mm_res.fitness.cpu().numpy()
@@ -1123,13 +1394,10 @@ def main():
         mm_tris, poses, mm_ref.scene, mm_ref.proj, mm_ref._K_render_t, width=mm_ref.render_w,
         height=mm_ref.render_h, max_points=mm_ref.max_points, criteria=crit,
         window=mm_ref.window, stride=mm_ref.stride, roi=mm_ref.roi, raster=RC.rasterize_plain,
-        query=functools.partial(mm_ref.scene.query, plain=True))
-    agree, d_rot, d_t, d_fit = agreement(rotation_angle_deg, truth, mm_np, p_refined.cpu().numpy(),
-                                         mm_fit, p_res.fitness.cpu().numpy())
-    phase("multimodel", f"through the plain versions: verdict_agreement={agree} "
-          f"max_drot_deg={d_rot} max_dt_mm={d_t} max_dfit={d_fit}")
-    check(agree == 1.0 and d_rot <= MAX_DROT_DEG and d_t <= MAX_DT_MM and d_fit <= MAX_DFIT,
-          "multimodel: kernel path and plain path disagree")
+        query=icp.plain_association(functools.partial(mm_ref.scene.query, plain=True)))
+    hold_paths("multimodel", "through the plain versions",
+               agreement(rotation_angle_deg, truth, mm_np, p_refined.cpu().numpy(), mm_fit,
+                         p_res.fitness.cpu().numpy()), path_failures)
 
     # 14. two objects in one stream: MultiObjectSession, one track per frame
     bumpy40 = mesh.make_bumpy_sphere(radius=40.0, subdivisions=3)
@@ -1151,9 +1419,10 @@ def main():
             for m, t in zip((bumpy40, ico30), cur)])).cpu().numpy())
     mt_ref = ptt.MultiModelRefiner([bumpy40, ico30], K=K, device="cuda", **CFG)
 
-    def multi_session(pipelined=True):
+    def multi_session(pipelined=True, seed=13, init_cov=MT_INIT_COV):
+        """(ms per frame, [steps of both objects per frame]) of one session."""
         session = ptt.MultiObjectSession(mt_ref, [(0, starts[0]), (1, starts[1])],
-                                         n_hypotheses=MT_HYP, seed=13)
+                                         n_hypotheses=MT_HYP, seed=seed, init_cov=init_cov)
         t0 = time.perf_counter()
         if pipelined:
             steps = [session.step_async(f) for f in mt_frames][1:] + [session.flush()]
@@ -1170,9 +1439,12 @@ def main():
         torch.cuda.synchronize()
         mt_launches = counts()
         a_ms = sorted(multi_session()[0] for _ in range(3))[1]
-        s_ms = sorted(multi_session(pipelined=False)[0] for _ in range(3))[1]
+        stepped = [multi_session(pipelined=False) for _ in range(3)]
+        s_ms = sorted(ms for ms, _steps in stepped)[1]
+        # the same sessions under the filter's default prior (5 deg / 20 mm)
+        diffuse = [multi_session(seed=seed, init_cov=None)[1] for seed in range(13, 21)]
         probe = ptt.MultiObjectSession(mt_ref, [(0, starts[0]), (1, starts[1])],
-                                       n_hypotheses=MT_HYP, seed=13)
+                                       n_hypotheses=MT_HYP, seed=13, init_cov=MT_INIT_COV)
         probe.step_async(mt_frames[0])
         probe.step_async(mt_frames[1])
         syncs = sync_sites(torch, lambda: probe.step_async(mt_frames[2]))
@@ -1180,37 +1452,62 @@ def main():
     finally:
         pkg_log.setLevel(level)
     accepted = [[s.accepted for s in steps] for steps in mt_steps]
-    t_errs = [max(float(np.linalg.norm(s.pose[:3, 3] - t[:3, 3])) for s, t in zip(steps, truths))
-              for steps, truths in zip(mt_steps, mt_truths)]
+
+    def lost_mm(session_steps):
+        """Per frame, the worse object's translation error (mm)."""
+        return [max(float(np.linalg.norm(s.pose[:3, 3] - t[:3, 3])) for s, t in zip(steps, truths))
+                for steps, truths in zip(session_steps, mt_truths)]
+
+    def strayed(session_steps):
+        """Frames in which an object's winning hypothesis lies more than
+        half the objects' distance (45 mm) from its truth: it has locked
+        onto the other object."""
+        return sum(float(np.linalg.norm(s.refined[s.best][:3, 3] - t[:3, 3])) > 45.0
+                   for steps, truths in zip(session_steps, mt_truths)
+                   for s, t in zip(steps, truths))
+
+    t_errs, s_errs = lost_mm(mt_steps), lost_mm(stepped[0][1])
     phase("multi-track", f"2 objects x {MT_HYP} hypotheses, {MT_FRAMES} frames, one track per "
           f"frame, roi={mt_ref.roi}: step_async_ms_per_frame={a_ms} step_ms_per_frame={s_ms} "
           f"all_accepted={all(map(all, accepted))} max_translation_err_mm={max(t_errs)} "
-          f"final={t_errs[-1]} (icosphere: rotation unobservable) launches={mt_launches} "
+          f"final={t_errs[-1]} through_step_max={max(s_errs)} "
+          f"(icosphere: rotation unobservable) launches={mt_launches} "
           f"syncs_in_one_step_async={sum(syncs.values())} {dict(syncs)}")
-    check(mt_launches["rasterize"] > 0 and mt_launches["gather_rows"] > 0,
+    # not held: under the default prior a hypothesis drawn tens of mm off
+    # can settle on the other object with every point an inlier, and the
+    # ranking puts fitness before rmse, so it wins whenever no hypothesis on
+    # the right object keeps all its points
+    phase("multi-track", f"the same sessions under the filter's default prior (5 deg / 20 mm), "
+          f"seeds 13-20, step_async: max_translation_err_mm per seed="
+          f"{[max(lost_mm(d)) for d in diffuse]} frames won by a hypothesis on the other "
+          f"object per seed={[strayed(d) for d in diffuse]}")
+    check(mt_launches["rasterize"] > 0 and mt_launches["gather_rows"] == MT_FRAMES
+          and mt_launches["assoc_reduce"] == 31 * MT_FRAMES,
           f"multi-track: launches {mt_launches}")
-    check(all(map(all, accepted)) and max(t_errs) < 6.0,
-          f"multi-track: accepted {accepted}, translation errors {t_errs}")
+    stepped_ok = all(s.accepted for steps in stepped[0][1] for s in steps)
+    check(all(map(all, accepted)) and stepped_ok and max(t_errs) < 6.0 and max(s_errs) < 6.0
+          and strayed(mt_steps) == 0,
+          f"multi-track: accepted {accepted} / {stepped_ok}, translation errors {t_errs} "
+          f"(step_async), {s_errs} (step)")
     check(sum(syncs.values()) == 0, f"multi-track: synchronizing calls in step_async {dict(syncs)}")
     # the first frame's hypotheses through the kernels and the plain versions
     mt_hyps, mt_ids = [], []
     for i in range(2):
-        tracker = ptt.PoseTracker(starts[i])
+        tracker = ptt.PoseTracker(starts[i], init_cov=MT_INIT_COV)
         tracker.predict()
         mt_hyps.append(tracker.hypotheses(MT_HYP, seed=np.random.default_rng(i)))
         mt_ids += [i] * MT_HYP
     mt_hyps, mt_ids = np.concatenate(mt_hyps), np.asarray(mt_ids, np.int32)
     k_out = mt_ref.track(mt_frames[0], mt_ids, mt_hyps, with_covariance=True)
     p_out = mt_ref.track(mt_frames[0], mt_ids, mt_hyps, with_covariance=True, _plain=True)
-    agree, d_rot, d_t, d_fit = agreement(
+    hold_paths("multi-track", "first frame through the plain versions", agreement(
         rotation_angle_deg, mt_truths[0][mt_ids], k_out[0].cpu().numpy(), p_out[0].cpu().numpy(),
-        k_out[1].fitness.cpu().numpy(), p_out[1].fitness.cpu().numpy())
-    phase("multi-track", f"first frame through the plain versions: verdict_agreement={agree} "
-          f"max_drot_deg={d_rot} max_dt_mm={d_t} max_dfit={d_fit}")
-    check(agree == 1.0 and d_rot <= MAX_DROT_DEG and d_t <= MAX_DT_MM and d_fit <= MAX_DFIT,
-          "multi-track: kernel path and plain path disagree")
+        k_out[1].fitness.cpu().numpy(), p_out[1].fitness.cpu().numpy()), path_failures)
 
-    # 15. P1 on its probe: scripts/probe_mxu_nn.py's workload at full size
+    # 15. the fused association + reduction pass against its plain version
+    reduce_stats = assoc_reduce_phase(torch, IR, reduce_cases)
+
+    # 16. P1 on its probe: scripts/probe_mxu_nn.py's workload at full size
     reset_counts()
     mxu = mxu_nn.run(device=dev)
     phase("mxu", " ".join(f"{k}={v}" for k, v in mxu.items()))
@@ -1220,6 +1517,7 @@ def main():
           and mxu["plain_dist_in_band"], "mxu: a disagreement outside the near-tie band")
     mxu_pairs = float(mxu["queries"]) * mxu["table_columns"]
 
+    check(not path_failures, "; ".join(path_failures))
     print(card_line)
     max_err = max(s["max_abs_err"] for s in (scene_stats, hyp_stats, pp_stats))
     nn_sources = dict(route="cuda", source="pose_refine_tpu_torch/csrc/nn_flash.cu",
@@ -1232,6 +1530,7 @@ def main():
         "launches": launches,
         "max_abs_err": max_err,
         "ms": hyp_stats["ms"],
+        "alone_ms": hyp_stats["alone_ms"],
         "plain_ms": hyp_stats["plain_ms"],
         "bound_ms": hyp_stats["bound_ms"],
         "bound_by": hyp_stats["bound_by"],
@@ -1255,8 +1554,26 @@ def main():
         "route": "cuda",
         "source": "pose_refine_tpu_torch/csrc/gather.cu",
         "replaces": "scripts/probe_pallas_gather.py:29",
+        # the information pass of every tracked frame; the ICP passes
+        # look their rows up inside assoc_reduce
         "launches": track_counts["projective"]["gather_rows"],
         **gather_stats,
+    }, {
+        "name": "assoc_reduce",
+        "route": "cuda",
+        "source": "pose_refine_tpu_torch/csrc/icp_reduce.cu",
+        # the port's own kernel: the row gather fused with the packed
+        # reduction of pose_refine_tpu/icp.py:215
+        "replaces": "scripts/probe_pallas_gather.py:29",
+        "launches": slice_counts["assoc_reduce"],
+        **reduce_stats["slice shape"],
+        "launches_track": track_counts["projective"]["assoc_reduce"],
+        "track_ms": reduce_stats["tracking shape"]["ms"],
+        "track_alone_ms": reduce_stats["tracking shape"]["alone_ms"],
+        "track_bound_ms": reduce_stats["tracking shape"]["bound_ms"],
+        "launches_nn": nn_launches["assoc_reduce"],
+        "launches_stacked": ms_launches["multiscene"]["assoc_reduce"],
+        "launches_multimodel": mm_launches["assoc_reduce"],
     }, {
         "name": "nn_flash_mxu",
         "route": "cuda",

@@ -126,8 +126,8 @@ def main():
         sc = SceneNN.from_depth_device(
             torch.as_tensor(track[0], device=dev), ref._K_t, ref.max_dist_diff,
             perm=ref._scene_perm(track[0].shape, pool), pool=pool)
-        q = CS.first_pass_queries(torch, ptt, refine_poses, ref, sc,
-                                  torch.as_tensor(hyps, device=dev))
+        q = CS.first_pass_clouds(ptt, refine_poses, ref, sc,
+                                 torch.as_tensor(hyps, device=dev))[0].reshape(-1, 3)
         what = f"tracking shape (device-built scene, pool {pool})"
     else:
         # chip_smoke.py's [nn-kernel] input
@@ -135,8 +135,8 @@ def main():
         ref = ptt.PoseRefiner(model, K=K, device="cuda", scene="nn_bruteforce",
                               scene_voxel_mm=2.0, **CS.CFG)
         ref.set_scene_depth(scene)
-        q = CS.first_pass_queries(torch, ptt, refine_poses, ref, ref.scene,
-                                  torch.as_tensor(poses_np, device=dev))
+        q = CS.first_pass_clouds(ptt, refine_poses, ref, ref.scene,
+                                 torch.as_tensor(poses_np, device=dev))[0].reshape(-1, 3)
         sc = SceneNN.from_depth(scene, K, 0.1, voxel_mm=2.0 if args.shape == "2mm" else 0.0,
                                 device=dev)
         what = f"{args.shape} scene"

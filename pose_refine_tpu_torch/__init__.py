@@ -3,8 +3,9 @@
 Batch depth rasterization of pose hypotheses (a hand-written CUDA kernel,
 ``csrc/rasterize.cu``) plus batched point-to-plane ICP against a projective
 scene or a nearest-neighbour scene (exact NN by the flash-NN kernels,
-``csrc/nn_flash.cu``; the association's row gather, ``csrc/gather.cu``),
-with its pose uncertainty, stacked scenes (``set_scene_depths``), several
+``csrc/nn_flash.cu``; the association's row gather, ``csrc/gather.cu``;
+every ICP pass's association and 29-float reduction in one kernel,
+``csrc/icp_reduce.cu``), with its pose uncertainty, stacked scenes (``set_scene_depths``), several
 meshes in one batch (``MultiModelRefiner``), per-frame tracking
 (``PoseRefiner.track``), the filtered ``TrackingSession`` and
 ``MultiObjectSession``, on an NVIDIA GPU or, with the kernels' plain

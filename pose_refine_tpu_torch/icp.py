@@ -17,15 +17,31 @@ steps with a per-pose done latch and no host synchronisation inside. The
 JAX package's chunked while-loop and fused fori are workarounds for its
 runtime with identical results. Everything stays float32, as in the JAX
 package: the reductions, the solve residual and the pose composition.
+
+One association + reduction pass has two formulations, as in the JAX
+package: "matmul" (batched matrix products) and "packed" (the reference's
+29-float vector a point, icp.h:125-209, summed in the order of the fused
+kernel). Given a scene's ``Association``, a pass on CUDA tensors is one
+launch of the fused kernel of ``ops/icp_reduce.py``, which serves both
+options: it computes the packed sums, whatever ``reduction`` says. The
+association and the count are the same in all of them. "packed" on any
+device and the kernel give the same float sums bit for bit; "matmul" differs
+from them in the last bits, and an ICP turns last bits into whole iterations
+at the hypotheses that do not converge (an association pixel that flips, the
+1e-5 latch), so a "matmul" refine and a "packed" one agree closely only
+where both converge.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Union
 
 import torch
 
 from pose_refine_tpu_torch import geometry
+from pose_refine_tpu_torch.ops.icp_reduce import assoc_reduce_plain, packed_sums_plain, unpack_sums
+
+REDUCTIONS = ("matmul", "packed")
 
 
 class ICPConvergenceCriteria(NamedTuple):
@@ -61,6 +77,27 @@ class PoseUncertainty(NamedTuple):
     covariance: torch.Tensor   # (..., 6, 6) sigma2 * inv(info + relative ridge)
 
 
+class Association(NamedTuple):
+    """A scene's association bound for one refine. ``query``: (..., 3) points
+    -> (dst, normal, valid). ``reduce``: (clouds (N, P, 3), valid (N, P)) ->
+    (AtA, Atb, count, mse_sum), the query and the reduction in one step
+    (``scene.reduce`` / ``scene.reduce_at(ids)``: one kernel launch). The
+    ICP loop takes ``reduce`` for CUDA tensors, and ``query`` plus a plain
+    formulation for CPU tensors."""
+
+    query: Callable
+    reduce: Callable
+
+
+def plain_association(plain_query: Callable) -> Association:
+    """The Association of the kernels' plain versions: ``plain_query`` (a
+    scene's ``query(plain=True)`` or ``query_at(ids, plain=True)``), and as
+    its reduce the fused kernel's plain version over that query. What a
+    kernel path is held against: the same function in plain PyTorch."""
+    return Association(
+        plain_query, lambda cloud, valid: unpack_sums(assoc_reduce_plain(cloud, valid, plain_query)))
+
+
 def _solve_damped(AtA: torch.Tensor, Atb: torch.Tensor, penalty: float = 0.01):
     """(AtA + penalty*I) x = Atb in f32 Cholesky + one refinement step,
     standing in for the reference's f64 LDLT (icp.cpp:29-45). Batched over
@@ -88,11 +125,21 @@ def _weighted_rows(cloud, valid, dst, nrm, q_valid):
     return v, diff, b, arow
 
 
-def _normal_equations(cloud, valid, query_fn: Callable):
+def _normal_equations(cloud, valid, assoc: Union[Callable, Association],
+                      reduction: str = "matmul"):
     """One association + reduction pass: (AtA (..., 6, 6), Atb (..., 6),
     count (...), mse_sum (...)), the reference's transform_reduce over
-    thrust__pcd2Ab (icp.h:128-209) as batched matrix products."""
-    dst, nrm, q_valid = query_fn(cloud)
+    thrust__pcd2Ab (icp.h:128-209). ``assoc`` is an Association (CUDA
+    tensors: its ``reduce``, the packed sums whatever ``reduction`` says)
+    or a bare query callable, reduced here as batched matrix products
+    ("matmul") or as the 29-float packed vector ("packed")."""
+    if isinstance(assoc, Association):
+        if cloud.device.type == "cuda":
+            return assoc.reduce(cloud, valid)
+        assoc = assoc.query
+    dst, nrm, q_valid = assoc(cloud)
+    if reduction == "packed":
+        return unpack_sums(packed_sums_plain(cloud, valid, dst, nrm, q_valid))
     v, diff, b, arow = _weighted_rows(cloud, valid, dst, nrm, q_valid)
     AtA = arow.transpose(-1, -2) @ arow
     Atb = (arow.transpose(-1, -2) @ (b * v)[..., None])[..., 0]
@@ -101,9 +148,10 @@ def _normal_equations(cloud, valid, query_fn: Callable):
     return AtA, Atb, count, mse_sum
 
 
-def _icp_run(cloud, valid, query_fn: Callable, criteria: ICPConvergenceCriteria,
-             n_points=None):
-    """The ICP outer loop over a (N, P, 3) cloud batch with (N, P) valid.
+def _icp_run(cloud, valid, assoc: Union[Callable, Association],
+             criteria: ICPConvergenceCriteria, n_points=None, reduction: str = "matmul"):
+    """The ICP outer loop over a (N, P, 3) cloud batch with (N, P) valid;
+    ``assoc`` and ``reduction`` as in _normal_equations.
 
     Returns (RegistrationResult batch, transformed clouds (N, P, 3))."""
     cloud = torch.as_tensor(cloud, dtype=torch.float32)
@@ -127,7 +175,7 @@ def _icp_run(cloud, valid, query_fn: Callable, criteria: ICPConvergenceCriteria,
     rmse = torch.zeros_like(fitness)
     done = torch.zeros(n, dtype=torch.bool, device=dev)
     for it in range(max_iter + 1):
-        AtA, Atb, count, mse_sum = _normal_equations(cloud, valid, query_fn)
+        AtA, Atb, count, mse_sum = _normal_equations(cloud, valid, assoc, reduction)
         empty = count == 0
         new_fit = torch.where(empty, fitness, count / n_total.clamp(min=1.0))
         new_rmse = torch.where(empty, rmse, torch.sqrt(mse_sum / count.clamp(min=1.0)))
@@ -149,13 +197,16 @@ def _icp_run(cloud, valid, query_fn: Callable, criteria: ICPConvergenceCriteria,
     return RegistrationResult(T, fitness, rmse, n_total), cloud
 
 
-def pose_information(cloud, valid, query_fn: Callable, robust_delta: float = 0.0,
-                     estimation: str = "point_to_plane"):
+def pose_information(cloud, valid, query_fn: Union[Callable, Association],
+                     robust_delta: float = 0.0, estimation: str = "point_to_plane"):
     """Gauss-Newton information of refined poses: one association and
     reduction pass at the given (already transformed) (..., P, 3) clouds,
     with the solver's rows [p x n, n]. Returns (info (..., 6, 6) = J^T J,
     sigma2 (...) = sum(b^2) / max(n - 6, 1), count (...) = n inliers).
-    ``pose_covariance`` turns them into sigma2 * inv(info)."""
+    ``pose_covariance`` turns them into sigma2 * inv(info). The pass needs
+    sum(b^2), which is not among the fused kernel's 29 sums: it runs an
+    Association's ``query`` (the row gather of ops/gather.py on a card) and
+    reduces here, once per refine."""
     if estimation == "point_to_point":
         raise NotImplementedError(
             "pose_information for estimation='point_to_point' is not ported yet (ROADMAP A14)")
@@ -165,6 +216,8 @@ def pose_information(cloud, valid, query_fn: Callable, robust_delta: float = 0.0
         raise NotImplementedError("robust_delta (Huber IRLS) is not ported yet (ROADMAP A14)")
     cloud = torch.as_tensor(cloud, dtype=torch.float32)
     valid = torch.as_tensor(valid, dtype=torch.bool, device=cloud.device)
+    if isinstance(query_fn, Association):
+        query_fn = query_fn.query
     dst, nrm, q_valid = query_fn(cloud)
     v, _diff, b, arow = _weighted_rows(cloud, valid, dst, nrm, q_valid)
     info = arow.transpose(-1, -2) @ arow
@@ -200,19 +253,22 @@ def pose_covariance(info, sigma2, rel_ridge: float = 1e-6, inflation: float = 1.
     return (inflation * sigma2)[..., None, None] * inv
 
 
-def icp_point_to_plane(cloud, valid, query_fn: Callable,
+def icp_point_to_plane(cloud, valid, query_fn: Union[Callable, Association],
                        criteria: ICPConvergenceCriteria = ICPConvergenceCriteria(),
                        n_points=None, reduction: str = "matmul",
                        robust_delta: float = 0.0, coarse_iters: int = 0):
     """Refine a (P, 3) cloud, or a (N, P, 3) batch, against a scene.
 
-    query_fn: scene.query - (..., 3) points -> (dst, normal, valid).
+    query_fn: scene.query - (..., 3) points -> (dst, normal, valid) - or
+        an Association of a scene's query and fused reduce.
     n_points: divisor for fitness; defaults to sum(valid).
+    reduction: "matmul" or "packed", the formulation of a pass reduced from
+        a query (equal up to summation order). It is not consulted for an
+        Association on CUDA tensors: its fused kernel computes the packed
+        sums for either value.
     Returns (RegistrationResult, transformed cloud), batched like ``cloud``.
     """
-    if reduction == "packed":
-        raise NotImplementedError("reduction='packed' is not ported yet (ROADMAP A14)")
-    if reduction != "matmul":
+    if reduction not in REDUCTIONS:
         raise ValueError(f"unknown reduction {reduction!r}: expected 'matmul' or 'packed'")
     if float(robust_delta) != 0.0:
         raise NotImplementedError("robust_delta (Huber IRLS) is not ported yet (ROADMAP A14)")
@@ -223,7 +279,7 @@ def icp_point_to_plane(cloud, valid, query_fn: Callable,
     if single:
         cloud = cloud[None]
         valid = torch.as_tensor(valid, device=cloud.device)[None]
-    res, out = _icp_run(cloud, valid, query_fn, criteria, n_points)
+    res, out = _icp_run(cloud, valid, query_fn, criteria, n_points, reduction)
     if single:
         res = RegistrationResult(*(f[0] for f in res))
         out = out[0]

@@ -66,13 +66,19 @@ def refine_poses(tris, init_poses, scene: Union[SceneProjective, SceneNN, SceneP
     an (N,) integer tensor of each pose's frame: every association pass is
     one batched ``scene.query_at(scene_ids)`` over all poses.
     ``raster`` replaces the rasterizer (default: ops.rasterize_cuda.rasterize,
-    the kernel on CUDA tensors) and ``query`` the association (default:
-    scene.query, or scene.query_at(scene_ids)); chip_smoke.py passes the
-    plain versions to hold the kernel path against them.
+    the kernel on CUDA tensors) and ``query`` the association. By default
+    the ICP loop gets the scene's icp.Association (query + reduce, or
+    query_at + reduce_at of scene_ids): on a card every pass is the fused
+    kernel of ops/icp_reduce.py. A bare ``query`` callable handed in is
+    queried and then reduced by matrix products on any device (the loop of
+    before the fused kernel); ``icp.plain_association(plain_query)`` is the
+    plain version of the default, which a kernel path is held against.
     """
     raster = rasterize if raster is None else raster
-    if query is None:
-        query = scene.query if scene_ids is None else scene.query_at(scene_ids)
+    if query is None and scene_ids is None:
+        query = icp.Association(scene.query, scene.reduce)
+    elif query is None:
+        query = icp.Association(scene.query_at(scene_ids), scene.reduce_at(scene_ids))
     depth = raster(tris, init_poses, width, height, proj, roi=roi)
     out_h, out_w = depth.shape[1:]
 
@@ -133,9 +139,11 @@ def _pack_track_outputs(refined, results: icp.RegistrationResult,
 def _refine_frame(scene, tris, init_poses, proj, K_render, pack_outputs: bool, plain: bool,
                   **kw):
     """The refine of one tracked frame against its freshly built scene;
-    plain=True runs the kernels' plain versions (raster, NN, gather)."""
+    plain=True runs the kernels' plain versions (raster, NN, gather, the
+    fused ICP pass)."""
     if plain:
-        kw.update(raster=rasterize_plain, query=functools.partial(scene.query, plain=True))
+        kw.update(raster=rasterize_plain,
+                  query=icp.plain_association(functools.partial(scene.query, plain=True)))
     out = refine_poses(tris, init_poses, scene, proj, K_render, **kw)
     return _pack_track_outputs(*out) if pack_outputs else out
 
@@ -775,7 +783,7 @@ class PoseRefiner:
 
         ``_pack_outputs`` (sessions) returns the (N, 71) session buffer
         instead; ``_plain`` runs the kernels' plain versions (raster, NN,
-        gather), the reference a kernel path is held against."""
+        gather, the fused ICP pass), the reference a kernel path is held against."""
         return self._track(self.tris, frame_depth, init_poses, criteria, with_covariance,
                            _pack_outputs, _plain)
 

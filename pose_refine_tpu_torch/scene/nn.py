@@ -11,6 +11,9 @@ tables. A query is exact NN by the gated flash kernel
 (``backend="bruteforce"``, the JAX package's choice on an accelerator) or
 the full scan (``backend="flash"``), then one row gather (``ops/gather.py``);
 a neighbour is accepted iff dist^2 < max_dist_diff^2 (pcd_scene.h:127).
+``reduce`` / ``reduce_at`` are a whole ICP pass: the same NN kernel, then
+the row lookup and the normal-equation sums fused in the kernel of
+``ops/icp_reduce.py``.
 
 ``SceneNNStack`` stacks K frames into one set of tables; its query windows
 the gated kernel to each pose's frame. The kd traversal
@@ -28,6 +31,7 @@ import torch
 from pose_refine_tpu_torch.device import DeviceLike, resolve_device
 from pose_refine_tpu_torch.ops.depth_to_cloud import depth_image_to_points
 from pose_refine_tpu_torch.ops.gather import gather_rows, gather_rows_plain
+from pose_refine_tpu_torch.ops.icp_reduce import assoc_reduce_indexed_cuda, unpack_sums
 from pose_refine_tpu_torch.ops.normals import _OFFSETS, estimate_normals
 from pose_refine_tpu_torch.scene import nn_flash
 from pose_refine_tpu_torch.scene.kdtree import build_kdtree
@@ -170,27 +174,46 @@ class SceneNN:
             self, **{f.name: getattr(self, f.name).to(dev) for f in dataclasses.fields(self)
                      if isinstance(getattr(self, f.name), torch.Tensor)})
 
+    def _nearest(self, src: torch.Tensor, plain: bool = False):
+        """(idx, dist_sq) of the scene's exact nearest neighbour of (..., 3)
+        points: the gated kernel, or the full scan (backend "flash")."""
+        if self.backend == "flash":
+            fn = nn_flash.nn_flash_packed_plain if plain else nn_flash.nn_flash_packed
+            return fn(src, self.flash_table)
+        if plain:
+            return nn_flash.nn_flash_gated_plain(src, self.flash_table, self.max_dist_diff)
+        return nn_flash.nn_flash_gated(src, self.flash_table, self.flash_boxes,
+                                       self.flash_balls, self.max_dist_diff)
+
     def query(self, src: torch.Tensor, plain: bool = False):
         """(..., 3) source points -> (dst (..., 3), normal (..., 3), valid
         (...)). plain=True runs the kernels' plain versions on any device
         (the reference a kernel path is held against)."""
-        if self.backend == "flash":
-            fn = nn_flash.nn_flash_packed_plain if plain else nn_flash.nn_flash_packed
-            idx, dist_sq = fn(src, self.flash_table)
-        elif plain:
-            idx, dist_sq = nn_flash.nn_flash_gated_plain(src, self.flash_table,
-                                                         self.max_dist_diff)
-        else:
-            idx, dist_sq = nn_flash.nn_flash_gated(src, self.flash_table, self.flash_boxes,
-                                                   self.flash_balls, self.max_dist_diff)
-        valid = dist_sq < nn_flash.gate_sq(self.max_dist_diff)
-        # the index is clamped into the table before the gather: the flash
-        # kernels return indices into the padded flash table, and the gated
-        # kernel's guard value IBIG - 1 lies past any table (the JAX
-        # package's jnp.take reads NaN rows there). A clamped row is finite,
-        # and its query is invalid under the gate.
-        rows = (gather_rows_plain if plain else gather_rows)(self.table, idx)
-        return rows[..., 0:3], rows[..., 3:6], valid
+        idx, dist_sq = self._nearest(src, plain)
+        return _rows_in_gate(self.table, idx, dist_sq, self.max_dist_diff, plain)
+
+    def reduce(self, cloud: torch.Tensor, valid: torch.Tensor):
+        """One ICP pass against this scene: (..., P, 3) CUDA clouds and
+        (..., P) valid -> (AtA, Atb, count, mse_sum). The NN kernel's (idx,
+        dist_sq) feed the kernel of ops/icp_reduce.py, which looks the rows
+        up and reduces them without writing them out. Raises for CPU
+        tensors; its plain version is ``ops.icp_reduce.assoc_reduce_plain``
+        over ``query(plain=True)``."""
+        return unpack_sums(assoc_reduce_indexed_cuda(
+            cloud, valid, self.table, *self._nearest(cloud),
+            nn_flash.gate_sq(self.max_dist_diff)))
+
+
+def _rows_in_gate(table, idx, dist_sq, max_dist_diff: float, plain: bool):
+    """The NN query's second half: (dst, normal, valid) from the flash
+    kernels' (idx, dist_sq). The index is clamped into the table before the
+    gather: the flash kernels return indices into the padded flash table,
+    and the gated kernel's guard value IBIG - 1 lies past any table (the JAX
+    package's jnp.take reads NaN rows there). A clamped row is finite, and
+    its query is invalid under the gate."""
+    valid = dist_sq < nn_flash.gate_sq(max_dist_diff)
+    rows = (gather_rows_plain if plain else gather_rows)(table, idx)
+    return rows[..., 0:3], rows[..., 3:6], valid
 
 
 def _host_clouds(depths, K, voxel_mm: float):
@@ -300,23 +323,42 @@ class SceneNNStack:
         nn.py:416-452). All poses go to the gated kernel in one launch.
         Returns query(src) -> (dst, normal, valid); plain=True runs the
         kernels' plain versions."""
-        sids = torch.as_tensor(sids, device=self.table.device)
-        sids = sids.clamp(0, self.n_scenes - 1).to(torch.int32)
+        sids = self._frame_ids(sids)
 
         def query(src):
-            if plain:
-                idx, dist_sq = nn_flash.nn_flash_gated_plain(
-                    src, self.flash_table, self.max_dist_diff, frame_id=sids,
-                    frames=self.n_scenes)
-            else:
-                idx, dist_sq = nn_flash.nn_flash_gated(
-                    src, self.flash_table, self.flash_boxes, self.flash_balls,
-                    self.max_dist_diff, frame_id=sids, frames=self.n_scenes)
-            valid = dist_sq < nn_flash.gate_sq(self.max_dist_diff)
-            rows = (gather_rows_plain if plain else gather_rows)(self.table, idx)
-            return rows[..., 0:3], rows[..., 3:6], valid
+            idx, dist_sq = self._nearest_at(sids, src, plain)
+            return _rows_in_gate(self.table, idx, dist_sq, self.max_dist_diff, plain)
 
         return query
+
+    def _frame_ids(self, sids) -> torch.Tensor:
+        """``sids`` on the table's device, clamped to [0, n_scenes), int32."""
+        sids = torch.as_tensor(sids, device=self.table.device)
+        return sids.clamp(0, self.n_scenes - 1).to(torch.int32)
+
+    def _nearest_at(self, sids, src, plain: bool = False):
+        """(idx, dist_sq) of each pose's nearest neighbour within its frame
+        (``sids`` (N,) int32, already clamped): one gated launch."""
+        if plain:
+            return nn_flash.nn_flash_gated_plain(
+                src, self.flash_table, self.max_dist_diff, frame_id=sids, frames=self.n_scenes)
+        return nn_flash.nn_flash_gated(
+            src, self.flash_table, self.flash_boxes, self.flash_balls, self.max_dist_diff,
+            frame_id=sids, frames=self.n_scenes)
+
+    def reduce_at(self, sids):
+        """``SceneNN.reduce`` bound to per-pose scene ids (see query_at):
+        returns reduce(cloud (N, P, 3), valid (N, P)) -> (AtA, Atb, count,
+        mse_sum); the stacked gated kernel's indices are rows of the stacked
+        table, so the fused kernel needs no per-pose offset."""
+        sids = self._frame_ids(sids)
+
+        def reduce(cloud, valid):
+            return unpack_sums(assoc_reduce_indexed_cuda(
+                cloud, valid, self.table, *self._nearest_at(sids, cloud),
+                nn_flash.gate_sq(self.max_dist_diff)))
+
+        return reduce
 
 
 def _pool_scene_grid(pts, nrm, mask, pool: int, depth_tol: float):

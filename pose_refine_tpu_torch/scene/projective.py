@@ -7,7 +7,8 @@ The scene is one packed (H*W, 8) float32 table of
 gather (depth_scene.h:7-49), the kernel of ``ops/gather.py`` on a card.
 ``SceneProjectiveStack`` holds K same-shape frames in one (K*H*W, 8) table
 and routes each pose to its frame by adding its frame's row offset to the
-gather index.
+gather index. ``reduce`` / ``reduce_at`` are a whole ICP pass - this query
+and the normal-equation sums - in the one kernel of ``ops/icp_reduce.py``.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from pose_refine_tpu_torch import geometry
 from pose_refine_tpu_torch.device import DeviceLike, resolve_device
 from pose_refine_tpu_torch.ops.depth_to_cloud import depth_image_to_points
 from pose_refine_tpu_torch.ops.gather import gather_rows, gather_rows_plain
+from pose_refine_tpu_torch.ops.icp_reduce import assoc_reduce_projective_cuda, unpack_sums
 from pose_refine_tpu_torch.ops.normals import estimate_normals
 
 
@@ -93,6 +95,15 @@ class SceneProjective:
             gather=gather_rows_plain if plain else gather_rows,
         )
 
+    def reduce(self, cloud: torch.Tensor, valid: torch.Tensor):
+        """One ICP pass against this scene: (..., P, 3) CUDA clouds and
+        (..., P) valid -> (AtA, Atb, count, mse_sum), the query and the
+        reduction fused in the kernel of ops/icp_reduce.py (the rows are
+        never written out). Raises for CPU tensors; its plain version is
+        ``ops.icp_reduce.assoc_reduce_plain`` over ``query(plain=True)``."""
+        return unpack_sums(assoc_reduce_projective_cuda(
+            cloud, valid, self.table, self.K, self.max_dist_diff, self.height, self.width))
+
 
 def _project_gate(table, K, max_dist_diff, h: int, w: int, src, base=0,
                   gather=gather_rows):
@@ -159,6 +170,12 @@ class SceneProjectiveStack:
                                max_dist_diff=self.max_dist_diff, height=self.height,
                                width=self.width)
 
+    def _base(self, sids) -> torch.Tensor:
+        """The row offset of each pose's frame: ``sids`` clamped to [0,
+        n_scenes) on the table's device, times H*W, as int64."""
+        sids = torch.as_tensor(sids, device=self.table.device)
+        return sids.clamp(0, self.n_scenes - 1).to(torch.int64) * (self.height * self.width)
+
     def query_at(self, sids, plain: bool = False):
         """The query bound to per-pose scene ids: ``sids`` a scalar or an
         (N,) integer tensor (one id per pose of (N, ..., 3) sources),
@@ -167,8 +184,7 @@ class SceneProjectiveStack:
         against the nearest frame (JAX projective.py:177-196). Returns
         query(src) -> (dst, normal, valid). plain=True gathers with the
         kernel's plain version."""
-        sids = torch.as_tensor(sids, device=self.table.device)
-        base = sids.clamp(0, self.n_scenes - 1).to(torch.int64) * (self.height * self.width)
+        base = self._base(sids)
         gather = gather_rows_plain if plain else gather_rows
 
         def query(src):
@@ -177,3 +193,17 @@ class SceneProjectiveStack:
                                  self.width, src, base=b, gather=gather)
 
         return query
+
+    def reduce_at(self, sids):
+        """``SceneProjective.reduce`` bound to per-pose scene ids (see
+        query_at): returns reduce(cloud (N, P, 3), valid (N, P)) -> (AtA,
+        Atb, count, mse_sum). The kernel takes each pose's row offset; the
+        ids never leave the card."""
+        base = self._base(sids)
+
+        def reduce(cloud, valid):
+            return unpack_sums(assoc_reduce_projective_cuda(
+                cloud, valid, self.table, self.K, self.max_dist_diff, self.height, self.width,
+                base=base.expand(cloud.shape[:-2]) if base.dim() == 0 else base))
+
+        return reduce

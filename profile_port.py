@@ -24,7 +24,18 @@ hypotheses, chip_smoke.TRACK_CONFIGS: projective, and NN with a 2 mm
 voxel): the whole track() (with the covariance and the packed session
 buffer) as above, and its stages timed alone: the scene build on the card,
 raster, lift, ICP (30 iterations, the session's default) and the
-information pass (pose_information + pose_covariance). Imports no JAX.
+information pass (pose_information + pose_covariance).
+
+Every cell also prints a ``[loops]`` line: the same refine (or tracked
+frame: scene build, refine with the information pass, packed buffer)
+through ``refine_poses`` with the ICP loop of before the fused pass - the
+scene's ``query`` handed in as ``query=``, so every pass is the query, the
+row gather and the matrix-product reduction - and with the default loop,
+whose pass is one launch of ``ops/icp_reduce.py``'s kernel. The two
+alternate in one process (old, new, new, old, ...), 6 timed calls each:
+wall median, min and max, and from ``torch.profiler`` around one call of
+each the device kernel count, their summed time and the busy share.
+Imports no JAX.
 """
 
 import os
@@ -81,6 +92,31 @@ def print_kernels(torch, cell, fn, wall_ms, line):
         print(f"[profile]   {ms:.3f} ms {calls:5d}x {name[:90]}", flush=True)
 
 
+def print_loops(torch, cell, old, new, rounds=6):
+    """The [loops] line of one cell: old() and new() alternating, ``rounds``
+    timed calls each after a warm one, then one profiled call of each."""
+    fns = {"old": old, "new": new}
+    walls = {"old": [], "new": []}
+    for fn in fns.values():
+        fn()
+    for r in range(rounds):
+        for name in ("old", "new") if r % 2 == 0 else ("new", "old"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fns[name]()
+            torch.cuda.synchronize()
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+    parts = []
+    for name, fn in fns.items():
+        rows = device_kernels(torch, fn)
+        kernel_ms, med = sum(r[1] for r in rows), float(np.median(walls[name]))
+        parts.append(f"{name} loop wall_ms median={med} min={min(walls[name])} "
+                     f"max={max(walls[name])} device_kernels={sum(r[2] for r in rows)} "
+                     f"kernel_sum_ms={kernel_ms} busy_share={kernel_ms / med}")
+    ratio = float(np.median(walls["new"])) / float(np.median(walls["old"]))
+    print(f"[loops] {cell}: {' | '.join(parts)} | new/old wall={ratio}", flush=True)
+
+
 def main():
     import torch
 
@@ -93,6 +129,7 @@ def main():
     from pose_refine_tpu_torch import geometry, icp, mesh
     from pose_refine_tpu_torch.ops import rasterize_cuda as RC
     from pose_refine_tpu_torch.ops.depth_to_cloud import compact_topk, window_cloud_batched
+    from pose_refine_tpu_torch.pipeline import _pack_track_outputs, refine_poses
     from pose_refine_tpu_torch.scene.nn import SceneNN, SceneNNStack
     from pose_refine_tpu_torch.scene.projective import SceneProjective
 
@@ -119,8 +156,14 @@ def main():
     cells += [(f"nn-{label}", dict(scene="nn_bruteforce", **kw), iters)
               for label, kw, iters in CS.NN_CONFIGS]
 
-    def refine_cell(cell, ref, build_ms, refine, tris, hyps, query, crit):
-        """One refine cell's line: wall, device span, stages, profile."""
+    def plan(ref, crit, **kw):
+        """refine_poses' keywords of ``ref``'s standing plan."""
+        return dict(width=ref.render_w, height=ref.render_h, max_points=ref.max_points,
+                    criteria=crit, window=ref.window, stride=ref.stride, roi=ref.roi, **kw)
+
+    def refine_cell(cell, ref, build_ms, refine, tris, hyps, query, crit, scene_ids=None):
+        """One refine cell's lines: wall, device span, stages, profile; then
+        the loop of before the fused pass against the default one."""
         nn = isinstance(ref.scene, (SceneNN, SceneNNStack))
         refine()  # warm
         wall_ms, span_ms = CS.refine_ms(torch, refine)
@@ -128,15 +171,24 @@ def main():
         raster_ms, depth = event_ms(
             torch, lambda: RC.rasterize(tris, hyps, rw, rh, ref.proj, roi=ref.roi))
         lift_ms, (clouds, valids, _) = event_ms(torch, lift_fn(ref, depth, nn))
-        icp_ms, _ = event_ms(torch, lambda: icp._icp_run(clouds, valids, query, crit))
+        assoc = icp.Association(query, ref.scene.reduce if scene_ids is None
+                                else ref.scene.reduce_at(scene_ids))
+        icp_ms, _ = event_ms(torch, lambda: icp._icp_run(clouds, valids, assoc, crit))
         query_ms, _ = event_ms(torch, lambda: query(clouds), reps=10)
+        pass_ms, _ = event_ms(torch, lambda: assoc.reduce(clouds, valids), reps=10)
         pts = getattr(ref.scene, "points", None)
         size = f"{pts.shape[0]} points" if pts is not None else "projective"
         print_kernels(torch, cell, refine, wall_ms,
                       f"scene {size}, build_ms={build_ms} wall_ms={wall_ms} "
                       f"device_span_ms={span_ms} poses_per_s={hyps.shape[0] / wall_ms * 1e3} "
                       f"raster_ms={raster_ms} lift_ms={lift_ms} icp_ms={icp_ms} "
-                      f"one_query_ms={query_ms}")
+                      f"one_query_ms={query_ms} one_fused_pass_ms={pass_ms}")
+
+        def through(own_query):
+            return refine_poses(tris, hyps, ref.scene, ref.proj, ref._K_render_t,
+                                **plan(ref, crit, scene_ids=scene_ids), query=own_query)
+
+        print_loops(torch, cell, lambda: through(query), lambda: through(None))
 
     def built(ref, build):
         """(refiner, host ms of build(refiner), its scene build)."""
@@ -165,7 +217,7 @@ def main():
         ref, build_ms = built(ptt.PoseRefiner(ms_mesh, K=K, device="cuda", **kw, **CS.CFG),
                               lambda r: r.set_scene_depths(ms_frames))
         refine_cell(cell, ref, build_ms, lambda: ref.refine(ms_hyps, crit, scene_ids=ms_ids),
-                    ref.tris, ms_hyps, ref.scene.query_at(ms_ids), crit)
+                    ref.tris, ms_hyps, ref.scene.query_at(ms_ids), crit, scene_ids=ms_ids)
     other = mesh.make_bumpy_sphere(radius=60.0, subdivisions=4)
     mm_ids = np.array([0, 1] * (CS.N_POSES // 2), np.int32)
     ref, build_ms = built(ptt.MultiModelRefiner(
@@ -207,8 +259,8 @@ def main():
         raster_ms, depth = event_ms(torch, lambda: RC.rasterize(
             ref.tris, hyps, ref.render_w, ref.render_h, ref.proj, roi=ref.roi))
         lift_ms, (clouds, valids, _) = event_ms(torch, lift_fn(ref, depth, nn))
-        icp_ms, (_res, final) = event_ms(torch, lambda: icp._icp_run(clouds, valids, sc.query,
-                                                                     crit))
+        icp_ms, (_res, final) = event_ms(torch, lambda: icp._icp_run(
+            clouds, valids, icp.Association(sc.query, sc.reduce), crit))
 
         def information():
             info, sigma2, _count = icp.pose_information(final, valids, sc.query)
@@ -220,6 +272,22 @@ def main():
                       f"wall_ms={wall_ms} device_span_ms={span_ms} scene_build_ms={build_ms} "
                       f"raster_ms={raster_ms} lift_ms={lift_ms} icp_ms={icp_ms} "
                       f"information_ms={info_ms}")
+
+        def tracked(own_query: bool):
+            """track()'s device work on the standing plan: scene build,
+            refine with the information pass, the packed session buffer."""
+            if nn:
+                scn = SceneNN.from_depth_device(frame_t, ref._K_t, ref.max_dist_diff,
+                                                perm=perm, pool=pool)
+            else:
+                scn = SceneProjective.from_depth(frame_t, ref._K_t, ref.max_dist_diff,
+                                                 device=dev)
+            return _pack_track_outputs(*refine_poses(
+                ref.tris, hyps, scn, ref.proj, ref._K_render_t,
+                **plan(ref, crit, with_information=True),
+                query=scn.query if own_query else None))
+
+        print_loops(torch, cell, lambda: tracked(True), lambda: tracked(False))
     return 0
 
 

@@ -19,11 +19,13 @@ import torch
 import pose_refine_tpu_torch as ptt
 from pose_refine_tpu_torch import _build, geometry, mesh
 from pose_refine_tpu_torch.ops import gather as G
+from pose_refine_tpu_torch.ops import icp_reduce as IR
 from pose_refine_tpu_torch.ops import rasterize_cuda as RC
 from pose_refine_tpu_torch.probes import nn_ties
 from pose_refine_tpu_torch.scene import nn_flash as NF
 from pose_refine_tpu_torch.scene import nn_mxu as NM
 from pose_refine_tpu_torch.scene.nn import SceneNN, SceneNNStack
+from pose_refine_tpu_torch.scene.projective import SceneProjective, SceneProjectiveStack
 from pose_refine_tpu_torch.utils.metrics import rotation_angle_deg
 
 torch.set_num_threads(2)
@@ -77,6 +79,14 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         G.gather_rows_cuda(torch.zeros((4, 8)), torch.zeros(3, dtype=torch.int64))
     with pytest.raises(ValueError, match="CUDA tensors"):
         NM.nn_flash_mxu_cuda(torch.zeros((3, 3)), NM.pack_scene_mxu(torch.zeros((5, 3))))
+    cloud, valid = torch.zeros((2, 4, 3)), torch.ones((2, 4), dtype=torch.bool)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        IR.assoc_reduce_projective_cuda(cloud, valid, torch.zeros((12, 8)), torch.eye(3),
+                                        torch.tensor(0.1), 3, 4)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        IR.assoc_reduce_indexed_cuda(cloud, valid, torch.zeros((12, 8)),
+                                     torch.zeros((2, 4), dtype=torch.int32),
+                                     torch.zeros((2, 4)), 0.01)
 
 
 def test_nn_scene_on_cuda_raises_without_card(no_card):
@@ -97,8 +107,8 @@ def test_build_without_nvcc_raises(no_card):
 def test_build_key_covers_sources_and_flags():
     key = _build.build_info_key()
     assert len(key) == 16 and key == _build.build_info_key()
-    assert [p.name for p in _build._sources()] == ["gather.cu", "nn_flash.cu", "nn_mxu.cu",
-                                                   "rasterize.cu"]
+    assert [p.name for p in _build._sources()] == ["gather.cu", "icp_reduce.cu", "nn_flash.cu",
+                                                   "nn_mxu.cu", "rasterize.cu"]
 
 
 def test_package_imports_without_jax():
@@ -230,12 +240,111 @@ def test_gather_kernel_matches_plain_on_card(card, rows, dtype):
     assert torch.equal(got, G.gather_rows_plain(table, idx))
 
 
+# the fused pass's float sums against float64 (chip_smoke.py's bar): a
+# thread adds at most 16 points in a row before the tree takes over
+SUMS_BAR = 2e-6
+
+
+def reduce_case(card, case):
+    """(scene reduce, plain query, clouds (N, P, 3), valid (N, P)) of one
+    front end of the fused kernel: a 120x160 depth frame around 0.3 m, and
+    clouds around it with points at z = 0, behind the camera, NaN, outside
+    the frame, on its border pixels, beyond the gate, and masked rows."""
+    rng = np.random.default_rng(11)
+    K = geometry.LINEMOD_K.copy()
+    K[:2] *= 0.25
+    depths = rng.integers(280, 320, (3, 120, 160)).astype(np.int32)
+    depths[:, :, :12] = 0
+    # 4 CTAs a pose; "slabs": 8 ragged slabs of 625; "one_slab": a full card
+    n, p = {"slabs": (3, 5000), "one_slab": (140, 300)}.get(case, (5, 1500))
+    src = (rng.normal(size=(n, p, 3)) * [0.045, 0.035, 0.02] + [0, 0, 0.3]).astype(np.float32)
+    src[0, :7] = [[0, 0, 0], [0.01, 0.01, -0.3], [np.nan, 0, 0.3], [0, np.inf, 0.3],
+                  [1e30, 0, 1e-30], [0, 0, 0.9], [-3e9, 1, 1e-9]]
+    # border pixels: x / z * fx + cx + 0.5 within an ulp of 0 and of the width
+    fx, cx = K[0, 0], K[0, 2]
+    for i, u in enumerate((0.0, -1e-7, 160.0, 159.99999)):
+        src[1, i] = [np.float32((u - 0.5 - cx) / fx * 0.3), 0.0, 0.3]
+    valid = rng.uniform(size=(n, p)) > 0.1
+    valid[0, 2:4] = False  # the non-finite points are masked: they poison both versions alike
+    valid[2] = False       # a pose with no valid point
+    cloud = torch.as_tensor(src, device=card)
+    valid = torch.as_tensor(valid, device=card)
+    ids = torch.arange(n, device=card) % 5 - 1  # -1 and 3 clamp into the 3 frames
+    if case in ("projective", "slabs", "one_slab"):
+        sc = SceneProjective.from_depth(depths[0], K, 0.03, device=card)
+        return sc.reduce, lambda c: sc.query(c, plain=True), cloud, valid
+    if case == "stacked":
+        sc = SceneProjectiveStack.from_depths(depths, K, 0.03, device=card)
+        return sc.reduce_at(ids), sc.query_at(ids, plain=True), cloud, valid
+    # the NN kernels take finite queries, and a far one overflows no float32 square
+    cloud = torch.nan_to_num(cloud, nan=0.0, posinf=0.0).clamp(-10.0, 10.0)
+    if case == "nn":
+        sc = SceneNN.from_depth(depths[0], K, 0.01, device=card)
+        return sc.reduce, lambda c: sc.query(c, plain=True), cloud, valid
+    clouds = [SceneNN.from_depth(d, K, 0.01, device="cpu").points.numpy() for d in depths]
+    sc = SceneNNStack.from_clouds(clouds, clouds, 0.01, device=card)
+    return sc.reduce_at(ids), sc.query_at(ids, plain=True), cloud, valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["projective", "stacked", "slabs", "one_slab", "nn",
+                                  "nn_stacked"])
+def test_assoc_reduce_kernel_matches_plain_on_card(card, case):
+    """The fused association + reduction kernel against its plain version,
+    per front end: every sum bit for bit (NaN where the plain version's is
+    NaN), so the count (the association) exactly; the 28 float sums within
+    SUMS_BAR of their float64 values relative to the sum of their absolute
+    terms, two launches bit for bit, one launch counted a call."""
+    reduce, plain_query, cloud, valid = reduce_case(card, case)
+    before = IR.launches
+    got = reduce(cloud, valid)
+    again = reduce(cloud, valid)
+    torch.cuda.synchronize()
+    assert IR.launches == before + 2
+    for a, b in zip(got, again):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    plain = IR.assoc_reduce_plain(cloud, valid, plain_query)
+    packed = IR.pack_sums(*got)
+    assert bool(((packed == plain) | (packed.isnan() & plain.isnan())).all())
+    want = IR.unpack_sums(plain)
+    assert torch.equal(got[2], want[2]) and 0 < float(got[2].sum())
+    assert float(got[2][2]) == 0.0 and not bool(got[0][2].any())
+    assert torch.equal(got[0][1:], got[0][1:].transpose(-1, -2))  # pose 0 holds NaN points
+    dst, nrm, q_valid = plain_query(cloud)
+    count_equal, err = IR.sums_error(IR.pack_sums(*got), cloud, valid, dst, nrm, q_valid)
+    assert count_equal and err <= SUMS_BAR
+    assert IR.slabs_for(*cloud.shape[:2]) == {"slabs": 8, "one_slab": 1}.get(case, 4)
+
+
+@pytest.mark.cuda
+def test_assoc_reduce_refuses_what_it_cannot_launch_on_card(card):
+    cloud = torch.zeros((2, 300, 3), device=card)
+    valid = torch.ones((2, 300), dtype=torch.bool, device=card)
+    table = torch.zeros((120 * 160, 8), device=card)
+    K, gate = torch.eye(3, device=card), torch.tensor(0.1, device=card)
+    with pytest.raises(ValueError, match="valid must be torch.bool"):
+        IR.assoc_reduce_projective_cuda(cloud, valid.to(torch.uint8), table, K, gate, 120, 160)
+    with pytest.raises(ValueError, match="one row offset per pose"):
+        IR.assoc_reduce_projective_cuda(cloud, valid, table, K, gate, 120, 160,
+                                        base=torch.zeros(3, dtype=torch.int64, device=card))
+    with pytest.raises(ValueError, match="K must be torch.float32 on cuda"):
+        IR.assoc_reduce_projective_cuda(cloud, valid, table, K.cpu(), gate, 120, 160)
+    with pytest.raises(ValueError, match="int32 or int64"):
+        IR.assoc_reduce_indexed_cuda(cloud, valid, table, torch.zeros((2, 300), device=card),
+                                     torch.zeros((2, 300), device=card), 0.01)
+    flat = torch.zeros(8 * 64 + 1, device=card)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        IR.assoc_reduce_projective_cuda(cloud, valid, flat[1:].view(64, 8), K, gate, 8, 8)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("scene", ["projective", "nn_bruteforce"])
 def test_track_through_kernels_on_card(card, scene):
-    """One track() per scene kind on the card: the raster, gather and (NN)
-    gated flash-NN kernels launch, and the frame through the kernels agrees
-    with the same frame through their plain versions."""
+    """One track() per scene kind on the card: the raster, the fused pass,
+    the gather (the information pass) and (NN) gated flash-NN kernels
+    launch, and the frame through the kernels agrees with the same frame
+    through their plain versions (the fused pass's plain version equals the
+    kernel bit for bit, so the bounds hold at every hypothesis)."""
     m = mesh.make_bumpy_sphere(radius=50.0, subdivisions=4)
     R = np.array([[0.34768538, 0.93761126, 0.0],
                   [0.70540612, -0.26157897, -0.65877056],
@@ -249,11 +358,13 @@ def test_track_through_kernels_on_card(card, scene):
                                  truth[:3, 3] + rng.uniform(-5, 5, (8, 3)).astype(np.float32))
     ref = ptt.PoseRefiner(m, K=geometry.LINEMOD_K, device="cuda", scene=scene,
                           scene_voxel_mm=2.0 if scene != "projective" else 0.0)
-    before = (RC.launches, G.launches, NF.gated_launches)
+    before = (RC.launches, G.launches, NF.gated_launches, IR.launches)
     refined, res, unc = ref.track(frame.cpu().numpy(), hyps, with_covariance=True)
     torch.cuda.synchronize()
-    after = (RC.launches, G.launches, NF.gated_launches)
-    assert after[0] > before[0] and after[1] > before[1]
+    after = (RC.launches, G.launches, NF.gated_launches, IR.launches)
+    # 30 iterations and the scoring pass through the fused kernel, the
+    # information pass through the row gather
+    assert after[0] > before[0] and after[1] == before[1] + 1 and after[3] == before[3] + 31
     assert (after[2] > before[2]) == (scene != "projective")
     assert refined.is_cuda and bool(torch.isfinite(refined).all())
     assert float(res.fitness.min()) > 0.7 and bool(torch.isfinite(unc.covariance).all())

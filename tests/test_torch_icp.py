@@ -128,8 +128,8 @@ def test_icp_empty_association_returns_identity():
     assert (res.fitness == 0).all() and (res.inlier_rmse == 0).all()
 
 
-@pytest.mark.parametrize("kwargs", [{"reduction": "packed"}, {"robust_delta": 0.01},
-                                    {"coarse_iters": 4}])
+@pytest.mark.parametrize("kwargs", [{"reduction": "packed", "robust_delta": 0.01},
+                                    {"robust_delta": 0.01}, {"coarse_iters": 4}])
 def test_unported_icp_options_raise(kwargs):
     q = lambda src: (src, src, torch.ones(src.shape[:-1], dtype=torch.bool))  # noqa: E731
     with pytest.raises(NotImplementedError, match="ROADMAP A14"):
