@@ -9,11 +9,18 @@ non-zero without printing a result:
   1. card   - torch.cuda.is_available(), and nvidia-smi's name and power limit
   2. build  - nvcc builds csrc/*.cu for sm_90a from the checkout (timed)
   3. kernel - the raster kernel against its plain PyTorch version on the card
-              at the slice's shapes: the observed-scene render (1 pose,
-              640x480), the 256 hypothesis renders (320x240 in the auto ROI),
-              and the same batch as a per-pose (N, T, 3, 3) table. Mismatch
-              fraction must stay below 1e-4; median times of both, and the
-              kernel alone (see alone_ms).
+              at every shape of raster_shapes(): the observed-scene render
+              (1 pose, 640x480), the 256 hypothesis renders (the decimated
+              mesh in the auto ROI), the same batch as a per-pose (N, T, 3,
+              3) table, bench.py:181-183's render benchmark (100 and 256
+              poses at 640x480, 100 in a 320x240 ROI, the full mesh) and,
+              after phase 13, multimodel-256's indexed table. Mismatch
+              fraction must stay below 1e-4 (measured 0); one render counted
+              and at most 2 device kernels a render. Times: alone, with the
+              wrapper, the plain version, the old path's setup alone and,
+              when the parent's source sits at compare_raster.PARENT, the
+              whole old path alone (its output must equal the kernel's);
+              the bound and the share of it.
   4. slice  - PoseRefiner.set_scene_depth + refine on the bench workload
               (256 hypotheses +-10 deg/axis +-20 mm around the reference
               viewpoint, render_scale 2, decimate 4 mm, window 128 / stride 2,
@@ -222,18 +229,29 @@ def median_ms(torch, fn, reps, warm=1):
 def alone_ms(torch, fn, launches=20, rounds=5):
     """A kernel's time alone in ms: ``launches`` calls of fn() between one
     pair of CUDA events, queued behind matrix products that keep the card
-    busy for a few ms, so every launch is enqueued before the first one
-    starts and the wrapper's host time is not in the span; median of
-    ``rounds``. The inputs stay in the L2 cache between launches, as the ICP
-    loop finds them."""
+    busy for longer than the host takes to enqueue the calls (measured
+    first), so every launch is enqueued before the first one starts and
+    the host's time is not in the span; median of ``rounds``. The inputs
+    stay in the L2 cache between launches, as the ICP loop finds them."""
     busy = torch.ones((4096, 4096), device="cuda")
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    busy @ busy
+    b.record()
+    torch.cuda.synchronize()
+    mm_ms = a.elapsed_time(b)
+    t0 = time.perf_counter()
+    for _ in range(launches):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    n_busy = min(400, 2 + int(np.ceil(1.5 * host_ms / mm_ms)))
     ts = []
     for _ in range(rounds):
         torch.cuda.synchronize()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        busy @ busy
-        busy @ busy
+        for _ in range(n_busy):
+            busy @ busy
         a.record()
         for _ in range(launches):
             fn()
@@ -241,6 +259,24 @@ def alone_ms(torch, fn, launches=20, rounds=5):
         torch.cuda.synchronize()
         ts.append(a.elapsed_time(b) / launches)
     return float(np.median(ts))
+
+
+def device_kernels(torch, fn):
+    """[(name, device ms, calls)] of the device kernels of one fn() call,
+    most time first, from torch.profiler."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        d = getattr(e, "self_device_time_total", None)
+        if d is None:
+            d = getattr(e, "self_cuda_time_total", 0)
+        if d > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append((e.key, d / 1e3, e.count))
+    return sorted(rows, key=lambda r: -r[1])
 
 
 def workload(geometry, mesh):
@@ -258,29 +294,112 @@ def workload(geometry, mesh):
     return model, tris, truth, poses
 
 
-def compare_raster(torch, RC, name, tris, poses, width, height, proj, roi, plain_reps):
-    """Kernel vs plain on one input: mismatch fraction, max |diff|, times."""
+def raster_shapes(torch, ptt, geometry, mesh, dev):
+    """B1's shapes: ({name: (tris, poses, width, height, proj, roi)}, bench
+    refiner with its scene set, multi-model refiner with its scene set, the
+    scene depth (H, W) int32 mm, truth). The observed scene render (1 pose,
+    640x480, the full mesh); the 256 hypotheses in the refiner's auto ROI
+    (the decimated mesh), shared and as a per-pose (N, T, 3, 3) table;
+    bench.py:181-183's render benchmark (the reference's, test.cpp:63-91:
+    100 and 256 copies of the truth pose at 640x480 and 100 in the ROI
+    (160, 80, 320, 240), full mesh); multimodel-256's indexed table
+    (scripts/demo_multi.py's two meshes, ids [0, 1] * 128)."""
+    from pose_refine_tpu_torch.ops import rasterize_cuda as RC
+
+    model, tris_np, truth, poses_np = workload(geometry, mesh)
+    K = geometry.LINEMOD_K
+    proj = geometry.compute_proj(K, WIDTH, HEIGHT, device=dev)
+    tris = torch.as_tensor(tris_np, device=dev)
+    full = (0, 0, 0, 0)
+    scene = RC.rasterize(tris, torch.as_tensor(truth[None], device=dev), WIDTH, HEIGHT,
+                         proj)[0].cpu().numpy()
+    refiner = ptt.PoseRefiner(model, K=K, device="cuda", **CFG)
+    refiner.set_scene_depth(scene)
+    mm_ref = ptt.MultiModelRefiner([model, mesh.make_bumpy_sphere(radius=60.0, subdivisions=4)],
+                                   K=K, device="cuda", render_scale=2, max_points=2048,
+                                   window=128, stride=2, decimate_mm=2.0)
+    mm_ref.set_scene_depth(scene)
+    poses = torch.as_tensor(poses_np, device=dev)
+    mm_ids = np.array([0, 1] * (N_POSES // 2), np.int32)
+    rw, rh, rp, rroi = refiner.render_w, refiner.render_h, refiner.proj, refiner.roi
+
+    def copies(n):
+        return torch.as_tensor(np.tile(truth, (n, 1, 1)), device=dev)
+
+    shapes = {
+        "scene": (tris, torch.as_tensor(truth[None], device=dev), WIDTH, HEIGHT, proj, full),
+        "hypotheses": (refiner.tris, poses, rw, rh, rp, rroi),
+        "per-pose": (refiner.tris.expand(N_POSES, *refiner.tris.shape).contiguous(), poses, rw,
+                     rh, rp, rroi),
+        "render-100": (tris, copies(100), WIDTH, HEIGHT, proj, full),
+        "render-256": (tris, copies(256), WIDTH, HEIGHT, proj, full),
+        "render-100-roi": (tris, copies(100), WIDTH, HEIGHT, proj, (160, 80, 320, 240)),
+        "multimodel": (mm_ref._per_pose_tris(mm_ids, poses)[0], poses, mm_ref.render_w,
+                       mm_ref.render_h, mm_ref.proj, mm_ref.roi),
+    }
+    return shapes, refiner, mm_ref, scene, truth
+
+
+def raster_phase(torch, RC, name, tris, poses, width, height, proj, roi, old=None):
+    """The [kernel] line of one shape: the kernel against its plain version
+    (mismatch fraction, max |diff|); the render through the wrapper (median
+    of 20) and alone; the plain version's time; the old path's setup
+    (torch triangle_setup, after the per-pose gather of an indexed table)
+    alone and, given ``old`` (compare_raster.OtherRaster of the parent's
+    source), the whole old path alone and its output against the kernel's;
+    launches counted and device kernels per render; the bound and the
+    kernel's share of it."""
     from pose_refine_tpu_torch.ops.rasterize import roi_shape
 
     out_w, out_h = roi_shape(width, height, roi)
-    coef = RC.triangle_setup(tris, poses, proj, width, height, roi)
-    setup_ms, _ = median_ms(torch, lambda: RC.triangle_setup(tris, poses, proj, width, height, roi), 10)
-    k_ms, k = median_ms(torch, lambda: RC.raster_coef_cuda(coef, out_w, out_h, height, roi), 20)
-    a_ms = alone_ms(torch, lambda: RC.raster_coef_cuda(coef, out_w, out_h, height, roi))
-    p_ms, p = median_ms(torch, lambda: RC.raster_coef_plain(coef, out_w, out_h, height, roi),
-                        plain_reps, warm=0)
+
+    def render():
+        return RC.rasterize(tris, poses, width, height, proj, roi=roi)
+
+    def old_setup():
+        t = tris
+        if isinstance(t, RC.IndexedTris):
+            t = t.gathered()
+        return RC.triangle_setup(t, poses, proj, width, height, roi)
+
+    before = RC.launches
+    k = render()
+    torch.cuda.synchronize()
+    per_render = RC.launches - before
+    n_dev = 0
+    for _ in range(5):  # the profiler now and then records no device activity
+        n_dev = sum(calls for _name, _ms, calls in device_kernels(torch, render))
+        if n_dev:
+            break
+    k_ms, _ = median_ms(torch, render, 20)
+    a_ms = alone_ms(torch, render)
+    p_ms, p = median_ms(torch, lambda: RC.rasterize_plain(tris, poses, width, height, proj,
+                                                          roi=roi), 1, warm=0)
+    setup_ms = alone_ms(torch, old_setup, launches=5, rounds=3)
+    old_ms = old_same = None
+    if old is not None:
+        old_same = bool(torch.equal(old.render(tris, poses, width, height, proj, roi), k))
+        old_ms = alone_ms(torch, lambda: old.render(tris, poses, width, height, proj, roi),
+                          launches=5, rounds=3)
     mism = (k != p).float().mean().item()
     err = (k.to(torch.int64) - p.to(torch.int64)).abs().max().item()
     covered = int((p > 0).sum())
-    r_bound = raster_bound(coef, out_w, out_h, height, roi)
-    phase("kernel", f"{name}: N={poses.shape[0]} T={coef.shape[2]} out={out_w}x{out_h} "
-          f"roi={roi} covered_px={covered} mismatch={mism} max_abs_err={err} "
-          f"kernel_ms={k_ms} kernel_alone_ms={a_ms} plain_ms={p_ms} setup_ms={setup_ms} "
-          f"bound_ms={r_bound['bound_ms']} "
-          f"({r_bound['bound_by']})")
+    r_bound = raster_bound(torch, RC, tris, poses, width, height, proj, roi)
+    share = r_bound["bound_ms"] / a_ms
+    t = (tris.table if isinstance(tris, RC.IndexedTris) else tris).shape[-3]
+    phase("kernel", f"{name}: N={poses.shape[0]} T={t} out={out_w}x{out_h} roi={roi} "
+          f"covered_px={covered} mismatch={mism} max_abs_err={err} "
+          f"kernel_alone_ms={a_ms} kernel_ms={k_ms} (with the wrapper) plain_ms={p_ms} "
+          f"old_path_alone_ms={old_ms} old_equal={old_same} old_setup_alone_ms={setup_ms} "
+          f"bound_ms={r_bound['bound_ms']} ({r_bound['bound_by']}) share_of_bound={share} "
+          f"launches_per_render={per_render} device_kernels_per_render={n_dev}")
     check(covered > 0, f"{name}: empty render")
     check(mism < MISMATCH_GATE, f"{name}: kernel/plain mismatch {mism}")
+    check(per_render == 1 and n_dev <= 2, f"{name}: {per_render} launches counted, "
+          f"{n_dev} device kernels a render")
+    check(old_same in (None, True), f"{name}: the old path's render differs from the kernel's")
     return k, dict(mismatch=mism, max_abs_err=err, ms=k_ms, alone_ms=a_ms, plain_ms=p_ms,
+                   old_alone_ms=old_ms, old_setup_alone_ms=setup_ms, share_of_bound=share,
                    **r_bound)
 
 
@@ -675,10 +794,34 @@ def bound(n_bytes=0.0, n_instr=0.0, n_tensor_flop=0.0):
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
-def raster_bound(coef, out_w, out_h, height, roi):
-    """B1's bound at one input: the coefficient table read and the int32
-    framebuffer written, against 8 FP32 instructions (beta, gamma, alpha)
-    at every pixel of every clamped triangle box the kernel walks."""
+# the triangle setup's FP32 operations per (pose, triangle), from the plain
+# version's operation list (ops/rasterize.py::screen_fields, one a torch
+# op, addcmul one fused multiply-add; ops/rasterize_cuda.py::triangle_setup
+# with each edge difference taken once): per vertex 3 x 4 (camera) + 2 x 4
+# (projection) + 2 x 3 (screen) = 26, x 3; area 7, 1 / area 1, the six
+# barycentric coefficients 12, 1 / z and its differences 5, the 1 / z
+# plane 10, the clamped box 16, the degenerate mask 7. A division counts as
+# one; nan_to_num counts nothing (a kernel that takes finite meshes needs
+# none).
+SETUP_OPS = 3 * 26 + 7 + 1 + 12 + 5 + 10 + 16 + 7
+
+
+def raster_bound(torch, RC, tris, poses, width, height, proj, roi):
+    """B1's bound at one input: the function's bytes - the triangle table
+    (and ids), the poses and the projection read once, the int32
+    framebuffer written once - against SETUP_OPS FP32 operations per (pose,
+    triangle) plus 8 (beta, gamma, alpha) per pixel of every clamped
+    triangle box inside the ROI, counted on this input's boxes."""
+    from pose_refine_tpu_torch.ops.rasterize import roi_shape
+
+    out_w, out_h = roi_shape(width, height, roi)
+    if isinstance(tris, RC.IndexedTris):
+        in_bytes = tris.table.numel() * 4 + tris.ids.numel() * 4
+        per_pose = tris.gathered()
+    else:
+        in_bytes, per_pose = tris.numel() * 4, tris
+    n, t = poses.shape[0], per_pose.shape[-3]
+    coef = RC.triangle_setup(per_pose, poses, proj, width, height, roi)
     rx, ry = roi[0], roi[1]
     xs, ys, xm, ym = coef[:, 9], coef[:, 10], coef[:, 11], coef[:, 12]
     x0, x1 = xs.clamp(min=rx).ceil(), xm.clamp(max=rx + out_w - 1).floor()
@@ -686,8 +829,8 @@ def raster_bound(coef, out_w, out_h, height, roi):
     y1 = ym.clamp(max=height - 1 - ry).floor()
     ok = (xs <= xm) & (ys <= ym)
     area = ((x1 - x0 + 1).clamp(min=0) * (y1 - y0 + 1).clamp(min=0) * ok).double().sum()
-    n_px = coef.shape[0] * out_w * out_h
-    return bound(n_bytes=coef.numel() * 4 + n_px * 4, n_instr=8 * float(area))
+    n_bytes = in_bytes + n * 64 + 64 + n * out_w * out_h * 4
+    return bound(n_bytes=n_bytes, n_instr=8 * float(area) + SETUP_OPS * float(n) * t)
 
 
 def nn_bound(nq, pairs, n_balls=0):
@@ -808,6 +951,7 @@ def main():
               file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    import compare_raster
     import pose_refine_tpu_torch as ptt
 
     check(os.path.dirname(os.path.dirname(os.path.abspath(ptt.__file__))) == REPO,
@@ -892,28 +1036,28 @@ def main():
     phase("build", f"ok in {time.perf_counter() - t0:.3f} s (nvcc {info['seconds']:.3f} s, "
           f"built={info['built']}) -> {os.path.relpath(info['path'], REPO)}; {regs}")
 
-    # 3. kernel vs plain at the slice's shapes
+    # 3. kernel vs plain at the raster's shapes (the old path beside it when
+    # the parent's source is at compare_raster.PARENT)
     model, tris_np, truth, poses_np = workload(geometry, mesh)
     K = geometry.LINEMOD_K
     proj = geometry.compute_proj(K, WIDTH, HEIGHT, device=dev)
     tris = torch.as_tensor(tris_np, device=dev)
-    scene_t, scene_stats = compare_raster(
-        torch, RC, "observed scene", tris, torch.as_tensor(truth[None], device=dev),
-        WIDTH, HEIGHT, proj, (0, 0, 0, 0), plain_reps=3)
-    scene = scene_t[0].cpu().numpy()
+    shapes, refiner, mm_ref, scene, _truth = raster_shapes(torch, ptt, geometry, mesh, dev)
     check(scene.max() > 0 and 200 < scene[scene > 0].min() < 300, "implausible scene depth")
-
-    refiner = ptt.PoseRefiner(model, K=K, device="cuda", **CFG)
-    refiner.set_scene_depth(scene)
+    old = None
+    if os.path.exists(compare_raster.PARENT):
+        old = compare_raster.OtherRaster(compare_raster.PARENT)
+        phase("kernel", f"old path: {compare_raster.PARENT} ({old.what}); {old.ptxas}")
+    raster_stats = {}
+    for name, args in shapes.items():
+        if name == "multimodel":
+            continue  # after the multi-model refine, phase 13
+        out, raster_stats[name] = raster_phase(torch, RC, name, *args, old=old)
+        if name == "scene":
+            check(torch.equal(out[0].cpu(), torch.as_tensor(scene)), "scene render not repeatable")
+    hyp_stats = raster_stats["hypotheses"]
     poses = torch.as_tensor(poses_np, device=dev)
     rw, rh = refiner.render_w, refiner.render_h
-    _, hyp_stats = compare_raster(
-        torch, RC, "hypotheses", refiner.tris, poses, rw, rh, refiner.proj, refiner.roi,
-        plain_reps=3)
-    per_pose = refiner.tris.expand(N_POSES, *refiner.tris.shape).contiguous()
-    _, pp_stats = compare_raster(
-        torch, RC, "hypotheses, per-pose (N,T,3,3) table", per_pose, poses, rw, rh,
-        refiner.proj, refiner.roi, plain_reps=1)
 
     # 4. the slice end to end through the kernel
     crit = ptt.ICPConvergenceCriteria(max_iteration=ITERS)
@@ -1364,10 +1508,6 @@ def main():
 
     # 13. several meshes in one batch: scripts/demo_multi.py's two models,
     # 256 hypotheses of models [0, 1] * 128 against the bench scene
-    other = mesh.make_bumpy_sphere(radius=60.0, subdivisions=4)
-    mm_ref = ptt.MultiModelRefiner([model, other], K=K, device="cuda", render_scale=2,
-                                   max_points=2048, window=128, stride=2, decimate_mm=2.0)
-    mm_ref.set_scene_depth(scene)
     mm_ids = np.array([0, 1] * (N_POSES // 2), np.int32)
     reset_counts()
     mm_refined, mm_res = mm_ref.refine(mm_ids, poses, criteria=crit)
@@ -1382,8 +1522,9 @@ def main():
     best_mm = float(np.linalg.norm(mm_np[best, :3, 3] - truth[:3, 3]))
     wall_ms, dev_ms = refine_ms(torch, lambda: mm_ref.refine(mm_ids, poses, criteria=crit))
     mm_tris, _p, _sq = mm_ref._per_pose_tris(mm_ids, poses)
-    phase("multimodel", f"{N_POSES} hypotheses of 2 models (per-pose table "
-          f"{tuple(mm_tris.shape)}), roi={mm_ref.roi}: wall_ms={wall_ms} device_ms={dev_ms} "
+    phase("multimodel", f"{N_POSES} hypotheses of 2 models (table "
+          f"{tuple(mm_tris.table.shape)} read by id), roi={mm_ref.roi}: wall_ms={wall_ms} "
+          f"device_ms={dev_ms} "
           f"poses_per_s={N_POSES / wall_ms * 1e3} mean_fitness model 0 "
           f"{float(mm_fit[mm_ids == 0].mean())} model 1 {float(mm_fit[mm_ids == 1].mean())}; "
           f"rank-1 is model {mm_ids[best]} with translation error {best_mm} mm "
@@ -1398,6 +1539,8 @@ def main():
     hold_paths("multimodel", "through the plain versions",
                agreement(rotation_angle_deg, truth, mm_np, p_refined.cpu().numpy(), mm_fit,
                          p_res.fitness.cpu().numpy()), path_failures)
+    _, raster_stats["multimodel"] = raster_phase(torch, RC, "multimodel", *shapes["multimodel"],
+                                                 old=old)
 
     # 14. two objects in one stream: MultiObjectSession, one track per frame
     bumpy40 = mesh.make_bumpy_sphere(radius=40.0, subdivisions=3)
@@ -1519,7 +1662,7 @@ def main():
 
     check(not path_failures, "; ".join(path_failures))
     print(card_line)
-    max_err = max(s["max_abs_err"] for s in (scene_stats, hyp_stats, pp_stats))
+    max_err = max(s["max_abs_err"] for s in raster_stats.values())
     nn_sources = dict(route="cuda", source="pose_refine_tpu_torch/csrc/nn_flash.cu",
                       library_ms=None)
     print(json.dumps({"kernels": [{
@@ -1536,6 +1679,12 @@ def main():
         "bound_by": hyp_stats["bound_by"],
         "library_ms": None,
         "launches_multimodel": mm_launches["rasterize"],
+        # every [kernel] shape: alone, with the wrapper, the old path (setup
+        # + coefficient-table kernel) alone when its source was given, the
+        # bound of the function
+        "shapes": {name: {k: st[k] for k in ("alone_ms", "ms", "old_alone_ms",
+                                             "old_setup_alone_ms", "bound_ms", "bound_by")}
+                   for name, st in raster_stats.items()},
     }, {
         "name": "nn_flash_packed", **nn_sources,
         "replaces": "pose_refine_tpu/scene/nn_pallas.py:101",

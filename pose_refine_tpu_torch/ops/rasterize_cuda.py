@@ -1,13 +1,18 @@
 """Production batch depth rasterizer: the hand-written CUDA kernel
 ``csrc/rasterize.cu``, its wrapper, and its plain PyTorch version.
 
-Replaces ``pose_refine_tpu/ops/rasterize_pallas.py::rasterize_pallas``. The
-per-(pose, triangle) setup - barycentric and 1/z coefficients that are
-affine in the pixel, plus the clamped bbox - is the JAX package's
-``_triangle_setup`` in plain torch; the kernel consumes that table with
-one thread per (pose, triangle) and atomicMin (see the note in the .cu
-source). The Pallas kernel's block/superblock unions and tile counts are
-TPU culling and have no counterpart here.
+Replaces ``pose_refine_tpu/ops/rasterize_pallas.py::rasterize_pallas``.
+On a card one render is two launches of ``csrc/rasterize.cu`` (block
+union boxes, then one CTA per screen tile that recomputes its triangles'
+setup in registers and writes its tile once; see the note in the source),
+from the mesh table and the poses straight to the int32 framebuffer. The plain version is the JAX package's ``_triangle_setup`` in
+plain torch (``triangle_setup``: a (N, 16, T) coefficient table) and a dense
+evaluation of every (triangle, pixel) pair (``raster_coef_plain``); the
+kernel performs the same rounded operations, so the two agree bit for bit.
+
+Per-pose meshes: ``tris`` may be (T, 3, 3) shared, (N, T, 3, 3) one per
+pose, or an :class:`IndexedTris` (an (M, T, 3, 3) table and an (N,) row per
+pose), which the kernel reads in place of a gathered per-pose copy.
 
 Dispatch: ``rasterize`` uses the plain version for CPU tensors and the
 kernel for CUDA tensors. There is no fallback from the kernel to the plain
@@ -15,6 +20,8 @@ version; a kernel that does not build or launch raises.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -29,9 +36,26 @@ from pose_refine_tpu_torch.ops.rasterize import (
 BIG = 3.0e38            # "no depth" sentinel, above any real 1/denom
 _INT_LIM = 2147483520.0  # largest float32 below 2**31: depths clamp here
 
-# kernel launches by raster_coef_cuda (chip_smoke.py resets and reads it to
+# renders launched by raster_cuda (chip_smoke.py resets and reads it to
 # show the main path went through the kernel)
 launches = 0
+
+
+class IndexedTris(NamedTuple):
+    """Per-pose meshes by reference: pose i renders ``table[ids[i]]``.
+
+    table (M, T, 3, 3) float32, ids (N,) int32 on the same device. The
+    kernel reads the table in place (ids clamped into it); the plain
+    version gathers the (N, T, 3, 3) copy."""
+
+    table: torch.Tensor
+    ids: torch.Tensor
+
+    def gathered(self) -> torch.Tensor:
+        """The (N, T, 3, 3) per-pose copy, ids clamped as the kernel clamps
+        them."""
+        rows = self.ids.to(torch.int64).clamp(0, self.table.shape[0] - 1)
+        return self.table.index_select(0, rows)
 
 
 def triangle_setup(tris, poses, proj, width: int, height: int, roi: ROI):
@@ -130,36 +154,88 @@ def raster_coef_plain(coef: torch.Tensor, out_w: int, out_h: int, height: int,
     return torch.where(hit, val, torch.zeros_like(val))
 
 
-def raster_coef_cuda(coef: torch.Tensor, out_w: int, out_h: int, height: int,
-                     roi: ROI) -> torch.Tensor:
-    """Launch csrc/rasterize.cu on the coefficient table, on the current
-    stream, without synchronising. Returns (N, out_h, out_w) int32 mm."""
-    global launches
-    if coef.device.type != "cuda":
-        raise ValueError(f"raster_coef_cuda needs a CUDA tensor, got {coef.device}")
-    if coef.dtype != torch.float32 or coef.dim() != 3 or coef.shape[1] != 16:
-        raise ValueError(
-            f"coef must be (N, 16, T) float32, got {tuple(coef.shape)} {coef.dtype}")
-    if not coef.is_contiguous():
-        raise ValueError("coef must be contiguous")
-    n, _, t = coef.shape
-    if max(n, t, out_h * out_w) >= 2 ** 31:
-        raise ValueError(f"render too large for int32 sizes: {n} poses, {t} tris")
+def _check_render(table, ids, poses, proj):
+    """The kernel's input checks: raise on what it does not take."""
+    dev = table.device
+    if dev.type != "cuda":
+        raise ValueError(f"raster_cuda needs CUDA tensors, got {dev}")
+    named = dict(table=table, poses=poses, proj=proj)
+    if ids is not None:
+        named["ids"] = ids
+    for name, x in named.items():
+        want = torch.int32 if name == "ids" else torch.float32
+        if x.device != dev or x.dtype != want:
+            raise ValueError(f"{name} must be {want} on {dev}, got {x.dtype} on {x.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if table.dim() != 4 or tuple(table.shape[2:]) != (3, 3):
+        raise ValueError(f"table must be (M, T, 3, 3), got {tuple(table.shape)}")
+    if poses.dim() != 3 or tuple(poses.shape[1:]) != (4, 4) or tuple(proj.shape) != (4, 4):
+        raise ValueError(f"poses must be (N, 4, 4) and proj (4, 4), got "
+                         f"{tuple(poses.shape)}, {tuple(proj.shape)}")
+    m, n = table.shape[0], poses.shape[0]
+    if ids is None and m not in (1, n):
+        raise ValueError(f"a table of {m} meshes for {n} poses needs ids")
+    if ids is not None and tuple(ids.shape) != (n,):
+        raise ValueError(f"ids must be ({n},), got {tuple(ids.shape)}")
+
+
+def _launch(entry: str, out: torch.Tensor, table, ids, poses, proj, width, height, roi,
+            *extra):
+    """Call the C entry ``entry`` of csrc/rasterize.cu on the current stream
+    with the render's arguments, ``out`` and ``extra``; raise on a CUDA
+    error."""
     from pose_refine_tpu_torch._build import load_kernels
 
     lib, _info = load_kernels()
-    fb = torch.empty((n, out_h, out_w), dtype=torch.int32, device=coef.device)
-    with torch.cuda.device(coef.device):
-        stream = torch.cuda.current_stream(coef.device).cuda_stream
-        err = lib.prt_rasterize(
-            coef.data_ptr(), n, t, fb.data_ptr(), out_h, out_w, height,
-            int(roi[0]), int(roi[1]), stream,
+    out_w, out_h = roi_shape(width, height, roi)
+    m, t = table.shape[:2]
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream(table.device).cuda_stream
+        err = getattr(lib, entry)(
+            table.data_ptr(), None if ids is None else ids.data_ptr(), m, t, poses.data_ptr(),
+            poses.shape[0], proj.data_ptr(), width, height, int(roi[0]), int(roi[1]), out_w,
+            out_h, out.data_ptr(), *extra, stream,
         )
     if err != 0:
         msg = lib.prt_error_string(err).decode()
-        raise RuntimeError(f"rasterize kernel launch failed: CUDA error {err} ({msg})")
+        raise RuntimeError(f"{entry} launch failed: CUDA error {err} ({msg})")
+
+
+def raster_cuda(table: torch.Tensor, ids, poses: torch.Tensor, proj: torch.Tensor,
+                width: int, height: int, roi: ROI = (0, 0, 0, 0)) -> torch.Tensor:
+    """Launch csrc/rasterize.cu: pose i of ``poses`` (N, 4, 4) renders the
+    mesh ``table[ids[i]]`` of table (M, T, 3, 3) (``ids`` None: the one mesh,
+    M = 1, or mesh i, M = N), on the current stream, without synchronising.
+    Two launches; counts one render in ``launches``. Returns (N, out_h,
+    out_w) int32 mm, 0 = empty."""
+    global launches
+    _check_render(table, ids, poses, proj)
+    out_w, out_h = roi_shape(width, height, roi)
+    m, t = table.shape[:2]
+    n = poses.shape[0]
+    tiles = -(-out_w // 32) * -(-out_h // 32)
+    if max(m * t, n * tiles, n * -(-t // 256), out_h * out_w) >= 2 ** 31:
+        raise ValueError(f"render too large for int32 sizes: {n} poses, {m} x {t} tris")
+    fb = torch.empty((n, out_h, out_w), dtype=torch.int32, device=table.device)
+    # the block and superblock boxes: 4 floats a 32 and a 256 triangles
+    scratch = torch.empty(max(4 * n * (-(-t // 32) + -(-t // 256)), 4), dtype=torch.float32,
+                          device=table.device)
+    _launch("prt_rasterize", fb, table, ids, poses, proj, width, height, roi, scratch.data_ptr())
     launches += 1
     return fb
+
+
+def triangle_setup_cuda(table: torch.Tensor, ids, poses: torch.Tensor, proj: torch.Tensor,
+                        width: int, height: int, roi: ROI = (0, 0, 0, 0)) -> torch.Tensor:
+    """The setup the kernel computes in registers, written out as
+    :func:`triangle_setup` lays it out, (N, 16, T): for tests, which compare
+    it field by field. Not on any render path; counts no launch."""
+    _check_render(table, ids, poses, proj)
+    coef = torch.empty((poses.shape[0], 16, table.shape[1]), dtype=torch.float32,
+                       device=table.device)
+    _launch("prt_raster_setup", coef, table, ids, poses, proj, width, height, roi)
+    return coef
 
 
 def _inputs(tris, poses, proj, device: DeviceLike):
@@ -168,32 +244,45 @@ def _inputs(tris, poses, proj, device: DeviceLike):
     else:
         dev = resolve_device(device)
     poses = torch.as_tensor(poses, dtype=torch.float32, device=dev)
-    tris = torch.as_tensor(tris, dtype=torch.float32, device=dev)
     proj = torch.as_tensor(proj, dtype=torch.float32, device=dev)
+    if isinstance(tris, IndexedTris):
+        tris = IndexedTris(torch.as_tensor(tris.table, dtype=torch.float32, device=dev),
+                           torch.as_tensor(tris.ids, dtype=torch.int32, device=dev))
+    else:
+        tris = torch.as_tensor(tris, dtype=torch.float32, device=dev)
     return tris, poses, proj
+
+
+def _plain(tris, poses, proj, width, height, roi):
+    out_w, out_h = roi_shape(width, height, roi)
+    if isinstance(tris, IndexedTris):
+        tris = tris.gathered()
+    coef = triangle_setup(tris, poses, proj, width, height, roi)
+    return raster_coef_plain(coef, out_w, out_h, height, roi)
 
 
 def rasterize(tris, poses, width: int, height: int, proj,
               roi: ROI = (0, 0, 0, 0), device: DeviceLike = None) -> torch.Tensor:
     """Render N poses -> (N, out_h, out_w) int32 depth mm, 0 = empty.
 
-    tris (T, 3, 3) shared or (N, T, 3, 3) per pose, poses (N, 4, 4), proj
-    (4, 4). ``device`` defaults to the poses tensor's device (or
-    device.resolve_device(None) for host arrays). CUDA: the kernel; CPU:
-    the plain version."""
-    out_w, out_h = roi_shape(width, height, roi)
+    tris (T, 3, 3) shared, (N, T, 3, 3) per pose, or an IndexedTris; poses
+    (N, 4, 4), proj (4, 4). ``device`` defaults to the poses tensor's
+    device (or device.resolve_device(None) for host arrays). CUDA: the
+    kernel; CPU: the plain version."""
     tris, poses, proj = _inputs(tris, poses, proj, device)
-    coef = triangle_setup(tris, poses, proj, width, height, roi)
-    if coef.device.type == "cpu":
-        return raster_coef_plain(coef, out_w, out_h, height, roi)
-    return raster_coef_cuda(coef, out_w, out_h, height, roi)
+    if poses.device.type == "cpu":
+        return _plain(tris, poses, proj, width, height, roi)
+    if isinstance(tris, IndexedTris):
+        table, ids = tris
+    else:
+        table, ids = (tris[None] if tris.dim() == 3 else tris), None
+    return raster_cuda(table.contiguous(), ids if ids is None else ids.contiguous(),
+                       poses.contiguous(), proj.contiguous(), width, height, roi)
 
 
 def rasterize_plain(tris, poses, width: int, height: int, proj,
                     roi: ROI = (0, 0, 0, 0), device: DeviceLike = None) -> torch.Tensor:
     """The plain PyTorch version of :func:`rasterize` on any device - the
     reference the kernel is held against."""
-    out_w, out_h = roi_shape(width, height, roi)
     tris, poses, proj = _inputs(tris, poses, proj, device)
-    coef = triangle_setup(tris, poses, proj, width, height, roi)
-    return raster_coef_plain(coef, out_w, out_h, height, roi)
+    return _plain(tris, poses, proj, width, height, roi)

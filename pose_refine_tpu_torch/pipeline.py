@@ -33,7 +33,7 @@ from pose_refine_tpu_torch.ops.depth_to_cloud import (
     morton_key,
     window_cloud_batched,
 )
-from pose_refine_tpu_torch.ops.rasterize_cuda import rasterize, rasterize_plain
+from pose_refine_tpu_torch.ops.rasterize_cuda import IndexedTris, rasterize, rasterize_plain
 from pose_refine_tpu_torch.scene.nn import (
     SceneNN,
     SceneNNStack,
@@ -725,7 +725,7 @@ class PoseRefiner:
     def _refine(self, tris, init_poses, criteria=icp.ICPConvergenceCriteria(), schedule=None,
                 with_covariance: bool = False, scene_ids=None, _scene=None):
         """refine() rendering ``tris``: the refiner's (T, 3, 3) mesh, or
-        MultiModelRefiner's (N, T, 3, 3) per-pose tables."""
+        MultiModelRefiner's per-pose meshes (an IndexedTris)."""
         _unported("schedule", schedule, None, "A14")
         scene = self.scene if _scene is None else _scene
         if scene is None:  # usage error: must survive python -O
@@ -868,12 +868,11 @@ class MultiModelRefiner(PoseRefiner):
     (JAX pipeline.py:1513-1611). Each model is decimated (decimate_mm),
     Morton-ordered and padded with zero-area triangles at its first vertex
     to the largest triangle count; the (M, T, 3, 3) table stays on the
-    device, and refine()/track() gather each pose's model by id into the
-    (N, T, 3, 3) per-pose table the raster kernel takes. A padding triangle
-    has zero area, gets an empty box in triangle_setup and covers no pixel.
-
-    Memory: the per-pose table is N x T x 36 bytes (256 hypotheses of a
-    31k-triangle mesh ~ 290 MB): decimate heavy meshes or split the batch.
+    device, and refine()/track() hand the raster the table with each pose's
+    model id (ops.rasterize_cuda.IndexedTris): the kernel reads each pose's
+    mesh from the table, with no per-pose copy (the plain version gathers
+    one). A padding triangle has zero area, gets an empty box in the setup
+    and covers no pixel.
 
     Example:
         refiner = MultiModelRefiner([model_a, model_b], K=K, device="cuda")
@@ -897,9 +896,9 @@ class MultiModelRefiner(PoseRefiner):
         self.tris_table = torch.as_tensor(np.stack(padded), device=self.device)  # (M, T, 3, 3)
 
     def _per_pose_tris(self, model_ids, init_poses):
-        """Validate (model_ids, poses) and gather the per-pose triangle
-        tables: (tris (N, T, 3, 3), poses (N, 4, 4), squeeze). Ids are read
-        on the host (a card tensor is read back) and range-checked."""
+        """Validate (model_ids, poses): (IndexedTris of the table and the
+        ids, poses (N, 4, 4), squeeze). Ids are read on the host (a card
+        tensor is read back) and range-checked."""
         ids = np.asarray(_host(model_ids), np.int64).reshape(-1)
         if ids.size and (ids.min() < 0 or ids.max() >= len(self.models)):
             raise ValueError(f"model_ids must be in [0, {len(self.models)}), got "
@@ -910,7 +909,7 @@ class MultiModelRefiner(PoseRefiner):
             poses = poses[None]
         if poses.shape[0] != ids.shape[0]:
             raise ValueError(f"{ids.shape[0]} model ids for {poses.shape[0]} poses")
-        tris = self.tris_table.index_select(0, to_device(ids, self.device))
+        tris = IndexedTris(self.tris_table, to_device(ids.astype(np.int32), self.device))
         return tris, poses, squeeze
 
     def refine(self, model_ids, init_poses=None, **kwargs):

@@ -9,7 +9,8 @@ projective refine and the three NN configurations. For each cell it
 prints one line with the host scene build, the refine's wall and
 CUDA-event ms (median of 5), the raster, lift and ICP stages each timed
 alone by CUDA events (median of 5; a cascade's ICP stage is its
-full-resolution pass), one association pass, and, from ``torch.profiler``
+full-resolution pass) with the raster's device kernel count, one
+association pass, and, from ``torch.profiler``
 around one refine, the number of device kernels, their summed time and
 its share of the unprofiled wall time (the device busy share); then the
 eight kernels with the most device time.
@@ -44,6 +45,8 @@ import time
 
 import numpy as np
 
+import chip_smoke as CS
+
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -63,28 +66,10 @@ def event_ms(torch, fn, reps=5):
     return float(np.median(ts)), out
 
 
-def device_kernels(torch, fn):
-    """[(name, device ms, calls)] of the device kernels of one fn() call,
-    most time first, from torch.profiler."""
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
-        torch.cuda.synchronize()
-    rows = []
-    for e in prof.key_averages():
-        d = getattr(e, "self_device_time_total", None)
-        if d is None:
-            d = getattr(e, "self_cuda_time_total", 0)
-        if d > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
-            rows.append((e.key, d / 1e3, e.count))
-    return sorted(rows, key=lambda r: -r[1])
-
-
 def print_kernels(torch, cell, fn, wall_ms, line):
     """Profile one fn() call; print ``line`` with the device kernel count,
     their summed time and the busy share, then the eight largest kernels."""
-    rows = device_kernels(torch, fn)
+    rows = CS.device_kernels(torch, fn)
     kernel_ms = sum(r[1] for r in rows)
     print(f"[profile] {cell}: {line} device_kernels={sum(r[2] for r in rows)} "
           f"kernel_sum_ms={kernel_ms} busy_share={kernel_ms / wall_ms}", flush=True)
@@ -108,7 +93,7 @@ def print_loops(torch, cell, old, new, rounds=6):
             walls[name].append((time.perf_counter() - t0) * 1e3)
     parts = []
     for name, fn in fns.items():
-        rows = device_kernels(torch, fn)
+        rows = CS.device_kernels(torch, fn)
         kernel_ms, med = sum(r[1] for r in rows), float(np.median(walls[name]))
         parts.append(f"{name} loop wall_ms median={med} min={min(walls[name])} "
                      f"max={max(walls[name])} device_kernels={sum(r[2] for r in rows)} "
@@ -124,7 +109,6 @@ def main():
         print("profile_port: needs a CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
-    import chip_smoke as CS
     import pose_refine_tpu_torch as ptt
     from pose_refine_tpu_torch import geometry, icp, mesh
     from pose_refine_tpu_torch.ops import rasterize_cuda as RC
@@ -168,8 +152,11 @@ def main():
         refine()  # warm
         wall_ms, span_ms = CS.refine_ms(torch, refine)
         rw, rh = ref.render_w, ref.render_h
-        raster_ms, depth = event_ms(
-            torch, lambda: RC.rasterize(tris, hyps, rw, rh, ref.proj, roi=ref.roi))
+        def raster():
+            return RC.rasterize(tris, hyps, rw, rh, ref.proj, roi=ref.roi)
+
+        raster_ms, depth = event_ms(torch, raster)
+        raster_kernels = sum(calls for _n, _ms, calls in CS.device_kernels(torch, raster))
         lift_ms, (clouds, valids, _) = event_ms(torch, lift_fn(ref, depth, nn))
         assoc = icp.Association(query, ref.scene.reduce if scene_ids is None
                                 else ref.scene.reduce_at(scene_ids))
@@ -181,7 +168,8 @@ def main():
         print_kernels(torch, cell, refine, wall_ms,
                       f"scene {size}, build_ms={build_ms} wall_ms={wall_ms} "
                       f"device_span_ms={span_ms} poses_per_s={hyps.shape[0] / wall_ms * 1e3} "
-                      f"raster_ms={raster_ms} lift_ms={lift_ms} icp_ms={icp_ms} "
+                      f"raster_ms={raster_ms} raster_kernels={raster_kernels} "
+                      f"lift_ms={lift_ms} icp_ms={icp_ms} "
                       f"one_query_ms={query_ms} one_fused_pass_ms={pass_ms}")
 
         def through(own_query):
@@ -256,8 +244,12 @@ def main():
             build_ms, sc = event_ms(torch, lambda: SceneProjective.from_depth(
                 frame_t, ref._K_t, ref.max_dist_diff, device=dev))
             size = "projective"
-        raster_ms, depth = event_ms(torch, lambda: RC.rasterize(
-            ref.tris, hyps, ref.render_w, ref.render_h, ref.proj, roi=ref.roi))
+        def raster():
+            return RC.rasterize(ref.tris, hyps, ref.render_w, ref.render_h, ref.proj,
+                                roi=ref.roi)
+
+        raster_ms, depth = event_ms(torch, raster)
+        raster_kernels = sum(calls for _n, _ms, calls in CS.device_kernels(torch, raster))
         lift_ms, (clouds, valids, _) = event_ms(torch, lift_fn(ref, depth, nn))
         icp_ms, (_res, final) = event_ms(torch, lambda: icp._icp_run(
             clouds, valids, icp.Association(sc.query, sc.reduce), crit))
@@ -270,8 +262,8 @@ def main():
         print_kernels(torch, cell, track, wall_ms,
                       f"scene {size}, {CS.N_HYP} hypotheses, roi={ref.roi}: "
                       f"wall_ms={wall_ms} device_span_ms={span_ms} scene_build_ms={build_ms} "
-                      f"raster_ms={raster_ms} lift_ms={lift_ms} icp_ms={icp_ms} "
-                      f"information_ms={info_ms}")
+                      f"raster_ms={raster_ms} raster_kernels={raster_kernels} lift_ms={lift_ms} "
+                      f"icp_ms={icp_ms} information_ms={info_ms}")
 
         def tracked(own_query: bool):
             """track()'s device work on the standing plan: scene build,

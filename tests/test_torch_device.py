@@ -21,7 +21,7 @@ from pose_refine_tpu_torch import _build, geometry, mesh
 from pose_refine_tpu_torch.ops import gather as G
 from pose_refine_tpu_torch.ops import icp_reduce as IR
 from pose_refine_tpu_torch.ops import rasterize_cuda as RC
-from pose_refine_tpu_torch.probes import nn_ties
+from pose_refine_tpu_torch.probes import nn_ties, raster_edges
 from pose_refine_tpu_torch.scene import nn_flash as NF
 from pose_refine_tpu_torch.scene import nn_mxu as NM
 from pose_refine_tpu_torch.scene.nn import SceneNN, SceneNNStack
@@ -69,9 +69,11 @@ def test_rasterize_on_cuda_raises_without_card(no_card):
 def test_kernel_wrapper_refuses_cpu_tensors():
     """The wrappers launch their kernel or raise; they never compute on the
     CPU themselves."""
-    coef = torch.zeros((1, 16, 4))
-    with pytest.raises(ValueError, match="CUDA tensor"):
-        RC.raster_coef_cuda(coef, 8, 8, 8, (0, 0, 0, 0))
+    table, poses, proj = torch.zeros((1, 4, 3, 3)), torch.eye(4)[None], torch.eye(4)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        RC.raster_cuda(table, None, poses, proj, 8, 8)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        RC.triangle_setup_cuda(table, None, poses, proj, 8, 8)
     table = NF.pack_scene(torch.zeros((5, 3)))
     with pytest.raises(ValueError, match="CUDA tensors"):
         NF.nn_flash_packed_cuda(torch.zeros((3, 3)), table)
@@ -169,6 +171,113 @@ def test_kernel_matches_plain_on_card(card, case):
     assert got.shape == want.shape and got.dtype == torch.int32
     assert (got > 0).sum() > 10000
     assert torch.equal(got, want)
+
+
+SETUP_FIELDS = ("kbx", "kby", "kb0", "kgx", "kgy", "kg0", "ddx", "ddy", "dd0",
+                "x_start", "y_start", "x_max", "y_max", "zero", "zero", "zero")
+
+
+def raster_edge_inputs(card, name):
+    """probes/raster_edges.py's case on the card: (tris, poses, proj);
+    ``<case>-wide``: its three poses repeated to 600, a batch that takes
+    the kernel's wide tiles."""
+    if name.endswith("-wide"):
+        tris, poses = raster_edges.cases()[name.replace("-wide", "-n3")]
+        poses = np.tile(poses, (200, 1, 1))
+    else:
+        tris, poses = raster_edges.cases()[name]
+    proj = geometry.compute_proj(raster_edges.camera_k(), raster_edges.WIDTH,
+                                 raster_edges.HEIGHT, device=card)
+    return torch.as_tensor(tris, device=card), torch.as_tensor(poses, device=card), proj
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("roi", [(0, 0, 0, 0), raster_edges.ROI], ids=["frame", "roi"])
+@pytest.mark.parametrize("name", sorted(raster_edges.cases()) + ["mixed-wide", "crowded-wide"])
+def test_raster_kernel_matches_plain_on_edge_inputs_on_card(card, name, roi):
+    """The kernel against its plain version on the edge inputs (a triangle
+    wider than the frame, 1-pixel triangles on tile corners, boxes across
+    the ROI's edges, zero-area rows, NaN / infinite vertices, a vertex
+    behind the camera, boxes that fill whole tiles), at N = 1 and 3 (narrow
+    tiles) and 600 (wide tiles), T not a multiple of 32: bit for bit, one
+    render counted."""
+    tris, poses, proj = raster_edge_inputs(card, name)
+    before = RC.launches
+    got = RC.rasterize(tris, poses, raster_edges.WIDTH, raster_edges.HEIGHT, proj, roi=roi)
+    torch.cuda.synchronize()
+    assert RC.launches == before + 1
+    want = RC.rasterize_plain(tris, poses, raster_edges.WIDTH, raster_edges.HEIGHT, proj,
+                              roi=roi)
+    assert got.shape == want.shape and got.dtype == torch.int32
+    assert torch.equal(got, want)
+    assert bool((want != 0).any()) != name.startswith("empty")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(raster_edges.cases()) + ["bumpy-100"])
+def test_raster_setup_matches_plain_per_field_on_card(card, name):
+    """The setup the kernel computes in registers (written out by the
+    test-only prt_raster_setup) against triangle_setup on the card, field by
+    field, so a rounding mismatch names its field; ``bumpy-100``: a bumpy
+    sphere under 100 random poses through the ROI."""
+    roi = raster_edges.ROI
+    if name == "bumpy-100":
+        m = mesh.make_bumpy_sphere(radius=50.0, subdivisions=3)
+        tris = torch.as_tensor(m.tris[mesh.morton_order(m.tris)], device=card)
+        rng = np.random.default_rng(8)
+        R = geometry.euler_to_rotation(rng.uniform(-np.pi, np.pi, (100, 3)).astype(np.float32))
+        t = np.stack([rng.uniform(-40, 40, 100), rng.uniform(-40, 40, 100),
+                      rng.uniform(150, 500, 100)], -1).astype(np.float32)
+        poses = geometry.pose_from_Rt(R, t).to(card)
+        proj = geometry.compute_proj(raster_edges.camera_k(), raster_edges.WIDTH,
+                                     raster_edges.HEIGHT, device=card)
+    else:
+        tris, poses, proj = raster_edge_inputs(card, name)
+    w, h = raster_edges.WIDTH, raster_edges.HEIGHT
+    got = RC.triangle_setup_cuda(tris[None], None, poses, proj, w, h, roi)
+    want = RC.triangle_setup(tris, poses, proj, w, h, roi)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    for i, field in enumerate(SETUP_FIELDS):
+        same = got[:, i] == want[:, i]
+        assert bool(same.all()), (f"field {field}: {int((~same).sum())} of {same.numel()} differ, "
+                                  f"first kernel {got[:, i][~same][:3].tolist()} plain "
+                                  f"{want[:, i][~same][:3].tolist()}")
+
+
+@pytest.mark.cuda
+def test_raster_kernel_reads_an_indexed_table_on_card(card):
+    """An (M, T, 3, 3) table with a row id per pose (IndexedTris), ids out of
+    range included (clamped, as in the plain version): bit for bit, and
+    equal to the render of the gathered per-pose table."""
+    mixed, poses, proj = raster_edge_inputs(card, "mixed-n3")
+    crowded = torch.as_tensor(raster_edges.cases()["crowded-n1"][0], device=card)
+    pad = crowded[:1, :1].expand(mixed.shape[0] - crowded.shape[0], 3, 3)
+    table = torch.stack([mixed, torch.cat([crowded, pad])]).contiguous()
+    poses = torch.cat([poses, poses[:1]]).contiguous()
+    ids = torch.tensor([1, 0, 7, -2], dtype=torch.int32, device=card)
+    w, h = raster_edges.WIDTH, raster_edges.HEIGHT
+    got = RC.rasterize(RC.IndexedTris(table, ids), poses, w, h, proj)
+    torch.cuda.synchronize()
+    want = RC.rasterize_plain(RC.IndexedTris(table, ids), poses, w, h, proj)
+    assert torch.equal(got, want)
+    gathered = RC.rasterize(table[[1, 0, 1, 0]].contiguous(), poses, w, h, proj)
+    assert torch.equal(got, gathered)
+
+
+@pytest.mark.cuda
+def test_raster_kernel_refuses_what_it_cannot_launch_on_card(card):
+    table = torch.zeros((2, 8, 3, 3), device=card)
+    poses = torch.eye(4, device=card).expand(3, 4, 4).contiguous()
+    proj = torch.eye(4, device=card)
+    with pytest.raises(ValueError, match="needs ids"):
+        RC.raster_cuda(table, None, poses, proj, 16, 16)
+    with pytest.raises(ValueError, match="ids must be"):
+        RC.raster_cuda(table, torch.zeros(3, dtype=torch.int64, device=card), poses, proj, 16, 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        RC.raster_cuda(table[:1], None, torch.eye(4, device=card).expand(3, 4, 4), proj, 16, 16)
+    with pytest.raises(ValueError, match="poses must be"):
+        RC.raster_cuda(table[:1], None, poses.cpu(), proj, 16, 16)
 
 
 def nn_case(card, seed=2, n_scene=20000, n_query=70000):
