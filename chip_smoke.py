@@ -50,6 +50,14 @@ non-zero without printing a result:
               boundaries, scores of +-0, pad columns, partial tiles) through
               nn_flash_packed, nn_flash_gated and the stacked nn_flash_gated:
               bit for bit.
+  6b. kd-kernel - the kd traversal kernel (csrc/nn_kdtree.cu) against its
+              plain version on the same 524,288 queries against the 2 mm
+              and raw bench clouds: idx, dist^2 and steps bit for bit; against
+              B2: every neighbour at the same distance, other indices at equal
+              distances counted as ties; edge queries (NaN, overflowing, far,
+              scene points) and a single-leaf tree. Times with the wrapper,
+              alone, the plain version, B2 and B3 at the same shape; step,
+              leaf-point and box-test counts; the bound from them.
   7. nn-slice - PoseRefiner(scene="nn_bruteforce") on the bench workload in
               bench.py's three NN configurations (2 mm voxel scene, raw
               cloud, cascade (2.0, 16) + 4 full-resolution iterations); the
@@ -61,6 +69,15 @@ non-zero without printing a result:
               (SceneNN backend "flash") drives nn_flash_packed.
   8. nn-golden - the golden recipe of phase 5 with scene="nn_bruteforce":
               fitness > 0.7; prints the rotation error.
+  8b. kd-slice - PoseRefiner(scene="nn_kdtree") on the bench workload (2 mm
+              and raw clouds): one kd launch and one fused pass an
+              iteration, [nn-slice]'s accuracy bar, hold_paths against the
+              plain path; against [nn-slice]'s B3 refines printed (ties may
+              differ). Wall and device ms.
+  8c. p2p   - estimation="point_to_point", robust_delta=0.005 with each
+              estimation, on the 2 mm NN slice: [nn-slice]'s accuracy bar,
+              hold_paths against the plain path; the golden recipe point to
+              point (120 iterations): fitness > 0.7, the plain path agrees.
   9. gather - the association's row-gather kernel against its plain
               version at three shapes: the bench projective scene (307,200
               rows) at the 524,288 first-pass pixels, the raw NN scene
@@ -117,7 +134,10 @@ are collected and fail the run at its end.
               flash-NN kernel's output for the 2 mm and raw bench clouds and
               a stacked NN table, and edge inputs (a pose with no valid
               point, points at z = 0, behind the camera and NaN, border
-              pixels, a gate that rejects everything): every sum equal to
+              pixels, a gate that rejects everything), the kd traversal's
+              output on the raw cloud, and the Huber, point-to-point and
+              point-to-point Huber modes at the slice shape and on the 2 mm
+              NN scene: every sum equal to
               the plain version's bit for bit (so the count exactly), each
               float sum within 2e-6 x the sum of its absolute terms of its
               float64 value, two launches bit for bit. Times with the
@@ -134,13 +154,14 @@ work, from the bytes it must move and the operations it must do on this
 run's inputs at the H100's published peaks (see bound()).
 
 The two lines before the last are the card line from nvidia-smi and a JSON
-object of the six kernels (rasterize, nn_flash_packed, nn_flash_gated with
-its stacked launches apart, gather_rows, assoc_reduce, nn_flash_mxu); the
-last line is
+object of the seven kernels (rasterize, nn_flash_packed, nn_flash_gated with
+its stacked launches apart, gather_rows, assoc_reduce with its modes,
+nn_kdtree, nn_flash_mxu); the last line is
 {"ok": true, "device": {...}}.
 """
 
 import collections
+import dataclasses
 import functools
 import json
 import logging
@@ -496,9 +517,9 @@ def first_pass_clouds(ptt, refine_poses, ref, scene, poses, scene_ids=None):
     query, reduce = (scene.query, scene.reduce) if scene_ids is None else \
         (scene.query_at(scene_ids), scene.reduce_at(scene_ids))
 
-    def capture(cloud, valid):
+    def capture(cloud, valid, **modes):
         seen.append((cloud.clone(), valid.clone()))
-        return reduce(cloud, valid)
+        return reduce(cloud, valid, **modes)
 
     refine_poses(ref.tris, poses, scene, ref.proj, ref._K_render_t, width=ref.render_w,
                  height=ref.render_h, max_points=ref.max_points,
@@ -672,9 +693,12 @@ def assoc_reduce_phase(torch, IR, cases):
         label, kernel, cloud, valid = c["label"], c["kernel"], c["cloud"], c["valid"]
         n, p = cloud.shape[:2]
 
+        modes = c.get("modes", (0.0, False))
+
         def plain():
             dst, nrm, q_valid, rows = c["assoc"](cloud)
-            return (dst, nrm, q_valid), rows, IR.packed_sums_plain(cloud, valid, dst, nrm, q_valid)
+            return (dst, nrm, q_valid), rows, IR.packed_sums_plain(cloud, valid, dst, nrm,
+                                                                   q_valid, *modes)
 
         before = IR.launches
         k_ms, k = median_ms(torch, lambda: kernel(cloud, valid), 20)
@@ -682,8 +706,8 @@ def assoc_reduce_phase(torch, IR, cases):
         again = kernel(cloud, valid)
         a_ms = alone_ms(torch, lambda: kernel(cloud, valid))
         p_ms, (assoc, rows, want) = median_ms(torch, plain, 3)
-        count_equal, k_err = IR.sums_error(k, cloud, valid, *assoc)
-        _, p_err = IR.sums_error(want, cloud, valid, *assoc)
+        count_equal, k_err = IR.sums_error(k, cloud, valid, *assoc, *modes)
+        _, p_err = IR.sums_error(want, cloud, valid, *assoc, *modes)
         counts_match = count_equal and torch.equal(k[:, 28], want[:, 28])
         finite = torch.isfinite(k) & torch.isfinite(want)
         abs_err = float((k - want)[finite].abs().max())
@@ -850,6 +874,105 @@ def nn_bound(nq, pairs, n_balls=0):
     return bound(n_bytes=nq * (12 + 8), n_instr=4 * pairs + 8 * nq * n_balls)
 
 
+# the kd walk's FP32 operations (csrc/nn_kdtree.cu): a step picks its
+# child from the node's record (a subtraction, a compare, the selects of near
+# and far child and of the next node, the leaf and mode tests: 8); a scanned
+# leaf point 3 subtractions, a product, 2 FMAs and a compare (7); a far-box
+# test 6 subtractions, 6 maxima, 3 adds, a product, 2 FMAs and a compare (19)
+KD_STEP_OPS, KD_POINT_OPS, KD_BOX_OPS = 8, 7, 19
+
+
+def kd_bound(nq, steps, scanned, tested, tree_bytes):
+    """K1's bound on this run's queries: the queries read, idx and dist^2
+    written and the tree's arrays read once, against the operations of the
+    walks these queries take (the plain version's step, leaf-point and
+    box-test counts). The walk's dependent loads, which bound the kernel,
+    are latency and count in neither."""
+    return bound(n_bytes=nq * (12 + 8) + tree_bytes,
+                 n_instr=KD_STEP_OPS * steps + KD_POINT_OPS * scanned + KD_BOX_OPS * tested)
+
+
+def kd_kernel_phase(torch, NF, KD, SceneNN, K, scene_depth, queries):
+    """K1, the kd traversal kernel, against its plain version on the
+    first-pass queries against the 2 mm and raw bench clouds: idx, dist^2
+    and steps bit for bit; against B2 on the same queries: both neighbours'
+    distances evaluated alike (in float64 from the float32 points) are equal,
+    or within B2's scoring error (2^-20 |q|^2, gate_band's bound: B2 ranks
+    by |s|^2 - 2 q.s, K1 by the fused sum of squares, so where two points lie
+    that close each may pick its own); other indices at equal distances are
+    counted as ties, at near-equal ones as near-ties; edge queries (NaN,
+    overflowing, far, scene points) and a single-leaf tree bit for bit.
+    Times: the kernel with the wrapper and alone, the plain version, B2 and
+    B3 at the same shape. Returns the 2 mm stats, the raw ones as raw_*."""
+    dev = queries.device
+    nq = queries.shape[0]
+    out = {}
+    for label, voxel in (("2mm", 2.0), ("raw", 0.0)):
+        sc = SceneNN.from_depth(scene_depth, K, 0.1, voxel_mm=voxel, backend="kdtree",
+                                device=dev)
+        tree = sc.kd
+        steps = torch.empty(nq, dtype=torch.int32, device=dev)
+        k_ms, (ki, kd) = median_ms(torch, lambda: KD.nn_kdtree_cuda(queries, tree, steps=steps),
+                                   20)
+        a_ms = alone_ms(torch, lambda: KD.nn_kdtree_cuda(queries, tree))
+        p_ms, (pi, pd, ps, scanned, tested) = median_ms(
+            torch, lambda: KD.nn_kdtree_plain(queries, tree, return_steps=True, return_work=True),
+            1, warm=0)
+        n_bad = [int((ki != pi).sum()), int((kd.view(torch.int32) != pd.view(torch.int32)).sum()),
+                 int((steps != ps).sum())]
+        b2_ms, (bi, _bd) = median_ms(torch, lambda: NF.nn_flash_packed_cuda(queries,
+                                                                             sc.flash_table), 20)
+        b3_ms, _ = median_ms(torch, lambda: NF.nn_flash_gated_cuda(
+            queries, sc.flash_table, sc.flash_boxes, sc.flash_balls, sc.max_dist_diff), 20)
+        pts, qd = tree.points[:, :3].double(), queries.double()
+        d_k = ((pts[ki.long()] - qd) ** 2).sum(-1)
+        d_b = ((pts[bi.long()] - qd) ** 2).sum(-1)
+        band = (d_k - d_b).abs() <= (qd * qd).sum(-1) * 2.0 ** -20
+        off = int((~band).sum())
+        ties = int(((ki != bi) & (d_k == d_b)).sum())
+        near = int(((d_k != d_b) & band).sum())
+        tree_bytes = 4 * (tree.nodes.numel() + tree.boxes.numel() + tree.points.numel())
+        n_steps, n_scan, n_test = (float(x.double().sum()) for x in (ps, scanned, tested))
+        k_bound = kd_bound(nq, n_steps, n_scan, n_test, tree_bytes)
+        phase("kd-kernel", f"nn_kdtree {label} scene: {sc.points.shape[0]} points, "
+              f"{tree.n_nodes} nodes (leaf_cap {tree.leaf_cap}, {tree_bytes} bytes) x {nq} "
+              f"queries: mismatch (idx, dist^2, steps)={n_bad} steps mean={n_steps / nq} "
+              f"max={int(ps.max())} leaf_points mean={n_scan / nq} box_tests mean="
+              f"{n_test / nq}; vs B2: other_distance={off} ties={ties} near_ties={near}; "
+              f"kernel_ms={k_ms} "
+              f"kernel_alone_ms={a_ms} plain_ms={p_ms} B2_ms={b2_ms} B3_ms={b3_ms} "
+              f"bound_ms={k_bound['bound_ms']} ({k_bound['bound_by']}) share_of_bound="
+              f"{k_bound['bound_ms'] / a_ms}")
+        check(n_bad == [0, 0, 0], f"nn_kdtree {label}: kernel != plain {n_bad}")
+        check(off == 0, f"nn_kdtree {label}: {off} neighbours at another distance than B2's")
+        stats = dict(ms=k_ms, alone_ms=a_ms, plain_ms=p_ms, b2_ms=b2_ms, b3_ms=b3_ms,
+                     steps_mean=n_steps / nq, leaf_points_mean=n_scan / nq,
+                     box_tests_mean=n_test / nq, ties_vs_b2=ties, near_ties_vs_b2=near,
+                     **k_bound)
+        out.update(stats if label == "2mm" else {f"raw_{k}": v for k, v in stats.items()})
+        if label == "raw":
+            raw_pts = tree.points[:, :3]
+            edge = torch.tensor([[float("nan"), 0.0, 0.3], [0.0, float("nan"), float("nan")],
+                                 [1e30, 1e30, 1e30], [-1e30, 0.0, 0.3], [10.0, 10.0, 10.0]],
+                                device=dev)
+            edge = torch.cat([edge, raw_pts[::97], raw_pts[:64]])
+            cases = [("edge", tree, edge)]
+            few = raw_pts[:5].cpu().numpy()
+            one = SceneNN.from_cloud(few, few, 0.1, device=dev).kd
+            cases.append(("single leaf", one, queries[:4096]))
+            for name, t, q in cases:
+                st = torch.empty(q.shape[0], dtype=torch.int32, device=dev)
+                got = (*KD.nn_kdtree_cuda(q.contiguous(), t, steps=st), st)
+                want = KD.nn_kdtree_plain(q, t, return_steps=True)
+                check(all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+                          for g, w in zip(got, want)), f"nn_kdtree {name}: kernel != plain")
+            phase("kd-kernel", f"edge queries (NaN, overflowing, far, {edge.shape[0] - 5} scene "
+                  f"points) and a single-leaf tree ({one.n_nodes} node) x 4096 queries: kernel "
+                  f"== plain bit for bit (idx, dist^2, steps)")
+    out["max_abs_err"] = 0.0  # bit for bit, checked above
+    return out
+
+
 def multiscene_workload(geometry, mesh, raster):
     """scripts/verify_multiscene.py --full's frames with MS_PER_FRAME
     hypotheses per frame: (bumpy sphere (50, 3), truths (4, 4, 4), (4, H, W)
@@ -963,24 +1086,27 @@ def main():
     from pose_refine_tpu_torch.pipeline import refine_poses
     from pose_refine_tpu_torch.probes import mxu_nn, nn_ties
     from pose_refine_tpu_torch.scene import nn_flash as NF
+    from pose_refine_tpu_torch.scene import nn_kdtree as KD
     from pose_refine_tpu_torch.scene import nn_mxu as NM
     from pose_refine_tpu_torch.scene.nn import SceneNN, _rows_in_gate
     from pose_refine_tpu_torch.scene.projective import SceneProjective, _project_gate
 
     def reset_counts():
         RC.launches = NF.packed_launches = NF.gated_launches = G.launches = 0
-        NF.stacked_launches = NM.launches = IR.launches = 0
+        NF.stacked_launches = NM.launches = IR.launches = KD.launches = 0
 
     def counts():
         return {"rasterize": RC.launches, "nn_flash_packed": NF.packed_launches,
                 "nn_flash_gated": NF.gated_launches,
                 "nn_flash_gated_stacked": NF.stacked_launches, "gather_rows": G.launches,
-                "assoc_reduce": IR.launches, "nn_flash_mxu": NM.launches}
+                "assoc_reduce": IR.launches, "nn_flash_mxu": NM.launches,
+                "nn_kdtree": KD.launches}
 
     reduce_cases = []
 
-    def projective_case(label, sc, cloud, valid, base=None, count=None):
-        """An [assoc-reduce] case of the projective front end."""
+    def projective_case(label, sc, cloud, valid, base=None, count=None, modes=(0.0, False)):
+        """An [assoc-reduce] case of the projective front end; ``modes`` =
+        (robust_delta, point_to_point) of the terms."""
         def assoc(c):
             seen = []
 
@@ -996,26 +1122,41 @@ def main():
             label=label, cloud=cloud, valid=valid, assoc=assoc, rows=sc.table.shape[0],
             kernel=functools.partial(
                 IR.assoc_reduce_projective_cuda, table=sc.table, K=sc.K,
-                max_dist_diff=sc.max_dist_diff, height=sc.height, width=sc.width, base=base),
+                max_dist_diff=sc.max_dist_diff, height=sc.height, width=sc.width, base=base,
+                robust_delta=modes[0], point_to_point=modes[1]),
             # pcd2dep (2 divides, 2 products, 4 sums), the gate (3) and the
-            # 86 of the reduction body (see indexed_case)
-            point_bytes=0, pose_bytes=0 if base is None else 8, instr=97, count=count))
+            # reduction body (see indexed_case)
+            point_bytes=0, pose_bytes=0 if base is None else 8, instr=11 + body_instr(modes),
+            count=count, modes=modes))
 
-    def indexed_case(label, table, gate, cloud, valid, nearest):
-        """An [assoc-reduce] case of the indexed front end on the flash-NN
-        kernels' ``nearest`` = (idx, dist_sq) of ``cloud``."""
+    def body_instr(modes):
+        """FP32 instructions a point of the reduction body, no fused
+        multiply-add (each term rounds as the plain version's; a division
+        or a root counts as one). Plane: 3 diff, 5 residual, 9 cross, 7
+        weight products, 21 + 6 products and as many adds, 5 for the
+        squared distance, 3 more (86); point to point: 3 diff, 5 squared
+        distance, 7 weight products, 9 for the 3 diagonal pairs, 9 single
+        products, 18 for J^T e (a cross entry is a product, 2 FMAs, an add
+        and the w^2 product), 21 adds to the sums, 3 more (75); Huber: 6
+        (max, divide, min, root, product, the mask's product; 7 with the
+        norm's root point to point)."""
+        robust_delta, p2p = modes
+        return (75 if p2p else 86) + ((7 if p2p else 6) if robust_delta > 0 else 0)
+
+    def indexed_case(label, table, gate, cloud, valid, nearest, modes=(0.0, False)):
+        """An [assoc-reduce] case of the indexed front end on the NN
+        kernels' ``nearest`` = (idx, dist_sq) of ``cloud`` (flash or kd)."""
         idx, dist_sq = nearest
         reduce_cases.append(dict(
             label=label, cloud=cloud, valid=valid, rows=table.shape[0],
             assoc=lambda c: (*_rows_in_gate(table, idx, dist_sq, gate, plain=True),
                              idx.clamp(0, table.shape[0] - 1)),
             kernel=functools.partial(IR.assoc_reduce_indexed_cuda, table=table, idx=idx,
-                                     dist_sq=dist_sq, gate_sq=NF.gate_sq(gate)),
-            # the reduction body, no fused multiply-add (each term rounds as
-            # the plain version's): 3 diff, 5 residual, 9 cross, 7 mask
-            # products, 21 + 6 products and as many adds, 6 for the squared
-            # distance, 2 more adds; 1 gate
-            point_bytes=idx.element_size() + 4, pose_bytes=0, instr=87))
+                                     dist_sq=dist_sq, gate_sq=NF.gate_sq(gate),
+                                     robust_delta=modes[0], point_to_point=modes[1]),
+            # the body and 1 gate
+            point_bytes=idx.element_size() + 4, pose_bytes=0, instr=1 + body_instr(modes),
+            modes=modes))
     from pose_refine_tpu_torch.utils.metrics import rotation_angle_deg
 
     # 1. card
@@ -1164,16 +1305,17 @@ def main():
           f"fitness {float(g_res.fitness)}")
     check(g_err < 1.0, f"golden recovery error {g_err} deg >= 1")
 
-    def golden_plain(ref):
+    def golden_plain(ref, criteria=ptt.ICPConvergenceCriteria()):
         """ref's refine of the golden start through the plain versions
         (raster, NN, gather, fused pass), against ref.refine."""
-        k_pose, k_res = ref.refine(pose1[None])
+        k_pose, k_res = ref.refine(pose1[None], criteria)
         p_pose, p_res = refine_poses(
             ref.tris, torch.as_tensor(pose1[None], device=dev), ref.scene, ref.proj,
             ref._K_render_t, width=ref.render_w, height=ref.render_h,
-            max_points=ref.max_points, criteria=ptt.ICPConvergenceCriteria(),
+            max_points=ref.max_points, criteria=criteria,
             window=ref.window, stride=ref.stride, roi=ref.roi, raster=RC.rasterize_plain,
-            query=icp.plain_association(functools.partial(ref.scene.query, plain=True)))
+            query=icp.plain_association(functools.partial(ref.scene.query, plain=True)),
+            robust_delta=ref.robust_delta, estimation=ref.estimation)
         return agreement(rotation_angle_deg, pose2, k_pose.cpu().numpy(), p_pose.cpu().numpy(),
                          k_res.fitness.cpu().numpy(), p_res.fitness.cpu().numpy())
 
@@ -1192,8 +1334,14 @@ def main():
     nn_stats = nn_kernel_phase(torch, NF, SceneNN, K, scene, queries)
     nn_tie_phase(torch, NF, nn_ties, dev)
 
+    # 6b. the kd traversal kernel against its plain version and against B2
+    t0 = time.perf_counter()
+    kd_stats = kd_kernel_phase(torch, NF, KD, SceneNN, K, scene, queries)
+    phase("kd-kernel", f"phase seconds={time.perf_counter() - t0}")
+
     # 7. the NN slice end to end through the gated kernel
     nn_launches = {}
+    nn_runs = {}  # label -> (poses, fitness) of the B3 refine, for [kd-slice]
     for label, kw, iters in NN_CONFIGS:
         ref = ptt.PoseRefiner(model, K=K, device="cuda", scene="nn_bruteforce", **kw, **CFG)
         t0 = time.perf_counter()
@@ -1215,6 +1363,7 @@ def main():
         check(nn_np.shape == (N_POSES, 4, 4) and np.isfinite(nn_np).all(),
               f"nn-slice {label}: refined poses not finite (N, 4, 4)")
         nn_fit = nn_res.fitness.cpu().numpy()
+        nn_runs[label] = (nn_np, nn_fit)
         nn_mm = np.linalg.norm(nn_np[:, :3, 3] - truth[:3, 3], axis=-1)
         wall_ms, dev_ms = refine_ms(torch, lambda: ref.refine(poses, crit_nn))
         n_pts = ref.scene.points.shape[0]
@@ -1277,6 +1426,114 @@ def main():
           f"nn golden fitness {float(ng_res.fitness)} <= 0.7")
     hold_paths("nn-golden", "through the plain versions", golden_plain(nn_golden), path_failures)
 
+    def nn_refine_lines(name, label, ref, build_ms):
+        """One NN refine of the bench hypotheses through the kernels, held
+        to [nn-slice]'s accuracy bar and, at every pose, to the same refine
+        through the plain versions (hold_paths). Returns (poses, fitness,
+        launch counts, wall ms, device ms)."""
+        reset_counts()
+        r_poses, r_res = ref.refine(poses, crit)
+        torch.cuda.synchronize()
+        c = counts()
+        r_np, r_fit = r_poses.cpu().numpy(), r_res.fitness.cpu().numpy()
+        check(r_np.shape == (N_POSES, 4, 4) and np.isfinite(r_np).all(),
+              f"{name} {label}: refined poses not finite (N, 4, 4)")
+        r_mm = np.linalg.norm(r_np[:, :3, 3] - truth[:3, 3], axis=-1)
+        wall_ms, dev_ms = refine_ms(torch, lambda: ref.refine(poses, crit))
+        phase(name, f"{label}: {N_POSES} poses, scene {ref.scene.points.shape[0]} points, "
+              f"build_ms={build_ms}: wall_ms={wall_ms} device_ms={dev_ms} poses_per_s="
+              f"{N_POSES / wall_ms * 1e3} translation_err_mm median={float(np.median(r_mm))} "
+              f"(start {float(np.median(start_mm))}) recovered<{VERDICT_DEG}deg="
+              f"{float((rotation_angle_deg(r_np, truth) < VERDICT_DEG).mean())} "
+              f"mean_fitness={float(r_fit.mean())} launches={c}")
+        check(float(r_fit.mean()) > 0.9, f"{name} {label}: mean fitness {float(r_fit.mean())}")
+        check(float(np.median(r_mm)) < 0.25 * float(np.median(start_mm)),
+              f"{name} {label}: the refine did not pull the translations toward the truth")
+        t0 = time.perf_counter()
+        p_poses, p_res = refine_poses(
+            ref.tris, poses, ref.scene, ref.proj, ref._K_render_t, width=ref.render_w,
+            height=ref.render_h, max_points=ref.max_points, criteria=crit, window=ref.window,
+            stride=ref.stride, roi=ref.roi, robust_delta=ref.robust_delta,
+            estimation=ref.estimation,
+            query=icp.plain_association(functools.partial(ref.scene.query, plain=True)))
+        torch.cuda.synchronize()
+        p_wall = (time.perf_counter() - t0) * 1e3
+        hold_paths(name, f"{label} through the plain versions", agreement(
+            rotation_angle_deg, truth, r_np, p_poses.cpu().numpy(), r_fit,
+            p_res.fitness.cpu().numpy()), path_failures, extra=f"wall_ms={p_wall} ")
+        return r_np, r_fit, c, wall_ms, dev_ms
+
+    # 8b. the NN slice on the kd traversal (scene="nn_kdtree"), against the
+    # plain path and against [nn-slice]'s refines on B3
+    t0 = time.perf_counter()
+    kd_slice = {}
+    for label, kw in (("2mm", dict(scene_voxel_mm=2.0)), ("raw", dict())):
+        ref = ptt.PoseRefiner(model, K=K, device="cuda", scene="nn_kdtree", **kw, **CFG)
+        t1 = time.perf_counter()
+        ref.set_scene_depth(scene)
+        torch.cuda.synchronize()
+        build_ms = (time.perf_counter() - t1) * 1e3
+        check(ref.scene.backend == "kdtree", f"kd-slice: backend {ref.scene.backend}")
+        kd_np, kd_fit, c, wall_ms, dev_ms = nn_refine_lines("kd-slice", label, ref, build_ms)
+        check(c["nn_kdtree"] == ITERS + 1 and c["assoc_reduce"] == ITERS + 1
+              and c["nn_flash_gated"] == 0 and c["gather_rows"] == 0,
+              f"kd-slice {label}: not one kd launch and one fused pass an iteration: {c}")
+        # K1 and B3 alone at the refined poses: the queries of a late pass,
+        # near the surface, where a walk is short
+        late, _ = first_pass_clouds(ptt, refine_poses, ref, ref.scene,
+                                    torch.as_tensor(kd_np, device=dev))
+        late = late.reshape(-1, 3).contiguous()
+        late_steps = torch.empty(late.shape[0], dtype=torch.int32, device=dev)
+        KD.nn_kdtree_cuda(late, ref.scene.kd, steps=late_steps)
+        k_late = alone_ms(torch, lambda: KD.nn_kdtree_cuda(late, ref.scene.kd))
+        b_late = alone_ms(torch, lambda: NF.nn_flash_gated_cuda(
+            late, ref.scene.flash_table, ref.scene.flash_boxes, ref.scene.flash_balls,
+            ref.scene.max_dist_diff))
+        phase("kd-slice", f"{label} at the refined poses ({late.shape[0]} queries of a late "
+              f"pass): nn_kdtree alone_ms={k_late} steps mean="
+              f"{float(late_steps.double().mean())} max={int(late_steps.max())}; "
+              f"nn_flash_gated alone_ms={b_late}")
+        kd_slice[label] = dict(launches=c, wall_ms=wall_ms, device_ms=dev_ms,
+                               late_alone_ms=k_late, late_b3_alone_ms=b_late)
+        b_np, b_fit = nn_runs[label]
+        st = agreement(rotation_angle_deg, truth, kd_np, b_np, kd_fit, b_fit)
+        phase("kd-slice", f"{label} against scene='nn_bruteforce' (B3, [nn-slice]), printed, "
+              f"held to the accuracy bar only (ties may differ): verdict_agreement="
+              f"{st['agree']} (median, max) drot_deg={st['rot']} dt_mm={st['t']} "
+              f"dfit={st['fit']}")
+    phase("kd-slice", f"phase seconds={time.perf_counter() - t0}")
+
+    # 8c. point-to-point and Huber ICP on the NN slice (B3 scenes, 2 mm),
+    # and the golden recipe point to point
+    t0 = time.perf_counter()
+    p2p_stats = {}
+    for label, kw in (("point_to_point", dict(estimation="point_to_point")),
+                      ("point_to_point huber 5mm",
+                       dict(estimation="point_to_point", robust_delta=0.005)),
+                      ("point_to_plane huber 5mm", dict(robust_delta=0.005))):
+        ref = ptt.PoseRefiner(model, K=K, device="cuda", scene="nn_bruteforce",
+                              scene_voxel_mm=2.0, **kw, **CFG)
+        ref.set_scene_depth(scene)
+        _np, _fit, c, wall_ms, dev_ms = nn_refine_lines("p2p", label, ref, 0.0)
+        check(c["nn_flash_gated"] == ITERS + 1 and c["assoc_reduce"] == ITERS + 1,
+              f"p2p {label}: launches {c}")
+        p2p_stats[label] = dict(wall_ms=wall_ms, device_ms=dev_ms)
+    # tests/test_icp_p2p.py:121's criteria (point to point converges slower)
+    p2p_crit = ptt.ICPConvergenceCriteria(1e-6, 1e-7, 120)
+    p2p_golden = ptt.PoseRefiner(bumpy, K=K, device="cuda", scene="nn_bruteforce",
+                                 estimation="point_to_point")
+    p2p_golden.set_scene_depth(depth2)
+    pg_pose, pg_res = p2p_golden.refine(pose1, p2p_crit)
+    pg_err = float(rotation_angle_deg(pg_pose.cpu().numpy(), pose2))
+    pg_dt = float(np.abs(pg_pose.cpu().numpy()[:3, 3] - pose2[:3, 3]).max())
+    phase("p2p", f"golden, bumpy sphere 640x480, point to point, 120 iterations: rotation "
+          f"error {pg_err} deg, translation error {pg_dt} mm, fitness {float(pg_res.fitness)}")
+    check(np.isfinite(pg_err) and float(pg_res.fitness) > 0.7,
+          f"p2p golden fitness {float(pg_res.fitness)} <= 0.7")
+    hold_paths("p2p", "golden through the plain versions", golden_plain(p2p_golden, p2p_crit),
+               path_failures)
+    phase("p2p", f"phase seconds={time.perf_counter() - t0}")
+
     # 9. the association's row gather against its plain version: the bench
     # scene at the first-pass queries' pixels, and the raw and the
     # device-built NN scenes at their nearest neighbours
@@ -1290,7 +1547,7 @@ def main():
     sc = refiner.scene
     _project_gate(sc.table, sc.K, sc.max_dist_diff, sc.height, sc.width, queries,
                   gather=capture_pixels)
-    raw_nn = SceneNN.from_depth(scene, K, 0.1, device=dev)
+    raw_nn = SceneNN.from_depth(scene, K, 0.1, backend="bruteforce", device=dev)
     frame_nn = SceneNN.from_depth_device(torch.as_tensor(scene, device=dev), K_t, 0.1)
 
     def neighbours(s):
@@ -1308,6 +1565,15 @@ def main():
     for label, s_nn in (("2 mm NN scene", nn_ref.scene), ("raw NN scene", raw_nn)):
         indexed_case(label, s_nn.table, s_nn.max_dist_diff, nn_cloud, nn_valid,
                      s_nn._nearest(nn_cloud))
+    # the kd traversal's output, and the Huber and point-to-point modes
+    raw_kd = dataclasses.replace(raw_nn, backend="kdtree")
+    indexed_case("raw NN scene, kd traversal", raw_kd.table, raw_kd.max_dist_diff, nn_cloud,
+                 nn_valid, raw_kd._nearest(nn_cloud))
+    for m_label, modes in (("huber 5mm", (0.005, False)), ("point to point", (0.0, True)),
+                           ("point to point huber 5mm", (0.005, True))):
+        projective_case(f"slice shape, {m_label}", sc, slice_cloud, slice_valid, modes=modes)
+        indexed_case(f"2 mm NN scene, {m_label}", nn_ref.scene.table, nn_ref.scene.max_dist_diff,
+                     nn_cloud, nn_valid, nn_ref.scene._nearest(nn_cloud), modes=modes)
     # edge inputs: a pose with no valid point, points at z = 0, behind the
     # camera and NaN, points that project onto the frame's border pixels
     # (trunc(v + 0.5) steps at -1 and at the frame's size), a masked row
@@ -1723,6 +1989,21 @@ def main():
         "launches_nn": nn_launches["assoc_reduce"],
         "launches_stacked": ms_launches["multiscene"]["assoc_reduce"],
         "launches_multimodel": mm_launches["assoc_reduce"],
+        "launches_kd": kd_slice["2mm"]["launches"]["assoc_reduce"],
+        # the Huber and point-to-point modes at the slice shape and on the
+        # 2 mm NN scene: with the wrapper, alone, bound
+        "modes": {label: {k: st[k] for k in ("ms", "alone_ms", "bound_ms")}
+                  for label, st in reduce_stats.items() if "huber" in label or "point" in label},
+    }, {
+        "name": "nn_kdtree",
+        "route": "cuda",
+        "source": "pose_refine_tpu_torch/csrc/nn_kdtree.cu",
+        # XLA code, not a Pallas kernel: the JAX package's kd traversal
+        "replaces": "pose_refine_tpu/scene/nn.py:638",
+        "launches": kd_slice["2mm"]["launches"]["nn_kdtree"],
+        "launches_raw": kd_slice["raw"]["launches"]["nn_kdtree"],
+        **kd_stats,
+        "library_ms": None,
     }, {
         "name": "nn_flash_mxu",
         "route": "cuda",

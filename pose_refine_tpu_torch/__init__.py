@@ -1,11 +1,13 @@
 """pose_refine_tpu_torch: the PyTorch + CUDA port of pose_refine_tpu.
 
 Batch depth rasterization of pose hypotheses (a hand-written CUDA kernel,
-``csrc/rasterize.cu``) plus batched point-to-plane ICP against a projective
-scene or a nearest-neighbour scene (exact NN by the flash-NN kernels,
-``csrc/nn_flash.cu``; the association's row gather, ``csrc/gather.cu``;
-every ICP pass's association and 29-float reduction in one kernel,
-``csrc/icp_reduce.cu``), with its pose uncertainty, stacked scenes (``set_scene_depths``), several
+``csrc/rasterize.cu``) plus batched point-to-plane or point-to-point ICP,
+optionally Huber-weighted, against a projective scene or a
+nearest-neighbour scene (exact NN by the stackless kd traversal,
+``csrc/nn_kdtree.cu``, or the flash-NN kernels, ``csrc/nn_flash.cu``; the
+association's row gather, ``csrc/gather.cu``; every ICP pass's association
+and 29-float reduction in one kernel, ``csrc/icp_reduce.cu``), with its pose
+uncertainty, stacked scenes (``set_scene_depths``), several
 meshes in one batch (``MultiModelRefiner``), per-frame tracking
 (``PoseRefiner.track``), the filtered ``TrackingSession`` and
 ``MultiObjectSession``, on an NVIDIA GPU or, with the kernels' plain
@@ -24,6 +26,7 @@ from pose_refine_tpu_torch.icp import (  # noqa: F401
     PoseUncertainty,
     RegistrationResult,
     icp_point_to_plane,
+    icp_point_to_point,
     pose_covariance,
     pose_information,
 )

@@ -23,9 +23,19 @@
 //    product and sum of the projection is an _rn intrinsic, so nvcc cannot
 //    contract them: the pixel and the valid bit equal the plain PyTorch
 //    version's exactly, and so does the count.
-//  * indexed (scene/nn.py): the row index and dist^2 come from the flash-NN
-//    kernels; the index is clamped into the table and the gate is
-//    dist^2 < max_dist^2.
+//  * indexed (scene/nn.py): the row index and dist^2 come from the NN
+//    kernels (flash-NN or the kd traversal); the index is clamped into the
+//    table and the gate is dist^2 < max_dist^2.
+//
+// Two modes of the terms, one body (JAX icp.py:102-213): robust_delta > 0
+// weights a point by w = v * sqrt(min(1, delta / max(|r|, 1e-12))), Huber's
+// IRLS weight on the plane residual b (or on |diff|), in place of the mask v;
+// point-to-point (template parameter kP2P) replaces the plane row
+// [p x n, n] w and b w by the three rows J = [-[p]x | I] w and e = diff w,
+// whose J^T J (21, six of them 0 for every point) and J^T e (6: (p x diff)
+// w^2, each cross entry a Kahan difference of products, and diff w^2) fill
+// the same 29-float layout. mse and count keep v in every mode, and robust_delta = 0
+// in plane mode is the body of before the modes, bit for bit.
 //
 // The 28 float sums are taken in float32 (no TF32, no half), in a fixed
 // order: a thread adds its points in rising order, a warp merges by an xor
@@ -84,6 +94,8 @@ struct Args {
   const void* idx;       // (N, P) int32 or int64
   const float* dist_sq;  // (N, P)
   float gate_sq;
+  // the terms: Huber width (<= 0: none), point-to-point rows (template)
+  float delta;
 };
 
 // geometry._trunc_int: truncation toward zero, NaN -> 0, saturating
@@ -101,7 +113,26 @@ __device__ __forceinline__ int pixel(float p, float z, float f, float c) {
   return trunc_int(__fadd_rn(__fadd_rn(__fmul_rn(__fdiv_rn(p, z), f), c), 0.5f));
 }
 
-template <bool kProj, typename Idx>
+// min / max that carry a NaN through, as torch.clamp does (fminf / fmaxf
+// return the other operand)
+__device__ __forceinline__ float nan_max(float x, float lo) { return x != x ? x : fmaxf(x, lo); }
+__device__ __forceinline__ float nan_min(float x, float hi) { return x != x ? x : fminf(x, hi); }
+
+// a*b - c*d to about one rounding of the result: Kahan's difference of
+// products, the error of c*d carried exactly by a fused multiply-add
+// (ops/icp_reduce.py::_cross_term)
+__device__ __forceinline__ float cross_term(float a, float b, float c, float d) {
+  const float w = __fmul_rn(c, d);
+  return __fadd_rn(__fmaf_rn(a, b, -w), __fmaf_rn(-c, d, w));
+}
+
+// sqrt of the Huber IRLS weight on the residual r (JAX icp.py:102):
+// sqrt(min(1, delta / max(|r|, 1e-12)))
+__device__ __forceinline__ float huber(float r, float delta) {
+  return __fsqrt_rn(nan_min(__fdiv_rn(delta, nan_max(fabsf(r), 1e-12f)), 1.f));
+}
+
+template <bool kProj, bool kP2P, typename Idx>
 __global__ void __launch_bounds__(kThreads) assoc_reduce_kernel(const Args a) {
   __shared__ float warp_sums[kWarps][kSums];
   __shared__ float cta_sums[32];
@@ -175,28 +206,63 @@ __global__ void __launch_bounds__(kThreads) assoc_reduce_kernel(const Args a) {
       // a fused multiply-add, so every term equals the plain version's
       const float x = px[j], y = py[j], z = pz[j];
       const float dx = __fsub_rn(sx, x), dy = __fsub_rn(sy, y), dz = __fsub_rn(sz, z);
-      const float bm = __fmul_rn(
-          __fadd_rn(__fadd_rn(__fmul_rn(dx, nx), __fmul_rn(dy, ny)), __fmul_rn(dz, nz)), v);
-      float row6[6];
-      row6[0] = __fmul_rn(__fsub_rn(__fmul_rn(y, nz), __fmul_rn(z, ny)), v);
-      row6[1] = __fmul_rn(__fsub_rn(__fmul_rn(z, nx), __fmul_rn(x, nz)), v);
-      row6[2] = __fmul_rn(__fsub_rn(__fmul_rn(x, ny), __fmul_rn(y, nx)), v);
-      row6[3] = __fmul_rn(nx, v);
-      row6[4] = __fmul_rn(ny, v);
-      row6[5] = __fmul_rn(nz, v);
-      int k = 0;
-#pragma unroll
-      for (int r = 0; r < 6; ++r) {
-#pragma unroll
-        for (int c = r; c < 6; ++c) {
-          acc[k] = __fadd_rn(acc[k], __fmul_rn(row6[r], row6[c]));
-          ++k;
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < 6; ++r) acc[21 + r] = __fadd_rn(acc[21 + r], __fmul_rn(row6[r], bm));
       const float sq =
           __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
+      if (kP2P) {
+        // J = [-[p]x | I] * w, three rows; e = diff * w
+        const float w = a.delta > 0.f ? __fmul_rn(v, huber(__fsqrt_rn(sq), a.delta)) : v;
+        const float wx = __fmul_rn(x, w), wy = __fmul_rn(y, w), wz = __fmul_rn(z, w);
+        const float ex = __fmul_rn(dx, w), ey = __fmul_rn(dy, w), ez = __fmul_rn(dz, w);
+        const float ww = __fmul_rn(w, w);
+        // the 21 of J^T J (the six that are 0 for every point stay 0)
+        acc[0] = __fadd_rn(acc[0], __fadd_rn(__fmul_rn(wz, wz), __fmul_rn(wy, wy)));
+        acc[1] = __fadd_rn(acc[1], -__fmul_rn(wy, wx));
+        acc[2] = __fadd_rn(acc[2], -__fmul_rn(wz, wx));
+        acc[4] = __fadd_rn(acc[4], -__fmul_rn(wz, w));
+        acc[5] = __fadd_rn(acc[5], __fmul_rn(wy, w));
+        acc[6] = __fadd_rn(acc[6], __fadd_rn(__fmul_rn(wz, wz), __fmul_rn(wx, wx)));
+        acc[7] = __fadd_rn(acc[7], -__fmul_rn(wz, wy));
+        acc[8] = __fadd_rn(acc[8], __fmul_rn(wz, w));
+        acc[10] = __fadd_rn(acc[10], -__fmul_rn(wx, w));
+        acc[11] = __fadd_rn(acc[11], __fadd_rn(__fmul_rn(wy, wy), __fmul_rn(wx, wx)));
+        acc[12] = __fadd_rn(acc[12], -__fmul_rn(wy, w));
+        acc[13] = __fadd_rn(acc[13], __fmul_rn(wx, w));
+        acc[15] = __fadd_rn(acc[15], ww);
+        acc[18] = __fadd_rn(acc[18], ww);
+        acc[20] = __fadd_rn(acc[20], ww);
+        // the 6 of J^T e: (p x diff) w^2 and diff w^2. Where diff lies along
+        // the point's ray p x diff cancels, so each entry is taken to one
+        // rounding (cross_term), not as a difference of rounded products
+        acc[21] = __fadd_rn(acc[21], __fmul_rn(cross_term(y, dz, z, dy), ww));
+        acc[22] = __fadd_rn(acc[22], __fmul_rn(cross_term(z, dx, x, dz), ww));
+        acc[23] = __fadd_rn(acc[23], __fmul_rn(cross_term(x, dy, y, dx), ww));
+        acc[24] = __fadd_rn(acc[24], __fmul_rn(w, ex));
+        acc[25] = __fadd_rn(acc[25], __fmul_rn(w, ey));
+        acc[26] = __fadd_rn(acc[26], __fmul_rn(w, ez));
+      } else {
+        const float b =
+            __fadd_rn(__fadd_rn(__fmul_rn(dx, nx), __fmul_rn(dy, ny)), __fmul_rn(dz, nz));
+        const float w = a.delta > 0.f ? __fmul_rn(v, huber(b, a.delta)) : v;
+        const float bm = __fmul_rn(b, w);
+        float row6[6];
+        row6[0] = __fmul_rn(__fsub_rn(__fmul_rn(y, nz), __fmul_rn(z, ny)), w);
+        row6[1] = __fmul_rn(__fsub_rn(__fmul_rn(z, nx), __fmul_rn(x, nz)), w);
+        row6[2] = __fmul_rn(__fsub_rn(__fmul_rn(x, ny), __fmul_rn(y, nx)), w);
+        row6[3] = __fmul_rn(nx, w);
+        row6[4] = __fmul_rn(ny, w);
+        row6[5] = __fmul_rn(nz, w);
+        int k = 0;
+#pragma unroll
+        for (int r = 0; r < 6; ++r) {
+#pragma unroll
+          for (int c = r; c < 6; ++c) {
+            acc[k] = __fadd_rn(acc[k], __fmul_rn(row6[r], row6[c]));
+            ++k;
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < 6; ++r) acc[21 + r] = __fadd_rn(acc[21 + r], __fmul_rn(row6[r], bm));
+      }
       acc[27] = __fadd_rn(acc[27], __fmul_rn(sq, v));
       acc[28] = __fadd_rn(acc[28], v);
     }
@@ -239,7 +305,7 @@ __global__ void __launch_bounds__(kThreads) assoc_reduce_kernel(const Args a) {
   cluster.sync();  // no CTA leaves while rank 0 may still read its sums
 }
 
-template <bool kProj, typename Idx>
+template <bool kProj, bool kP2P, typename Idx>
 int launch(const Args& a, int n_poses, cudaStream_t s) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)((long long)n_poses * a.slabs));
@@ -252,7 +318,12 @@ int launch(const Args& a, int n_poses, cudaStream_t s) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return (int)cudaLaunchKernelEx(&cfg, assoc_reduce_kernel<kProj, Idx>, a);
+  return (int)cudaLaunchKernelEx(&cfg, assoc_reduce_kernel<kProj, kP2P, Idx>, a);
+}
+
+template <bool kProj, typename Idx>
+int launch_mode(const Args& a, int n_poses, bool p2p, cudaStream_t s) {
+  return p2p ? launch<kProj, true, Idx>(a, n_poses, s) : launch<kProj, false, Idx>(a, n_poses, s);
 }
 
 }  // namespace
@@ -262,13 +333,15 @@ int launch(const Args& a, int n_poses, cudaStream_t s) {
 // 16-byte aligned; slabs in {1, 2, 4, 8}, the CTAs a pose. idx == null
 // selects the projective front end (K, gate and base are device pointers,
 // base (n_poses,) int64 or null), else the indexed one (idx int32 or int64 by
-// idx_bytes, dist_sq float32, both (n_poses, points)). Returns the
-// cudaError_t of the launch (0 = ok).
+// idx_bytes, dist_sq float32, both (n_poses, points)). robust_delta > 0
+// Huber-weights the terms; point_to_point != 0 takes the point-to-point
+// rows. Returns the cudaError_t of the launch (0 = ok).
 extern "C" int prt_assoc_reduce(const float* cloud, const void* valid, int n_poses, int points,
                                 const float* table, long long rows, int slabs, const float* K,
                                 const float* gate, const long long* base, int height, int width,
                                 const void* idx, int idx_bytes, const float* dist_sq,
-                                float gate_sq, float* out, void* stream) {
+                                float gate_sq, float robust_delta, int point_to_point,
+                                float* out, void* stream) {
   if (n_poses <= 0) return 0;
   if (points <= 0 || rows <= 0 || slabs < 1 || slabs > kMaxSlabs || (slabs & (slabs - 1)) ||
       (long long)n_poses * slabs >= (1LL << 31)) {
@@ -282,6 +355,8 @@ extern "C" int prt_assoc_reduce(const float* cloud, const void* valid, int n_pos
   a.points = points;
   a.slabs = slabs;
   a.out = out;
+  a.delta = robust_delta;
+  const bool p2p = point_to_point != 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (idx == nullptr) {
     if (K == nullptr || gate == nullptr || height <= 0 || width <= 0) {
@@ -292,7 +367,7 @@ extern "C" int prt_assoc_reduce(const float* cloud, const void* valid, int n_pos
     a.base = base;
     a.height = height;
     a.width = width;
-    return launch<true, int>(a, n_poses, s);
+    return launch_mode<true, int>(a, n_poses, p2p, s);
   }
   if (dist_sq == nullptr || (idx_bytes != 4 && idx_bytes != 8)) {
     return (int)cudaErrorInvalidValue;
@@ -300,6 +375,6 @@ extern "C" int prt_assoc_reduce(const float* cloud, const void* valid, int n_pos
   a.idx = idx;
   a.dist_sq = dist_sq;
   a.gate_sq = gate_sq;
-  return idx_bytes == 4 ? launch<false, int>(a, n_poses, s)
-                        : launch<false, long long>(a, n_poses, s);
+  return idx_bytes == 4 ? launch_mode<false, int>(a, n_poses, p2p, s)
+                        : launch_mode<false, long long>(a, n_poses, p2p, s);
 }

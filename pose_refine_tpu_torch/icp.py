@@ -1,5 +1,5 @@
-"""Batched point-to-plane ICP on the device (PyTorch port of
-``pose_refine_tpu/icp.py``, fused-loop path).
+"""Batched point-to-plane and point-to-point ICP on the device (PyTorch
+port of ``pose_refine_tpu/icp.py``, fused-loop path).
 
 Semantics preserved from the reference (icp.cpp:125-188, icp.cu:156-217)
 through the JAX package:
@@ -30,6 +30,13 @@ from them in the last bits, and an ICP turns last bits into whole iterations
 at the hypotheses that do not converge (an association pixel that flips, the
 1e-5 latch), so a "matmul" refine and a "packed" one agree closely only
 where both converge.
+
+Beyond the reference, as in the JAX package: ``estimation="point_to_point"``
+(the residual e = dst - p, three Jacobian rows [-[p]x | I] a point, scene
+normals ignored; JAX icp.py:160-213, 318-349) and ``robust_delta`` > 0,
+Huber IRLS weights on the plane residual or on |e| (JAX icp.py:102-125).
+Both change only the terms of a pass: the fused kernel computes them in
+its two modes, and the scores (count, point-to-point mse) stay unweighted.
 """
 
 from __future__ import annotations
@@ -39,9 +46,15 @@ from typing import Callable, NamedTuple, Optional, Union
 import torch
 
 from pose_refine_tpu_torch import geometry
-from pose_refine_tpu_torch.ops.icp_reduce import assoc_reduce_plain, packed_sums_plain, unpack_sums
+from pose_refine_tpu_torch.ops.icp_reduce import (
+    assoc_reduce_plain,
+    huber_weight,
+    packed_sums_plain,
+    unpack_sums,
+)
 
 REDUCTIONS = ("matmul", "packed")
+ESTIMATIONS = ("point_to_plane", "point_to_point")
 
 
 class ICPConvergenceCriteria(NamedTuple):
@@ -79,11 +92,12 @@ class PoseUncertainty(NamedTuple):
 
 class Association(NamedTuple):
     """A scene's association bound for one refine. ``query``: (..., 3) points
-    -> (dst, normal, valid). ``reduce``: (clouds (N, P, 3), valid (N, P)) ->
-    (AtA, Atb, count, mse_sum), the query and the reduction in one step
-    (``scene.reduce`` / ``scene.reduce_at(ids)``: one kernel launch). The
-    ICP loop takes ``reduce`` for CUDA tensors, and ``query`` plus a plain
-    formulation for CPU tensors."""
+    -> (dst, normal, valid). ``reduce``: (clouds (N, P, 3), valid (N, P),
+    robust_delta=0.0, point_to_point=False) -> (AtA, Atb, count, mse_sum),
+    the query and the reduction in one step (``scene.reduce`` /
+    ``scene.reduce_at(ids)``: one kernel launch). The ICP loop takes
+    ``reduce`` for CUDA tensors, and ``query`` plus a plain formulation for
+    CPU tensors."""
 
     query: Callable
     reduce: Callable
@@ -94,8 +108,8 @@ def plain_association(plain_query: Callable) -> Association:
     scene's ``query(plain=True)`` or ``query_at(ids, plain=True)``), and as
     its reduce the fused kernel's plain version over that query. What a
     kernel path is held against: the same function in plain PyTorch."""
-    return Association(
-        plain_query, lambda cloud, valid: unpack_sums(assoc_reduce_plain(cloud, valid, plain_query)))
+    return Association(plain_query, lambda cloud, valid, **modes: unpack_sums(
+        assoc_reduce_plain(cloud, valid, plain_query, **modes)))
 
 
 def _solve_damped(AtA: torch.Tensor, Atb: torch.Tensor, penalty: float = 0.01):
@@ -115,45 +129,102 @@ def _solve_damped(AtA: torch.Tensor, Atb: torch.Tensor, penalty: float = 0.01):
     return x[..., 0]
 
 
-def _weighted_rows(cloud, valid, dst, nrm, q_valid):
-    """Mask, residual and masked (..., P, 6) Jacobian rows. Every reduction
-    multiplies by ``q_valid & valid``, which keeps padded rows inert."""
+def _check_options(robust_delta, estimation: str) -> float:
+    if estimation not in ESTIMATIONS:
+        raise ValueError(f"unknown estimation {estimation!r}: expected 'point_to_plane' or "
+                         "'point_to_point'")
+    return float(robust_delta)
+
+
+def _weighted_rows(cloud, valid, dst, nrm, q_valid, robust_delta: float = 0.0):
+    """Mask, residual, plane residual b, weight w (the mask, Huber-weighted
+    when robust_delta > 0) and weighted (..., P, 6) Jacobian rows [p x n, n]
+    w (JAX icp.py:113-125). Every reduction multiplies by ``q_valid &
+    valid``, which keeps padded rows inert."""
     v = (q_valid & valid).to(cloud.dtype)
     diff = dst - cloud
     b = (diff * nrm).sum(dim=-1)
-    arow = torch.cat([torch.linalg.cross(cloud, nrm, dim=-1), nrm], dim=-1) * v[..., None]
-    return v, diff, b, arow
+    w = huber_weight(v, b, robust_delta)
+    arow = torch.cat([torch.linalg.cross(cloud, nrm, dim=-1), nrm], dim=-1) * w[..., None]
+    return v, diff, b, w, arow
+
+
+def _p2p_rows(cloud, valid, dst, q_valid, robust_delta: float = 0.0):
+    """Mask, residual e = dst - p, weight w (Huber on |e| when robust_delta
+    > 0) and the weighted (..., P, 3, 6) Jacobian blocks [-[p]x | I] w (JAX
+    icp.py:160-200; n . J is the plane row, so both estimations share the
+    twist order and the update)."""
+    v = (q_valid & valid).to(cloud.dtype)
+    diff = dst - cloud
+    w = huber_weight(v, torch.sqrt((diff * diff).sum(dim=-1)), robust_delta)
+    px, py, pz = cloud.unbind(dim=-1)
+    zero = torch.zeros_like(px)
+    negskew = torch.stack([torch.stack([zero, pz, -py], dim=-1),
+                           torch.stack([-pz, zero, px], dim=-1),
+                           torch.stack([py, -px, zero], dim=-1)], dim=-2)
+    eye = torch.eye(3, dtype=cloud.dtype, device=cloud.device).expand(negskew.shape)
+    J = torch.cat([negskew, eye], dim=-1) * w[..., None, None]
+    return v, diff, w, J
+
+
+def _p2p_equations_from_assoc(cloud, valid, dst, nrm, q_valid, robust_delta: float = 0.0):
+    """Point-to-point Gauss-Newton normal equations from an association
+    (JAX icp.py:160-205), as batched matrix products: (AtA (..., 6, 6), Atb
+    (..., 6), count (...), mse_sum (...)). The scene normals are ignored;
+    count and mse are the plane form's."""
+    del nrm
+    v, diff, w, J = _p2p_rows(cloud, valid, dst, q_valid, robust_delta)
+    Jf = J.reshape(J.shape[:-3] + (-1, 6))
+    e = (diff * w[..., None]).reshape(Jf.shape[:-1])
+    AtA = Jf.transpose(-1, -2) @ Jf
+    Atb = (Jf.transpose(-1, -2) @ e[..., None])[..., 0]
+    count = v.sum(dim=-1)
+    mse_sum = ((diff * diff).sum(dim=-1) * v).sum(dim=-1)
+    return AtA, Atb, count, mse_sum
+
+
+def _p2p_equations(cloud, valid, query_fn: Callable, robust_delta: float = 0.0):
+    """One association + point-to-point reduction pass (JAX icp.py:208-213)."""
+    return _p2p_equations_from_assoc(cloud, valid, *query_fn(cloud), robust_delta)
 
 
 def _normal_equations(cloud, valid, assoc: Union[Callable, Association],
-                      reduction: str = "matmul"):
+                      reduction: str = "matmul", robust_delta: float = 0.0,
+                      estimation: str = "point_to_plane"):
     """One association + reduction pass: (AtA (..., 6, 6), Atb (..., 6),
     count (...), mse_sum (...)), the reference's transform_reduce over
     thrust__pcd2Ab (icp.h:128-209). ``assoc`` is an Association (CUDA
     tensors: its ``reduce``, the packed sums whatever ``reduction`` says)
     or a bare query callable, reduced here as batched matrix products
-    ("matmul") or as the 29-float packed vector ("packed")."""
+    ("matmul") or as the 29-float packed vector ("packed"), with the terms
+    of ``estimation`` and ``robust_delta``."""
+    p2p = estimation == "point_to_point"
     if isinstance(assoc, Association):
         if cloud.device.type == "cuda":
-            return assoc.reduce(cloud, valid)
+            return assoc.reduce(cloud, valid, robust_delta=robust_delta, point_to_point=p2p)
         assoc = assoc.query
     dst, nrm, q_valid = assoc(cloud)
     if reduction == "packed":
-        return unpack_sums(packed_sums_plain(cloud, valid, dst, nrm, q_valid))
-    v, diff, b, arow = _weighted_rows(cloud, valid, dst, nrm, q_valid)
+        return unpack_sums(packed_sums_plain(cloud, valid, dst, nrm, q_valid, robust_delta, p2p))
+    if p2p:
+        return _p2p_equations_from_assoc(cloud, valid, dst, nrm, q_valid, robust_delta)
+    v, diff, b, w, arow = _weighted_rows(cloud, valid, dst, nrm, q_valid, robust_delta)
     AtA = arow.transpose(-1, -2) @ arow
-    Atb = (arow.transpose(-1, -2) @ (b * v)[..., None])[..., 0]
+    Atb = (arow.transpose(-1, -2) @ (b * w)[..., None])[..., 0]
     count = v.sum(dim=-1)
     mse_sum = ((diff * diff).sum(dim=-1) * v).sum(dim=-1)
     return AtA, Atb, count, mse_sum
 
 
 def _icp_run(cloud, valid, assoc: Union[Callable, Association],
-             criteria: ICPConvergenceCriteria, n_points=None, reduction: str = "matmul"):
+             criteria: ICPConvergenceCriteria, n_points=None, reduction: str = "matmul",
+             robust_delta: float = 0.0, estimation: str = "point_to_plane"):
     """The ICP outer loop over a (N, P, 3) cloud batch with (N, P) valid;
-    ``assoc`` and ``reduction`` as in _normal_equations.
+    ``assoc``, ``reduction``, ``robust_delta`` and ``estimation`` as in
+    _normal_equations (the JAX package's reduce_fn, icp.py:352-360).
 
     Returns (RegistrationResult batch, transformed clouds (N, P, 3))."""
+    robust_delta = _check_options(robust_delta, estimation)
     cloud = torch.as_tensor(cloud, dtype=torch.float32)
     valid = torch.as_tensor(valid, dtype=torch.bool, device=cloud.device)
     n = cloud.shape[0]
@@ -175,7 +246,8 @@ def _icp_run(cloud, valid, assoc: Union[Callable, Association],
     rmse = torch.zeros_like(fitness)
     done = torch.zeros(n, dtype=torch.bool, device=dev)
     for it in range(max_iter + 1):
-        AtA, Atb, count, mse_sum = _normal_equations(cloud, valid, assoc, reduction)
+        AtA, Atb, count, mse_sum = _normal_equations(cloud, valid, assoc, reduction,
+                                                     robust_delta, estimation)
         empty = count == 0
         new_fit = torch.where(empty, fitness, count / n_total.clamp(min=1.0))
         new_rmse = torch.where(empty, rmse, torch.sqrt(mse_sum / count.clamp(min=1.0)))
@@ -199,30 +271,34 @@ def _icp_run(cloud, valid, assoc: Union[Callable, Association],
 
 def pose_information(cloud, valid, query_fn: Union[Callable, Association],
                      robust_delta: float = 0.0, estimation: str = "point_to_plane"):
-    """Gauss-Newton information of refined poses: one association and
-    reduction pass at the given (already transformed) (..., P, 3) clouds,
-    with the solver's rows [p x n, n]. Returns (info (..., 6, 6) = J^T J,
-    sigma2 (...) = sum(b^2) / max(n - 6, 1), count (...) = n inliers).
-    ``pose_covariance`` turns them into sigma2 * inv(info). The pass needs
-    sum(b^2), which is not among the fused kernel's 29 sums: it runs an
-    Association's ``query`` (the row gather of ops/gather.py on a card) and
-    reduces here, once per refine."""
-    if estimation == "point_to_point":
-        raise NotImplementedError(
-            "pose_information for estimation='point_to_point' is not ported yet (ROADMAP A14)")
-    if estimation != "point_to_plane":
-        raise ValueError(f"unknown estimation {estimation!r}")
-    if float(robust_delta) != 0.0:
-        raise NotImplementedError("robust_delta (Huber IRLS) is not ported yet (ROADMAP A14)")
+    """Gauss-Newton information of refined poses (JAX icp.py:510-560): one
+    association and reduction pass at the given (already transformed)
+    (..., P, 3) clouds, with the solver's rows - [p x n, n] w, or the
+    point-to-point block [-[p]x | I] w. Returns (info (..., 6, 6) = J^T J,
+    sigma2 (...), count (...) = n inliers): sigma2 = sum((b w)^2) / max(n -
+    6, 1), or sum(|e|^2 w^2) / max(3n - 6, 1) point to point (three
+    residual rows a point). ``pose_covariance`` turns them into sigma2 *
+    inv(info). The pass needs the residual sum of squares, which is not
+    among the fused kernel's 29 sums: it runs an Association's ``query``
+    (the row gather of ops/gather.py on a card) and reduces here, once per
+    refine."""
+    robust_delta = _check_options(robust_delta, estimation)
     cloud = torch.as_tensor(cloud, dtype=torch.float32)
     valid = torch.as_tensor(valid, dtype=torch.bool, device=cloud.device)
     if isinstance(query_fn, Association):
         query_fn = query_fn.query
     dst, nrm, q_valid = query_fn(cloud)
-    v, _diff, b, arow = _weighted_rows(cloud, valid, dst, nrm, q_valid)
+    if estimation == "point_to_point":
+        v, diff, w, J = _p2p_rows(cloud, valid, dst, q_valid, robust_delta)
+        Jf = J.reshape(J.shape[:-3] + (-1, 6))
+        info = Jf.transpose(-1, -2) @ Jf
+        count = v.sum(dim=-1)
+        rss = ((diff * diff).sum(dim=-1) * (w * w)).sum(dim=-1)
+        return info, rss / (3.0 * count - 6.0).clamp(min=1.0), count
+    v, _diff, b, w, arow = _weighted_rows(cloud, valid, dst, nrm, q_valid, robust_delta)
     info = arow.transpose(-1, -2) @ arow
     count = v.sum(dim=-1)
-    sigma2 = ((b * v) ** 2).sum(dim=-1) / (count - 6.0).clamp(min=1.0)
+    sigma2 = ((b * w) ** 2).sum(dim=-1) / (count - 6.0).clamp(min=1.0)
     return info, sigma2, count
 
 
@@ -253,6 +329,25 @@ def pose_covariance(info, sigma2, rel_ridge: float = 1e-6, inflation: float = 1.
     return (inflation * sigma2)[..., None, None] * inv
 
 
+def _icp(cloud, valid, query_fn, criteria, n_points, reduction, robust_delta, coarse_iters,
+         estimation):
+    if reduction not in REDUCTIONS:
+        raise ValueError(f"unknown reduction {reduction!r}: expected 'matmul' or 'packed'")
+    if int(coarse_iters) != 0:
+        raise NotImplementedError("coarse_iters is not ported yet (ROADMAP A14)")
+    cloud = torch.as_tensor(cloud, dtype=torch.float32)
+    single = cloud.dim() == 2
+    if single:
+        cloud = cloud[None]
+        valid = torch.as_tensor(valid, device=cloud.device)[None]
+    res, out = _icp_run(cloud, valid, query_fn, criteria, n_points, reduction, robust_delta,
+                        estimation)
+    if single:
+        res = RegistrationResult(*(f[0] for f in res))
+        out = out[0]
+    return res, out
+
+
 def icp_point_to_plane(cloud, valid, query_fn: Union[Callable, Association],
                        criteria: ICPConvergenceCriteria = ICPConvergenceCriteria(),
                        n_points=None, reduction: str = "matmul",
@@ -266,21 +361,27 @@ def icp_point_to_plane(cloud, valid, query_fn: Union[Callable, Association],
         a query (equal up to summation order). It is not consulted for an
         Association on CUDA tensors: its fused kernel computes the packed
         sums for either value.
+    robust_delta: > 0 (meters) Huber-IRLS weights on the plane residual
+        with this inlier width; 0 is the reference's least squares. The
+        scores stay unweighted.
     Returns (RegistrationResult, transformed cloud), batched like ``cloud``.
     """
-    if reduction not in REDUCTIONS:
-        raise ValueError(f"unknown reduction {reduction!r}: expected 'matmul' or 'packed'")
-    if float(robust_delta) != 0.0:
-        raise NotImplementedError("robust_delta (Huber IRLS) is not ported yet (ROADMAP A14)")
-    if int(coarse_iters) != 0:
-        raise NotImplementedError("coarse_iters is not ported yet (ROADMAP A14)")
-    cloud = torch.as_tensor(cloud, dtype=torch.float32)
-    single = cloud.dim() == 2
-    if single:
-        cloud = cloud[None]
-        valid = torch.as_tensor(valid, device=cloud.device)[None]
-    res, out = _icp_run(cloud, valid, query_fn, criteria, n_points, reduction)
-    if single:
-        res = RegistrationResult(*(f[0] for f in res))
-        out = out[0]
-    return res, out
+    return _icp(cloud, valid, query_fn, criteria, n_points, reduction, robust_delta,
+                coarse_iters, "point_to_plane")
+
+
+def icp_point_to_point(cloud, valid, query_fn: Union[Callable, Association],
+                       criteria: ICPConvergenceCriteria = ICPConvergenceCriteria(),
+                       n_points=None, robust_delta: float = 0.0, coarse_iters: int = 0):
+    """Refine with point-to-point Gauss-Newton estimation (JAX
+    icp.py:318-349): the loop, scores and options of icp_point_to_plane,
+    with the residual e = dst - p (three rows a point, scene normals
+    ignored; robust_delta weights on |e|). Pair it with nearest-neighbour
+    association: projective association gives ray-aligned residuals, on
+    which point-to-point diverges. A pass reduced from a query is the
+    matrix-product formulation, as in the JAX package; an Association on
+    CUDA tensors takes the fused kernel's point-to-point mode.
+    Returns (RegistrationResult, transformed cloud), batched like ``cloud``.
+    """
+    return _icp(cloud, valid, query_fn, criteria, n_points, "matmul", robust_delta,
+                coarse_iters, "point_to_point")

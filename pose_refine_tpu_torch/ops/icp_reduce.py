@@ -14,7 +14,11 @@ p``, ``b = diff . n`` and ``a = [p x n, n] * v``:
 in the JAX order (AtA 0..20, Atb 21..26, mse 27, count 28). Two front ends
 find ``dst``, ``n`` and ``q_valid``: the projective one projects the point
 to a pixel of the scene table (scene/projective.py), the indexed one takes
-the flash-NN kernels' index and dist^2 (scene/nn.py).
+the NN kernels' index and dist^2 (scene/nn.py: flash or kd). Two modes
+change the terms (``packed_terms``): ``robust_delta`` > 0 Huber-weights
+them (JAX icp.py:102-125), and ``point_to_point`` takes the three rows
+[-[p]x | I] of the point-to-point residual in place of the plane row (JAX
+icp.py:160-200); mse and count stay as they are.
 
 The association, and so the count, equals the plain version's exactly. The
 other 28 sums are float32 in the kernel's own fixed order (thread, warp
@@ -39,6 +43,7 @@ from typing import Callable
 import torch
 
 from pose_refine_tpu_torch.ops.gather import ROW
+from pose_refine_tpu_torch.scene import nn_flash
 
 PACKED = 29  # floats per pose: 21 AtA + 6 Atb + mse + count
 # jnp.triu_indices(6): the upper triangle of AtA, row-major
@@ -52,23 +57,76 @@ FILL_CTAS = 132       # the H100's SMs: poses are split until as many CTAs run
 launches = 0
 
 
-def packed_terms(cloud, valid, dst, nrm, q_valid) -> torch.Tensor:
+def huber_weight(v, r, robust_delta: float):
+    """The Huber IRLS weight on the residual ``r`` (JAX icp.py:102,
+    ``_huber_sqrt_w``), times the mask ``v``: v * sqrt(min(1, delta /
+    max(|r|, 1e-12))), one rounded operation a torch call, NaN carried
+    through as the kernel carries it. robust_delta <= 0 is no weighting: v
+    itself."""
+    if robust_delta <= 0.0:
+        return v
+    delta = torch.tensor(float(robust_delta), dtype=r.dtype, device=r.device)
+    return v * torch.sqrt((delta / r.abs().clamp(min=1e-12)).clamp(max=1.0))
+
+
+def _cross_term(a, b, c, d):
+    """a*b - c*d to about one rounding of the result (Kahan's difference of
+    products with two fused multiply-adds: the error of c*d is carried
+    exactly), as the kernel's ``cross_term``; plainly in float64 (the
+    yardstick). Point-to-point rows need it: where the residual lies along
+    the point's ray (projective association), p x diff cancels to a few
+    rounding errors of its products."""
+    if a.dtype == torch.float64:
+        return a * b - c * d
+    w = c * d
+    return nn_flash._fma(a, b, -w) + nn_flash._fma(-c, d, w)
+
+
+def packed_terms(cloud, valid, dst, nrm, q_valid, robust_delta: float = 0.0,
+                 point_to_point: bool = False) -> torch.Tensor:
     """The 29-float vector of every point from a given association, on any
     device and in the clouds' dtype: (..., P, 3) clouds, (..., P) valid, the
-    query's (dst, normal, valid) -> (..., P, 29). Every term is multiplied
-    by ``q_valid & valid``. One rounded operation a torch call, in the order
+    query's (dst, normal, valid) -> (..., P, 29). With ``v = q_valid &
+    valid`` and ``w`` = v, or v times the Huber weight (robust_delta > 0) on
+    the plane residual b or on |diff| (point_to_point):
+
+    * point to plane (JAX icp.py:113-125): the A row [p x n, n] * w and
+      b * w;
+    * point to point (JAX icp.py:160-200): J = [-[p]x | I] * w, three rows
+      a point, and e = diff * w; the 21 entries of J^T J, each taken over
+      the rows in row order, the entries that are zero for every point as
+      0, and the 6 of J^T e: (p x diff) w^2 (each cross entry by
+      _cross_term) and diff w^2.
+
+    mse and count keep v. One rounded operation a torch call, in the order
     the kernel's body writes them (no fused multiply-add in either), so the
-    float32 terms equal the kernel's bit for bit."""
+    float32 terms equal the kernel's bit for bit; robust_delta = 0 in plane
+    mode is the formulation of before the modes."""
     v = (q_valid & valid).to(cloud.dtype)
     px, py, pz = cloud.unbind(dim=-1)
-    nx, ny, nz = nrm.unbind(dim=-1)
     dx, dy, dz = (dst - cloud).unbind(dim=-1)
-    bv = ((dx * nx + dy * ny) + dz * nz) * v
-    row = [(py * nz - pz * ny) * v, (pz * nx - px * nz) * v, (px * ny - py * nx) * v,
-           nx * v, ny * v, nz * v]
-    return torch.stack(
-        [row[i] * row[j] for i, j in zip(_IU, _JU)] + [r * bv for r in row]
-        + [((dx * dx + dy * dy) + dz * dz) * v, v], dim=-1)
+    sq = (dx * dx + dy * dy) + dz * dz
+    if point_to_point:
+        w = huber_weight(v, torch.sqrt(sq), robust_delta)
+        wx, wy, wz = px * w, py * w, pz * w
+        ex, ey, ez = dx * w, dy * w, dz * w
+        ww, zero = w * w, torch.zeros_like(w)
+        ata = [wz * wz + wy * wy, -(wy * wx), -(wz * wx), zero, -(wz * w), wy * w,
+               wz * wz + wx * wx, -(wz * wy), wz * w, zero, -(wx * w),
+               wy * wy + wx * wx, -(wy * w), wx * w, zero,
+               ww, zero, zero, ww, zero, ww]
+        atb = [_cross_term(py, dz, pz, dy) * ww, _cross_term(pz, dx, px, dz) * ww,
+               _cross_term(px, dy, py, dx) * ww, w * ex, w * ey, w * ez]
+    else:
+        nx, ny, nz = nrm.unbind(dim=-1)
+        b = (dx * nx + dy * ny) + dz * nz
+        w = huber_weight(v, b, robust_delta)
+        bw = b * w
+        row = [(py * nz - pz * ny) * w, (pz * nx - px * nz) * w, (px * ny - py * nx) * w,
+               nx * w, ny * w, nz * w]
+        ata = [row[i] * row[j] for i, j in zip(_IU, _JU)]
+        atb = [r * bw for r in row]
+    return torch.stack(ata + atb + [sq * v, v], dim=-1)
 
 
 def ordered_sum(terms: torch.Tensor) -> torch.Tensor:
@@ -100,20 +158,24 @@ def ordered_sum(terms: torch.Tensor) -> torch.Tensor:
     return total.reshape(lead + (k,))
 
 
-def packed_sums_plain(cloud, valid, dst, nrm, q_valid) -> torch.Tensor:
+def packed_sums_plain(cloud, valid, dst, nrm, q_valid, robust_delta: float = 0.0,
+                      point_to_point: bool = False) -> torch.Tensor:
     """The packed formulation from a given association: (..., 29) sums of
     packed_terms over the points, in the kernel's order (ordered_sum)."""
-    return ordered_sum(packed_terms(cloud, valid, dst, nrm, q_valid))
+    return ordered_sum(packed_terms(cloud, valid, dst, nrm, q_valid, robust_delta,
+                                    point_to_point))
 
 
-def sums_error(sums, cloud, valid, dst, nrm, q_valid):
+def sums_error(sums, cloud, valid, dst, nrm, q_valid, robust_delta: float = 0.0,
+               point_to_point: bool = False):
     """How far float32 (..., 29) ``sums`` lie from the float64 sums of the
     same association: (count_equal, worst |sum - sum64| / (sum64 of |terms|)
     over the 28 float sums). A sum that is not finite in float64 (a masked
     point with a non-finite coordinate) must be non-finite in ``sums`` too,
     else the error is inf. The yardstick chip_smoke.py and the tests hold
     the kernel and the plain version to."""
-    terms = packed_terms(cloud.double(), valid, dst.double(), nrm.double(), q_valid)
+    terms = packed_terms(cloud.double(), valid, dst.double(), nrm.double(), q_valid,
+                         robust_delta, point_to_point)
     want, scale = terms.sum(dim=-2), terms.abs().sum(dim=-2)
     count_equal = torch.equal(sums[..., 28].double(), want[..., 28])
     finite = torch.isfinite(want)
@@ -122,13 +184,14 @@ def sums_error(sums, cloud, valid, dst, nrm, q_valid):
     return count_equal, float(err[..., :28].nan_to_num(nan=torch.inf).max())
 
 
-def assoc_reduce_plain(cloud, valid, query: Callable) -> torch.Tensor:
+def assoc_reduce_plain(cloud, valid, query: Callable, robust_delta: float = 0.0,
+                       point_to_point: bool = False) -> torch.Tensor:
     """Plain PyTorch version of the kernel on any device: the scene query's
     plain version (``query``: src -> (dst, normal, valid), e.g.
     ``functools.partial(scene.query, plain=True)``) followed by the packed
     formulation, term by term and add by add in the kernel's order: equal
     to the kernel bit for bit. (..., P, 3) clouds -> (..., 29)."""
-    return packed_sums_plain(cloud, valid, *query(cloud))
+    return packed_sums_plain(cloud, valid, *query(cloud), robust_delta, point_to_point)
 
 
 @functools.lru_cache(maxsize=None)
@@ -167,10 +230,12 @@ def slabs_for(n_poses: int, points: int) -> int:
 
 
 def _launch(cloud, valid, table, *, K=None, gate=None, base=None, height=0, width=0,
-            idx=None, dist_sq=None, gate_sq=0.0) -> torch.Tensor:
+            idx=None, dist_sq=None, gate_sq=0.0, robust_delta=0.0,
+            point_to_point=False) -> torch.Tensor:
     """Launch csrc/icp_reduce.cu on the current stream, without
     synchronising: (..., P, 3) clouds -> (..., 29). ``idx`` None selects the
-    projective front end."""
+    projective front end; robust_delta and point_to_point the terms (see
+    packed_terms)."""
     global launches
     dev = cloud.device
     if dev.type != "cuda":
@@ -232,7 +297,8 @@ def _launch(cloud, valid, table, *, K=None, gate=None, base=None, height=0, widt
             None if base is None else base.data_ptr(), height, width,
             None if idx is None else idx.data_ptr(),
             0 if idx is None else idx.element_size(),
-            None if idx is None else dist_sq.data_ptr(), gate_sq, out.data_ptr(), stream)
+            None if idx is None else dist_sq.data_ptr(), gate_sq, float(robust_delta),
+            int(bool(point_to_point)), out.data_ptr(), stream)
     if err != 0:
         msg = lib.prt_error_string(err).decode()
         raise RuntimeError(f"assoc_reduce kernel launch failed: CUDA error {err} ({msg})")
@@ -241,19 +307,25 @@ def _launch(cloud, valid, table, *, K=None, gate=None, base=None, height=0, widt
 
 
 def assoc_reduce_projective_cuda(cloud, valid, table, K, max_dist_diff, height: int,
-                                 width: int, base=None) -> torch.Tensor:
+                                 width: int, base=None, robust_delta: float = 0.0,
+                                 point_to_point: bool = False) -> torch.Tensor:
     """The kernel with the projective front end: (..., P, 3) CUDA clouds
     against the (R, 8) scene table of ``height`` x ``width`` frames, K (3, 3)
     and the 0-d gate ``max_dist_diff`` on the device (the kernel reads them
     there), ``base`` an int64 row offset per pose for stacked frames ->
-    (..., 29). Raises for CPU tensors."""
+    (..., 29); robust_delta and point_to_point select the terms (see
+    packed_terms). Raises for CPU tensors."""
     return _launch(cloud, valid, table, K=K, gate=max_dist_diff, base=base, height=int(height),
-                   width=int(width))
+                   width=int(width), robust_delta=robust_delta, point_to_point=point_to_point)
 
 
-def assoc_reduce_indexed_cuda(cloud, valid, table, idx, dist_sq, gate_sq: float) -> torch.Tensor:
+def assoc_reduce_indexed_cuda(cloud, valid, table, idx, dist_sq, gate_sq: float,
+                              robust_delta: float = 0.0,
+                              point_to_point: bool = False) -> torch.Tensor:
     """The kernel with the indexed front end: the (..., P) ``idx`` (int32
-    or int64, clamped into the table) and ``dist_sq`` of the flash-NN
-    kernels, valid where dist_sq < gate_sq -> (..., 29). Raises for CPU
+    or int64, clamped into the table) and ``dist_sq`` of the NN kernels
+    (flash or kd), valid where dist_sq < gate_sq -> (..., 29); robust_delta
+    and point_to_point as for the projective front end. Raises for CPU
     tensors."""
-    return _launch(cloud, valid, table, idx=idx, dist_sq=dist_sq, gate_sq=float(gate_sq))
+    return _launch(cloud, valid, table, idx=idx, dist_sq=dist_sq, gate_sq=float(gate_sq),
+                   robust_delta=robust_delta, point_to_point=point_to_point)

@@ -2,11 +2,12 @@
 (PyTorch port of ``pose_refine_tpu/pipeline.py``).
 
 ``refine_poses`` is the body of the JAX package's ``refine_poses_jit`` for
-the window lift and point-to-plane ICP, with its in-program uncertainty
-(``with_information``); ``track_poses`` / ``track_poses_nn`` are
-``track_poses_jit`` / ``track_poses_nn_jit``: the per-frame scene build on
-the device followed by the refine. ``PoseRefiner`` is the refiner for
-projective scenes and nearest-neighbour scenes (``scene="nn"`` /
+the window lift and point-to-plane or point-to-point ICP (``estimation``,
+``robust_delta``), with its in-program uncertainty (``with_information``);
+``track_poses`` / ``track_poses_nn`` are ``track_poses_jit`` /
+``track_poses_nn_jit``: the per-frame scene build on the device followed by
+the refine. ``PoseRefiner`` is the refiner for projective scenes and
+nearest-neighbour scenes (``scene="nn"`` / ``"nn_kdtree"`` /
 ``"nn_bruteforce"``, with ``scene_voxel_mm``, ``scene_cascade``,
 ``scene_stride`` and ``scene_pool``), with the same host-side planning (auto
 ROI, auto lift sizes, warnings), ``refine``, ``track`` and their enqueueing
@@ -54,7 +55,8 @@ def refine_poses(tris, init_poses, scene: Union[SceneProjective, SceneNN, SceneP
                  criteria: icp.ICPConvergenceCriteria, window: int = 256,
                  stride: int = 2, roi=(0, 0, 0, 0), with_information: bool = False,
                  scene_ids=None, raster: Optional[Callable] = None,
-                 query: Optional[Callable] = None):
+                 query: Optional[Callable] = None, robust_delta: float = 0.0,
+                 estimation: str = "point_to_plane"):
     """Render N poses, lift each render to a cloud, run batched ICP.
 
     All tensors on one device. ``tris`` is (T, 3, 3) or per pose (N, T, 3,
@@ -73,6 +75,9 @@ def refine_poses(tris, init_poses, scene: Union[SceneProjective, SceneNN, SceneP
     queried and then reduced by matrix products on any device (the loop of
     before the fused kernel); ``icp.plain_association(plain_query)`` is the
     plain version of the default, which a kernel path is held against.
+    ``estimation`` ("point_to_plane" / "point_to_point") and
+    ``robust_delta`` (Huber width in meters, 0 = none) select the ICP terms
+    of every pass and of the information pass (JAX pipeline.py:159-205).
     """
     raster = rasterize if raster is None else raster
     if query is None and scene_ids is None:
@@ -99,7 +104,8 @@ def refine_poses(tris, init_poses, scene: Union[SceneProjective, SceneNN, SceneP
         perm = torch.argsort(code, stable=True)
         clouds, valids = clouds[:, perm], valids[:, perm]
 
-    results, final = icp._icp_run(clouds, valids, query, criteria)
+    results, final = icp._icp_run(clouds, valids, query, criteria, robust_delta=robust_delta,
+                                  estimation=estimation)
     # ICP acts on camera-space clouds in meters (common.h:53); poses carry
     # mm translations: scale t_icp to mm before left-composing
     T_mm = results.transformation.clone()
@@ -107,7 +113,8 @@ def refine_poses(tris, init_poses, scene: Union[SceneProjective, SceneNN, SceneP
     refined = T_mm @ init_poses
     if not with_information:
         return refined, results
-    info, sigma2, count = icp.pose_information(final, valids, query)
+    info, sigma2, count = icp.pose_information(final, valids, query, robust_delta=robust_delta,
+                                               estimation=estimation)
     # render-calibrated, not the pure Laplace (icp.RENDER_COV_INFLATION):
     # sigma2 is floored at the depth quantization and at the lateral pixel
     # pitch at the RENDER intrinsics, ~coeff * mean z / fx
@@ -153,7 +160,8 @@ def track_poses(tris, init_poses, frame_depth, proj, K_render, K_full, max_dist:
     """One tracking step against a projective scene (JAX track_poses_jit):
     build the scene from the (H, W) mm ``frame_depth`` on its device, then
     refine. ``kw``: refine_poses' keywords (width, height, max_points,
-    criteria, window, stride, roi, with_information). pack_outputs=True
+    criteria, window, stride, roi, with_information, robust_delta,
+    estimation). pack_outputs=True
     returns the (N, 71) session buffer instead."""
     scene = SceneProjective.from_depth(frame_depth, K_full, max_dist, device=frame_depth.device)
     return _refine_frame(scene, tris, init_poses, proj, K_render, pack_outputs, plain, **kw)
@@ -218,7 +226,8 @@ def _unported(name: str, value, default, item: str):
 class PoseRefiner:
     """Refine batches of pose hypotheses of one model against a scene depth
     (``scene="projective"``) or a scene cloud searched by exact nearest
-    neighbour (``scene="nn"`` / ``"nn_bruteforce"``).
+    neighbour (``scene="nn"`` / ``"nn_kdtree"`` / ``"nn_bruteforce"``, see
+    _nn_backend).
 
     Example:
         refiner = PoseRefiner("obj_06.ply", K=LINEMOD_K, device="cuda")
@@ -261,8 +270,6 @@ class PoseRefiner:
                 f"unknown scene kind {scene!r}: expected 'projective', "
                 "'nn', 'nn_kdtree' or 'nn_bruteforce'"
             )
-        if scene == "nn_kdtree":  # the kd traversal
-            _unported("scene", scene, "nn", "A9")
         self.scene_kind = scene
         if lift not in ("window", "compact"):
             raise ValueError(f"unknown lift {lift!r}: expected 'window' or 'compact'")
@@ -307,14 +314,29 @@ class PoseRefiner:
             scene_cascade = (float(cv), int(ci))
         self.scene_cascade = scene_cascade
         self._scene_coarse = None
-        _unported("robust_delta", float(robust_delta), 0.0, "A14")
+        # robust_delta (m): Huber-IRLS inlier width of the ICP terms (0 =
+        # the reference's least squares); the scores stay unweighted
+        self.robust_delta = float(robust_delta)
         _unported("coarse_iters", int(coarse_iters), 0, "A14")
-        if estimation not in ("point_to_plane", "point_to_point"):
+        # estimation: the ICP residual model; association and scores are
+        # the same for both (icp.icp_point_to_point)
+        if estimation not in icp.ESTIMATIONS:
             raise ValueError(
                 f"estimation must be 'point_to_plane' or 'point_to_point', "
                 f"got {estimation!r}"
             )
-        _unported("estimation", estimation, "point_to_plane", "A14")
+        if estimation == "point_to_point" and scene == "projective":
+            # projective association returns the scene point at the same
+            # pixel: ray-aligned residuals, whose 3D length point-to-point
+            # minimises ill-posedly (JAX pipeline.py:506-518 warns too)
+            logger.warning(
+                "estimation='point_to_point' with scene='projective' is "
+                "ill-posed (ray-aligned residuals; diverges on the "
+                "standard recovery workload). Use an NN scene "
+                "(scene='nn'/'nn_bruteforce'/'nn_kdtree') for "
+                "point-to-point, or keep point_to_plane for projective."
+            )
+        self.estimation = estimation
         _unported("devices", devices, None, "A13")
         self.device = resolve_device(device)
 
@@ -417,6 +439,18 @@ class PoseRefiner:
                         "(median depth %.0f mm)", self.scene_voxel_mm, pool, z_med * 1000.0)
         self._scene_pool_cache = pool
         return pool
+
+    def _nn_backend(self) -> str:
+        """The SceneNN backend of this refiner's NN kind (JAX
+        pipeline.py:821-833, keyed on the refiner's device where JAX keys on
+        its default backend): "nn_kdtree" the kd traversal, "nn_bruteforce"
+        the gated flash kernel, "nn" the gated flash kernel on a card and
+        the kd traversal on the CPU."""
+        if self.scene_kind == "nn_bruteforce":
+            return "bruteforce"
+        if self.scene_kind == "nn" and self.device.type == "cuda":
+            return "bruteforce"
+        return "kdtree"
 
     def _scene_perm(self, frame_shape, pool: int = 1) -> torch.Tensor:
         """The Morton permutation of the strided or pooled scene grid on the
@@ -603,17 +637,14 @@ class PoseRefiner:
                 host, self.K, self.max_dist_diff, device=self.device
             )
         else:
-            # "nn" and "nn_bruteforce" both take the gated flash kernel on
-            # every device; the JAX package picks its kd traversal for "nn"
-            # on its CPU, which is not ported yet (ROADMAP A9)
             self.scene = SceneNN.from_depth(
-                host, self.K, self.max_dist_diff, voxel_mm=self.scene_voxel_mm,
-                device=self.device,
+                host, self.K, self.max_dist_diff, backend=self._nn_backend(),
+                voxel_mm=self.scene_voxel_mm, device=self.device,
             )
             if self.scene_cascade is not None:
                 self._scene_coarse = SceneNN.from_depth(
-                    host, self.K, self.max_dist_diff, voxel_mm=self.scene_cascade[0],
-                    device=self.device,
+                    host, self.K, self.max_dist_diff, backend=self._nn_backend(),
+                    voxel_mm=self.scene_cascade[0], device=self.device,
                 )
         logger.info("scene built: kind=%s, %s", self.scene_kind, type(self.scene).__name__)
         return self
@@ -624,7 +655,14 @@ class PoseRefiner:
         ``scene_ids`` (JAX pipeline.py:917-964): a SceneProjectiveStack, or
         a SceneNNStack for the NN kinds (with scene_voxel_mm). Planning
         (auto ROI, window, points) uses the union of the frames' objects,
-        their max-projection, so every frame's object stays in the crop."""
+        their max-projection, so every frame's object stays in the crop.
+        'nn_kdtree' cannot stack: the kd traversal binds one tree."""
+        if self.scene_kind == "nn_kdtree":
+            raise ValueError(
+                "set_scene_depths (stacked multi-frame scenes) cannot use "
+                "scene='nn_kdtree' (per-scene tree arrays); use "
+                "'nn'/'nn_bruteforce' (flash backend) or 'projective'"
+            )
         if self.scene_cascade is not None and self.scene_kind != "projective":
             raise ValueError(
                 "scene_cascade is per-frame (a coarse voxel twin); it does not compose with "
@@ -662,10 +700,12 @@ class PoseRefiner:
         )
         if self.scene_voxel_mm > 0.0:
             points, normals = voxel_downsample(points, normals, self.scene_voxel_mm / 1000.0)
-        self.scene = SceneNN.from_cloud(points, normals, self.max_dist_diff, device=self.device)
+        self.scene = SceneNN.from_cloud(points, normals, self.max_dist_diff,
+                                        backend=self._nn_backend(), device=self.device)
         if self.scene_cascade is not None:
             cp, cn = voxel_downsample(points, normals, self.scene_cascade[0] / 1000.0)
             self._scene_coarse = SceneNN.from_cloud(cp, cn, self.max_dist_diff,
+                                                    backend=self._nn_backend(),
                                                     device=self.device)
         self._check_saturation = True
         return self
@@ -750,6 +790,7 @@ class PoseRefiner:
             max_points=self.max_points, criteria=criteria,
             window=self.window, stride=self.stride, roi=self.roi,
             with_information=with_covariance, scene_ids=ids,
+            robust_delta=self.robust_delta, estimation=self.estimation,
         )
         self._warn_if_saturated(out[1])
         return tuple(map(_first, out)) if squeeze else out
@@ -791,6 +832,12 @@ class PoseRefiner:
                with_covariance: bool = False, _pack_outputs: bool = False,
                _plain: bool = False):
         """track() rendering ``tris`` (see _refine)."""
+        if self.scene_kind == "nn_kdtree":
+            raise ValueError(
+                "track() cannot fuse a kd-tree scene build (host work); "
+                "use scene='nn' / 'nn_bruteforce' (flash backend) or "
+                "set_scene_depth + refine"
+            )
         if self.scene_cascade is not None:
             raise ValueError(
                 "scene_cascade applies to set_scene_depth/set_scene_cloud + refine (it "
@@ -816,7 +863,8 @@ class PoseRefiner:
         frame = to_device(frame_depth, self.device)
         kw = dict(width=self.render_w, height=self.render_h, max_points=self.max_points,
                   criteria=criteria, window=self.window, stride=self.stride, roi=self.roi,
-                  with_information=with_covariance, pack_outputs=_pack_outputs, plain=_plain)
+                  with_information=with_covariance, pack_outputs=_pack_outputs, plain=_plain,
+                  robust_delta=self.robust_delta, estimation=self.estimation)
         args = (tris, init, frame, self.proj, self._K_render_t, self._K_t, self.max_dist_diff)
         if self.scene_kind == "projective":
             out = track_poses(*args, **kw)

@@ -6,8 +6,8 @@ The reference builds its kd-tree on the CPU even for the CUDA path
 (pcd_scene.cpp:45-184). The NN scene keeps the tree's point ORDER: leaf
 ranges are contiguous, so consecutive 128-point chunks of the reordered
 cloud are spatially tight, which is what the gated flash-NN kernel's chunk
-pruning needs. The traversal arrays are kept for the kd traversal, which
-is not ported yet (ROADMAP A9).
+pruning needs. ``KDTreeDevice`` packs the traversal arrays for the kd
+traversal (``scene/nn_kdtree.py``).
 
 Build semantics preserved (so the order matches the reference exactly):
   * split along the widest bbox dimension at the bbox midpoint
@@ -19,7 +19,7 @@ Build semantics preserved (so the order matches the reference exactly):
     (pcd_scene.cpp:173-183)
 
 The JAX package also has a native C++ builder with identical output
-(``pose_refine_tpu/native``); it is not ported yet (ROADMAP A9), so
+(``pose_refine_tpu/native``); it is not ported yet (ROADMAP A16), so
 ``backend="auto"`` is the numpy builder here.
 """
 
@@ -28,6 +28,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 
 @dataclass
@@ -67,11 +68,11 @@ class KDTree:
 
 def build_kdtree(points, normals, leaf_size: int = 10, backend: str = "auto") -> KDTree:
     """Build a kd-tree. backend: 'auto' or 'numpy' (the same builder);
-    'native' raises until the C++ builder is ported (ROADMAP A9)."""
+    'native' raises until the C++ builder is ported (ROADMAP A16)."""
     if backend == "native":
         raise NotImplementedError(
             "the native kd-tree builder is not ported to pose_refine_tpu_torch "
-            "yet (ROADMAP A9); backend='auto' uses the numpy builder"
+            "yet (ROADMAP A16); backend='auto' uses the numpy builder"
         )
     if backend not in ("auto", "numpy"):
         raise ValueError(f"unknown kd-tree backend {backend!r}: expected 'auto' or 'numpy'")
@@ -175,3 +176,86 @@ def build_kdtree(points, normals, leaf_size: int = 10, backend: str = "auto") ->
         bbox=bbox[:n_nodes].copy(),
         bounds=bounds[:n_nodes].copy(),
     )
+
+
+@dataclass(frozen=True)
+class KDTreeDevice:
+    """The traversal arrays of a KDTree on a device, packed as the kd
+    traversal kernel (csrc/nn_kdtree.cu) reads them: one 32-byte record a
+    node and one a node's box, so a step reads its node in two 16-byte
+    loads and the far child's box in two more, and one 16-byte record a
+    point, so a leaf point is one load. The field views (``child``,
+    ``parent``, ...) are the JAX SceneNN's arrays (JAX nn.py:77-83); the
+    plain version of the traversal reads them, so kernel and plain version
+    walk the same data.
+
+      nodes:  (M, 8) int32 [child0, child1, parent, split_dim,
+              split_v (float32 bits), left, right, 0]; child -1 for leaves,
+              [left, right) the node's point range
+      boxes:  (M, 8) float32 [xmin, ymin, zmin, 0, xmax, ymax, zmax, 0],
+              every node's subtree box (leaves included)
+      points: (P, 4) float32 [x, y, z, 0], kd-reordered
+      leaf_cap: the next power of two at or above the most points in a leaf
+      max_steps: 3 * n_nodes + 2, a bound the walk never reaches (each node
+              is ``cur`` at most three times: entered, and left back from
+              each child; JAX nn.py:77-83)
+    """
+
+    nodes: torch.Tensor
+    boxes: torch.Tensor
+    points: torch.Tensor
+    leaf_cap: int
+    max_steps: int
+
+    @classmethod
+    def from_tree(cls, tree: KDTree, device) -> "KDTreeDevice":
+        m = tree.n_nodes
+        nodes = np.zeros((m, 8), np.int32)
+        nodes[:, 0:2] = tree.child
+        nodes[:, 2] = tree.parent
+        nodes[:, 3] = tree.split_dim
+        nodes[:, 4] = tree.split_v.astype(np.float32).view(np.int32)
+        nodes[:, 5:7] = tree.bounds
+        boxes = np.zeros((m, 8), np.float32)
+        boxes[:, 0:3] = tree.bbox[:, 0::2]
+        boxes[:, 4:7] = tree.bbox[:, 1::2]
+        points = np.zeros((len(tree.points), 4), np.float32)
+        points[:, :3] = tree.points
+        leaf_cap = int(2 ** int(np.ceil(np.log2(max(tree.max_leaf_points(), 1)))))
+        return cls(nodes=torch.as_tensor(nodes, device=device),
+                   boxes=torch.as_tensor(boxes, device=device),
+                   points=torch.as_tensor(points, device=device),
+                   leaf_cap=leaf_cap, max_steps=3 * m + 2)
+
+    def to(self, device) -> "KDTreeDevice":
+        return KDTreeDevice(self.nodes.to(device), self.boxes.to(device),
+                            self.points.to(device), self.leaf_cap, self.max_steps)
+
+    @property
+    def n_nodes(self) -> int:
+        return self.nodes.shape[0]
+
+    @property
+    def child(self) -> torch.Tensor:
+        return self.nodes[:, 0:2]
+
+    @property
+    def parent(self) -> torch.Tensor:
+        return self.nodes[:, 2]
+
+    @property
+    def split_dim(self) -> torch.Tensor:
+        return self.nodes[:, 3]
+
+    @property
+    def split_v(self) -> torch.Tensor:
+        return self.nodes[:, 4].contiguous().view(torch.float32)
+
+    @property
+    def bounds(self) -> torch.Tensor:
+        return self.nodes[:, 5:7]
+
+    @property
+    def bbox(self) -> torch.Tensor:
+        """(M, 6) [xmin, xmax, ymin, ymax, zmin, zmax], the KDTree layout."""
+        return self.boxes[:, [0, 4, 1, 5, 2, 6]]

@@ -1,0 +1,185 @@
+"""Exact nearest neighbour by the stackless kd traversal: the hand-written
+CUDA kernel ``csrc/nn_kdtree.cu``, its wrapper, and its plain PyTorch
+version (PyTorch port of ``pose_refine_tpu/scene/nn.py::_nn_kdtree``, the
+reference's device search, pcd_scene.h:61-136).
+
+The walk needs no recursion and no stack: from the root it descends to the
+near child by ``p[split_dim] - split_v < 0``; at a leaf it scans the
+leaf's points; it backtracks by parent pointers, and at an interior node
+reached back from its near child it enters the far child iff the far
+child's own box lies no farther than the best distance so far (the JAX
+package's ``prune="far"``). The state is (cur, last, back, best index, best
+dist^2, steps), from (0, -1, False, 0, FLT_MAX, 0); the walk ends at the
+root's parent or at ``max_steps``.
+
+Both versions round as XLA's CPU backend does for the JAX function, which
+contracts the three-term sums of squares into fused multiply-adds:
+dist^2 = fma(dz, dz, fma(dy, dy, dx * dx)) with d = point - query, and the
+box distance likewise. The plain version equals JAX's ``_nn_kdtree`` bit for
+bit in idx, dist^2 and steps on the CPU (tests/test_torch_kdtree.py), and
+the kernel equals the plain version on the card.
+
+Output: int32 idx and float32 dist^2 of every query, as the flash-NN
+kernels return them, so ``scene.nn._rows_in_gate`` and the fused ICP pass
+take them unchanged. A query with no point at a finite distance (NaN, or
+so far that every dist^2 overflows) keeps the initial state: idx 0,
+dist^2 FLT_MAX, which every gate rejects.
+
+Dispatch: ``nn_kdtree`` uses the plain version for CPU tensors and the
+kernel for CUDA tensors; a kernel that does not build or launch raises.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from pose_refine_tpu_torch.scene.kdtree import KDTreeDevice
+from pose_refine_tpu_torch.scene.nn_flash import _flat, _fma
+
+FLT_MAX = float(np.finfo(np.float32).max)
+
+# kernel launches by nn_kdtree_cuda (chip_smoke.py resets and reads it to
+# show the main path went through the kernel)
+launches = 0
+
+
+def _sq3(a, b, c):
+    """a^2 + b^2 + c^2 of float32 tensors as XLA contracts jnp.sum(x * x)
+    over three terms: fma(c, c, fma(b, b, a * a))."""
+    return _fma(c, c, _fma(b, b, a * a))
+
+
+def nn_kdtree_plain(src, tree: KDTreeDevice, return_steps: bool = False,
+                    return_work: bool = False):
+    """Plain PyTorch version of the traversal on any device: (..., 3)
+    queries -> (idx (...) int32, dist_sq (...) float32[, steps (...)
+    int32][, leaf points scanned (...) int32, far-child boxes tested (...)
+    int32]). JAX ``_nn_kdtree(prune="far")`` step for step: one loop
+    iteration is one step of every query still walking, masked over the
+    batch, until every query is done. The work counts give a walk's bound
+    (chip_smoke.py)."""
+    flat, shape = _flat(src)
+    dev = flat.device
+    nq = flat.shape[0]
+    child, parent, split_dim, split_v = tree.child, tree.parent, tree.split_dim, tree.split_v
+    bounds, boxes = tree.bounds, tree.boxes
+    pts = tree.points[:, :3]
+    n_pts = pts.shape[0]
+    offs = torch.arange(tree.leaf_cap, device=dev)
+    cur = torch.zeros(nq, dtype=torch.int64, device=dev)
+    last = torch.full((nq,), -1, dtype=torch.int64, device=dev)
+    back = torch.zeros(nq, dtype=torch.bool, device=dev)
+    bi = torch.zeros(nq, dtype=torch.int64, device=dev)
+    bd = torch.full((nq,), FLT_MAX, dtype=torch.float32, device=dev)
+    steps = torch.zeros(nq, dtype=torch.int32, device=dev)
+    scanned = torch.zeros(nq, dtype=torch.int32, device=dev)
+    tested = torch.zeros(nq, dtype=torch.int32, device=dev)
+    act = torch.arange(nq, device=dev)
+    while act.numel():
+        c, p, bk = cur[act], flat[act], back[act]
+        b_d, b_i = bd[act], bi[act]
+        c1, c2 = child[c, 0].long(), child[c, 1].long()
+        par = parent[c].long()
+        pc = p.gather(1, split_dim[c].long()[:, None])[:, 0]
+        near = (pc - split_v[c]) < 0
+        best = torch.where(near, c1, c2)
+        other = torch.where(near, c2, c1)
+        leaf = (c1 < 0) | (c2 < 0)
+        # a leaf entered descending: its first nearest point, taken only if
+        # strictly nearer than the best so far
+        s = (leaf & ~bk).nonzero()[:, 0]
+        if s.numel():
+            left, right = bounds[c[s], 0].long(), bounds[c[s], 1].long()
+            lidx = left[:, None] + offs
+            d = pts[lidx.clamp(0, n_pts - 1)] - p[s][:, None, :]
+            d2 = _sq3(d[..., 0], d[..., 1], d[..., 2])
+            d2 = torch.where(lidx < right[:, None], d2, FLT_MAX)
+            leaf_bd, j = d2.min(dim=1)
+            upd = leaf_bd < b_d[s]
+            b_d[s] = torch.where(upd, leaf_bd, b_d[s])
+            b_i[s] = torch.where(upd, lidx.gather(1, j[:, None])[:, 0], b_i[s])
+            scanned[act[s]] += (right - left).to(torch.int32)
+        # back at an interior node from its near child: the far child's box
+        go_far = torch.zeros_like(bk)
+        g = (bk & (last[act] == best)).nonzero()[:, 0]
+        if g.numel():
+            box, pg = boxes[other[g]], p[g]
+            delta = (box[:, 0:3] - pg).clamp(min=0.0) + (pg - box[:, 4:7]).clamp(min=0.0)
+            min_poss = _sq3(delta[:, 0], delta[:, 1], delta[:, 2])
+            go_far[g] = min_poss <= b_d[g]
+            tested[act[g]] += 1
+        nxt = torch.where(bk, torch.where(go_far, other, par), torch.where(leaf, par, best))
+        back[act] = torch.where(bk, ~go_far, leaf)
+        last[act] = c
+        cur[act] = nxt
+        bd[act], bi[act] = b_d, b_i
+        steps[act] += 1
+        act = act[(nxt >= 0) & (steps[act] < tree.max_steps)]
+    out = (bi.to(torch.int32).reshape(shape), bd.reshape(shape))
+    if return_steps:
+        out += (steps.reshape(shape),)
+    if return_work:
+        out += (scanned.reshape(shape), tested.reshape(shape))
+    return out
+
+
+def nn_kdtree_cuda(flat, tree: KDTreeDevice, steps=None):
+    """The kernel on (Q, 3) contiguous float32 CUDA queries, on the current
+    stream, without synchronising: (idx (Q,) int32, dist_sq (Q,) float32).
+    ``steps``, if given, a (Q,) int32 tensor, receives each query's step
+    count. Raises for CPU tensors and on a failed launch."""
+    global launches
+    dev = flat.device
+    if dev.type != "cuda":
+        raise ValueError(f"the nn_kdtree kernel needs CUDA tensors, got {dev}")
+    if flat.dim() != 2 or flat.shape[1] != 3:
+        raise ValueError(f"queries must be (Q, 3), got {tuple(flat.shape)}")
+    tensors = {"queries": (flat, torch.float32), "nodes": (tree.nodes, torch.int32),
+               "boxes": (tree.boxes, torch.float32), "points": (tree.points, torch.float32)}
+    if steps is not None:
+        tensors["steps"] = (steps, torch.int32)
+    for name, (t, dtype) in tensors.items():
+        if t.device != dev or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {dtype} tensor on {dev}, got "
+                             f"{t.dtype} on {t.device}")
+    m = tree.nodes.shape[0]
+    if tree.nodes.shape != (m, 8) or tree.boxes.shape != (m, 8) or m == 0 \
+            or tree.points.dim() != 2 or tree.points.shape[1] != 4:
+        raise ValueError("tree arrays must be nodes (M, 8), boxes (M, 8), points (P, 4)")
+    if any(t.data_ptr() % 16 for t in (tree.nodes, tree.boxes, tree.points)):
+        raise ValueError("tree arrays must be 16-byte aligned (the kernel reads 16 bytes at a "
+                         "time)")
+    nq = flat.shape[0]
+    if steps is not None and steps.shape != (nq,):
+        raise ValueError(f"steps must be ({nq},), got {tuple(steps.shape)}")
+    if nq >= 2 ** 31:
+        raise ValueError(f"too many queries for int32 sizes: {nq}")
+    from pose_refine_tpu_torch._build import load_kernels
+
+    lib, _info = load_kernels()
+    idx = torch.empty(nq, dtype=torch.int32, device=dev)
+    dist = torch.empty(nq, dtype=torch.float32, device=dev)
+    if nq == 0:
+        return idx, dist
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.prt_nn_kdtree(flat.data_ptr(), nq, tree.nodes.data_ptr(),
+                                tree.boxes.data_ptr(), tree.points.data_ptr(), tree.max_steps,
+                                idx.data_ptr(), dist.data_ptr(),
+                                None if steps is None else steps.data_ptr(), stream)
+    if err != 0:
+        msg = lib.prt_error_string(err).decode()
+        raise RuntimeError(f"nn_kdtree kernel launch failed: CUDA error {err} ({msg})")
+    launches += 1
+    return idx, dist
+
+
+def nn_kdtree(src, tree: KDTreeDevice):
+    """Exact NN by the kd traversal: (..., 3) queries -> (idx (...) int32,
+    dist_sq (...) float32). CUDA: the kernel; CPU: the plain version."""
+    flat, shape = _flat(src)
+    if flat.device.type == "cpu":
+        return nn_kdtree_plain(src, tree)
+    idx, dist = nn_kdtree_cuda(flat.contiguous(), tree)
+    return idx.reshape(shape), dist.reshape(shape)

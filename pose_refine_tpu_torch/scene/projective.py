@@ -95,14 +95,18 @@ class SceneProjective:
             gather=gather_rows_plain if plain else gather_rows,
         )
 
-    def reduce(self, cloud: torch.Tensor, valid: torch.Tensor):
+    def reduce(self, cloud: torch.Tensor, valid: torch.Tensor, robust_delta: float = 0.0,
+               point_to_point: bool = False):
         """One ICP pass against this scene: (..., P, 3) CUDA clouds and
-        (..., P) valid -> (AtA, Atb, count, mse_sum), the query and the
-        reduction fused in the kernel of ops/icp_reduce.py (the rows are
-        never written out). Raises for CPU tensors; its plain version is
-        ``ops.icp_reduce.assoc_reduce_plain`` over ``query(plain=True)``."""
+        (..., P) valid -> (AtA, Atb, count, mse_sum), with the terms of
+        robust_delta and point_to_point (ops.icp_reduce.packed_terms), the
+        query and the reduction fused in the kernel of ops/icp_reduce.py
+        (the rows are never written out). Raises for CPU tensors; its plain
+        version is ``ops.icp_reduce.assoc_reduce_plain`` over
+        ``query(plain=True)``."""
         return unpack_sums(assoc_reduce_projective_cuda(
-            cloud, valid, self.table, self.K, self.max_dist_diff, self.height, self.width))
+            cloud, valid, self.table, self.K, self.max_dist_diff, self.height, self.width,
+            robust_delta=robust_delta, point_to_point=point_to_point))
 
 
 def _project_gate(table, K, max_dist_diff, h: int, w: int, src, base=0,
@@ -196,14 +200,16 @@ class SceneProjectiveStack:
 
     def reduce_at(self, sids):
         """``SceneProjective.reduce`` bound to per-pose scene ids (see
-        query_at): returns reduce(cloud (N, P, 3), valid (N, P)) -> (AtA,
-        Atb, count, mse_sum). The kernel takes each pose's row offset; the
+        query_at): returns reduce(cloud (N, P, 3), valid (N, P),
+        robust_delta=0.0, point_to_point=False) -> (AtA, Atb, count,
+        mse_sum). The kernel takes each pose's row offset; the
         ids never leave the card."""
         base = self._base(sids)
 
-        def reduce(cloud, valid):
+        def reduce(cloud, valid, robust_delta=0.0, point_to_point=False):
             return unpack_sums(assoc_reduce_projective_cuda(
                 cloud, valid, self.table, self.K, self.max_dist_diff, self.height, self.width,
-                base=base.expand(cloud.shape[:-2]) if base.dim() == 0 else base))
+                base=base.expand(cloud.shape[:-2]) if base.dim() == 0 else base,
+                robust_delta=robust_delta, point_to_point=point_to_point))
 
         return reduce

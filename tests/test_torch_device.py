@@ -23,6 +23,7 @@ from pose_refine_tpu_torch.ops import icp_reduce as IR
 from pose_refine_tpu_torch.ops import rasterize_cuda as RC
 from pose_refine_tpu_torch.probes import nn_ties, raster_edges
 from pose_refine_tpu_torch.scene import nn_flash as NF
+from pose_refine_tpu_torch.scene import nn_kdtree as KD
 from pose_refine_tpu_torch.scene import nn_mxu as NM
 from pose_refine_tpu_torch.scene.nn import SceneNN, SceneNNStack
 from pose_refine_tpu_torch.scene.projective import SceneProjective, SceneProjectiveStack
@@ -110,7 +111,7 @@ def test_build_key_covers_sources_and_flags():
     key = _build.build_info_key()
     assert len(key) == 16 and key == _build.build_info_key()
     assert [p.name for p in _build._sources()] == ["gather.cu", "icp_reduce.cu", "nn_flash.cu",
-                                                   "nn_mxu.cu", "rasterize.cu"]
+                                                   "nn_kdtree.cu", "nn_mxu.cu", "rasterize.cu"]
 
 
 def test_package_imports_without_jax():
@@ -285,7 +286,7 @@ def nn_case(card, seed=2, n_scene=20000, n_query=70000):
     beyond a 5 mm gate, with a partial last query tile."""
     rng = np.random.default_rng(seed)
     pts = (rng.normal(size=(n_scene, 3)) * [0.05, 0.05, 0.02] + [0, 0, 0.3]).astype(np.float32)
-    scene = SceneNN.from_cloud(pts, pts, 0.005, device=card)
+    scene = SceneNN.from_cloud(pts, pts, 0.005, backend="bruteforce", device=card)
     q = pts[rng.integers(0, n_scene, n_query)] + rng.normal(0, 0.004, (n_query, 3))
     q[:300] += 1.0  # whole tiles with no in-gate neighbour
     return scene, torch.as_tensor(q.astype(np.float32), device=card)
@@ -387,8 +388,9 @@ def reduce_case(card, case):
         return sc.reduce_at(ids), sc.query_at(ids, plain=True), cloud, valid
     # the NN kernels take finite queries, and a far one overflows no float32 square
     cloud = torch.nan_to_num(cloud, nan=0.0, posinf=0.0).clamp(-10.0, 10.0)
-    if case == "nn":
-        sc = SceneNN.from_depth(depths[0], K, 0.01, device=card)
+    if case in ("nn", "kd"):
+        backend = "bruteforce" if case == "nn" else "kdtree"
+        sc = SceneNN.from_depth(depths[0], K, 0.01, backend=backend, device=card)
         return sc.reduce, lambda c: sc.query(c, plain=True), cloud, valid
     clouds = [SceneNN.from_depth(d, K, 0.01, device="cpu").points.numpy() for d in depths]
     sc = SceneNNStack.from_clouds(clouds, clouds, 0.01, device=card)
@@ -397,7 +399,7 @@ def reduce_case(card, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["projective", "stacked", "slabs", "one_slab", "nn",
-                                  "nn_stacked"])
+                                  "nn_stacked", "kd"])
 def test_assoc_reduce_kernel_matches_plain_on_card(card, case):
     """The fused association + reduction kernel against its plain version,
     per front end: every sum bit for bit (NaN where the plain version's is
@@ -423,6 +425,58 @@ def test_assoc_reduce_kernel_matches_plain_on_card(card, case):
     count_equal, err = IR.sums_error(IR.pack_sums(*got), cloud, valid, dst, nrm, q_valid)
     assert count_equal and err <= SUMS_BAR
     assert IR.slabs_for(*cloud.shape[:2]) == {"slabs": 8, "one_slab": 1}.get(case, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [(0.004, False), (0.0, True), (0.004, True)],
+                         ids=["huber", "p2p", "p2p-huber"])
+@pytest.mark.parametrize("case", ["projective", "stacked", "slabs", "nn", "kd"])
+def test_assoc_reduce_modes_match_plain_on_card(card, case, mode):
+    """The fused kernel's Huber and point-to-point modes against their plain
+    version, per front end: every sum bit for bit (NaN where the plain
+    version's is NaN), the count exactly, the float sums within SUMS_BAR of
+    float64; Huber weights change the sums of the plain mode."""
+    robust_delta, p2p = mode
+    reduce, plain_query, cloud, valid = reduce_case(card, case)
+    got = IR.pack_sums(*reduce(cloud, valid, robust_delta=robust_delta, point_to_point=p2p))
+    torch.cuda.synchronize()
+    plain = IR.assoc_reduce_plain(cloud, valid, plain_query, robust_delta, p2p)
+    assert bool(((got == plain) | (got.isnan() & plain.isnan())).all())
+    base = IR.pack_sums(*reduce(cloud, valid, point_to_point=p2p))
+    assert torch.equal(got[:, 27:].view(torch.int32), base[:, 27:].view(torch.int32))
+    if robust_delta:
+        assert not torch.equal(got[1, :27], base[1, :27])
+    dst, nrm, q_valid = plain_query(cloud)
+    count_equal, err = IR.sums_error(got, cloud, valid, dst, nrm, q_valid, robust_delta, p2p)
+    assert count_equal and err <= SUMS_BAR
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_scene", [5, 20000])
+def test_nn_kdtree_matches_plain_on_card(card, n_scene):
+    """The kd traversal kernel against its plain version: idx, dist^2 and
+    the step count bit for bit on every query (clustered queries, scene
+    points, NaN and overflowing ones; a single-leaf tree at 5 points), one
+    launch counted; the scene query and the fused pass take its output."""
+    rng = np.random.default_rng(n_scene)
+    pts = (rng.normal(size=(n_scene, 3)) * [0.05, 0.05, 0.02] + [0, 0, 0.3]).astype(np.float32)
+    scene = SceneNN.from_cloud(pts, pts, 0.005, device=card)
+    q = pts[rng.integers(0, n_scene, 70000)] + rng.normal(0, 0.004, (70000, 3))
+    q[:4] = [[np.nan, 0, 0.3], [1e30, 1e30, 1e30], [-1e30, 0, 0.3], [10.0, 10.0, 10.0]]
+    q[4:4 + min(n_scene, 100)] = pts[:100]
+    q = torch.as_tensor(q.astype(np.float32), device=card)
+    steps = torch.empty(q.shape[0], dtype=torch.int32, device=card)
+    before = KD.launches
+    ki, kd = KD.nn_kdtree_cuda(q, scene.kd, steps=steps)
+    torch.cuda.synchronize()
+    assert KD.launches == before + 1
+    pi, pd, ps = KD.nn_kdtree_plain(q, scene.kd, return_steps=True)
+    assert torch.equal(ki, pi) and torch.equal(kd.view(torch.int32), pd.view(torch.int32))
+    assert torch.equal(steps, ps) and int(steps.max()) < scene.kd.max_steps
+    assert float(kd[0]) == KD.FLT_MAX and float(kd[1]) == KD.FLT_MAX
+    dst, nrm, valid = scene.query(q)
+    want = scene.query(q, plain=True)
+    assert all(torch.equal(a, b) for a, b in zip((dst, nrm, valid), want))
 
 
 @pytest.mark.cuda

@@ -172,8 +172,9 @@ def test_refine_multiscene_covariance_and_async(setup):
 
 
 def test_refine_multiscene_validation(setup):
-    """tests/test_multiscene.py:124-146's errors (the port refuses
-    scene="nn_kdtree" at construction, ROADMAP A9)."""
+    """tests/test_multiscene.py:124-146's errors, scene="nn_kdtree"'s
+    among them: the kd traversal binds one tree, so set_scene_depths refuses
+    it with the JAX package's ValueError (JAX pipeline.py:931-935)."""
     m, K, truths, frames = setup
     ref = ptt.PoseRefiner(m, K=K, device="cpu", **REF_CFG).set_scene_depths(frames)
     hyps, ids = perturbed(truths, np.random.default_rng(3), per=1)
@@ -186,6 +187,9 @@ def test_refine_multiscene_validation(setup):
     single = ptt.PoseRefiner(m, K=K, device="cpu", **REF_CFG).set_scene_depth(frames[0])
     with pytest.raises(ValueError, match="single scene"):
         single.refine(hyps, scene_ids=ids)
+    with pytest.raises(ValueError, match="nn_kdtree"):
+        ptt.PoseRefiner(m, K=K, width=W, height=H, scene="nn_kdtree",
+                        device="cpu").set_scene_depths(frames)
     with pytest.raises(ValueError, match="scene_cascade"):
         ptt.PoseRefiner(m, K=K, width=W, height=H, scene="nn_bruteforce", device="cpu",
                         scene_cascade=(8.0, 10), max_points=4096).set_scene_depths(frames)
@@ -217,7 +221,8 @@ def test_nn_stack_matches_jax(setup):
         np.testing.assert_array_equal(got[2].numpy(), v)
         for g, w in zip(got[:2], want[:2]):
             np.testing.assert_array_equal(g.numpy()[v], np.asarray(w)[v])
-        single = SceneNN.from_depth(frames[frame], K, device="cpu").query(torch.as_tensor(src))
+        single = SceneNN.from_depth(frames[frame], K, backend="bruteforce",
+                                    device="cpu").query(torch.as_tensor(src))
         assert torch.equal(single[2], got[2])
         assert torch.equal(single[0][got[2]], got[0][got[2]])
 

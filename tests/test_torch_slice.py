@@ -113,11 +113,12 @@ def test_single_pose_refine_squeezes(workload):
 
 @pytest.mark.parametrize(
     "kwargs,item",
-    [({"scene": "nn_kdtree"}, "A9"), ({"lift": "compact"}, "A14"), ({"robust_delta": 0.01}, "A14"),
-     ({"coarse_iters": 4}, "A14"), ({"estimation": "point_to_point"}, "A14"),
-     ({"devices": 2}, "A13")],
+    [({"lift": "compact"}, "A14"), ({"coarse_iters": 4}, "A14"), ({"devices": 2}, "A13")],
 )
 def test_unported_refiner_options_raise(kwargs, item):
+    # scene="nn_kdtree", robust_delta and estimation="point_to_point" are
+    # ported: tests/test_torch_kdtree.py and tests/test_torch_p2p.py hold
+    # them against the JAX refiner
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         ptt.PoseRefiner(mesh.make_icosphere(40.0, 1), K=small_K(), width=W, height=H,
                         device="cpu", **kwargs)

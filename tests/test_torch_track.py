@@ -289,9 +289,16 @@ def test_pose_information_matches_jax(shape):
             w[0], w[1], inflation=jicp.RENDER_COV_INFLATION, sigma2_floor=floor))
             for w in want])
         assert max_rel(tcov.numpy(), jcov) <= 1e-3
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        ticp.pose_information(torch.as_tensor(clouds), torch.as_tensor(valids), tscene.query,
-                              estimation="point_to_point")
+    # point to point and Huber weights (JAX icp.py:510-560), to the same bars
+    for kw in (dict(estimation="point_to_point"), dict(robust_delta=0.002),
+               dict(estimation="point_to_point", robust_delta=0.002)):
+        want = [jicp.pose_information(jnp.asarray(c), jnp.asarray(v), jscene.query, **kw)
+                for c, v in zip(clouds, valids)]
+        info, sigma2, count = ticp.pose_information(torch.as_tensor(clouds),
+                                                    torch.as_tensor(valids), tscene.query, **kw)
+        np.testing.assert_array_equal(count.numpy(), [float(w[2]) for w in want])
+        assert max_rel(info.numpy(), np.stack([np.asarray(w[0]) for w in want])) <= 1e-4, kw
+        np.testing.assert_allclose(sigma2.numpy(), [float(w[1]) for w in want], rtol=1e-4)
 
 
 def test_pose_covariance_matches_jax():
@@ -497,8 +504,10 @@ def test_track_validation(setup):
         ptt.PoseRefiner(m, K=K, device="cpu", scene="nn", scene_pool=0, **CFG)
     with pytest.raises(ValueError, match="alternative NN-scene downsamplers"):
         ptt.PoseRefiner(m, K=K, device="cpu", scene="nn", scene_pool=2, scene_stride=2, **CFG)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):  # no kd traversal to track
-        ptt.PoseRefiner(m, K=K, device="cpu", scene="nn_kdtree", **CFG)
+    # the JAX package's refusal (JAX pipeline.py:1253-1258): a kd tree is
+    # built on the host, so track() cannot rebuild it per frame
+    with pytest.raises(ValueError, match="cannot fuse a kd-tree scene build"):
+        ptt.PoseRefiner(m, K=K, device="cpu", scene="nn_kdtree", **CFG).track(depth, poses)
 
 
 def test_scene_pool_auto_matches_jax(setup):
