@@ -24,13 +24,15 @@ non-zero without printing a result:
   4. slice  - PoseRefiner.set_scene_depth + refine on the bench workload
               (256 hypotheses +-10 deg/axis +-20 mm around the reference
               viewpoint, render_scale 2, decimate 4 mm, window 128 / stride 2,
-              2048 points, 24 ICP iterations) through the kernels; the launch
-              counters of the raster and of the fused ICP pass must rise.
-              Wall and device time, poses/s. The same refine through the
-              plain raster must agree; so must the one through the plain
-              query and the fused pass's plain version (hold_paths). The loop
-              of before the fused pass (own query=, matrix products) is
-              printed beside it, verdicts held (report_old_loop).
+              2048 points, 24 ICP iterations) through the kernels; the raster
+              counter must rise and the ICP loop be one launch of the
+              iteration kernel. Wall and device time, poses/s. The same
+              refine through the plain raster must agree; so must the one
+              through the plain query and the iteration kernel's plain
+              version (hold_paths). The loop of before the iteration kernel
+              (an Association without iterate: a fused-pass launch a pass,
+              the solve in PyTorch) is printed beside it, verdicts held
+              (report_old_loop).
   5. golden - the reference acceptance recipe (10 deg/axis + 20 mm) on a
               bumpy sphere at 640x480 recovers to under 1 degree, and agrees
               with the same refine through the plain versions.
@@ -142,6 +144,24 @@ are collected and fail the run at its end.
               float sum within 2e-6 x the sum of its absolute terms of its
               float64 value, two launches bit for bit. Times with the
               wrapper and alone.
+ 15b. icp-iterate - the ICP iteration kernel (ops/icp_reduce.py,
+              icp_iterate_*) against its plain version (icp_iterate_plain
+              over the front end's plain query): the whole projective loop
+              at the slice shape (24 iterations) in every mode, at the
+              tracking shape (16 x 2,048, 8-CTA clusters, 30 iterations) and
+              on the stacked table; one indexed iteration on B3's output (2
+              mm, every mode) and on K1's (2 mm, raw) at 256 x 2,048; an NN
+              loop of 4 iterations through B3 and through K1 against the
+              plain NN (64 poses). T, fitness, rmse, done and the cloud bit
+              for bit, two runs bit for bit, one launch a loop. First a
+              line holding the tail's sinf / cosf equal to torch.sin /
+              torch.cos at the slice's solve angles and over [-40, 40].
+              Times alone and with the wrapper (an indexed iteration also
+              with its checks, and beside it the fused pass kernel alone
+              and the scoring-only last iteration alone on the same
+              inputs), the plain version's, the bound: the bytes once a
+              launch, the operations of this run's pose-iterations.
+              [build] prints ptxas's registers of each instantiation.
  16. mxu    - P1 on its probe (probes/mxu_nn.py, scripts/probe_mxu_nn.py's
               262,144 queries): B2 and P1 times, P1 against its plain version
               and against B2 up to near-ties.
@@ -154,9 +174,9 @@ work, from the bytes it must move and the operations it must do on this
 run's inputs at the H100's published peaks (see bound()).
 
 The two lines before the last are the card line from nvidia-smi and a JSON
-object of the seven kernels (rasterize, nn_flash_packed, nn_flash_gated with
+object of the eight kernels (rasterize, nn_flash_packed, nn_flash_gated with
 its stacked launches apart, gather_rows, assoc_reduce with its modes,
-nn_kdtree, nn_flash_mxu); the last line is
+icp_iterate with its cases, nn_kdtree, nn_flash_mxu); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -166,6 +186,8 @@ import functools
 import json
 import logging
 import os
+import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -479,19 +501,22 @@ def hold_paths(name, what, stats, failures, extra=""):
         failures.append(f"{name}: {what}: the two paths disagree")
 
 
-def report_old_loop(name, stats, failures):
-    """Print how far the loop of before the fused pass (a bare ``query=``:
-    query, row gather, each pass reduced by matrix products) lands from the
-    default loop on the same hypotheses, and hold the verdicts. Its float
-    sums differ from the fused pass's in their last bits, and an ICP turns
-    that into whole iterations at the hypotheses that do not converge (a
-    pixel that flips its association, the 1e-5 latch): the deltas are this
-    workload's sensitivity to summation order, not an error of either."""
-    phase(name, f"the loop of before the fused pass (own query=, matrix products) against "
-          f"the default: verdict_agreement={stats['agree']} (median, max) "
-          f"drot_deg={stats['rot']} dt_mm={stats['t']} dfit={stats['fit']}")
+def report_old_loop(name, stats, failures, launches):
+    """Print how far the loop of before the iteration kernel (an
+    Association without ``iterate``: one fused-pass launch a pass, the
+    solve, twist and update in PyTorch - torch.linalg and matrix products)
+    lands from the default loop on the same hypotheses, and hold the
+    verdicts. Its pass sums equal the kernel's, but its solve and its
+    products round otherwise in the last bits, and an ICP turns that into
+    whole iterations at the hypotheses that do not converge (a pixel that
+    flips its association, the 1e-5 latch): the deltas are this workload's
+    sensitivity to rounding order, not an error of either."""
+    phase(name, f"the loop of before the iteration kernel (Association without iterate: a "
+          f"fused pass a launch, the solve in PyTorch) against the default: verdict_agreement="
+          f"{stats['agree']} (median, max) drot_deg={stats['rot']} dt_mm={stats['t']} "
+          f"dfit={stats['fit']} launches={launches}")
     if stats["agree"] != 1.0:
-        failures.append(f"{name}: the loop of before the fused pass changes a verdict")
+        failures.append(f"{name}: the loop of before the iteration kernel changes a verdict")
 
 
 def gate_band(queries, dist_sq, g2):
@@ -738,6 +763,166 @@ def assoc_reduce_phase(torch, IR, cases):
         max_abs, max_f64 = max(max_abs, abs_err), max(max_f64, k_err)
         out[label] = dict(ms=k_ms, alone_ms=a_ms, plain_ms=p_ms, library_ms=None, **r_bound)
     out[cases[0]["label"]].update(max_abs_err=max_abs, max_f64_err=max_f64)
+    return out
+
+
+# the iteration kernel's tail a pose and iteration, FP32 operations
+# (csrc/icp_reduce.cu::iteration_tail, a division, a root and a sine count
+# one): the scores and latch 10, the damping 6, the Cholesky factor 91, two
+# solves 144, the residual 72, the refinement 6, the twist 27 (6 of them
+# sinf / cosf), T <- upd @ T 84; and the move, 18 a point
+TAIL_OPS, MOVE_OPS = 440, 18
+# the iteration kernel's state a pose: read T (64), fitness, rmse, done and
+# the fitness divisor; written T, fitness, rmse, done
+STATE_IN_BYTES, STATE_OUT_BYTES = 64 + 4 + 4 + 1 + 4, 64 + 4 + 4 + 1
+
+
+def icp_registers(log):
+    """{kernel<front end, terms, index type>: registers} of
+    csrc/icp_reduce.cu's pass and iteration kernels, from ptxas's -v
+    report in the build log."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        entry = re.search(r"entry function '(\S+)'", ln)
+        if entry:
+            name = entry.group(1)
+        used = re.search(r"Used (\d+) registers", ln)
+        inst = used and name and re.search(
+            r"(assoc_reduce_kernel|icp_iterate_kernel)ILb([01])ELb([01])E([ix])E", name)
+        if inst:
+            kernel, proj, p2p, idx = inst.groups()
+            key = (f"{kernel}<{'proj' if proj == '1' else 'indexed'},"
+                   f"{'p2p' if p2p == '1' else 'plane'},{'int' if idx == 'i' else 'int64'}>")
+            out[key] = int(used.group(1))
+    return out
+
+
+def same_bits(a, b):
+    """Equal tensors; float NaN where the other is NaN."""
+    if a.dtype.is_floating_point:
+        return a.shape == b.shape and bool(((a == b) | (a.isnan() & b.isnan())).all())
+    return bool((a == b).all()) and a.shape == b.shape
+
+
+def icp_iterate_phase(torch, IR, icp, cases):
+    """The ICP iteration kernel (ops/icp_reduce.py) against its plain
+    version on each case, a dict of: label; cloud, valid (the loop's input,
+    anchored by icp._icp_start); crit; modes = (robust_delta,
+    point_to_point); plain_query, the front end's plain version;
+    kernel(state, valid, n_total) -> state, the kernel path, and iters, the
+    iterations it runs (crit's max_iteration + 1 for a loop, 1 for an
+    indexed step, which is iteration 0); make(state, valid, n_total) -> a
+    launcher whose (0, 1, *nearest) call is the step, for the step's
+    per-launch times, and pass_(cloud, valid) -> the fused pass alone on
+    the same inputs (assoc_reduce); rows, the scene rows the first pass
+    names; point_bytes / pose_bytes / instr of the front end as for
+    [assoc-reduce]; launches, the kernel launches a kernel() call; timed
+    False for a loop through the NN kernels (held, not timed). T,
+    fitness, rmse, done and the cloud must equal the plain version's bit
+    for bit, and two runs each other.
+
+    The bound counts the bytes the function must move once a launch, as
+    the kernel keeps a pose's slab on chip across its iterations: the
+    cloud, valid mask, front-end inputs and state of every pose read once,
+    the cloud of every pose that moves and every pose's state written
+    once, the rows the first pass names read once; and the operations of
+    every pose-iteration the latch lets run (the body a point, TAIL_OPS a
+    pose) and of every move (MOVE_OPS a point). Returns {label: stats}."""
+    out = {}
+    for c in cases:
+        label, cloud, valid, crit = c["label"], c["cloud"], c["valid"], c["crit"]
+        modes, iters = c.get("modes", (0.0, False)), c["iters"]
+        state0, valid, n_total = icp._icp_start(cloud, valid)
+        n, p = cloud.shape[:2]
+
+        def fresh():
+            return IR.ICPState(*(t.clone() for t in state0))
+
+        # the plain version, iteration by iteration: the pose-iterations
+        # the latch lets run, and those that move the cloud
+        st, active, moving = fresh(), 0, 0
+        moved = torch.zeros_like(st.done)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for it in range(iters):
+            nxt = IR.icp_iterate_plain(st, valid, n_total, c["plain_query"], it,
+                                       crit.max_iteration, crit.relative_fitness,
+                                       crit.relative_rmse, *modes)
+            active += int((~st.done).sum())
+            if it < crit.max_iteration:
+                moving += int((~nxt.done).sum())
+                moved |= ~nxt.done
+            st = nxt
+        torch.cuda.synchronize()
+        p_ms = (time.perf_counter() - t0) * 1e3
+        before = IR.iterate_launches
+        got = c["kernel"](fresh(), valid, n_total)
+        torch.cuda.synchronize()
+        k = IR.iterate_launches - before
+        check(k == c["launches"], f"icp-iterate {label}: {k} launches, not {c['launches']}")
+        again = c["kernel"](fresh(), valid, n_total)
+        same = {f: same_bits(a, b) for f, a, b in zip(IR.ICPState._fields, got, st)}
+        finite = [(a.float() - b.float())[torch.isfinite(a.float()) & torch.isfinite(b.float())]
+                  for a, b in zip(got, st)]
+        err = max(float(d.abs().max()) if d.numel() else 0.0 for d in finite)
+        bits = all(torch.equal(a.view(torch.int32) if a.dtype == torch.float32 else a,
+                               b.view(torch.int32) if b.dtype == torch.float32 else b)
+                   for a, b in zip(got, again))
+        stats = {}
+        if not c.get("timed", True):
+            phase("icp-iterate", f"{label}: {n} poses x {p} points, {iters} iterations (NN "
+                  f"kernel and iteration kernel a pass, against the plain NN and the plain "
+                  f"iteration): {active} pose-iterations, {moving} moves; equals_plain_bit_for_"
+                  f"bit={same} two_runs_bit_equal={bits} launches={k} plain_ms={p_ms}")
+            check(all(same.values()) and bits, f"icp-iterate {label}: {same}, {bits}")
+            out[label] = dict(launches=k, max_abs_err=err)
+            continue
+        if "make" in c:
+            # one indexed iteration: launch alone, the launch of a built
+            # launcher (the per-iteration host cost of the loop), and the
+            # first launch with its checks
+            pool = iter([c["make"](fresh(), valid, n_total) for _ in range(150)])
+            stats["alone_ms"] = alone_ms(torch, lambda: next(pool)(0, 1, *c["nearest"]))
+            stats["ms"], _ = median_ms(torch, lambda: next(pool)(0, 1, *c["nearest"]), 20)
+            states = iter([fresh() for _ in range(25)])
+            stats["first_ms"], _ = median_ms(
+                torch, lambda: c["make"](next(states), valid, n_total)(0, 1, *c["nearest"]), 20)
+            # where the iteration's time goes beyond the pass: the fused
+            # pass kernel alone on the same inputs, and the same iteration
+            # launch as the scoring-only last iteration (the pass, the
+            # scores and the latch in the iteration kernel's code and
+            # registers; no solve, twist, compose or move)
+            last = crit.max_iteration
+            pool = iter([c["make"](fresh(), valid, n_total) for _ in range(150)])
+            stats["score_only_alone_ms"] = alone_ms(
+                torch, lambda: next(pool)(last, last + 1, *c["nearest"]))
+            start = fresh()
+            stats["pass_alone_ms"] = alone_ms(torch, lambda: c["pass_"](start.cloud, valid))
+        else:
+            states = iter([fresh() for _ in range(150)])
+            stats["alone_ms"] = alone_ms(torch, lambda: c["kernel"](next(states), valid, n_total))
+            stats["ms"], _ = median_ms(torch, lambda: c["kernel"](next(states), valid, n_total),
+                                       20)
+        n_bytes = (n * (p * (13 + c["point_bytes"]) + c["pose_bytes"] + STATE_IN_BYTES
+                        + STATE_OUT_BYTES) + int(moved.sum()) * p * 12 + c["rows"] * 32)
+        stats.update(bound(n_bytes=n_bytes,
+                           n_instr=active * (p * c["instr"] + TAIL_OPS) + moving * p * MOVE_OPS))
+        stats.update(plain_ms=p_ms, library_ms=None, launches=k, iterations=iters, max_abs_err=err,
+                     pose_iterations=active, moves=moving,
+                     share_of_bound=stats["bound_ms"] / stats["alone_ms"])
+        extra = "".join(f" {k}={stats[k]}" for k in ("first_ms", "score_only_alone_ms",
+                                                      "pass_alone_ms") if k in stats)
+        phase("icp-iterate", f"{label}: {n} poses x {p} points, {IR.slabs_for(n, p)} CTAs a "
+              f"pose, {iters} iteration(s): {active} pose-iterations, {moving} moves; "
+              f"equals_plain_bit_for_bit={same} two_runs_bit_equal={bits} launches={k} "
+              f"kernel_alone_ms={stats['alone_ms']} kernel_ms={stats['ms']}{extra} "
+              f"plain_ms={p_ms} bound_ms={stats['bound_ms']} ({stats['bound_by']}, "
+              f"{stats['share_of_bound']} of it alone) library=none")
+        check(all(same.values()), f"icp-iterate {label}: the kernel differs from its plain "
+              f"version: {same}")
+        check(bits, f"icp-iterate {label}: two runs differ")
+        check(float(got.fitness.max()) > 0, f"icp-iterate {label}: no inlier")
+        out[label] = stats
     return out
 
 
@@ -1094,13 +1279,14 @@ def main():
     def reset_counts():
         RC.launches = NF.packed_launches = NF.gated_launches = G.launches = 0
         NF.stacked_launches = NM.launches = IR.launches = KD.launches = 0
+        IR.iterate_launches = 0
 
     def counts():
         return {"rasterize": RC.launches, "nn_flash_packed": NF.packed_launches,
                 "nn_flash_gated": NF.gated_launches,
                 "nn_flash_gated_stacked": NF.stacked_launches, "gather_rows": G.launches,
-                "assoc_reduce": IR.launches, "nn_flash_mxu": NM.launches,
-                "nn_kdtree": KD.launches}
+                "assoc_reduce": IR.launches, "icp_iterate": IR.iterate_launches,
+                "nn_flash_mxu": NM.launches, "nn_kdtree": KD.launches}
 
     reduce_cases = []
 
@@ -1157,6 +1343,62 @@ def main():
             # the body and 1 gate
             point_bytes=idx.element_size() + 4, pose_bytes=0, instr=1 + body_instr(modes),
             modes=modes))
+    iterate_cases = []
+
+    def rows_named(s, cloud, base=None):
+        """The scene rows a projective pass over ``cloud`` names."""
+        seen = []
+
+        def gather(table, idx):
+            seen.append(idx)
+            return G.gather_rows_plain(table, idx)
+
+        _project_gate(s.table, s.K, s.max_dist_diff, s.height, s.width, cloud,
+                      base=0 if base is None else base[:, None], gather=gather)
+        return int(seen[0].unique().numel())
+
+    def loop_case(label, iterate, plain_query, cloud, valid, crit, rows, modes=(0.0, False),
+                  pose_bytes=0):
+        """An [icp-iterate] case of a projective refine's whole loop, one
+        launch of ``iterate`` (a scene's iterate or iterate_at)."""
+        iterate_cases.append(dict(
+            label=label, cloud=cloud, valid=valid, crit=crit, modes=modes,
+            plain_query=plain_query, iters=crit.max_iteration + 1, launches=1, rows=rows,
+            point_bytes=0, pose_bytes=pose_bytes, instr=11 + body_instr(modes),
+            kernel=lambda st, v, nt: iterate(st, v, nt, crit, robust_delta=modes[0],
+                                             point_to_point=modes[1])))
+
+    def step_case(label, s, cloud, valid, nearest, modes=(0.0, False)):
+        """An [icp-iterate] case of one indexed iteration (iteration 0) on
+        the NN kernels' ``nearest`` = (idx, dist_sq) of ``cloud``."""
+        idx, dist_sq = nearest
+        crit_s = ptt.ICPConvergenceCriteria(max_iteration=ITERS)
+
+        def make(st, v, nt):
+            return IR._IterateLaunch(st, v, nt, crit_s, s.table, idx=idx, dist_sq=dist_sq,
+                                     gate_sq=NF.gate_sq(s.max_dist_diff), robust_delta=modes[0],
+                                     point_to_point=modes[1])
+
+        iterate_cases.append(dict(
+            label=label, cloud=cloud, valid=valid, crit=crit_s, modes=modes, iters=1,
+            plain_query=lambda c: _rows_in_gate(s.table, idx, dist_sq, s.max_dist_diff,
+                                                plain=True),
+            launches=1, rows=int(idx.clamp(0, s.table.shape[0] - 1).unique().numel()),
+            point_bytes=idx.element_size() + 4, pose_bytes=0, instr=1 + body_instr(modes),
+            make=make, nearest=nearest,
+            pass_=lambda cl, v: IR.assoc_reduce_indexed_cuda(
+                cl, v, s.table, idx, dist_sq, NF.gate_sq(s.max_dist_diff), *modes),
+            kernel=lambda st, v, nt: make(st, v, nt)(0, 1, idx, dist_sq)))
+
+    def nn_loop_case(label, s, cloud, valid, iters=4):
+        """An [icp-iterate] case of an NN refine's loop through the NN
+        kernel and the iteration kernel against the plain NN and the plain
+        iteration (held, not timed)."""
+        crit_l = ptt.ICPConvergenceCriteria(max_iteration=iters - 1)
+        iterate_cases.append(dict(
+            label=label, cloud=cloud, valid=valid, crit=crit_l, iters=iters, launches=iters,
+            plain_query=functools.partial(s.query, plain=True), timed=False,
+            kernel=lambda st, v, nt: s.iterate(st, v, nt, crit_l)))
     from pose_refine_tpu_torch.utils.metrics import rotation_angle_deg
 
     # 1. card
@@ -1173,9 +1415,10 @@ def main():
     # 2. build
     t0 = time.perf_counter()
     _lib, info = _build.load_kernels()
-    regs = [ln.strip() for ln in info["log"].splitlines() if "registers" in ln]
+    nvcc_log = info["log"] or (pathlib.Path(info["path"]).parent / "nvcc.log").read_text()
     phase("build", f"ok in {time.perf_counter() - t0:.3f} s (nvcc {info['seconds']:.3f} s, "
-          f"built={info['built']}) -> {os.path.relpath(info['path'], REPO)}; {regs}")
+          f"built={info['built']}) -> {os.path.relpath(info['path'], REPO)}; registers of "
+          f"csrc/icp_reduce.cu's kernels: {icp_registers(nvcc_log)}")
 
     # 3. kernel vs plain at the raster's shapes (the old path beside it when
     # the parent's source is at compare_raster.PARENT)
@@ -1207,10 +1450,10 @@ def main():
     torch.cuda.synchronize()
     slice_counts = counts()
     launches = slice_counts["rasterize"]
-    check(launches > 0 and slice_counts["assoc_reduce"] == ITERS + 1
-          and slice_counts["gather_rows"] == 0,
-          f"refine did not launch the raster kernel and one fused pass an iteration: "
-          f"{slice_counts}")
+    check(launches > 0 and slice_counts["icp_iterate"] == 1
+          and slice_counts["assoc_reduce"] == 0 and slice_counts["gather_rows"] == 0,
+          f"refine did not launch the raster kernel and the ICP loop as one iteration-kernel "
+          f"launch: {slice_counts}")
     refined_np = refined.cpu().numpy()
     check(refined_np.shape == (N_POSES, 4, 4) and np.isfinite(refined_np).all(),
           "refined poses not finite (N, 4, 4)")
@@ -1283,10 +1526,14 @@ def main():
     hold_paths("slice", "through the plain query and the plain fused pass",
                agreement(rotation_angle_deg, truth, refined_np, a_refined.cpu().numpy(), fit,
                          a_res.fitness.cpu().numpy()), path_failures)
-    m_refined, m_res = rp(query=plain_query)
+    reset_counts()
+    m_refined, m_res = rp(query=icp.Association(refiner.scene.query, refiner.scene.reduce))
+    torch.cuda.synchronize()
+    old_loop_counts = counts()
     report_old_loop("slice", agreement(rotation_angle_deg, truth, refined_np,
                                        m_refined.cpu().numpy(), fit,
-                                       m_res.fitness.cpu().numpy()), path_failures)
+                                       m_res.fitness.cpu().numpy()), path_failures,
+                    old_loop_counts)
 
     # 5. golden recovery (tests/test_icp.py:22-39 recipe) on the bumpy sphere
     ang = np.float32(10.0 / 180.0 * 3.14)
@@ -1353,12 +1600,12 @@ def main():
         nn_refined, nn_res = ref.refine(poses, crit_nn)
         torch.cuda.synchronize()
         c = counts()
-        check(c["nn_flash_gated"] > 0 and c["rasterize"] > 0
-              and c["assoc_reduce"] == c["nn_flash_gated"],
+        check(c["nn_flash_gated"] > 0 and c["rasterize"] > 0 and c["assoc_reduce"] == 0
+              and c["icp_iterate"] == c["nn_flash_gated"],
               f"nn-slice {label}: launches {c}")
         if label == "2mm":
             nn_launches["nn_flash_gated"] = c["nn_flash_gated"]
-            nn_launches["assoc_reduce"] = c["assoc_reduce"]
+            nn_launches["icp_iterate"] = c["icp_iterate"]
         nn_np = nn_refined.cpu().numpy()
         check(nn_np.shape == (N_POSES, 4, 4) and np.isfinite(nn_np).all(),
               f"nn-slice {label}: refined poses not finite (N, 4, 4)")
@@ -1394,10 +1641,13 @@ def main():
                    agreement(rotation_angle_deg, truth, nn_np, p_refined.cpu().numpy(), nn_fit,
                              p_res.fitness.cpu().numpy()),
                    path_failures, extra=f"wall_ms={p_wall} ")
-        m_refined, m_res = rp(scene=ref.scene, query=ref.scene.query)
+        reset_counts()
+        m_refined, m_res = rp(scene=ref.scene,
+                              query=icp.Association(ref.scene.query, ref.scene.reduce))
+        torch.cuda.synchronize()
         report_old_loop("nn-slice", agreement(
             rotation_angle_deg, truth, nn_np, m_refined.cpu().numpy(), nn_fit,
-            m_res.fitness.cpu().numpy()), path_failures)
+            m_res.fitness.cpu().numpy()), path_failures, counts())
         flash = SceneNN.from_depth(scene, K, ref.max_dist_diff, voxel_mm=2.0,
                                    backend="flash", device=dev)
         reset_counts()
@@ -1475,9 +1725,9 @@ def main():
         build_ms = (time.perf_counter() - t1) * 1e3
         check(ref.scene.backend == "kdtree", f"kd-slice: backend {ref.scene.backend}")
         kd_np, kd_fit, c, wall_ms, dev_ms = nn_refine_lines("kd-slice", label, ref, build_ms)
-        check(c["nn_kdtree"] == ITERS + 1 and c["assoc_reduce"] == ITERS + 1
-              and c["nn_flash_gated"] == 0 and c["gather_rows"] == 0,
-              f"kd-slice {label}: not one kd launch and one fused pass an iteration: {c}")
+        check(c["nn_kdtree"] == ITERS + 1 and c["icp_iterate"] == ITERS + 1
+              and c["assoc_reduce"] == 0 and c["nn_flash_gated"] == 0 and c["gather_rows"] == 0,
+              f"kd-slice {label}: not one kd launch and one iteration launch an iteration: {c}")
         # K1 and B3 alone at the refined poses: the queries of a late pass,
         # near the surface, where a walk is short
         late, _ = first_pass_clouds(ptt, refine_poses, ref, ref.scene,
@@ -1515,8 +1765,8 @@ def main():
                               scene_voxel_mm=2.0, **kw, **CFG)
         ref.set_scene_depth(scene)
         _np, _fit, c, wall_ms, dev_ms = nn_refine_lines("p2p", label, ref, 0.0)
-        check(c["nn_flash_gated"] == ITERS + 1 and c["assoc_reduce"] == ITERS + 1,
-              f"p2p {label}: launches {c}")
+        check(c["nn_flash_gated"] == ITERS + 1 and c["icp_iterate"] == ITERS + 1
+              and c["assoc_reduce"] == 0, f"p2p {label}: launches {c}")
         p2p_stats[label] = dict(wall_ms=wall_ms, device_ms=dev_ms)
     # tests/test_icp_p2p.py:121's criteria (point to point converges slower)
     p2p_crit = ptt.ICPConvergenceCriteria(1e-6, 1e-7, 120)
@@ -1562,6 +1812,24 @@ def main():
     # the fused pass's cases at the slice shape ([assoc-reduce], below)
     slice_cloud, slice_valid = first_pass_clouds(ptt, refine_poses, refiner, sc, poses)
     projective_case("slice shape", sc, slice_cloud, slice_valid)
+    slice_rows = rows_named(sc, slice_cloud)
+    sc_plain = functools.partial(sc.query, plain=True)
+    loop_case("slice shape, whole loop", sc.iterate, sc_plain, slice_cloud, slice_valid, crit,
+              slice_rows)
+    for m_label, modes in (("huber 5mm", (0.005, False)), ("point to point", (0.0, True)),
+                           ("point to point huber 5mm", (0.005, True))):
+        loop_case(f"slice shape, whole loop, {m_label}", sc.iterate, sc_plain, slice_cloud,
+                  slice_valid, crit, slice_rows, modes=modes)
+        step_case(f"2 mm NN scene (B3), one iteration, {m_label}", nn_ref.scene, nn_cloud,
+                  nn_valid, nn_ref.scene._nearest(nn_cloud), modes=modes)
+    kd2 = dataclasses.replace(nn_ref.scene, backend="kdtree")
+    step_case("2 mm NN scene (B3), one iteration", nn_ref.scene, nn_cloud, nn_valid,
+              nn_ref.scene._nearest(nn_cloud))
+    step_case("2 mm NN scene (K1), one iteration", kd2, nn_cloud, nn_valid,
+              kd2._nearest(nn_cloud))
+    nn_loop_case("2 mm NN scene through B3, 64 poses", nn_ref.scene, nn_cloud[:64],
+                 nn_valid[:64])
+    nn_loop_case("2 mm NN scene through K1, 64 poses", kd2, nn_cloud[:64], nn_valid[:64])
     for label, s_nn in (("2 mm NN scene", nn_ref.scene), ("raw NN scene", raw_nn)):
         indexed_case(label, s_nn.table, s_nn.max_dist_diff, nn_cloud, nn_valid,
                      s_nn._nearest(nn_cloud))
@@ -1569,6 +1837,8 @@ def main():
     raw_kd = dataclasses.replace(raw_nn, backend="kdtree")
     indexed_case("raw NN scene, kd traversal", raw_kd.table, raw_kd.max_dist_diff, nn_cloud,
                  nn_valid, raw_kd._nearest(nn_cloud))
+    step_case("raw NN scene (K1), one iteration", raw_kd, nn_cloud, nn_valid,
+              raw_kd._nearest(nn_cloud))
     for m_label, modes in (("huber 5mm", (0.005, False)), ("point to point", (0.0, True)),
                            ("point to point huber 5mm", (0.005, True))):
         projective_case(f"slice shape, {m_label}", sc, slice_cloud, slice_valid, modes=modes)
@@ -1633,10 +1903,12 @@ def main():
               f"n_rejected={session.n_rejected} final_translation_err_mm={t_err} "
               f"final_rotation_err_deg={r_err} (icosphere: rotation unobservable) "
               f"launches={c} syncs_in_one_step_async={sum(syncs.values())} {dict(syncs)}")
-        # a frame: 30 iterations and the scoring pass through the fused
-        # kernel, the information pass through the row gather
-        check(c["rasterize"] > 0 and c["gather_rows"] == N_TRACK
-              and c["assoc_reduce"] == 31 * N_TRACK
+        # a frame: the ICP loop through the iteration kernel (one launch
+        # against the projective scene, one a pass - 30 iterations and the
+        # scoring pass - against the NN scene), the information pass
+        # through the row gather
+        check(c["rasterize"] > 0 and c["gather_rows"] == N_TRACK and c["assoc_reduce"] == 0
+              and c["icp_iterate"] == (1 if label == "projective" else 31) * N_TRACK
               and (label == "projective" or c["nn_flash_gated"] > 0),
               f"track {label}: launches {c}")
         check(np.isfinite(last.pose).all() and t_err < 20.0,
@@ -1653,8 +1925,14 @@ def main():
         if label == "projective":
             track_scene = SceneProjective.from_depth(torch.as_tensor(frames[0], device=dev),
                                                      ref._K_t, ref.max_dist_diff, device=dev)
-            projective_case("tracking shape", track_scene, *first_pass_clouds(
-                ptt, refine_poses, ref, track_scene, torch.as_tensor(hyps0, device=dev)))
+            track_cloud, track_valid = first_pass_clouds(
+                ptt, refine_poses, ref, track_scene, torch.as_tensor(hyps0, device=dev))
+            projective_case("tracking shape", track_scene, track_cloud, track_valid)
+            # the session's criteria: 30 iterations and the scoring pass
+            loop_case("tracking shape, whole loop", track_scene.iterate,
+                      functools.partial(track_scene.query, plain=True), track_cloud,
+                      track_valid, ptt.ICPConvergenceCriteria(),
+                      rows_named(track_scene, track_cloud))
             continue
         # B3 at the tracking shape: the first frame's first-pass queries
         # against the scene the tracker builds from that frame on the card
@@ -1714,7 +1992,8 @@ def main():
         ms_refined, ms_res = ref.refine(ms_hyps_t, crit, scene_ids=ms_ids_t)
         torch.cuda.synchronize()
         c = ms_launches[label] = counts()
-        check(c["rasterize"] > 0 and c["assoc_reduce"] == ITERS + 1
+        check(c["rasterize"] > 0 and c["assoc_reduce"] == 0
+              and c["icp_iterate"] == (1 if label == "multiscene" else ITERS + 1)
               and (label == "multiscene" or c["nn_flash_gated_stacked"] > 0),
               f"{label}: launches {c}")
         ms_np = ms_refined.cpu().numpy()
@@ -1745,6 +2024,10 @@ def main():
         else:
             projective_case("stacked projective table, 4 frames", stack, ms_cloud, ms_valid,
                             base=stack._base(ms_ids_t))
+            loop_case("stacked projective table, 4 frames, whole loop",
+                      stack.iterate_at(ms_ids_t), stack.query_at(ms_ids_t, plain=True), ms_cloud,
+                      ms_valid, crit, rows_named(stack, ms_cloud, stack._base(ms_ids_t)),
+                      pose_bytes=8)
         # the same refine through the plain versions (raster, NN, gather,
         # fused pass)
         t0 = time.perf_counter()
@@ -1779,7 +2062,8 @@ def main():
     mm_refined, mm_res = mm_ref.refine(mm_ids, poses, criteria=crit)
     torch.cuda.synchronize()
     mm_launches = counts()
-    check(mm_launches["rasterize"] > 0 and mm_launches["assoc_reduce"] == ITERS + 1,
+    check(mm_launches["rasterize"] > 0 and mm_launches["icp_iterate"] == 1
+          and mm_launches["assoc_reduce"] == 0,
           f"multimodel: launches {mm_launches}")
     mm_np = mm_refined.cpu().numpy()
     mm_fit = mm_res.fitness.cpu().numpy()
@@ -1891,7 +2175,7 @@ def main():
           f"{[max(lost_mm(d)) for d in diffuse]} frames won by a hypothesis on the other "
           f"object per seed={[strayed(d) for d in diffuse]}")
     check(mt_launches["rasterize"] > 0 and mt_launches["gather_rows"] == MT_FRAMES
-          and mt_launches["assoc_reduce"] == 31 * MT_FRAMES,
+          and mt_launches["icp_iterate"] == MT_FRAMES and mt_launches["assoc_reduce"] == 0,
           f"multi-track: launches {mt_launches}")
     stepped_ok = all(s.accepted for steps in stepped[0][1] for s in steps)
     check(all(map(all, accepted)) and stepped_ok and max(t_errs) < 6.0 and max(s_errs) < 6.0
@@ -1915,6 +2199,25 @@ def main():
 
     # 15. the fused association + reduction pass against its plain version
     reduce_stats = assoc_reduce_phase(torch, IR, reduce_cases)
+
+    # 15b. the ICP iteration kernel against its plain version; its sinf /
+    # cosf against torch's at the solve's angles of the slice's first pass
+    t0 = time.perf_counter()
+    st0, v0, _nt = icp._icp_start(slice_cloud, slice_valid)
+    AtA0, Atb0, _c, _m = IR.unpack_sums(IR.assoc_reduce_plain(st0.cloud, v0, sc_plain))
+    angles = IR.solve_damped_plain(AtA0, Atb0)[:, :3].reshape(-1)
+    wide = torch.linspace(-40.0, 40.0, 1 << 20, device=dev)
+    trig_same = []
+    for xs in (angles.contiguous(), wide):
+        s_k, c_k = IR.sin_cos_cuda(xs)
+        trig_same.append(torch.equal(s_k, torch.sin(xs)) and torch.equal(c_k, torch.cos(xs)))
+    phase("icp-iterate", f"the tail's sinf / cosf against torch.sin / torch.cos on the card: "
+          f"{angles.numel()} solve angles of the slice's first pass (|x| <= "
+          f"{float(angles.abs().max())}) equal={trig_same[0]}; {wide.numel()} angles in "
+          f"[-40, 40] equal={trig_same[1]}")
+    check(all(trig_same), "icp-iterate: the kernel's sinf / cosf differ from torch's")
+    iterate_stats = icp_iterate_phase(torch, IR, icp, iterate_cases)
+    phase("icp-iterate", f"phase seconds={time.perf_counter() - t0}")
 
     # 16. P1 on its probe: scripts/probe_mxu_nn.py's workload at full size
     reset_counts()
@@ -1978,22 +2281,48 @@ def main():
         "route": "cuda",
         "source": "pose_refine_tpu_torch/csrc/icp_reduce.cu",
         # the port's own kernel: the row gather fused with the packed
-        # reduction of pose_refine_tpu/icp.py:215
+        # reduction of pose_refine_tpu/icp.py:215. Since the iteration
+        # kernel (icp_iterate, below) carries the pass, the main paths
+        # launch it no more (0 a refine); scene.reduce and the loop of an
+        # Association without iterate do ([slice]'s report_old_loop run)
         "replaces": "scripts/probe_pallas_gather.py:29",
         "launches": slice_counts["assoc_reduce"],
+        "launches_old_loop": old_loop_counts["assoc_reduce"],
         **reduce_stats["slice shape"],
         "launches_track": track_counts["projective"]["assoc_reduce"],
         "track_ms": reduce_stats["tracking shape"]["ms"],
         "track_alone_ms": reduce_stats["tracking shape"]["alone_ms"],
         "track_bound_ms": reduce_stats["tracking shape"]["bound_ms"],
-        "launches_nn": nn_launches["assoc_reduce"],
-        "launches_stacked": ms_launches["multiscene"]["assoc_reduce"],
-        "launches_multimodel": mm_launches["assoc_reduce"],
-        "launches_kd": kd_slice["2mm"]["launches"]["assoc_reduce"],
         # the Huber and point-to-point modes at the slice shape and on the
         # 2 mm NN scene: with the wrapper, alone, bound
         "modes": {label: {k: st[k] for k in ("ms", "alone_ms", "bound_ms")}
                   for label, st in reduce_stats.items() if "huber" in label or "point" in label},
+    }, {
+        "name": "icp_iterate",
+        "route": "cuda",
+        "source": "pose_refine_tpu_torch/csrc/icp_reduce.cu",
+        # the port's own kernel: a whole ICP iteration - the fused pass of
+        # assoc_reduce, then the solve, twist, move and latch of JAX
+        # pose_refine_tpu/icp.py:398-428 (XLA code) - a refine's whole loop
+        # in one launch against a projective scene
+        "replaces": "pose_refine_tpu/icp.py:398",
+        "carries": "assoc_reduce (its body, unchanged)",
+        "launches": slice_counts["icp_iterate"],
+        "max_abs_err": max(st["max_abs_err"] for st in iterate_stats.values()),
+        **{k: iterate_stats["slice shape, whole loop"][k]
+           for k in ("ms", "alone_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                     "share_of_bound", "pose_iterations")},
+        "launches_track": track_counts["projective"]["icp_iterate"],
+        "launches_track_nn": track_counts["nn"]["icp_iterate"],
+        "launches_nn": nn_launches["icp_iterate"],
+        "launches_stacked": ms_launches["multiscene"]["icp_iterate"],
+        "launches_multimodel": mm_launches["icp_iterate"],
+        "launches_kd": kd_slice["2mm"]["launches"]["icp_iterate"],
+        # every timed case: alone, with the wrapper, the bound
+        "cases": {label: {k: st[k] for k in ("alone_ms", "ms", "first_ms", "score_only_alone_ms",
+                                             "pass_alone_ms", "bound_ms", "bound_by",
+                                             "share_of_bound") if k in st}
+                  for label, st in iterate_stats.items() if "alone_ms" in st},
     }, {
         "name": "nn_kdtree",
         "route": "cuda",

@@ -61,6 +61,27 @@
 // A masked point contributes its terms multiplied by 0, as the plain version
 // does, so a non-finite coordinate of a masked point poisons the sums in
 // both; the ICP anchors padded rows to a real point for that reason.
+//
+// The same body carries a whole ICP iteration (icp_iterate_kernel, JAX
+// icp.py:398-428): after the pose's sums are merged, one thread of its
+// rank-0 CTA runs the tail - the scores, the done latch, the damped 6x6
+// Cholesky solve with one refinement step, the twist Rz Ry Rx with sinf /
+// cosf, T <- upd @ T - and publishes the update in shared memory; every CTA
+// of the pose reads it (a cluster through distributed shared memory) and
+// moves its own slab. Every operation is one _rn intrinsic, in the order of
+// ops/icp_reduce.py::icp_iterate_plain, so kernel and plain version agree
+// bit for bit in T, fitness, rmse, done and the cloud. Against a projective
+// scene the table, K and the gate do not change between iterations, so one
+// launch runs a refine's whole loop: a pose's CTAs loop until it is done,
+// its slab kept in shared memory (2,048 points are 24 KB), its state read
+// and written once; no grid-wide sync is needed, poses are independent.
+// Against an NN scene the NN kernel must run on the moved cloud between
+// iterations, so a launch is one iteration and the state stays in device
+// memory from launch to launch. What bounds it: the pass's bytes and
+// latency as above, plus ~400 dependent float operations of the tail a
+// pose and iteration, a microsecond or two of one thread; it replaces ~75
+// small PyTorch launches of the solve and update a pass, which the host,
+// not the card, paid for.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -76,6 +97,9 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kSums = 29;     // 21 AtA + 6 Atb + mse + count
 constexpr int kBatch = 4;     // points a thread loads before it accumulates
 constexpr int kMaxSlabs = 8;  // the portable cluster size
+// the largest slab (bytes of its points) the iteration kernel keeps in
+// shared memory (the H100 gives a CTA up to 227 KB)
+constexpr long long kSmemCloudMax = 200 * 1024;
 
 struct Args {
   const float* cloud;          // (N, P, 3)
@@ -132,17 +156,29 @@ __device__ __forceinline__ float huber(float r, float delta) {
   return __fsqrt_rn(nan_min(__fdiv_rn(delta, nan_max(fabsf(r), 1e-12f)), 1.f));
 }
 
-template <bool kProj, bool kP2P, typename Idx>
-__global__ void __launch_bounds__(kThreads) assoc_reduce_kernel(const Args a) {
-  __shared__ float warp_sums[kWarps][kSums];
-  __shared__ float cta_sums[32];
+// a point coordinate: read-only through the texture path for the pass
+// kernel; a plain load for the iteration kernel, which moves the cloud in
+// place (shared or device memory)
+template <bool kLdg>
+__device__ __forceinline__ float load_coord(const float* p) {
+  if constexpr (kLdg) {
+    return __ldg(p);
+  } else {
+    return *p;
+  }
+}
 
+// The CTA's 29 sums over points [begin, end) of pose `pose` (the pass's
+// body): thread t < kSums returns sum t, merged over the CTA's warps in
+// warp order. Point p's coordinates are read at cl + 3 * (p - cl_first):
+// the pose's cloud in device memory (cl_first = 0) or its slab in shared
+// memory (cl_first = begin). Thread t takes points begin + t, begin + t +
+// kThreads, ... in rising order.
+template <bool kProj, bool kP2P, typename Idx, bool kLdg>
+__device__ __forceinline__ float slab_sums(const Args& a, const float* cl, int cl_first,
+                                           long long pose, int begin, int end,
+                                           float (*warp_sums)[kSums]) {
   const int tid = threadIdx.x;
-  const int slab = blockIdx.x % a.slabs;
-  const long long pose = blockIdx.x / a.slabs;
-  const int per_slab = (a.points + a.slabs - 1) / a.slabs;
-  const int begin = slab * per_slab;
-  const int end = min(begin + per_slab, a.points);
   const long long first = pose * a.points;
 
   float fx = 0.f, cx = 0.f, fy = 0.f, cy = 0.f, gate = 0.f;
@@ -171,9 +207,10 @@ __global__ void __launch_bounds__(kThreads) assoc_reduce_kernel(const Args a) {
       ok[j] = false;
       if (p < end) {
         const long long i = first + p;
-        px[j] = __ldg(a.cloud + 3 * i);
-        py[j] = __ldg(a.cloud + 3 * i + 1);
-        pz[j] = __ldg(a.cloud + 3 * i + 2);
+        const float* c = cl + 3 * (p - cl_first);
+        px[j] = load_coord<kLdg>(c);
+        py[j] = load_coord<kLdg>(c + 1);
+        pz[j] = load_coord<kLdg>(c + 2);
         ok[j] = __ldg(a.valid + i) != 0;
         long long row;
         if (kProj) {
@@ -287,6 +324,23 @@ __global__ void __launch_bounds__(kThreads) assoc_reduce_kernel(const Args a) {
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) total += warp_sums[w][tid];
   }
+  return total;
+}
+
+// One ICP pass: out (N, 29), the sums of every pose
+template <bool kProj, bool kP2P, typename Idx>
+__global__ void __launch_bounds__(kThreads) assoc_reduce_kernel(const Args a) {
+  __shared__ float warp_sums[kWarps][kSums];
+  __shared__ float cta_sums[32];
+
+  const int tid = threadIdx.x;
+  const int slab = blockIdx.x % a.slabs;
+  const long long pose = blockIdx.x / a.slabs;
+  const int per_slab = (a.points + a.slabs - 1) / a.slabs;
+  const int begin = slab * per_slab;
+  const int end = min(begin + per_slab, a.points);
+  float total = slab_sums<kProj, kP2P, Idx, true>(a, a.cloud + 3 * pose * a.points, 0, pose,
+                                                  begin, end, warp_sums);
   if (a.slabs == 1) {
     if (tid < kSums) a.out[pose * kSums + tid] = total;
     return;
@@ -303,6 +357,265 @@ __global__ void __launch_bounds__(kThreads) assoc_reduce_kernel(const Args a) {
     a.out[pose * kSums + tid] = total;
   }
   cluster.sync();  // no CTA leaves while rank 0 may still read its sums
+}
+
+// ---------------------------------------------------------------------------
+// A whole ICP iteration (JAX icp.py:398-428, the port's icp.py loop body):
+// the pass's sums, then the pose's tail in one thread of its rank-0 CTA.
+
+struct Iter {
+  float* cloud;           // (N, P, 3), moved in place
+  float* T;               // (N, 4, 4), rows 0-2 updated
+  float* fitness;         // (N,)
+  float* rmse;            // (N,)
+  unsigned char* done;    // (N,) bool
+  const float* n_total;   // (N,) the fitness divisor
+  int it0, it_end;        // the iterations this launch runs
+  int max_iter;           // the last (scoring-only) iteration
+  float rf, rr;           // the convergence thresholds, float32
+  int smem_cloud;         // 1: the slab lives in shared memory across iterations
+};
+
+// sum k of the 21 packed AtA sums: entry (i, j), i <= j, of the upper
+// triangle, row-major
+__device__ __forceinline__ constexpr int upper(int i, int j) {
+  return i * 6 - i * (i - 1) / 2 + (j - i);
+}
+
+// x of L L^T x = b: forward, then back substitution, each sum in rising k
+// (ops/icp_reduce.py::_cho_solve_plain)
+__device__ __forceinline__ void cho_solve(const float (&L)[6][6], const float (&b)[6],
+                                          float (&x)[6]) {
+  float y[6];
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    float v = b[i];
+#pragma unroll
+    for (int k = 0; k < i; ++k) v = __fsub_rn(v, __fmul_rn(L[i][k], y[k]));
+    y[i] = __fdiv_rn(v, L[i][i]);
+  }
+#pragma unroll
+  for (int i = 5; i >= 0; --i) {
+    float v = y[i];
+#pragma unroll
+    for (int k = i + 1; k < 6; ++k) v = __fsub_rn(v, __fmul_rn(L[k][i], x[k]));
+    x[i] = __fdiv_rn(v, L[i][i]);
+  }
+}
+
+// (AtA + 0.01 I) x = Atb from the 29 sums: the Cholesky factor column by
+// column, a solve, the residual r = Atb - M x in float32 and one refinement
+// step (ops/icp_reduce.py::solve_damped_plain; JAX icp.py:87-99)
+__device__ __forceinline__ void solve_damped(const float* s, float (&x)[6]) {
+  float m[6][6], L[6][6], b[6], r[6], dx[6];
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    b[i] = s[21 + i];
+#pragma unroll
+    for (int j = 0; j < 6; ++j) m[i][j] = s[i <= j ? upper(i, j) : upper(j, i)];
+    m[i][i] = __fadd_rn(m[i][i], 0.01f);
+  }
+#pragma unroll
+  for (int j = 0; j < 6; ++j) {
+    float d = m[j][j];
+#pragma unroll
+    for (int k = 0; k < j; ++k) d = __fsub_rn(d, __fmul_rn(L[j][k], L[j][k]));
+    L[j][j] = __fsqrt_rn(d);
+#pragma unroll
+    for (int i = j + 1; i < 6; ++i) {
+      float v = m[i][j];
+#pragma unroll
+      for (int k = 0; k < j; ++k) v = __fsub_rn(v, __fmul_rn(L[i][k], L[j][k]));
+      L[i][j] = __fdiv_rn(v, L[j][j]);
+    }
+  }
+  cho_solve(L, b, x);
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    float mx = __fmul_rn(m[i][0], x[0]);
+#pragma unroll
+    for (int j = 1; j < 6; ++j) mx = __fadd_rn(mx, __fmul_rn(m[i][j], x[j]));
+    r[i] = __fsub_rn(b[i], mx);
+  }
+  cho_solve(L, r, dx);
+#pragma unroll
+  for (int i = 0; i < 6; ++i) x[i] = __fadd_rn(x[i], dx[i]);
+}
+
+// the libm sine and cosine (sinf / cosf, not the __sinf approximations):
+// torch.sin / torch.cos compute the same on the card
+__device__ __forceinline__ void sin_cos(float v, float& s, float& c) {
+  s = sinf(v);
+  c = cosf(v);
+}
+
+// The tail of one iteration of one pose, one thread: `s` the pose's 29
+// sums, `ps` its state [T (16), fitness, rmse, done], `step` the result the
+// pose's CTAs read: the update's rows [R | t] (12) and 1 where the cloud
+// moves, else 0. The pose is not done on entry. Scores and latch as
+// ops/icp_reduce.py::icp_iterate_plain, then, while not done, the damped
+// solve, the twist Rz Ry Rx (geometry.euler_to_rotation's formulas in their
+// order) and T <- upd @ T, each entry summed over k in order.
+__device__ __noinline__ void iteration_tail(const float* s, float* ps, float* step,
+                                            float n_total, int it, int max_iter, float rf,
+                                            float rr) {
+  const float count = s[28], mse = s[27];
+  const float fit = ps[16], rmse = ps[17];
+  const bool empty = count == 0.f;
+  const float new_fit = empty ? fit : __fdiv_rn(count, fmaxf(n_total, 1.f));
+  const float new_rmse = empty ? rmse : __fsqrt_rn(__fdiv_rn(mse, fmaxf(count, 1.f)));
+  const bool converged =
+      fabsf(__fsub_rn(new_fit, fit)) < rf && fabsf(__fsub_rn(new_rmse, rmse)) < rr;
+  const bool done = empty || converged || it == max_iter;
+  ps[16] = new_fit;
+  ps[17] = new_rmse;
+  ps[18] = done ? 1.f : 0.f;
+  step[12] = done ? 0.f : 1.f;
+  if (done) return;
+  float x[6];
+  solve_damped(s, x);
+  float cx, sx, cy, sy, cz, sz;
+  sin_cos(x[0], sx, cx);
+  sin_cos(x[1], sy, cy);
+  sin_cos(x[2], sz, cz);
+  float u[12];
+  u[0] = __fmul_rn(cz, cy);
+  u[1] = __fsub_rn(__fmul_rn(__fmul_rn(cz, sy), sx), __fmul_rn(sz, cx));
+  u[2] = __fadd_rn(__fmul_rn(__fmul_rn(cz, sy), cx), __fmul_rn(sz, sx));
+  u[3] = x[3];
+  u[4] = __fmul_rn(sz, cy);
+  u[5] = __fadd_rn(__fmul_rn(__fmul_rn(sz, sy), sx), __fmul_rn(cz, cx));
+  u[6] = __fsub_rn(__fmul_rn(__fmul_rn(sz, sy), cx), __fmul_rn(cz, sx));
+  u[7] = x[4];
+  u[8] = -sy;
+  u[9] = __fmul_rn(cy, sx);
+  u[10] = __fmul_rn(cy, cx);
+  u[11] = x[5];
+  float t[12];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float v = __fadd_rn(__fmul_rn(u[4 * i], ps[j]), __fmul_rn(u[4 * i + 1], ps[4 + j]));
+      v = __fadd_rn(v, __fmul_rn(u[4 * i + 2], ps[8 + j]));
+      t[4 * i + j] = __fadd_rn(v, __fmul_rn(u[4 * i + 3], ps[12 + j]));
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 12; ++k) {
+    ps[k] = t[k];
+    step[k] = u[k];
+  }
+}
+
+// Iterations it0 .. it_end - 1 of every pose that is not done, one pose a
+// CTA or a cluster of `slabs` CTAs. Each iteration: the pass's sums (the
+// same body, order and bits as assoc_reduce_kernel), merged by rank 0; its
+// thread 0 runs the tail and publishes `step` in its shared memory; every
+// CTA reads it (through distributed shared memory in a cluster) and moves
+// its own slab, each thread the points it sums, so no barrier guards the
+// cloud. A pose that is done leaves the loop, every CTA of it at the same
+// iteration. The state is read once and written once a launch.
+template <bool kProj, bool kP2P, typename Idx>
+__global__ void __launch_bounds__(kThreads) icp_iterate_kernel(const Args a, const Iter g) {
+  extern __shared__ float slab_cloud[];  // the slab's points, when g.smem_cloud
+  __shared__ float warp_sums[kWarps][kSums];
+  __shared__ float cta_sums[32];
+  __shared__ float pose_state[19];  // rank 0: T (16), fitness, rmse, done
+  __shared__ float step[13];        // rank 0: the update's rows (12), move
+
+  const int tid = threadIdx.x;
+  const int slab = blockIdx.x % a.slabs;
+  const long long pose = blockIdx.x / a.slabs;
+  if (g.done[pose]) return;  // every CTA of the pose reads the same flag
+  const int per_slab = (a.points + a.slabs - 1) / a.slabs;
+  const int begin = slab * per_slab;
+  const int end = min(begin + per_slab, a.points);
+  float* pose_cloud = g.cloud + 3 * pose * a.points;
+  float* cl = pose_cloud;
+  int cl_first = 0;
+  if (g.smem_cloud) {
+    for (int p = begin + tid; p < end; p += kThreads) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) slab_cloud[3 * (p - begin) + c] = pose_cloud[3 * p + c];
+    }
+    cl = slab_cloud;
+    cl_first = begin;
+  }
+  const bool lead = slab == 0;  // the cluster's rank 0 (rank = blockIdx.x % slabs)
+  if (lead && tid < 19) {
+    pose_state[tid] = tid < 16 ? g.T[16 * pose + tid]
+                    : tid == 16 ? g.fitness[pose] : tid == 17 ? g.rmse[pose] : 0.f;
+  }
+  for (int it = g.it0; it < g.it_end; ++it) {
+    float total = slab_sums<kProj, kP2P, Idx, false>(a, cl, cl_first, pose, begin, end,
+                                                     warp_sums);
+    if (a.slabs > 1) {
+      cg::cluster_group cluster = cg::this_cluster();
+      if (tid < kSums) cta_sums[tid] = total;
+      cluster.sync();
+      if (lead && tid < kSums) {
+        for (unsigned r = 1; r < cluster.num_blocks(); ++r) {
+          total += cluster.map_shared_rank(cta_sums, r)[tid];
+        }
+      }
+    }
+    if (lead) {
+      if (tid < kSums) cta_sums[tid] = total;
+      __syncthreads();
+      if (tid == 0) {
+        iteration_tail(cta_sums, pose_state, step, g.n_total[pose], it, g.max_iter, g.rf, g.rr);
+      }
+    }
+    const float* st = step;
+    if (a.slabs > 1) {
+      cg::cluster_group cluster = cg::this_cluster();
+      cluster.sync();
+      st = cluster.map_shared_rank(step, 0);
+    } else {
+      __syncthreads();
+    }
+    if (st[12] == 0.f) break;  // done: the pose moves no more
+    float u[12];
+#pragma unroll
+    for (int k = 0; k < 12; ++k) u[k] = st[k];
+    for (int p = begin + tid; p < end; p += kThreads) {
+      float* c = cl + 3 * (p - cl_first);
+      const float x = c[0], y = c[1], z = c[2];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        c[i] = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(u[4 * i], x), __fmul_rn(u[4 * i + 1], y)),
+                                   __fmul_rn(u[4 * i + 2], z)),
+                         u[4 * i + 3]);
+      }
+    }
+  }
+  // rank 0's step stays readable until every rank has read it
+  if (a.slabs > 1) cg::this_cluster().sync();
+  if (g.smem_cloud) {
+    for (int p = begin + tid; p < end; p += kThreads) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) pose_cloud[3 * p + c] = slab_cloud[3 * (p - begin) + c];
+    }
+  }
+  if (lead && tid < 19) {
+    if (tid < 16) {
+      g.T[16 * pose + tid] = pose_state[tid];
+    } else if (tid == 16) {
+      g.fitness[pose] = pose_state[16];
+    } else if (tid == 17) {
+      g.rmse[pose] = pose_state[17];
+    } else {
+      g.done[pose] = pose_state[18] != 0.f;
+    }
+  }
+}
+
+// sinf / cosf of n values: the tail's trigonometry, for a check against
+// torch.sin / torch.cos (chip_smoke.py [icp-iterate])
+__global__ void sin_cos_kernel(const float* x, int n, float* s, float* c) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) sin_cos(x[i], s[i], c[i]);
 }
 
 template <bool kProj, bool kP2P, typename Idx>
@@ -326,6 +639,72 @@ int launch_mode(const Args& a, int n_poses, bool p2p, cudaStream_t s) {
   return p2p ? launch<kProj, true, Idx>(a, n_poses, s) : launch<kProj, false, Idx>(a, n_poses, s);
 }
 
+template <bool kProj, bool kP2P, typename Idx>
+int launch_iterate(const Args& a, const Iter& g, int n_poses, int smem_bytes, cudaStream_t s) {
+  auto kernel = icp_iterate_kernel<kProj, kP2P, Idx>;
+  if (smem_bytes > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((long long)n_poses * a.slabs));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = (size_t)smem_bytes;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)a.slabs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, kernel, a, g);
+}
+
+template <bool kProj, typename Idx>
+int launch_iterate_mode(const Args& a, const Iter& g, int n_poses, int smem_bytes, bool p2p,
+                        cudaStream_t s) {
+  return p2p ? launch_iterate<kProj, true, Idx>(a, g, n_poses, smem_bytes, s)
+             : launch_iterate<kProj, false, Idx>(a, g, n_poses, smem_bytes, s);
+}
+
+// The arguments both entry points share, checked: 0 or a cudaError_t
+int fill_args(Args& a, const float* cloud, const void* valid, int n_poses, int points,
+              const float* table, long long rows, int slabs, const float* K, const float* gate,
+              const long long* base, int height, int width, const void* idx, int idx_bytes,
+              const float* dist_sq, float gate_sq, float robust_delta) {
+  if (points <= 0 || rows <= 0 || slabs < 1 || slabs > kMaxSlabs || (slabs & (slabs - 1)) ||
+      (long long)n_poses * slabs >= (1LL << 31)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  a.cloud = cloud;
+  a.valid = static_cast<const unsigned char*>(valid);
+  a.table = reinterpret_cast<const float4*>(table);
+  a.rows = rows;
+  a.points = points;
+  a.slabs = slabs;
+  a.delta = robust_delta;
+  if (idx == nullptr) {
+    if (K == nullptr || gate == nullptr || height <= 0 || width <= 0) {
+      return (int)cudaErrorInvalidValue;
+    }
+    a.K = K;
+    a.gate = gate;
+    a.base = base;
+    a.height = height;
+    a.width = width;
+    return 0;
+  }
+  if (dist_sq == nullptr || (idx_bytes != 4 && idx_bytes != 8)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  a.idx = idx;
+  a.dist_sq = dist_sq;
+  a.gate_sq = gate_sq;
+  return 0;
+}
+
 }  // namespace
 
 // out (n_poses, 29) on `stream`. cloud (n_poses, points, 3) float32 and valid
@@ -343,38 +722,71 @@ extern "C" int prt_assoc_reduce(const float* cloud, const void* valid, int n_pos
                                 float gate_sq, float robust_delta, int point_to_point,
                                 float* out, void* stream) {
   if (n_poses <= 0) return 0;
-  if (points <= 0 || rows <= 0 || slabs < 1 || slabs > kMaxSlabs || (slabs & (slabs - 1)) ||
-      (long long)n_poses * slabs >= (1LL << 31)) {
-    return (int)cudaErrorInvalidValue;
-  }
   Args a = {};
-  a.cloud = cloud;
-  a.valid = static_cast<const unsigned char*>(valid);
-  a.table = reinterpret_cast<const float4*>(table);
-  a.rows = rows;
-  a.points = points;
-  a.slabs = slabs;
+  const int bad = fill_args(a, cloud, valid, n_poses, points, table, rows, slabs, K, gate, base,
+                            height, width, idx, idx_bytes, dist_sq, gate_sq, robust_delta);
+  if (bad != 0) return bad;
   a.out = out;
-  a.delta = robust_delta;
   const bool p2p = point_to_point != 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (idx == nullptr) {
-    if (K == nullptr || gate == nullptr || height <= 0 || width <= 0) {
-      return (int)cudaErrorInvalidValue;
-    }
-    a.K = K;
-    a.gate = gate;
-    a.base = base;
-    a.height = height;
-    a.width = width;
-    return launch_mode<true, int>(a, n_poses, p2p, s);
-  }
-  if (dist_sq == nullptr || (idx_bytes != 4 && idx_bytes != 8)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  a.idx = idx;
-  a.dist_sq = dist_sq;
-  a.gate_sq = gate_sq;
+  if (idx == nullptr) return launch_mode<true, int>(a, n_poses, p2p, s);
   return idx_bytes == 4 ? launch_mode<false, int>(a, n_poses, p2p, s)
                         : launch_mode<false, long long>(a, n_poses, p2p, s);
+}
+
+// Iterations it0 .. it_end - 1 (of 0 .. max_iter, the last scoring only) of
+// the ICP of every pose, on `stream`, with the front end and the terms of
+// prt_assoc_reduce (same arguments, same checks), updating in place: cloud
+// (n_poses, points, 3) float32, T (n_poses, 4, 4) float32, fitness and rmse
+// (n_poses,) float32, done (n_poses,) bool; n_total (n_poses,) float32 the
+// fitness divisors; rf, rr the convergence thresholds. A pose's slab stays
+// in shared memory across the iterations when the launch runs more than one
+// and it fits in kSmemCloudMax bytes. Returns the cudaError_t of the launch.
+extern "C" int prt_icp_iterate(float* cloud, const void* valid, int n_poses, int points,
+                               const float* table, long long rows, int slabs, const float* K,
+                               const float* gate, const long long* base, int height, int width,
+                               const void* idx, int idx_bytes, const float* dist_sq,
+                               float gate_sq, float robust_delta, int point_to_point, float* T,
+                               float* fitness, float* rmse, void* done, const float* n_total,
+                               int it0, int it_end, int max_iter, float rf, float rr,
+                               void* stream) {
+  if (n_poses <= 0 || it_end <= it0) return 0;
+  Args a = {};
+  const int bad = fill_args(a, cloud, valid, n_poses, points, table, rows, slabs, K, gate, base,
+                            height, width, idx, idx_bytes, dist_sq, gate_sq, robust_delta);
+  if (bad != 0) return bad;
+  if (T == nullptr || fitness == nullptr || rmse == nullptr || done == nullptr ||
+      n_total == nullptr || it0 < 0 || it_end > max_iter + 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  Iter g = {};
+  g.cloud = cloud;
+  g.T = T;
+  g.fitness = fitness;
+  g.rmse = rmse;
+  g.done = static_cast<unsigned char*>(done);
+  g.n_total = n_total;
+  g.it0 = it0;
+  g.it_end = it_end;
+  g.max_iter = max_iter;
+  g.rf = rf;
+  g.rr = rr;
+  const long long slab_bytes = 12LL * ((points + slabs - 1) / slabs);
+  g.smem_cloud = it_end - it0 > 1 && slab_bytes <= kSmemCloudMax;
+  const int smem_bytes = g.smem_cloud ? (int)slab_bytes : 0;
+  const bool p2p = point_to_point != 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (idx == nullptr) return launch_iterate_mode<true, int>(a, g, n_poses, smem_bytes, p2p, s);
+  return idx_bytes == 4
+             ? launch_iterate_mode<false, int>(a, g, n_poses, smem_bytes, p2p, s)
+             : launch_iterate_mode<false, long long>(a, g, n_poses, smem_bytes, p2p, s);
+}
+
+// s, c (n,) = sinf, cosf of x (n,) float32 on `stream`: the tail's
+// trigonometry alone. Returns the cudaError_t of the launch.
+extern "C" int prt_sin_cos(const float* x, int n, float* s, float* c, void* stream) {
+  if (n <= 0) return 0;
+  sin_cos_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(x, n, s, c);
+  return (int)cudaGetLastError();
 }

@@ -21,10 +21,13 @@ package: the reductions, the solve residual and the pose composition.
 One association + reduction pass has two formulations, as in the JAX
 package: "matmul" (batched matrix products) and "packed" (the reference's
 29-float vector a point, icp.h:125-209, summed in the order of the fused
-kernel). Given a scene's ``Association``, a pass on CUDA tensors is one
-launch of the fused kernel of ``ops/icp_reduce.py``, which serves both
-options: it computes the packed sums, whatever ``reduction`` says. The
-association and the count are the same in all of them. "packed" on any
+kernel). Given a scene's ``Association`` with an ``iterate`` (what
+pipeline.refine_poses builds for a scene on a card), the whole loop on
+CUDA tensors is the iteration kernel of ``ops/icp_reduce.py`` - the packed
+pass, the damped solve, the twist, the move and the latch, whatever
+``reduction`` says; without one, a pass is one launch of its fused pass and
+the solve and update run here in PyTorch. The association and the count
+are the same in all of them. "packed" on any
 device and the kernel give the same float sums bit for bit; "matmul" differs
 from them in the last bits, and an ICP turns last bits into whole iterations
 at the hypotheses that do not converge (an association pixel that flips, the
@@ -47,8 +50,10 @@ import torch
 
 from pose_refine_tpu_torch import geometry
 from pose_refine_tpu_torch.ops.icp_reduce import (
+    ICPState,
     assoc_reduce_plain,
     huber_weight,
+    icp_loop_plain,
     packed_sums_plain,
     unpack_sums,
 )
@@ -95,21 +100,38 @@ class Association(NamedTuple):
     -> (dst, normal, valid). ``reduce``: (clouds (N, P, 3), valid (N, P),
     robust_delta=0.0, point_to_point=False) -> (AtA, Atb, count, mse_sum),
     the query and the reduction in one step (``scene.reduce`` /
-    ``scene.reduce_at(ids)``: one kernel launch). The ICP loop takes
-    ``reduce`` for CUDA tensors, and ``query`` plus a plain formulation for
-    CPU tensors."""
+    ``scene.reduce_at(ids)``: one kernel launch). ``iterate`` (optional):
+    (ICPState, valid, n_total, criteria, robust_delta=0.0,
+    point_to_point=False) -> ICPState, the whole loop (``scene.iterate`` /
+    ``scene.iterate_at(ids)``: the iteration kernel of ops/icp_reduce.py,
+    one launch a refine against a projective scene, an NN launch and an
+    iteration launch a pass against an NN scene; or plain_association's
+    plain iteration).
+
+    The ICP loop runs ``iterate`` when the Association has one; without it,
+    ``reduce`` a pass for CUDA tensors (the loop with the solve and update
+    in PyTorch) and ``query`` plus a plain formulation for CPU tensors.
+    pipeline.refine_poses hands a scene's ``iterate`` over for a scene on
+    the card only, so on the CPU a scene's refine keeps that formulation."""
 
     query: Callable
     reduce: Callable
+    iterate: Optional[Callable] = None
 
 
 def plain_association(plain_query: Callable) -> Association:
     """The Association of the kernels' plain versions: ``plain_query`` (a
-    scene's ``query(plain=True)`` or ``query_at(ids, plain=True)``), and as
-    its reduce the fused kernel's plain version over that query. What a
-    kernel path is held against: the same function in plain PyTorch."""
-    return Association(plain_query, lambda cloud, valid, **modes: unpack_sums(
-        assoc_reduce_plain(cloud, valid, plain_query, **modes)))
+    scene's ``query(plain=True)`` or ``query_at(ids, plain=True)``), as its
+    reduce the fused pass's plain version over that query, and as its
+    iterate the iteration kernel's (ops.icp_reduce.icp_loop_plain). What a
+    kernel path is held against: the same function in plain PyTorch, on
+    any device."""
+    return Association(
+        plain_query,
+        lambda cloud, valid, **modes: unpack_sums(
+            assoc_reduce_plain(cloud, valid, plain_query, **modes)),
+        lambda state, valid, n_total, criteria, **modes: icp_loop_plain(
+            state, valid, n_total, criteria, plain_query, **modes))
 
 
 def _solve_damped(AtA: torch.Tensor, Atb: torch.Tensor, penalty: float = 0.01):
@@ -216,22 +238,18 @@ def _normal_equations(cloud, valid, assoc: Union[Callable, Association],
     return AtA, Atb, count, mse_sum
 
 
-def _icp_run(cloud, valid, assoc: Union[Callable, Association],
-             criteria: ICPConvergenceCriteria, n_points=None, reduction: str = "matmul",
-             robust_delta: float = 0.0, estimation: str = "point_to_plane"):
-    """The ICP outer loop over a (N, P, 3) cloud batch with (N, P) valid;
-    ``assoc``, ``reduction``, ``robust_delta`` and ``estimation`` as in
-    _normal_equations (the JAX package's reduce_fn, icp.py:352-360).
-
-    Returns (RegistrationResult batch, transformed clouds (N, P, 3))."""
-    robust_delta = _check_options(robust_delta, estimation)
+def _icp_start(cloud, valid, n_points=None):
+    """The loop's start from a (N, P, 3) cloud batch and (N, P) valid:
+    (ICPState of new tensors - the clouds with their padded rows anchored
+    to the first valid point, identity transforms, zero scores, nothing
+    done -, valid as bool, (N,) fitness divisors: n_points, or each
+    cloud's valid count). Anchored rows contribute zero either way (every
+    reduction masks by valid); an all-invalid cloud keeps row 0 and hits
+    the count == 0 abort."""
     cloud = torch.as_tensor(cloud, dtype=torch.float32)
     valid = torch.as_tensor(valid, dtype=torch.bool, device=cloud.device)
     n = cloud.shape[0]
     dev = cloud.device
-    # anchor padded rows to the first valid point: their contribution is
-    # zero either way (every reduction masks by valid); all-invalid clouds
-    # keep row 0 and hit the count == 0 abort
     first = valid.to(torch.int8).argmax(dim=-1)
     anchor = cloud[torch.arange(n, device=dev), first]
     cloud = torch.where(valid[..., None], cloud, anchor[:, None, :])
@@ -239,12 +257,32 @@ def _icp_run(cloud, valid, assoc: Union[Callable, Association],
         n_total = valid.sum(dim=-1).to(torch.float32)
     else:
         n_total = torch.as_tensor(n_points, dtype=torch.float32, device=dev).expand(n)
-    max_iter = int(criteria.max_iteration)
+    state = ICPState(cloud, torch.eye(4, dtype=torch.float32, device=dev).expand(n, 4, 4).clone(),
+                     torch.zeros(n, dtype=torch.float32, device=dev),
+                     torch.zeros(n, dtype=torch.float32, device=dev),
+                     torch.zeros(n, dtype=torch.bool, device=dev))
+    return state, valid, n_total
 
-    T = torch.eye(4, dtype=torch.float32, device=dev).expand(n, 4, 4).clone()
-    fitness = torch.zeros(n, dtype=torch.float32, device=dev)
-    rmse = torch.zeros_like(fitness)
-    done = torch.zeros(n, dtype=torch.bool, device=dev)
+
+def _icp_run(cloud, valid, assoc: Union[Callable, Association],
+             criteria: ICPConvergenceCriteria, n_points=None, reduction: str = "matmul",
+             robust_delta: float = 0.0, estimation: str = "point_to_plane"):
+    """The ICP outer loop over a (N, P, 3) cloud batch with (N, P) valid;
+    ``assoc``, ``reduction``, ``robust_delta`` and ``estimation`` as in
+    _normal_equations (the JAX package's reduce_fn, icp.py:352-360). An
+    Association with an ``iterate`` runs the whole loop through it (the
+    iteration kernel, or its plain version); otherwise the loop below
+    solves and updates in PyTorch after each pass.
+
+    Returns (RegistrationResult batch, transformed clouds (N, P, 3))."""
+    robust_delta = _check_options(robust_delta, estimation)
+    state, valid, n_total = _icp_start(cloud, valid, n_points)
+    if isinstance(assoc, Association) and assoc.iterate is not None:
+        state = assoc.iterate(state, valid, n_total, criteria, robust_delta=robust_delta,
+                              point_to_point=estimation == "point_to_point")
+        return RegistrationResult(state.T, state.fitness, state.rmse, n_total), state.cloud
+    cloud, T, fitness, rmse, done = state
+    max_iter = int(criteria.max_iteration)
     for it in range(max_iter + 1):
         AtA, Atb, count, mse_sum = _normal_equations(cloud, valid, assoc, reduction,
                                                      robust_delta, estimation)

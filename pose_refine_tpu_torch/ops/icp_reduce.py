@@ -29,6 +29,17 @@ that same order: kernel and plain version agree bit for bit, as do two
 launches on equal inputs, and a refine through the plain versions is the
 same refine.
 
+The same source carries a whole ICP iteration (``icp_iterate_kernel``):
+the pass's 29 sums, then, per pose, the scores, the done latch, the damped
+6x6 solve, the Euler twist, the cloud's move and ``T <- upd @ T`` - the
+body of JAX ``icp._icp_run``'s ``step`` (icp.py:398-428). Against a
+projective scene one launch runs every iteration of a refine (a pose's
+CTAs loop until it is done); against an NN scene a launch is one iteration,
+between the NN kernel's launches. Its plain version, ``icp_iterate_plain``,
+writes each of those operations as one torch call on (N,) tensors in the
+kernel's order (no ``torch.linalg``, no matrix product), so a kernel path
+equals its plain path bit for bit.
+
 The ``_cuda`` entry points launch the kernel and raise for CPU tensors;
 there is no fallback from the kernel to the plain version, and a kernel that
 does not build or launch raises. The ICP loop (icp.py) takes the plain
@@ -38,7 +49,7 @@ formulations for CPU tensors itself.
 from __future__ import annotations
 
 import functools
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -53,8 +64,10 @@ MAX_SLABS = 8         # csrc/icp_reduce.cu kMaxSlabs, the portable cluster size
 FILL_CTAS = 132       # the H100's SMs: poses are split until as many CTAs run
 
 # kernel launches by the _cuda entry points (chip_smoke.py resets and reads
-# it to show the main path went through the kernel)
+# them to show the main path went through the kernel): the pass alone
+# (assoc_reduce_*_cuda) and the iteration (icp_iterate_*_cuda)
 launches = 0
+iterate_launches = 0
 
 
 def huber_weight(v, r, robust_delta: float):
@@ -229,20 +242,179 @@ def slabs_for(n_poses: int, points: int) -> int:
     return slabs
 
 
-def _launch(cloud, valid, table, *, K=None, gate=None, base=None, height=0, width=0,
-            idx=None, dist_sq=None, gate_sq=0.0, robust_delta=0.0,
-            point_to_point=False) -> torch.Tensor:
-    """Launch csrc/icp_reduce.cu on the current stream, without
-    synchronising: (..., P, 3) clouds -> (..., 29). ``idx`` None selects the
-    projective front end; robust_delta and point_to_point the terms (see
-    packed_terms)."""
-    global launches
+class ICPState(NamedTuple):
+    """The ICP loop's state, batched over N poses: the moved clouds (N, P,
+    3), the transforms (N, 4, 4) (row 3 stays [0, 0, 0, 1]), fitness and
+    rmse (N,) float32 and the done latch (N,) bool (JAX icp.py:76-82, with
+    the iteration counter kept by the caller)."""
+
+    cloud: torch.Tensor
+    T: torch.Tensor
+    fitness: torch.Tensor
+    rmse: torch.Tensor
+    done: torch.Tensor
+
+
+def _cholesky_plain(m):
+    """The lower Cholesky factor of a 6x6 matrix of (N,) tensors ``m[i][j]``,
+    column by column, one rounded operation a torch call, in the kernel's
+    order: d = m_jj - L_j0^2 - ... - L_j,j-1^2, L_jj = sqrt(d), and below it
+    L_ij = (m_ij - L_i0 L_j0 - ... - L_i,j-1 L_j,j-1) / L_jj."""
+    L = [[None] * 6 for _ in range(6)]
+    for j in range(6):
+        d = m[j][j]
+        for k in range(j):
+            d = d - L[j][k] * L[j][k]
+        L[j][j] = torch.sqrt(d)
+        for i in range(j + 1, 6):
+            v = m[i][j]
+            for k in range(j):
+                v = v - L[i][k] * L[j][k]
+            L[i][j] = v / L[j][j]
+    return L
+
+
+def _cho_solve_plain(L, b):
+    """x of L L^T x = b (lists of (N,) tensors): forward, then back
+    substitution, each sum in rising k, as the kernel."""
+    y = []
+    for i in range(6):
+        v = b[i]
+        for k in range(i):
+            v = v - L[i][k] * y[k]
+        y.append(v / L[i][i])
+    x = [None] * 6
+    for i in range(5, -1, -1):
+        v = y[i]
+        for k in range(i + 1, 6):
+            v = v - L[k][i] * x[k]
+        x[i] = v / L[i][i]
+    return x
+
+
+def solve_damped_plain(AtA, Atb) -> torch.Tensor:
+    """(AtA + 0.01 I) x = Atb in float32 by a Cholesky factor and one
+    refinement step from the float32 residual, the stand-in for the
+    reference's float64 LDLT (icp.cpp:29-45; JAX icp.py:87-99), written as
+    the kernel's tail computes it (no torch.linalg): the damping 0.01, in
+    float32, added to the diagonal (csrc/icp_reduce.cu::solve_damped's
+    literal); x by the factor; the residual r = b - M x, M x summed over j
+    in rising order; x + solve(r). (..., 6, 6), (..., 6) -> (..., 6). A
+    pose with no inlier (AtA = 0, Atb = 0) gets x = 0."""
+    damping = torch.tensor(0.01, dtype=AtA.dtype, device=AtA.device)
+    m = [[AtA[..., i, j] + damping if i == j else AtA[..., i, j] for j in range(6)]
+         for i in range(6)]
+    b = Atb.unbind(dim=-1)
+    L = _cholesky_plain(m)
+    x = _cho_solve_plain(L, b)
+    r = []
+    for i in range(6):
+        mx = m[i][0] * x[0]
+        for j in range(1, 6):
+            mx = mx + m[i][j] * x[j]
+        r.append(b[i] - mx)
+    return torch.stack([xi + di for xi, di in zip(x, _cho_solve_plain(L, r))], dim=-1)
+
+
+def _twist_rows(x):
+    """The 3x4 rows [R | t] of the update of a twist x (6 (N,) tensors):
+    R = Rz(x2) Ry(x1) Rx(x0) by geometry.euler_to_rotation's formulas in
+    their order, t = x[3:6]; row-major, 12 (N,) tensors."""
+    cx, sx = torch.cos(x[0]), torch.sin(x[0])
+    cy, sy = torch.cos(x[1]), torch.sin(x[1])
+    cz, sz = torch.cos(x[2]), torch.sin(x[2])
+    return [cz * cy, cz * sy * sx - sz * cx, cz * sy * cx + sz * sx, x[3],
+            sz * cy, sz * sy * sx + cz * cx, sz * sy * cx - cz * sx, x[4],
+            -sy, cy * sx, cy * cx, x[5]]
+
+
+def twist_plain(x) -> torch.Tensor:
+    """(..., 6) twists [rx, ry, rz, tx, ty, tz] -> (..., 4, 4) updates
+    Rz Ry Rx with translation x[3:6] (icp.cpp:7-17), as the kernel's tail
+    builds them."""
+    u = _twist_rows(x.unbind(dim=-1))
+    zero, one = torch.zeros_like(x[..., 0]), torch.ones_like(x[..., 0])
+    return torch.stack(u + [zero, zero, zero, one], dim=-1).reshape(x.shape[:-1] + (4, 4))
+
+
+def transform_plain(u, cloud) -> torch.Tensor:
+    """(N, P, 3) clouds moved by the 3x4 rows ``u`` (12 (N,) tensors, see
+    _twist_rows): each coordinate ((r0 x + r1 y) + r2 z) + t, as the
+    kernel moves a point."""
+    px, py, pz = cloud.unbind(dim=-1)
+    rows = [[e[:, None] for e in u[4 * i:4 * i + 4]] for i in range(3)]
+    return torch.stack([((r[0] * px + r[1] * py) + r[2] * pz) + r[3] for r in rows], dim=-1)
+
+
+def compose_plain(u, T) -> torch.Tensor:
+    """upd @ T of (N, 4, 4) transforms with the update's 3x4 rows ``u``:
+    rows 0-2 each entry summed over k in order, ((u_i0 T_0j + u_i1 T_1j) +
+    u_i2 T_2j) + u_i3 T_3j; row 3 kept."""
+    out = []
+    for i in range(3):
+        for j in range(4):
+            out.append(((u[4 * i] * T[:, 0, j] + u[4 * i + 1] * T[:, 1, j])
+                        + u[4 * i + 2] * T[:, 2, j]) + u[4 * i + 3] * T[:, 3, j])
+    return torch.cat([torch.stack(out, dim=-1).reshape(-1, 3, 4), T[:, 3:]], dim=1)
+
+
+def icp_iterate_plain(state: ICPState, valid, n_total, query: Callable, it: int,
+                      max_iteration: int, relative_fitness: float, relative_rmse: float,
+                      robust_delta: float = 0.0, point_to_point: bool = False) -> ICPState:
+    """One ICP iteration of every pose, the plain version of the kernel's
+    (JAX icp.py:398-428): the pass's sums (assoc_reduce_plain over the
+    plain ``query``), the scores, the latch ``done | empty | converged |
+    it == max_iteration`` (fitness and rmse take the new values where the
+    old done is false), then, where the new done is false, the damped
+    solve, the twist, the cloud's move and T <- upd @ T. The thresholds are
+    float32, as torch compares a float32 tensor with a Python float. On any
+    device; (N,) n_total is the fitness divisor. Returns the new state."""
+    sums = assoc_reduce_plain(state.cloud, valid, query, robust_delta, point_to_point)
+    AtA, Atb, count, mse_sum = unpack_sums(sums)
+    fitness, rmse, done = state.fitness, state.rmse, state.done
+    empty = count == 0
+    new_fit = torch.where(empty, fitness, count / n_total.clamp(min=1.0))
+    new_rmse = torch.where(empty, rmse, torch.sqrt(mse_sum / count.clamp(min=1.0)))
+    rf, rr = (torch.tensor(t, dtype=torch.float32, device=count.device)
+              for t in (relative_fitness, relative_rmse))
+    converged = ((new_fit - fitness).abs() < rf) & ((new_rmse - rmse).abs() < rr)
+    new_done = done | empty | converged | (it == max_iteration)
+    fitness = torch.where(done, fitness, new_fit)
+    rmse = torch.where(done, rmse, new_rmse)
+    cloud, T = state.cloud, state.T
+    if it < max_iteration:  # the scoring-only pass moves no pose
+        u = _twist_rows(solve_damped_plain(AtA, Atb).unbind(dim=-1))
+        hold = new_done[:, None, None]
+        cloud = torch.where(hold, cloud, transform_plain(u, cloud))
+        T = torch.where(hold, T, compose_plain(u, T))
+    return ICPState(cloud, T, fitness, rmse, new_done)
+
+
+def icp_loop_plain(state: ICPState, valid, n_total, criteria, query: Callable,
+                   robust_delta: float = 0.0, point_to_point: bool = False) -> ICPState:
+    """Every iteration of a refine, 0 to criteria.max_iteration (the last
+    one scoring only), through icp_iterate_plain: what the kernel path of
+    a scene's ``iterate`` computes."""
+    max_iter = int(criteria.max_iteration)
+    for it in range(max_iter + 1):
+        state = icp_iterate_plain(state, valid, n_total, query, it, max_iter,
+                                  criteria.relative_fitness, criteria.relative_rmse,
+                                  robust_delta, point_to_point)
+    return state
+
+
+def _check_front(cloud, valid, table, *, K=None, gate=None, base=None, height=0, width=0,
+                 idx=None, dist_sq=None) -> int:
+    """The kernel's argument checks (device, dtype, shape, alignment) for
+    (..., P, 3) clouds against an (R, 8) table, by the projective front end
+    (``idx`` None) or the indexed one; raises ValueError on what it cannot
+    launch. Returns the number of poses."""
     dev = cloud.device
     if dev.type != "cuda":
         raise ValueError(f"the assoc_reduce kernel needs CUDA tensors, got {dev}")
     if cloud.dim() < 2 or cloud.shape[-1] != 3 or cloud.shape[-2] == 0:
         raise ValueError(f"cloud must be (..., P, 3) with P > 0, got {tuple(cloud.shape)}")
-    lead, points = cloud.shape[:-2], cloud.shape[-2]
+    points = cloud.shape[-2]
     if valid.shape != cloud.shape[:-1]:
         raise ValueError(f"valid must be {tuple(cloud.shape[:-1])}, got {tuple(valid.shape)}")
     if table.dim() != 2 or table.shape[1] != ROW or table.shape[0] == 0:
@@ -274,36 +446,179 @@ def _launch(cloud, valid, table, *, K=None, gate=None, base=None, height=0, widt
             raise ValueError(f"{name} must be {dtype} on {dev}, got {t.dtype} on {t.device}")
     if n_poses * MAX_SLABS >= 2 ** 31 or points >= 2 ** 31:
         raise ValueError(f"too large for one launch: {n_poses} poses of {points} points")
+    return n_poses
+
+
+def _front_pointers(K, gate, base, idx, dist_sq):
+    """((K, gate, base), (idx, idx bytes, dist_sq)) pointers of the C
+    interface for one front end (None where it takes none), and the
+    contiguous tensors behind them, which the caller keeps until the
+    launch."""
+    if idx is None:
+        keep = [K.contiguous(), gate.contiguous(), None if base is None else base.contiguous()]
+        ptrs = [None if t is None else t.data_ptr() for t in keep]
+        return ptrs, [None, 0, None], keep
+    keep = [idx.contiguous(), dist_sq.contiguous()]
+    return [None, None, None], [keep[0].data_ptr(), idx.element_size(), keep[1].data_ptr()], keep
+
+
+def _raise_on(err: int, lib, what: str):
+    if err != 0:
+        msg = lib.prt_error_string(err).decode()
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err} ({msg})")
+
+
+def _launch(cloud, valid, table, *, K=None, gate=None, base=None, height=0, width=0,
+            idx=None, dist_sq=None, gate_sq=0.0, robust_delta=0.0,
+            point_to_point=False) -> torch.Tensor:
+    """Launch csrc/icp_reduce.cu's pass on the current stream, without
+    synchronising: (..., P, 3) clouds -> (..., 29). ``idx`` None selects the
+    projective front end; robust_delta and point_to_point the terms (see
+    packed_terms)."""
+    global launches
+    n_poses = _check_front(cloud, valid, table, K=K, gate=gate, base=base, height=height,
+                           width=width, idx=idx, dist_sq=dist_sq)
     from pose_refine_tpu_torch._build import load_kernels
 
     lib, _info = load_kernels()
+    dev, points = cloud.device, cloud.shape[-2]
     # contiguous() copies nothing for the tensors the ICP loop hands in
     cloud, valid = cloud.contiguous(), valid.contiguous()
-    if idx is None:
-        K, gate = K.contiguous(), gate.contiguous()
-        base = None if base is None else base.contiguous()
-    else:
-        idx, dist_sq = idx.contiguous(), dist_sq.contiguous()
-    out = torch.empty(lead + (PACKED,), dtype=torch.float32, device=dev)
+    proj_ptrs, idx_ptrs, _keep = _front_pointers(K, gate, base, idx, dist_sq)
+    out = torch.empty(cloud.shape[:-2] + (PACKED,), dtype=torch.float32, device=dev)
     if n_poses == 0:
         return out
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.prt_assoc_reduce(
             cloud.data_ptr(), valid.data_ptr(), n_poses, points, table.data_ptr(),
-            table.shape[0], slabs_for(n_poses, points),
-            None if idx is not None else K.data_ptr(),
-            None if idx is not None else gate.data_ptr(),
-            None if base is None else base.data_ptr(), height, width,
-            None if idx is None else idx.data_ptr(),
-            0 if idx is None else idx.element_size(),
-            None if idx is None else dist_sq.data_ptr(), gate_sq, float(robust_delta),
-            int(bool(point_to_point)), out.data_ptr(), stream)
-    if err != 0:
-        msg = lib.prt_error_string(err).decode()
-        raise RuntimeError(f"assoc_reduce kernel launch failed: CUDA error {err} ({msg})")
+            table.shape[0], slabs_for(n_poses, points), *proj_ptrs, height, width, *idx_ptrs,
+            gate_sq, float(robust_delta), int(bool(point_to_point)), out.data_ptr(), stream)
+    _raise_on(err, lib, "assoc_reduce")
     launches += 1
     return out
+
+
+class _IterateLaunch:
+    """The iteration kernel bound to one refine: the argument checks and the
+    state's buffers once, then a launch a call. ``state`` (an ICPState of
+    (N, P, 3) clouds) is updated in place on the card; ``self.state`` is
+    what the launches update (the caller's tensors, or contiguous copies of
+    them). The indexed front end takes a new (idx, dist_sq) each call, of
+    the first call's shape and dtype (the NN kernels' outputs)."""
+
+    def __init__(self, state: ICPState, valid, n_total, criteria, table, *, K=None, gate=None,
+                 base=None, height=0, width=0, idx=None, dist_sq=None, gate_sq=0.0,
+                 robust_delta=0.0, point_to_point=False):
+        cloud = state.cloud
+        if cloud.dim() != 3:
+            raise ValueError(f"the iteration kernel wants (N, P, 3) clouds, got "
+                             f"{tuple(cloud.shape)}")
+        n_poses = _check_front(cloud, valid, table, K=K, gate=gate, base=base, height=height,
+                               width=width, idx=idx, dist_sq=dist_sq)
+        dev = cloud.device
+        for name, t, shape, dtype in (("T", state.T, (n_poses, 4, 4), torch.float32),
+                                      ("fitness", state.fitness, (n_poses,), torch.float32),
+                                      ("rmse", state.rmse, (n_poses,), torch.float32),
+                                      ("done", state.done, (n_poses,), torch.bool),
+                                      ("n_total", n_total, (n_poses,), torch.float32)):
+            if tuple(t.shape) != shape or t.dtype != dtype or t.device != dev:
+                raise ValueError(f"{name} must be {shape} {dtype} on {dev}, got "
+                                 f"{tuple(t.shape)} {t.dtype} on {t.device}")
+        from pose_refine_tpu_torch._build import load_kernels
+
+        self.lib, _info = load_kernels()
+        self.state = ICPState(*(t.contiguous() for t in state))
+        self.max_iteration = int(criteria.max_iteration)
+        self.dev = dev
+        self.indexed = idx is not None
+        proj_ptrs, idx_ptrs, front = _front_pointers(K, gate, base, idx, dist_sq)
+        # the tensors behind the pointers live as long as the launcher
+        self._keep = (valid.contiguous(), n_total.contiguous(), table, front)
+        points = cloud.shape[-2]
+        st = self.state
+        # the C interface's arguments; [12] idx and [14] dist_sq, [23] it0
+        # and [24] it_end change from launch to launch
+        self.args = [st.cloud.data_ptr(), self._keep[0].data_ptr(), n_poses, points,
+                     table.data_ptr(), table.shape[0], slabs_for(n_poses, points), *proj_ptrs,
+                     int(height), int(width), *idx_ptrs, float(gate_sq), float(robust_delta),
+                     int(bool(point_to_point)), st.T.data_ptr(), st.fitness.data_ptr(),
+                     st.rmse.data_ptr(), st.done.data_ptr(), self._keep[1].data_ptr(), 0, 0,
+                     self.max_iteration, float(criteria.relative_fitness),
+                     float(criteria.relative_rmse), None]
+
+    def __call__(self, it0: int, it_end: int, idx=None, dist_sq=None) -> ICPState:
+        """Iterations it0 .. it_end - 1 on the current stream, without
+        synchronising; the indexed front end with this iteration's NN
+        output."""
+        global iterate_launches
+        args = self.args
+        if self.indexed:
+            args[12], args[14] = idx.data_ptr(), dist_sq.data_ptr()
+        args[23], args[24] = it0, it_end
+        with torch.cuda.device(self.dev):
+            args[-1] = torch.cuda.current_stream(self.dev).cuda_stream
+            err = self.lib.prt_icp_iterate(*args)
+        _raise_on(err, self.lib, "icp_iterate")
+        iterate_launches += 1
+        return self.state
+
+
+def icp_iterate_projective_cuda(state: ICPState, valid, n_total, criteria, table, K,
+                                max_dist_diff, height: int, width: int, base=None,
+                                robust_delta: float = 0.0,
+                                point_to_point: bool = False) -> ICPState:
+    """A refine's whole ICP loop against a projective scene in ONE launch of
+    the iteration kernel: iterations 0 .. criteria.max_iteration of every
+    pose of ``state`` (CUDA tensors, updated in place and returned), the
+    front end and terms of assoc_reduce_projective_cuda, ``n_total`` (N,)
+    the fitness divisors. Raises for CPU tensors; its plain version is
+    icp_loop_plain over the scene's plain query."""
+    run = _IterateLaunch(state, valid, n_total, criteria, table, K=K, gate=max_dist_diff,
+                         base=base, height=int(height), width=int(width),
+                         robust_delta=robust_delta, point_to_point=point_to_point)
+    return run(0, run.max_iteration + 1)
+
+
+def icp_iterate_indexed_cuda(state: ICPState, valid, n_total, criteria, table,
+                             nearest: Callable, gate_sq: float, robust_delta: float = 0.0,
+                             point_to_point: bool = False) -> ICPState:
+    """A refine's ICP loop against an NN scene: each iteration one NN launch
+    (``nearest``: (N, P, 3) clouds -> (idx, dist_sq), flash or kd) on the
+    moved cloud, then one launch of the iteration kernel with the indexed
+    front end; the state (CUDA tensors, updated in place and returned)
+    stays on the card between them, and the checks run once. Raises for
+    CPU tensors; its plain version is icp_loop_plain over the scene's plain
+    query."""
+    idx, dist_sq = nearest(state.cloud)
+    run = _IterateLaunch(state, valid, n_total, criteria, table, idx=idx, dist_sq=dist_sq,
+                         gate_sq=gate_sq, robust_delta=robust_delta,
+                         point_to_point=point_to_point)
+    for it in range(run.max_iteration + 1):
+        if it:
+            idx, dist_sq = nearest(run.state.cloud)
+        run(it, it + 1, idx, dist_sq)
+    return run.state
+
+
+def sin_cos_cuda(x: torch.Tensor):
+    """(sinf(x), cosf(x)) of a (n,) float32 CUDA tensor by the iteration
+    kernel's own trigonometry (a check of it against torch.sin / torch.cos
+    on the card, chip_smoke.py [icp-iterate]); not counted. Raises for CPU
+    tensors."""
+    if x.device.type != "cuda" or x.dtype != torch.float32 or x.dim() != 1:
+        raise ValueError(f"sin_cos_cuda wants a (n,) float32 CUDA tensor, got "
+                         f"{tuple(x.shape)} {x.dtype} on {x.device}")
+    from pose_refine_tpu_torch._build import load_kernels
+
+    lib, _info = load_kernels()
+    x = x.contiguous()
+    s, c = torch.empty_like(x), torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = lib.prt_sin_cos(x.data_ptr(), x.numel(), s.data_ptr(), c.data_ptr(),
+                              torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(err, lib, "sin_cos")
+    return s, c
 
 
 def assoc_reduce_projective_cuda(cloud, valid, table, K, max_dist_diff, height: int,

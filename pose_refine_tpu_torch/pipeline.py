@@ -69,21 +69,27 @@ def refine_poses(tris, init_poses, scene: Union[SceneProjective, SceneNN, SceneP
     one batched ``scene.query_at(scene_ids)`` over all poses.
     ``raster`` replaces the rasterizer (default: ops.rasterize_cuda.rasterize,
     the kernel on CUDA tensors) and ``query`` the association. By default
-    the ICP loop gets the scene's icp.Association (query + reduce, or
-    query_at + reduce_at of scene_ids): on a card every pass is the fused
-    kernel of ops/icp_reduce.py. A bare ``query`` callable handed in is
-    queried and then reduced by matrix products on any device (the loop of
-    before the fused kernel); ``icp.plain_association(plain_query)`` is the
-    plain version of the default, which a kernel path is held against.
+    the ICP loop gets the scene's icp.Association (query, reduce and, on a
+    card, iterate; or query_at, reduce_at and iterate_at of scene_ids): on a
+    card the loop is the iteration kernel of ops/icp_reduce.py, one launch a
+    refine against a projective scene, an NN launch and an iteration launch
+    a pass against an NN scene. An Association without iterate runs the
+    loop with one fused pass a launch and the solve in PyTorch; a bare
+    ``query`` callable handed in is queried and then reduced by matrix
+    products on any device (the loop of before the fused kernel);
+    ``icp.plain_association(plain_query)`` is the plain version of the
+    default, which a kernel path is held against.
     ``estimation`` ("point_to_plane" / "point_to_point") and
     ``robust_delta`` (Huber width in meters, 0 = none) select the ICP terms
     of every pass and of the information pass (JAX pipeline.py:159-205).
     """
     raster = rasterize if raster is None else raster
+    card = init_poses.device.type == "cuda"
     if query is None and scene_ids is None:
-        query = icp.Association(scene.query, scene.reduce)
+        query = icp.Association(scene.query, scene.reduce, scene.iterate if card else None)
     elif query is None:
-        query = icp.Association(scene.query_at(scene_ids), scene.reduce_at(scene_ids))
+        query = icp.Association(scene.query_at(scene_ids), scene.reduce_at(scene_ids),
+                                scene.iterate_at(scene_ids) if card else None)
     depth = raster(tris, init_poses, width, height, proj, roi=roi)
     out_h, out_w = depth.shape[1:]
 

@@ -20,7 +20,9 @@ query is exact NN by one of three backends, then one row gather
 A neighbour is accepted iff dist^2 < max_dist_diff^2 (pcd_scene.h:127).
 ``reduce`` / ``reduce_at`` are a whole ICP pass: the same NN kernel, then
 the row lookup and the normal-equation sums fused in the kernel of
-``ops/icp_reduce.py``.
+``ops/icp_reduce.py``; ``iterate`` / ``iterate_at`` a refine's ICP loop,
+each iteration one NN launch and one launch of that source's iteration
+kernel (the NN runs on the moved cloud in between).
 
 ``SceneNNStack`` stacks K frames into one set of tables; its query windows
 the gated kernel to each pose's frame (no kd backend: the traversal binds
@@ -39,7 +41,11 @@ import torch
 from pose_refine_tpu_torch.device import DeviceLike, resolve_device
 from pose_refine_tpu_torch.ops.depth_to_cloud import depth_image_to_points
 from pose_refine_tpu_torch.ops.gather import gather_rows, gather_rows_plain
-from pose_refine_tpu_torch.ops.icp_reduce import assoc_reduce_indexed_cuda, unpack_sums
+from pose_refine_tpu_torch.ops.icp_reduce import (
+    assoc_reduce_indexed_cuda,
+    icp_iterate_indexed_cuda,
+    unpack_sums,
+)
 from pose_refine_tpu_torch.ops.normals import _OFFSETS, estimate_normals
 from pose_refine_tpu_torch.scene import nn_flash
 from pose_refine_tpu_torch.scene.kdtree import KDTreeDevice, build_kdtree
@@ -216,6 +222,18 @@ class SceneNN:
             cloud, valid, self.table, *self._nearest(cloud),
             nn_flash.gate_sq(self.max_dist_diff), robust_delta, point_to_point))
 
+    def iterate(self, state, valid, n_total, criteria, robust_delta: float = 0.0,
+                point_to_point: bool = False):
+        """A refine's ICP loop against this scene
+        (ops.icp_reduce.icp_iterate_indexed_cuda): each iteration the NN
+        kernel on the moved cloud, then one iteration launch; the
+        icp.ICPState of (N, P, 3) CUDA clouds, updated in place and
+        returned. Raises for CPU tensors; its plain version is
+        ``icp.plain_association(functools.partial(query, plain=True)).iterate``."""
+        return icp_iterate_indexed_cuda(
+            state, valid, n_total, criteria, self.table, self._nearest,
+            nn_flash.gate_sq(self.max_dist_diff), robust_delta, point_to_point)
+
 
 def _rows_in_gate(table, idx, dist_sq, max_dist_diff: float, plain: bool):
     """The NN query's second half: (dst, normal, valid) from the flash
@@ -373,6 +391,21 @@ class SceneNNStack:
                 nn_flash.gate_sq(self.max_dist_diff), robust_delta, point_to_point))
 
         return reduce
+
+    def iterate_at(self, sids):
+        """``SceneNN.iterate`` bound to per-pose scene ids (see query_at):
+        returns iterate(state, valid, n_total, criteria, robust_delta=0.0,
+        point_to_point=False) -> state, each iteration one stacked gated
+        launch and one iteration launch."""
+        sids = self._frame_ids(sids)
+
+        def iterate(state, valid, n_total, criteria, robust_delta=0.0, point_to_point=False):
+            return icp_iterate_indexed_cuda(
+                state, valid, n_total, criteria, self.table,
+                functools.partial(self._nearest_at, sids), nn_flash.gate_sq(self.max_dist_diff),
+                robust_delta, point_to_point)
+
+        return iterate
 
 
 def _pool_scene_grid(pts, nrm, mask, pool: int, depth_tol: float):

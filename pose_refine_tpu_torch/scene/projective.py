@@ -8,7 +8,10 @@ gather (depth_scene.h:7-49), the kernel of ``ops/gather.py`` on a card.
 ``SceneProjectiveStack`` holds K same-shape frames in one (K*H*W, 8) table
 and routes each pose to its frame by adding its frame's row offset to the
 gather index. ``reduce`` / ``reduce_at`` are a whole ICP pass - this query
-and the normal-equation sums - in the one kernel of ``ops/icp_reduce.py``.
+and the normal-equation sums - in the one kernel of ``ops/icp_reduce.py``;
+``iterate`` / ``iterate_at`` a refine's whole ICP loop in one launch of its
+iteration kernel (the table, K and the gate do not change between
+iterations).
 """
 
 from __future__ import annotations
@@ -21,7 +24,11 @@ from pose_refine_tpu_torch import geometry
 from pose_refine_tpu_torch.device import DeviceLike, resolve_device
 from pose_refine_tpu_torch.ops.depth_to_cloud import depth_image_to_points
 from pose_refine_tpu_torch.ops.gather import gather_rows, gather_rows_plain
-from pose_refine_tpu_torch.ops.icp_reduce import assoc_reduce_projective_cuda, unpack_sums
+from pose_refine_tpu_torch.ops.icp_reduce import (
+    assoc_reduce_projective_cuda,
+    icp_iterate_projective_cuda,
+    unpack_sums,
+)
 from pose_refine_tpu_torch.ops.normals import estimate_normals
 
 
@@ -107,6 +114,17 @@ class SceneProjective:
         return unpack_sums(assoc_reduce_projective_cuda(
             cloud, valid, self.table, self.K, self.max_dist_diff, self.height, self.width,
             robust_delta=robust_delta, point_to_point=point_to_point))
+
+    def iterate(self, state, valid, n_total, criteria, robust_delta: float = 0.0,
+                point_to_point: bool = False):
+        """A refine's whole ICP loop against this scene in one kernel launch
+        (ops.icp_reduce.icp_iterate_projective_cuda): the icp.ICPState of
+        (N, P, 3) CUDA clouds, updated in place and returned. Raises for CPU
+        tensors; its plain version is ``icp.plain_association(
+        functools.partial(query, plain=True)).iterate``."""
+        return icp_iterate_projective_cuda(
+            state, valid, n_total, criteria, self.table, self.K, self.max_dist_diff,
+            self.height, self.width, robust_delta=robust_delta, point_to_point=point_to_point)
 
 
 def _project_gate(table, K, max_dist_diff, h: int, w: int, src, base=0,
@@ -213,3 +231,19 @@ class SceneProjectiveStack:
                 robust_delta=robust_delta, point_to_point=point_to_point))
 
         return reduce
+
+    def iterate_at(self, sids):
+        """``SceneProjective.iterate`` bound to per-pose scene ids (see
+        query_at): returns iterate(state, valid, n_total, criteria,
+        robust_delta=0.0, point_to_point=False) -> state, one launch a
+        refine with each pose's row offset."""
+        base = self._base(sids)
+
+        def iterate(state, valid, n_total, criteria, robust_delta=0.0, point_to_point=False):
+            return icp_iterate_projective_cuda(
+                state, valid, n_total, criteria, self.table, self.K, self.max_dist_diff,
+                self.height, self.width,
+                base=base.expand(state.cloud.shape[:1]) if base.dim() == 0 else base,
+                robust_delta=robust_delta, point_to_point=point_to_point)
+
+        return iterate

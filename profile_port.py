@@ -29,14 +29,21 @@ information pass (pose_information + pose_covariance).
 
 Every cell also prints a ``[loops]`` line: the same refine (or tracked
 frame: scene build, refine with the information pass, packed buffer)
-through ``refine_poses`` with the ICP loop of before the fused pass - the
-scene's ``query`` handed in as ``query=``, so every pass is the query, the
-row gather and the matrix-product reduction - and with the default loop,
-whose pass is one launch of ``ops/icp_reduce.py``'s kernel. The two
-alternate in one process (old, new, new, old, ...), 6 timed calls each:
-wall median, min and max, and from ``torch.profiler`` around one call of
-each the device kernel count, their summed time and the busy share.
-Imports no JAX.
+through ``refine_poses`` with the ICP loop of before the iteration kernel
+- an ``icp.Association`` of the scene's query and reduce without
+``iterate``, so every pass is one launch of the fused pass followed by the
+solve, twist and update in PyTorch - and with the default loop, the
+iteration kernel of ``ops/icp_reduce.py`` (one launch a refine against a
+projective scene, an NN launch and an iteration launch a pass against an
+NN scene). The two alternate in one process (old, new, new, old, ...), 6
+timed calls each: wall median, min and max, and from ``torch.profiler``
+around one call of each the device kernel count, their summed time and the
+busy share.
+
+Then ``[async]`` lines for slice-bench-256 and a tracked projective frame:
+how long ``refine_async`` / ``track_async`` take to return, against the
+time until the PendingResult's ``wait()`` returns (median of 7, after a
+warm call). Imports no JAX.
 """
 
 import os
@@ -102,6 +109,27 @@ def print_loops(torch, cell, old, new, rounds=6):
     print(f"[loops] {cell}: {' | '.join(parts)} | new/old wall={ratio}", flush=True)
 
 
+def print_async(torch, cell, enqueue, reps=7):
+    """The [async] line of one cell: host ms until enqueue() (a
+    refine_async / track_async call) returns, against ms until its
+    PendingResult's wait() returns, median, min and max of ``reps`` after a
+    warm call, each from an idle card."""
+    enqueue().wait()
+    ret, done = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pending = enqueue()
+        t1 = time.perf_counter()
+        pending.wait()
+        done.append((time.perf_counter() - t0) * 1e3)
+        ret.append((t1 - t0) * 1e3)
+    med_r, med_d = float(np.median(ret)), float(np.median(done))
+    print(f"[async] {cell}: returns after ms median={med_r} min={min(ret)} max={max(ret)}; "
+          f"wait() returns after ms median={med_d} min={min(done)} max={max(done)}; "
+          f"return / wait={med_r / med_d}", flush=True)
+
+
 def main():
     import torch
 
@@ -158,8 +186,11 @@ def main():
         raster_ms, depth = event_ms(torch, raster)
         raster_kernels = sum(calls for _n, _ms, calls in CS.device_kernels(torch, raster))
         lift_ms, (clouds, valids, _) = event_ms(torch, lift_fn(ref, depth, nn))
-        assoc = icp.Association(query, ref.scene.reduce if scene_ids is None
-                                else ref.scene.reduce_at(scene_ids))
+        if scene_ids is None:
+            assoc = icp.Association(query, ref.scene.reduce, ref.scene.iterate)
+        else:
+            assoc = icp.Association(query, ref.scene.reduce_at(scene_ids),
+                                    ref.scene.iterate_at(scene_ids))
         icp_ms, _ = event_ms(torch, lambda: icp._icp_run(clouds, valids, assoc, crit))
         query_ms, _ = event_ms(torch, lambda: query(clouds), reps=10)
         pass_ms, _ = event_ms(torch, lambda: assoc.reduce(clouds, valids), reps=10)
@@ -176,7 +207,8 @@ def main():
             return refine_poses(tris, hyps, ref.scene, ref.proj, ref._K_render_t,
                                 **plan(ref, crit, scene_ids=scene_ids), query=own_query)
 
-        print_loops(torch, cell, lambda: through(query), lambda: through(None))
+        print_loops(torch, cell, lambda: through(assoc._replace(iterate=None)),
+                    lambda: through(None))
 
     def built(ref, build):
         """(refiner, host ms of build(refiner), its scene build)."""
@@ -191,6 +223,8 @@ def main():
         crit = ptt.ICPConvergenceCriteria(max_iteration=iters)
         refine_cell(cell, ref, build_ms, lambda: ref.refine(poses, crit), ref.tris, poses,
                     ref.scene.query, crit)
+        if cell == "projective":
+            print_async(torch, "slice-bench-256", lambda: ref.refine_async(poses, crit))
 
     # the stacked-scene and multi-model cells (chip_smoke.py's [multiscene],
     # [multiscene-nn] and [multimodel])
@@ -252,7 +286,7 @@ def main():
         raster_kernels = sum(calls for _n, _ms, calls in CS.device_kernels(torch, raster))
         lift_ms, (clouds, valids, _) = event_ms(torch, lift_fn(ref, depth, nn))
         icp_ms, (_res, final) = event_ms(torch, lambda: icp._icp_run(
-            clouds, valids, icp.Association(sc.query, sc.reduce), crit))
+            clouds, valids, icp.Association(sc.query, sc.reduce, sc.iterate), crit))
 
         def information():
             info, sigma2, _count = icp.pose_information(final, valids, sc.query)
@@ -265,9 +299,10 @@ def main():
                       f"raster_ms={raster_ms} raster_kernels={raster_kernels} lift_ms={lift_ms} "
                       f"icp_ms={icp_ms} information_ms={info_ms}")
 
-        def tracked(own_query: bool):
+        def tracked(old_loop: bool):
             """track()'s device work on the standing plan: scene build,
-            refine with the information pass, the packed session buffer."""
+            refine with the information pass, the packed session buffer;
+            old_loop: through an Association without iterate."""
             if nn:
                 scn = SceneNN.from_depth_device(frame_t, ref._K_t, ref.max_dist_diff,
                                                 perm=perm, pool=pool)
@@ -277,9 +312,12 @@ def main():
             return _pack_track_outputs(*refine_poses(
                 ref.tris, hyps, scn, ref.proj, ref._K_render_t,
                 **plan(ref, crit, with_information=True),
-                query=scn.query if own_query else None))
+                query=icp.Association(scn.query, scn.reduce) if old_loop else None))
 
         print_loops(torch, cell, lambda: tracked(True), lambda: tracked(False))
+        if not nn:
+            print_async(torch, cell, lambda: ref.track_async(frame, hyps, crit,
+                                                             with_covariance=True))
     return 0
 
 

@@ -360,13 +360,22 @@ def reduce_case(card, case):
     front end of the fused kernel: a 120x160 depth frame around 0.3 m, and
     clouds around it with points at z = 0, behind the camera, NaN, outside
     the frame, on its border pixels, beyond the gate, and masked rows."""
+    sc, ids, plain_query, cloud, valid = scene_case(card, case)
+    return (sc.reduce if ids is None else sc.reduce_at(ids)), plain_query, cloud, valid
+
+
+def scene_case(card, case):
+    """reduce_case's scene, its ids (None for a single scene), plain query,
+    clouds and valid; "slabs16" is the tracking shape, 16 poses x 2,048
+    points (8-CTA clusters)."""
     rng = np.random.default_rng(11)
     K = geometry.LINEMOD_K.copy()
     K[:2] *= 0.25
     depths = rng.integers(280, 320, (3, 120, 160)).astype(np.int32)
     depths[:, :, :12] = 0
     # 4 CTAs a pose; "slabs": 8 ragged slabs of 625; "one_slab": a full card
-    n, p = {"slabs": (3, 5000), "one_slab": (140, 300)}.get(case, (5, 1500))
+    n, p = {"slabs": (3, 5000), "one_slab": (140, 300), "slabs16": (16, 2048)}.get(case,
+                                                                                 (5, 1500))
     src = (rng.normal(size=(n, p, 3)) * [0.045, 0.035, 0.02] + [0, 0, 0.3]).astype(np.float32)
     src[0, :7] = [[0, 0, 0], [0.01, 0.01, -0.3], [np.nan, 0, 0.3], [0, np.inf, 0.3],
                   [1e30, 0, 1e-30], [0, 0, 0.9], [-3e9, 1, 1e-9]]
@@ -380,21 +389,21 @@ def reduce_case(card, case):
     cloud = torch.as_tensor(src, device=card)
     valid = torch.as_tensor(valid, device=card)
     ids = torch.arange(n, device=card) % 5 - 1  # -1 and 3 clamp into the 3 frames
-    if case in ("projective", "slabs", "one_slab"):
+    if case in ("projective", "slabs", "one_slab", "slabs16"):
         sc = SceneProjective.from_depth(depths[0], K, 0.03, device=card)
-        return sc.reduce, lambda c: sc.query(c, plain=True), cloud, valid
+        return sc, None, lambda c: sc.query(c, plain=True), cloud, valid
     if case == "stacked":
         sc = SceneProjectiveStack.from_depths(depths, K, 0.03, device=card)
-        return sc.reduce_at(ids), sc.query_at(ids, plain=True), cloud, valid
+        return sc, ids, sc.query_at(ids, plain=True), cloud, valid
     # the NN kernels take finite queries, and a far one overflows no float32 square
     cloud = torch.nan_to_num(cloud, nan=0.0, posinf=0.0).clamp(-10.0, 10.0)
     if case in ("nn", "kd"):
         backend = "bruteforce" if case == "nn" else "kdtree"
         sc = SceneNN.from_depth(depths[0], K, 0.01, backend=backend, device=card)
-        return sc.reduce, lambda c: sc.query(c, plain=True), cloud, valid
+        return sc, None, lambda c: sc.query(c, plain=True), cloud, valid
     clouds = [SceneNN.from_depth(d, K, 0.01, device="cpu").points.numpy() for d in depths]
     sc = SceneNNStack.from_clouds(clouds, clouds, 0.01, device=card)
-    return sc.reduce_at(ids), sc.query_at(ids, plain=True), cloud, valid
+    return sc, ids, sc.query_at(ids, plain=True), cloud, valid
 
 
 @pytest.mark.cuda
@@ -503,11 +512,12 @@ def test_assoc_reduce_refuses_what_it_cannot_launch_on_card(card):
 @pytest.mark.cuda
 @pytest.mark.parametrize("scene", ["projective", "nn_bruteforce"])
 def test_track_through_kernels_on_card(card, scene):
-    """One track() per scene kind on the card: the raster, the fused pass,
-    the gather (the information pass) and (NN) gated flash-NN kernels
-    launch, and the frame through the kernels agrees with the same frame
-    through their plain versions (the fused pass's plain version equals the
-    kernel bit for bit, so the bounds hold at every hypothesis)."""
+    """One track() per scene kind on the card: the raster, the iteration
+    kernel, the gather (the information pass) and (NN) gated flash-NN
+    kernels launch, and the frame through the kernels agrees with the same
+    frame through their plain versions (the iteration kernel's plain
+    version equals it bit for bit, so the bounds hold at every
+    hypothesis)."""
     m = mesh.make_bumpy_sphere(radius=50.0, subdivisions=4)
     R = np.array([[0.34768538, 0.93761126, 0.0],
                   [0.70540612, -0.26157897, -0.65877056],
@@ -521,13 +531,15 @@ def test_track_through_kernels_on_card(card, scene):
                                  truth[:3, 3] + rng.uniform(-5, 5, (8, 3)).astype(np.float32))
     ref = ptt.PoseRefiner(m, K=geometry.LINEMOD_K, device="cuda", scene=scene,
                           scene_voxel_mm=2.0 if scene != "projective" else 0.0)
-    before = (RC.launches, G.launches, NF.gated_launches, IR.launches)
+    before = (RC.launches, G.launches, NF.gated_launches, IR.launches, IR.iterate_launches)
     refined, res, unc = ref.track(frame.cpu().numpy(), hyps, with_covariance=True)
     torch.cuda.synchronize()
-    after = (RC.launches, G.launches, NF.gated_launches, IR.launches)
-    # 30 iterations and the scoring pass through the fused kernel, the
-    # information pass through the row gather
-    assert after[0] > before[0] and after[1] == before[1] + 1 and after[3] == before[3] + 31
+    after = (RC.launches, G.launches, NF.gated_launches, IR.launches, IR.iterate_launches)
+    # the ICP loop through the iteration kernel: one launch for the
+    # projective scene, one a pass (30 iterations and the scoring pass) for
+    # the NN scene; the information pass through the row gather
+    assert after[0] > before[0] and after[1] == before[1] + 1 and after[3] == before[3]
+    assert after[4] == before[4] + (1 if scene == "projective" else 31)
     assert (after[2] > before[2]) == (scene != "projective")
     assert refined.is_cuda and bool(torch.isfinite(refined).all())
     assert float(res.fitness.min()) > 0.7 and bool(torch.isfinite(unc.covariance).all())
@@ -668,3 +680,184 @@ def test_padding_triangles_write_no_pixel_on_card(card):
     assert int((alone > 0).sum()) > 1000
     assert torch.equal(got[1], alone) and torch.equal(got[2], alone)
     assert not torch.equal(got[0], alone)
+
+
+def same_bits(a, b):
+    """Equal float tensors, NaN where the other is NaN (the bits of a NaN
+    aside), or equal tensors of another dtype."""
+    if a.dtype.is_floating_point:
+        return a.shape == b.shape and bool(((a == b) | (a.isnan() & b.isnan())).all())
+    return torch.equal(a, b)
+
+
+MODES = {"plane": (0.0, False), "huber": (0.004, False), "p2p": (0.0, True),
+         "p2p-huber": (0.004, True)}
+
+
+def iterate_both(card, case, crit, mode=(0.0, False), start=None):
+    """The ICP of scene_case(case)'s clouds through the scene's iteration
+    kernel and through plain_association's plain iteration (both through
+    icp._icp_run, which anchors the padded rows): (kernel result, kernel
+    cloud, plain result, plain cloud, iteration launches of the kernel run).
+    ``start`` maps the initial state (the ICPState of _icp_run) for the
+    edge cases, on both runs alike."""
+    from pose_refine_tpu_torch import icp
+
+    sc, ids, plain_query, cloud, valid = scene_case(card, case)
+    iterate = sc.iterate if ids is None else sc.iterate_at(ids)
+    reduce = sc.reduce if ids is None else sc.reduce_at(ids)
+    query = sc.query if ids is None else sc.query_at(ids)
+    kw = dict(robust_delta=mode[0], estimation="point_to_point" if mode[1] else "point_to_plane")
+
+    def wrap(fn):
+        if start is None:
+            return fn
+        return lambda state, *args, **modes: fn(start(state), *args, **modes)
+
+    before = IR.iterate_launches
+    k_res, k_cloud = icp._icp_run(cloud, valid, icp.Association(query, reduce, wrap(iterate)),
+                                  crit, **kw)
+    torch.cuda.synchronize()
+    n = IR.iterate_launches - before
+    plain = icp.plain_association(plain_query)
+    p_res, p_cloud = icp._icp_run(cloud, valid, plain._replace(iterate=wrap(plain.iterate)),
+                                  crit, **kw)
+    return k_res, k_cloud, p_res, p_cloud, n
+
+
+def assert_same_icp(k_res, k_cloud, p_res, p_cloud):
+    for name, a, b in (("T", k_res.transformation, p_res.transformation),
+                       ("fitness", k_res.fitness, p_res.fitness),
+                       ("rmse", k_res.inlier_rmse, p_res.inlier_rmse),
+                       ("cloud", k_cloud, p_cloud)):
+        assert same_bits(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("case", ["projective", "stacked", "slabs", "slabs16", "nn", "kd",
+                                  "nn_stacked"])
+def test_icp_iterate_kernel_matches_plain_on_card(card, case, mode):
+    """The iteration kernel against its plain version (icp_loop_plain over
+    the scene's plain query), per front end and mode, 12 iterations: T,
+    fitness, rmse and the final cloud bit for bit (NaN where the plain
+    version's is NaN), including the pose with no valid point (done at
+    once, T the identity) and pose 0's points at z = 0, behind the camera,
+    overflowing and NaN; one launch a refine against a projective scene,
+    one a pass against an NN scene."""
+    crit = ptt.ICPConvergenceCriteria(max_iteration=12)
+    k_res, k_cloud, p_res, p_cloud, n = iterate_both(card, case, crit, MODES[mode])
+    assert_same_icp(k_res, k_cloud, p_res, p_cloud)
+    assert n == (13 if case in ("nn", "kd", "nn_stacked") else 1)
+    assert torch.equal(k_res.transformation[2], torch.eye(4, device=card))
+    assert float(k_res.fitness[2]) == 0.0
+    moved = ~torch.isclose(k_res.transformation, torch.eye(4, device=card)).all(dim=(1, 2))
+    assert bool(moved[torch.arange(moved.shape[0], device=card) != 2].all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edge", ["max_iteration_0", "done_at_start", "one_iteration"])
+@pytest.mark.parametrize("case", ["projective", "slabs16", "nn"])
+def test_icp_iterate_kernel_edges_on_card(card, case, edge):
+    """The kernel's latch at the edges, bit for bit against the plain
+    version: max_iteration = 0 (the scoring pass alone: scores set, nothing
+    moves), a state whose every pose is done at the start (returned as it
+    came, scores 0), and one iteration and the scoring pass."""
+    crit = ptt.ICPConvergenceCriteria(max_iteration=1 if edge == "one_iteration" else 0)
+    start = None
+    if edge == "done_at_start":
+        crit = ptt.ICPConvergenceCriteria(max_iteration=6)
+
+        def start(state):
+            state.done.fill_(True)
+            return state
+
+    k_res, k_cloud, p_res, p_cloud, _n = iterate_both(card, case, crit, start=start)
+    assert_same_icp(k_res, k_cloud, p_res, p_cloud)
+    eye = torch.eye(4, device=card).expand_as(k_res.transformation)
+    if edge != "one_iteration":
+        assert torch.equal(k_res.transformation, eye)
+    if edge == "done_at_start":
+        assert not bool(k_res.fitness.any()) and not bool(k_res.inlier_rmse.any())
+    elif edge == "max_iteration_0":
+        assert float(k_res.fitness.max()) > 0.0
+
+
+@pytest.mark.cuda
+def test_refine_is_one_iteration_launch_on_card(card):
+    """A projective refine's whole ICP loop is one launch of the iteration
+    kernel and no launch of the pass alone; an NN refine launches one NN
+    kernel and one iteration kernel a pass; both equal the refine through
+    the plain versions bit for bit."""
+    from pose_refine_tpu_torch import icp
+    from pose_refine_tpu_torch.pipeline import refine_poses
+
+    m = mesh.make_bumpy_sphere(radius=50.0, subdivisions=4)
+    R = np.array([[0.34768538, 0.93761126, 0.0],
+                  [0.70540612, -0.26157897, -0.65877056],
+                  [-0.61767070, 0.22904489, -0.75234390]], np.float32)
+    truth = geometry.pose_from_Rt(R, np.array([0, 0, 300], np.float32))
+    proj = geometry.compute_proj(geometry.LINEMOD_K, 640, 480, device=card)
+    frame = RC.rasterize(m.tris, truth[None], 640, 480, proj, device="cuda")[0]
+    rng = np.random.default_rng(1)
+    ang = geometry.euler_to_rotation(rng.uniform(-0.1, 0.1, (12, 3)).astype(np.float32))
+    hyps = geometry.pose_from_Rt(ang @ truth[:3, :3],
+                                 truth[:3, 3] + rng.uniform(-10, 10, (12, 3)).astype(np.float32))
+    crit = ptt.ICPConvergenceCriteria(max_iteration=20)
+    for scene in ("projective", "nn_bruteforce"):
+        ref = ptt.PoseRefiner(m, K=geometry.LINEMOD_K, device="cuda", scene=scene)
+        ref.set_scene_depth(frame)
+        before = (IR.iterate_launches, IR.launches, NF.gated_launches)
+        refined, res = ref.refine(hyps, crit)
+        torch.cuda.synchronize()
+        it, passes, nn = (a - b for a, b in zip(
+            (IR.iterate_launches, IR.launches, NF.gated_launches), before))
+        assert passes == 0
+        assert (it, nn) == ((1, 0) if scene == "projective" else (21, 21))
+        p_refined, p_res = refine_poses(
+            ref.tris, torch.as_tensor(hyps, device=card), ref.scene, ref.proj,
+            ref._K_render_t, width=ref.render_w, height=ref.render_h,
+            max_points=ref.max_points, criteria=crit, window=ref.window, stride=ref.stride,
+            roi=ref.roi, raster=RC.rasterize_plain,
+            query=icp.plain_association(lambda c: ref.scene.query(c, plain=True)))
+        assert torch.equal(refined, p_refined) and torch.equal(res.fitness, p_res.fitness)
+        assert float(res.fitness.min()) > 0.5
+
+
+@pytest.mark.cuda
+def test_icp_iterate_refuses_what_it_cannot_launch_on_card(card):
+    """The iteration kernel's wrapper checks the state as well as the
+    pass's arguments: shapes, dtypes and the device of T, the scores, the
+    latch and the divisors."""
+    from pose_refine_tpu_torch.ops.icp_reduce import ICPState
+
+    sc, _ids, _q, cloud, valid = scene_case(card, "projective")
+    n = cloud.shape[0]
+    crit = ptt.ICPConvergenceCriteria(max_iteration=3)
+    good = ICPState(cloud.clone(), torch.eye(4, device=card).expand(n, 4, 4).clone(),
+                    torch.zeros(n, device=card), torch.zeros(n, device=card),
+                    torch.zeros(n, dtype=torch.bool, device=card))
+    n_total = valid.sum(dim=-1).float()
+    for bad, match in ((good._replace(T=good.T[:, :3]), "T must be"),
+                       (good._replace(done=good.done.to(torch.uint8)), "done must be"),
+                       (good._replace(fitness=good.fitness.cpu()), "fitness must be"),
+                       (good._replace(cloud=good.cloud[0]), r"\(N, P, 3\)")):
+        with pytest.raises(ValueError, match=match):
+            sc.iterate(bad, valid, n_total, crit)
+    with pytest.raises(ValueError, match="n_total must be"):
+        sc.iterate(good, valid, n_total[:2], crit)
+    with pytest.raises(ValueError, match="valid must be"):
+        sc.iterate(good, valid[:, 1:], n_total, crit)
+
+
+@pytest.mark.cuda
+def test_sin_cos_equal_torch_on_card(card):
+    """The tail's sinf / cosf equal torch.sin / torch.cos on the card bit
+    for bit, at ICP steps and over a wide range (the plain iteration's
+    trigonometry is torch's)."""
+    rng = np.random.default_rng(2)
+    x = torch.as_tensor(np.concatenate([rng.normal(0, 0.03, 100000),
+                                        rng.uniform(-10, 10, 100000)]).astype(np.float32),
+                        device=card)
+    s, c = IR.sin_cos_cuda(x)
+    assert torch.equal(s, torch.sin(x)) and torch.equal(c, torch.cos(x))
