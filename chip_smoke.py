@@ -52,14 +52,22 @@ non-zero without printing a result:
               boundaries, scores of +-0, pad columns, partial tiles) through
               nn_flash_packed, nn_flash_gated and the stacked nn_flash_gated:
               bit for bit.
-  6b. kd-kernel - the kd traversal kernel (csrc/nn_kdtree.cu) against its
-              plain version on the same 524,288 queries against the 2 mm
-              and raw bench clouds: idx, dist^2 and steps bit for bit; against
-              B2: every neighbour at the same distance, other indices at equal
-              distances counted as ties; edge queries (NaN, overflowing, far,
-              scene points) and a single-leaf tree. Times with the wrapper,
-              alone, the plain version, B2 and B3 at the same shape; step,
-              leaf-point and box-test counts; the bound from them.
+  6b. kd-kernel - the kd traversal kernel K1 (csrc/nn_kdtree.cu) against its
+              plain version at its four shapes (kd_shapes_at: the 524,288
+              queries of the NN refine's first pass and of a late pass, at
+              the poses a scene="nn" refine returns, against the 2 mm and raw
+              bench clouds): idx, dist^2 and steps bit for bit; against B2:
+              every neighbour at the same distance, other indices at equal
+              distances counted as ties; on the raw first pass's queries
+              also the two trees that straddle the kernel's shared-memory
+              cap (the largest prefix of the raw cloud staged whole, one
+              point more walked through L1); edge queries (NaN,
+              overflowing, far, scene points) and a single-leaf tree. Times
+              with the wrapper, alone (the refine's launcher), the plain
+              version, B2 and B3 at the same shape, and the parent's kernel alone
+              when its source sits at compare_kdtree.PARENT (its outputs
+              must be equal); step, leaf-point, far-child-test and box-read
+              counts, the walk's warp efficiency, the bound from the counts.
   7. nn-slice - PoseRefiner(scene="nn_bruteforce") on the bench workload in
               bench.py's three NN configurations (2 mm voxel scene, raw
               cloud, cascade (2.0, 16) + 4 full-resolution iterations); the
@@ -71,15 +79,22 @@ non-zero without printing a result:
               (SceneNN backend "flash") drives nn_flash_packed.
   8. nn-golden - the golden recipe of phase 5 with scene="nn_bruteforce":
               fitness > 0.7; prints the rotation error.
-  8b. kd-slice - PoseRefiner(scene="nn_kdtree") on the bench workload (2 mm
-              and raw clouds): one kd launch and one fused pass an
-              iteration, [nn-slice]'s accuracy bar, hold_paths against the
+  8b. kd-slice - PoseRefiner(scene="nn") on the bench workload (2 mm and raw
+              clouds), the NN main path on the card: K1 and the iteration
+              kernel once a pass (nn_kdtree = icp_iterate = 25, no gated
+              launch), [nn-slice]'s accuracy bar, hold_paths against the
               plain path; against [nn-slice]'s B3 refines printed (ties may
               differ). Wall and device ms.
   8c. p2p   - estimation="point_to_point", robust_delta=0.005 with each
               estimation, on the 2 mm NN slice: [nn-slice]'s accuracy bar,
               hold_paths against the plain path; the golden recipe point to
               point (120 iterations): fitness > 0.7, the plain path agrees.
+  8d. bracket - tests/test_second_mesh.py's recipe (10 deg/axis + 20 mm,
+              160x120, auto lift sizes) on the asymmetric thin L-bracket
+              (tests/data/bracket.ply): projective point to plane, held to
+              the test's bar (< 4 deg, < 6 mm, fitness > 0.7); scene="nn"
+              (K1) point to plane and point to point, printed against the
+              bar; every refine held to its plain path.
   9. gather - the association's row-gather kernel against its plain
               version at three shapes: the bench projective scene (307,200
               rows) at the 524,288 first-pass pixels, the raw NN scene
@@ -552,6 +567,39 @@ def first_pass_clouds(ptt, refine_poses, ref, scene, poses, scene_ids=None):
                  stride=ref.stride, roi=ref.roi, scene_ids=scene_ids,
                  query=icp.Association(query, capture))
     return seen[0]
+
+
+def kd_shapes(torch, ptt, geometry, mesh, dev):
+    """K1's four shapes on the bench workload (kd_shapes_at)."""
+    from pose_refine_tpu_torch.ops import rasterize_cuda as RC
+
+    model, tris_np, truth, poses_np = workload(geometry, mesh)
+    proj = geometry.compute_proj(geometry.LINEMOD_K, WIDTH, HEIGHT, device=dev)
+    scene = RC.rasterize(torch.as_tensor(tris_np, device=dev),
+                         torch.as_tensor(truth[None], device=dev), WIDTH, HEIGHT,
+                         proj)[0].cpu().numpy()
+    return kd_shapes_at(ptt, model, geometry.LINEMOD_K, scene,
+                        torch.as_tensor(poses_np, device=dev))
+
+
+def kd_shapes_at(ptt, model, K, scene, poses):
+    """{name: (SceneNN, (N * 2048, 3) queries)}: the queries of the NN
+    refine's first pass and of a late pass (the first pass at the poses a
+    24-iteration scene="nn" refine returns), against the 2 mm voxel cloud and
+    the raw cloud of the scene depth: 2mm-first, 2mm-late, raw-first,
+    raw-late."""
+    from pose_refine_tpu_torch.pipeline import refine_poses
+
+    out = {}
+    for label, kw in (("2mm", dict(scene_voxel_mm=2.0)), ("raw", dict())):
+        ref = ptt.PoseRefiner(model, K=K, device="cuda", scene="nn", **kw, **CFG)
+        ref.set_scene_depth(scene)
+        first, _ = first_pass_clouds(ptt, refine_poses, ref, ref.scene, poses)
+        refined, _ = ref.refine(poses, ptt.ICPConvergenceCriteria(max_iteration=ITERS))
+        late, _ = first_pass_clouds(ptt, refine_poses, ref, ref.scene, refined)
+        out[f"{label}-first"] = (ref.scene, first.reshape(-1, 3).contiguous())
+        out[f"{label}-late"] = (ref.scene, late.reshape(-1, 3).contiguous())
+    return out
 
 
 def gated_kernel_check(torch, NF, name, label, queries, sc, gate, full=None):
@@ -1062,45 +1110,95 @@ def nn_bound(nq, pairs, n_balls=0):
 # the kd walk's FP32 operations (csrc/nn_kdtree.cu): a step picks its
 # child from the node's record (a subtraction, a compare, the selects of near
 # and far child and of the next node, the leaf and mode tests: 8); a scanned
-# leaf point 3 subtractions, a product, 2 FMAs and a compare (7); a far-box
-# test 6 subtractions, 6 maxima, 3 adds, a product, 2 FMAs and a compare (19)
-KD_STEP_OPS, KD_POINT_OPS, KD_BOX_OPS = 8, 7, 19
+# leaf point 3 subtractions, a product, 2 FMAs and a compare (7); a far child
+# tested by its split plane a product and a compare (2); a far box read, where
+# the plane does not settle the test, 6 subtractions, 6 maxima, 3 adds, a
+# product, 2 FMAs and a compare (19)
+KD_STEP_OPS, KD_POINT_OPS, KD_PLANE_OPS, KD_BOX_OPS = 8, 7, 2, 19
 
 
-def kd_bound(nq, steps, scanned, tested, tree_bytes):
+def kd_bound(nq, steps, scanned, tested, box_reads, tree_bytes):
     """K1's bound on this run's queries: the queries read, idx and dist^2
     written and the tree's arrays read once, against the operations of the
-    walks these queries take (the plain version's step, leaf-point and
-    box-test counts). The walk's dependent loads, which bound the kernel,
-    are latency and count in neither."""
+    walks these queries take (the plain version's step, leaf-point,
+    far-child-test and box-read counts). The walk's dependent loads, which
+    bound the kernel, are latency and count in neither."""
     return bound(n_bytes=nq * (12 + 8) + tree_bytes,
-                 n_instr=KD_STEP_OPS * steps + KD_POINT_OPS * scanned + KD_BOX_OPS * tested)
+                 n_instr=KD_STEP_OPS * steps + KD_POINT_OPS * scanned + KD_PLANE_OPS * tested
+                 + KD_BOX_OPS * box_reads)
 
 
-def kd_kernel_phase(torch, NF, KD, SceneNN, K, scene_depth, queries):
-    """K1, the kd traversal kernel, against its plain version on the
-    first-pass queries against the 2 mm and raw bench clouds: idx, dist^2
-    and steps bit for bit; against B2 on the same queries: both neighbours'
-    distances evaluated alike (in float64 from the float32 points) are equal,
-    or within B2's scoring error (2^-20 |q|^2, gate_band's bound: B2 ranks
-    by |s|^2 - 2 q.s, K1 by the fused sum of squares, so where two points lie
-    that close each may pick its own); other indices at equal distances are
-    counted as ties, at near-equal ones as near-ties; edge queries (NaN,
+def warp_efficiency(steps) -> float:
+    """The walk's warp efficiency with one query a lane: the sum of the
+    steps over 32 x the sum over 32-query warps (consecutive queries, the
+    lanes of a one-query-a-thread kernel's warp) of the warp's longest
+    walk; padding queries count 0."""
+    s = steps.double().cpu().numpy()
+    s = np.concatenate([s, np.zeros((-s.size) % 32)]).reshape(-1, 32)
+    return float(s.sum() / (32.0 * s.max(axis=1).sum()))
+
+
+def kd_walk(launch) -> str:
+    """Which of K1's kernels a KDLaunch runs."""
+    return "whole tree in shared memory" if launch.whole else "grid through L1"
+
+
+def kd_cap_clouds(KD, pts):
+    """The two prefixes of ``pts`` whose trees straddle K1's shared-memory
+    cap: n points give a table the kernel stages whole, n + 1 one it walks
+    through L1 (bisection over n)."""
+    from pose_refine_tpu_torch.scene.kdtree import build_kdtree
+
+    def fits(n):
+        t = build_kdtree(pts[:n], pts[:n])
+        return 16 * (3 * t.n_nodes + n) <= KD.STAGE_CAP_BYTES
+
+    lo, hi = 1, len(pts)
+    check(fits(lo) and not fits(hi), "kd-kernel: the raw cloud does not straddle the cap")
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if fits(mid) else (lo, mid)
+    return pts[:lo], pts[:hi]
+
+
+def kd_kernel_phase(torch, NF, KD, SceneNN, shapes):
+    """K1, the kd traversal kernel, against its plain version at its four
+    shapes (kd_shapes: the first and a late pass against the 2 mm and raw
+    bench clouds): idx, dist^2 and steps bit for bit; against B2 on the same
+    queries: both neighbours' distances evaluated alike (in float64 from the
+    float32 points) are equal, or within B2's scoring error (2^-20 |q|^2,
+    gate_band's bound: B2 ranks by |s|^2 - 2 q.s, K1 by the fused sum of
+    squares, so where two points lie that close each may pick its own);
+    other indices at equal distances are counted as ties, at near-equal
+    ones as near-ties. On the raw first pass's queries also the two trees
+    that straddle the kernel's shared-memory cap (the largest prefix of the
+    raw cloud whose table it stages whole, and one point more, walked
+    through L1), bit for bit with the plain version. Edge queries (NaN,
     overflowing, far, scene points) and a single-leaf tree bit for bit.
-    Times: the kernel with the wrapper and alone, the plain version, B2 and
-    B3 at the same shape. Returns the 2 mm stats, the raw ones as raw_*."""
-    dev = queries.device
-    nq = queries.shape[0]
-    out = {}
-    for label, voxel in (("2mm", 2.0), ("raw", 0.0)):
-        sc = SceneNN.from_depth(scene_depth, K, 0.1, voxel_mm=voxel, backend="kdtree",
-                                device=dev)
+    Times: the kernel with the wrapper (a KDLaunch built a call) and alone
+    (the refine's launcher), the plain version, B2 and B3 at the same shape,
+    and the parent's kernel alone when its source sits at
+    compare_kdtree.PARENT (its outputs must be equal); step, leaf-point,
+    far-child-test and box-read counts, the walk's warp efficiency, the
+    bound from the counts. Returns the 2 mm first pass's stats, and all four
+    under "shapes"."""
+    import compare_kdtree
+
+    old = None
+    if os.path.exists(compare_kdtree.PARENT):
+        old = compare_kdtree.OtherKD(compare_kdtree.PARENT)
+        phase("kd-kernel", f"parent's kernel: {compare_kdtree.PARENT} ({old.what}); {old.ptxas}")
+    out = {"shapes": {}}
+    for name, (sc, queries) in shapes.items():
+        dev = queries.device
+        nq = queries.shape[0]
         tree = sc.kd
+        launch = KD.KDLaunch(tree, (nq,), dev)
         steps = torch.empty(nq, dtype=torch.int32, device=dev)
         k_ms, (ki, kd) = median_ms(torch, lambda: KD.nn_kdtree_cuda(queries, tree, steps=steps),
                                    20)
-        a_ms = alone_ms(torch, lambda: KD.nn_kdtree_cuda(queries, tree))
-        p_ms, (pi, pd, ps, scanned, tested) = median_ms(
+        a_ms = alone_ms(torch, lambda: launch(queries))
+        p_ms, (pi, pd, ps, scanned, tested, box_reads) = median_ms(
             torch, lambda: KD.nn_kdtree_plain(queries, tree, return_steps=True, return_work=True),
             1, warm=0)
         n_bad = [int((ki != pi).sum()), int((kd.view(torch.int32) != pd.view(torch.int32)).sum()),
@@ -1116,44 +1214,75 @@ def kd_kernel_phase(torch, NF, KD, SceneNN, K, scene_depth, queries):
         off = int((~band).sum())
         ties = int(((ki != bi) & (d_k == d_b)).sum())
         near = int(((d_k != d_b) & band).sum())
-        tree_bytes = 4 * (tree.nodes.numel() + tree.boxes.numel() + tree.points.numel())
-        n_steps, n_scan, n_test = (float(x.double().sum()) for x in (ps, scanned, tested))
-        k_bound = kd_bound(nq, n_steps, n_scan, n_test, tree_bytes)
-        phase("kd-kernel", f"nn_kdtree {label} scene: {sc.points.shape[0]} points, "
-              f"{tree.n_nodes} nodes (leaf_cap {tree.leaf_cap}, {tree_bytes} bytes) x {nq} "
-              f"queries: mismatch (idx, dist^2, steps)={n_bad} steps mean={n_steps / nq} "
-              f"max={int(ps.max())} leaf_points mean={n_scan / nq} box_tests mean="
-              f"{n_test / nq}; vs B2: other_distance={off} ties={ties} near_ties={near}; "
-              f"kernel_ms={k_ms} "
-              f"kernel_alone_ms={a_ms} plain_ms={p_ms} B2_ms={b2_ms} B3_ms={b3_ms} "
+        tree_bytes = 4 * tree.table.numel()
+        n_steps, n_scan, n_test, n_box = (float(x.double().sum())
+                                          for x in (ps, scanned, tested, box_reads))
+        k_bound = kd_bound(nq, n_steps, n_scan, n_test, n_box, tree_bytes)
+        eff = warp_efficiency(ps)
+        old_part, old_ms = "", None
+        if old is not None:
+            o_steps = torch.empty(nq, dtype=torch.int32, device=dev)
+            oi, od = old(queries, tree, o_steps)
+            o_same = torch.equal(oi, ki) and torch.equal(od.view(torch.int32),
+                                                         kd.view(torch.int32)) \
+                and torch.equal(o_steps, steps)
+            old_ms = alone_ms(torch, lambda: old(queries, tree))
+            old_part = (f"parent_kernel_alone_ms={old_ms} parent_equal={o_same} "
+                        f"new/parent={a_ms / old_ms} ")
+            check(o_same, f"nn_kdtree {name}: the parent's kernel and this one differ")
+        phase("kd-kernel", f"nn_kdtree {name}: {sc.points.shape[0]} points, {tree.n_nodes} nodes "
+              f"(leaf_cap {tree.leaf_cap}, {tree_bytes} bytes) x {nq} queries, "
+              f"{kd_walk(launch)}: mismatch (idx, dist^2, steps)={n_bad} steps mean="
+              f"{n_steps / nq} max={int(ps.max())} leaf_points mean={n_scan / nq} "
+              f"far_child_tests mean={n_test / nq} box_reads mean={n_box / nq} "
+              f"warp_efficiency={eff}; vs B2: other_distance={off} "
+              f"ties={ties} near_ties={near}; kernel_ms={k_ms} kernel_alone_ms={a_ms} "
+              f"{old_part}plain_ms={p_ms} B2_ms={b2_ms} B3_ms={b3_ms} "
               f"bound_ms={k_bound['bound_ms']} ({k_bound['bound_by']}) share_of_bound="
               f"{k_bound['bound_ms'] / a_ms}")
-        check(n_bad == [0, 0, 0], f"nn_kdtree {label}: kernel != plain {n_bad}")
-        check(off == 0, f"nn_kdtree {label}: {off} neighbours at another distance than B2's")
-        stats = dict(ms=k_ms, alone_ms=a_ms, plain_ms=p_ms, b2_ms=b2_ms, b3_ms=b3_ms,
-                     steps_mean=n_steps / nq, leaf_points_mean=n_scan / nq,
-                     box_tests_mean=n_test / nq, ties_vs_b2=ties, near_ties_vs_b2=near,
-                     **k_bound)
-        out.update(stats if label == "2mm" else {f"raw_{k}": v for k, v in stats.items()})
-        if label == "raw":
-            raw_pts = tree.points[:, :3]
-            edge = torch.tensor([[float("nan"), 0.0, 0.3], [0.0, float("nan"), float("nan")],
-                                 [1e30, 1e30, 1e30], [-1e30, 0.0, 0.3], [10.0, 10.0, 10.0]],
-                                device=dev)
-            edge = torch.cat([edge, raw_pts[::97], raw_pts[:64]])
-            cases = [("edge", tree, edge)]
-            few = raw_pts[:5].cpu().numpy()
-            one = SceneNN.from_cloud(few, few, 0.1, device=dev).kd
-            cases.append(("single leaf", one, queries[:4096]))
-            for name, t, q in cases:
-                st = torch.empty(q.shape[0], dtype=torch.int32, device=dev)
-                got = (*KD.nn_kdtree_cuda(q.contiguous(), t, steps=st), st)
-                want = KD.nn_kdtree_plain(q, t, return_steps=True)
-                check(all(torch.equal(g.view(torch.int32), w.view(torch.int32))
-                          for g, w in zip(got, want)), f"nn_kdtree {name}: kernel != plain")
-            phase("kd-kernel", f"edge queries (NaN, overflowing, far, {edge.shape[0] - 5} scene "
-                  f"points) and a single-leaf tree ({one.n_nodes} node) x 4096 queries: kernel "
-                  f"== plain bit for bit (idx, dist^2, steps)")
+        check(n_bad == [0, 0, 0], f"nn_kdtree {name}: kernel != plain {n_bad}")
+        check(off == 0, f"nn_kdtree {name}: {off} neighbours at another distance than B2's")
+        out["shapes"][name] = dict(
+            ms=k_ms, alone_ms=a_ms, parent_alone_ms=old_ms, plain_ms=p_ms, b2_ms=b2_ms,
+            b3_ms=b3_ms, steps_mean=n_steps / nq, leaf_points_mean=n_scan / nq,
+            far_child_tests_mean=n_test / nq, box_reads_mean=n_box / nq,
+            warp_efficiency=eff, ties_vs_b2=ties, near_ties_vs_b2=near, **k_bound)
+        if name != "raw-first":
+            continue
+        for label, cloud in zip(("largest tree staged whole", "one point more, through L1"),
+                                kd_cap_clouds(KD, tree.points[:, :3].cpu().numpy())):
+            t = SceneNN.from_cloud(cloud, cloud, 0.1, device=dev).kd
+            cap = KD.KDLaunch(t, (nq,), dev)
+            t_steps = torch.empty(nq, dtype=torch.int32, device=dev)
+            got = (*cap(queries, t_steps), t_steps)
+            want = KD.nn_kdtree_plain(queries, t, return_steps=True)
+            same = all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+                       for g, w in zip(got, want))
+            phase("kd-kernel", f"nn_kdtree {name} queries, {label} ({cloud.shape[0]} points, "
+                  f"{t.n_nodes} nodes, {4 * t.table.numel()} bytes, cap "
+                  f"{KD.STAGE_CAP_BYTES}; {kd_walk(cap)}): kernel == plain bit for bit (idx, "
+                  f"dist^2, steps): {same}; "
+                  f"kernel_alone_ms={alone_ms(torch, lambda: cap(queries))}")
+            check(same, f"nn_kdtree {name} {label}: kernel != plain")
+            check(cap.whole == label.startswith("largest"),
+                  f"nn_kdtree {label}: the tree does not straddle the cap")
+        raw_pts = tree.points[:, :3]
+        edge = torch.tensor([[float("nan"), 0.0, 0.3], [0.0, float("nan"), float("nan")],
+                             [1e30, 1e30, 1e30], [-1e30, 0.0, 0.3], [10.0, 10.0, 10.0]],
+                            device=dev)
+        edge = torch.cat([edge, raw_pts[::97], raw_pts[:64]])
+        few = raw_pts[:5].cpu().numpy()
+        one = SceneNN.from_cloud(few, few, 0.1, device=dev).kd
+        for what, t, q in (("edge", tree, edge), ("single leaf", one, queries[:4096])):
+            st = torch.empty(q.shape[0], dtype=torch.int32, device=dev)
+            got = (*KD.nn_kdtree_cuda(q.contiguous(), t, steps=st), st)
+            want = KD.nn_kdtree_plain(q, t, return_steps=True)
+            check(all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+                      for g, w in zip(got, want)), f"nn_kdtree {what}: kernel != plain")
+        phase("kd-kernel", f"edge queries (NaN, overflowing, far, {edge.shape[0] - 5} scene "
+              f"points) and a single-leaf tree ({one.n_nodes} node) x 4096 queries: kernel "
+              f"== plain bit for bit (idx, dist^2, steps)")
+    out.update(out["shapes"]["2mm-first"])
     out["max_abs_err"] = 0.0  # bit for bit, checked above
     return out
 
@@ -1583,7 +1712,8 @@ def main():
 
     # 6b. the kd traversal kernel against its plain version and against B2
     t0 = time.perf_counter()
-    kd_stats = kd_kernel_phase(torch, NF, KD, SceneNN, K, scene, queries)
+    kd_stats = kd_kernel_phase(torch, NF, KD, SceneNN,
+                               kd_shapes_at(ptt, model, K, scene, poses))
     phase("kd-kernel", f"phase seconds={time.perf_counter() - t0}")
 
     # 7. the NN slice end to end through the gated kernel
@@ -1713,38 +1843,24 @@ def main():
             p_res.fitness.cpu().numpy()), path_failures, extra=f"wall_ms={p_wall} ")
         return r_np, r_fit, c, wall_ms, dev_ms
 
-    # 8b. the NN slice on the kd traversal (scene="nn_kdtree"), against the
-    # plain path and against [nn-slice]'s refines on B3
+    # 8b. the NN slice on its default path: scene="nn" is the kd traversal
+    # on the card; against the plain path and against [nn-slice]'s refines
+    # on B3
     t0 = time.perf_counter()
     kd_slice = {}
     for label, kw in (("2mm", dict(scene_voxel_mm=2.0)), ("raw", dict())):
-        ref = ptt.PoseRefiner(model, K=K, device="cuda", scene="nn_kdtree", **kw, **CFG)
+        ref = ptt.PoseRefiner(model, K=K, device="cuda", scene="nn", **kw, **CFG)
         t1 = time.perf_counter()
         ref.set_scene_depth(scene)
         torch.cuda.synchronize()
         build_ms = (time.perf_counter() - t1) * 1e3
-        check(ref.scene.backend == "kdtree", f"kd-slice: backend {ref.scene.backend}")
-        kd_np, kd_fit, c, wall_ms, dev_ms = nn_refine_lines("kd-slice", label, ref, build_ms)
+        check(ref.scene.backend == "kdtree", f"kd-slice: scene='nn' took {ref.scene.backend}")
+        kd_np, kd_fit, c, wall_ms, dev_ms = nn_refine_lines("kd-slice", f"{label} scene='nn'",
+                                                            ref, build_ms)
         check(c["nn_kdtree"] == ITERS + 1 and c["icp_iterate"] == ITERS + 1
               and c["assoc_reduce"] == 0 and c["nn_flash_gated"] == 0 and c["gather_rows"] == 0,
               f"kd-slice {label}: not one kd launch and one iteration launch an iteration: {c}")
-        # K1 and B3 alone at the refined poses: the queries of a late pass,
-        # near the surface, where a walk is short
-        late, _ = first_pass_clouds(ptt, refine_poses, ref, ref.scene,
-                                    torch.as_tensor(kd_np, device=dev))
-        late = late.reshape(-1, 3).contiguous()
-        late_steps = torch.empty(late.shape[0], dtype=torch.int32, device=dev)
-        KD.nn_kdtree_cuda(late, ref.scene.kd, steps=late_steps)
-        k_late = alone_ms(torch, lambda: KD.nn_kdtree_cuda(late, ref.scene.kd))
-        b_late = alone_ms(torch, lambda: NF.nn_flash_gated_cuda(
-            late, ref.scene.flash_table, ref.scene.flash_boxes, ref.scene.flash_balls,
-            ref.scene.max_dist_diff))
-        phase("kd-slice", f"{label} at the refined poses ({late.shape[0]} queries of a late "
-              f"pass): nn_kdtree alone_ms={k_late} steps mean="
-              f"{float(late_steps.double().mean())} max={int(late_steps.max())}; "
-              f"nn_flash_gated alone_ms={b_late}")
-        kd_slice[label] = dict(launches=c, wall_ms=wall_ms, device_ms=dev_ms,
-                               late_alone_ms=k_late, late_b3_alone_ms=b_late)
+        kd_slice[label] = dict(launches=c, wall_ms=wall_ms, device_ms=dev_ms)
         b_np, b_fit = nn_runs[label]
         st = agreement(rotation_angle_deg, truth, kd_np, b_np, kd_fit, b_fit)
         phase("kd-slice", f"{label} against scene='nn_bruteforce' (B3, [nn-slice]), printed, "
@@ -1783,6 +1899,51 @@ def main():
     hold_paths("p2p", "golden through the plain versions", golden_plain(p2p_golden, p2p_crit),
                path_failures)
     phase("p2p", f"phase seconds={time.perf_counter() - t0}")
+
+    # 8d. the second real shape, the thin L-bracket (tests/data/bracket.ply,
+    # asymmetric): tests/test_second_mesh.py's recipe at 160x120 with the
+    # auto lift sizes, projective as the test runs it (held to its bar), then
+    # through scene="nn" (K1) point to plane and point to point (printed
+    # against the bar); every refine held to its plain path
+    t0 = time.perf_counter()
+    bracket = mesh.Model.load(os.path.join(REPO, "tests", "data", "bracket.ply"), verbose=False)
+    k_br = np.array(K, np.float32)
+    k_br[:2] *= 0.25
+    bw, bh = 160, 120
+    br_depth = RC.rasterize(bracket.tris, pose2[None], bw, bh,
+                            geometry.compute_proj(k_br, bw, bh, device=dev), device="cuda")[0]
+    bracket_stats = {}
+    for label, kw in (("projective point to plane", dict()),
+                      ("scene='nn' point to plane", dict(scene="nn")),
+                      ("scene='nn' point to point", dict(scene="nn",
+                                                         estimation="point_to_point"))):
+        ref = ptt.PoseRefiner(bracket, K=k_br, width=bw, height=bh, window="auto",
+                              max_points="auto", device="cuda", **kw)
+        ref.set_scene_depth(br_depth)
+        reset_counts()
+        b_pose, b_res = ref.refine(pose1)
+        torch.cuda.synchronize()
+        c = counts()
+        b_np = b_pose.cpu().numpy()
+        b_err = float(rotation_angle_deg(b_np, pose2))
+        b_dt = float(np.abs(b_np[:3, 3] - pose2[:3, 3]).max())
+        b_fit = float(b_res.fitness)
+        meets = b_err < 4.0 and b_dt < 6.0 and b_fit > 0.7
+        phase("bracket", f"{label}: window={ref.window} max_points={ref.max_points} rotation "
+              f"error {b_err} deg, translation error {b_dt} mm, fitness {b_fit}; "
+              f"tests/test_second_mesh.py's bar (< 4 deg, < 6 mm, fitness > 0.7): {meets} "
+              f"launches={c}")
+        check(np.isfinite(b_np).all(), f"bracket {label}: pose not finite")
+        if "nn" in kw.get("scene", ""):
+            check(c["nn_kdtree"] > 0 and c["nn_flash_gated"] == 0,
+                  f"bracket {label}: scene='nn' did not take K1: {c}")
+        else:
+            check(meets, f"bracket {label}: misses the test's bar")
+        bracket_stats[label] = dict(rotation_deg=b_err, translation_mm=b_dt, fitness=b_fit,
+                                    meets_bar=meets)
+        hold_paths("bracket", f"{label} through the plain versions", golden_plain(ref),
+                   path_failures)
+    phase("bracket", f"phase seconds={time.perf_counter() - t0}")
 
     # 9. the association's row gather against its plain version: the bench
     # scene at the first-pass queries' pixels, and the raw and the
@@ -2329,10 +2490,13 @@ def main():
         "source": "pose_refine_tpu_torch/csrc/nn_kdtree.cu",
         # XLA code, not a Pallas kernel: the JAX package's kd traversal
         "replaces": "pose_refine_tpu/scene/nn.py:638",
+        # the main path: a scene="nn" refine ([kd-slice])
         "launches": kd_slice["2mm"]["launches"]["nn_kdtree"],
         "launches_raw": kd_slice["raw"]["launches"]["nn_kdtree"],
         **kd_stats,
         "library_ms": None,
+        "library": "none: no PyTorch call computes a nearest neighbour by a tree walk "
+                   "(torch.cdist + argmin is a dense scan, B2's function)",
     }, {
         "name": "nn_flash_mxu",
         "route": "cuda",

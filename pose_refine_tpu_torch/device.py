@@ -5,10 +5,11 @@ The JAX package picks its raster backend from the default JAX backend
 on it). The port makes the device an explicit argument of every public
 entry point instead, and resolves it here:
 
-  * ``None``    - the CUDA card when one is present, else the CPU (the
-                  counterpart of JAX's default backend);
-  * ``"cuda"``  - the card, or ``RuntimeError`` when there is none. A CUDA
-                  request never runs on the CPU.
+  * ``None``    - the CUDA card (the counterpart of JAX's default backend
+                  on an accelerator), or ``RuntimeError`` when there is
+                  none: the entry points run on the card unless the caller
+                  asks for the CPU;
+  * ``"cuda"``  - the same. A CUDA request never runs on the CPU.
   * ``"cpu"``   - the CPU, where every kernel wrapper uses its plain
                   PyTorch version.
 """
@@ -42,10 +43,10 @@ def to_device(x, device: torch.device, dtype: Optional[torch.dtype] = None) -> t
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """Turn a device argument into a ``torch.device``, refusing a CUDA
-    device the machine does not have."""
+    """Turn a device argument into a ``torch.device``: None is the card;
+    a CUDA device the machine does not have raises."""
     if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
+        device = "cuda"
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():

@@ -181,79 +181,122 @@ def build_kdtree(points, normals, leaf_size: int = 10, backend: str = "auto") ->
 @dataclass(frozen=True)
 class KDTreeDevice:
     """The traversal arrays of a KDTree on a device, packed as the kd
-    traversal kernel (csrc/nn_kdtree.cu) reads them: one 32-byte record a
-    node and one a node's box, so a step reads its node in two 16-byte
-    loads and the far child's box in two more, and one 16-byte record a
-    point, so a leaf point is one load. The field views (``child``,
-    ``parent``, ...) are the JAX SceneNN's arrays (JAX nn.py:77-83); the
-    plain version of the traversal reads them, so kernel and plain version
-    walk the same data.
+    traversal kernel (csrc/nn_kdtree.cu) reads them: one table of 16-byte
+    rows, so a step reads its node in one load, a far child's box in two
+    and a leaf point in one, and the kernel stages a prefix of each part
+    into shared memory. The field views (``child``, ``parent``, ...) are
+    the JAX SceneNN's arrays (JAX nn.py:77-83); the plain version of the
+    traversal reads the same records, so kernel and plain version walk the
+    same data.
 
-      nodes:  (M, 8) int32 [child0, child1, parent, split_dim,
-              split_v (float32 bits), left, right, 0]; child -1 for leaves,
-              [left, right) the node's point range
-      boxes:  (M, 8) float32 [xmin, ymin, zmin, 0, xmax, ymax, zmax, 0],
-              every node's subtree box (leaves included)
-      points: (P, 4) float32 [x, y, z, 0], kd-reordered
+      table: (3 M + P, 4) float32, three parts:
+        records (M rows, int32 bits; ``records``): an interior node
+              [parent, child0, split_v (float32 bits), split_dim], a leaf
+              [parent, -1, left, right] with [left, right) its point range.
+              The builder numbers nodes breadth first and creates siblings
+              together, so child1 = child0 + 1 and the top levels of the
+              tree are a prefix of the records;
+        boxes (2 M rows; ``boxes``, (M, 8)): every node's subtree box
+              [xmin, ymin, zmin, 0, xmax, ymax, zmax, 0], leaves included;
+        points (P rows; ``points``): [x, y, z, 0], kd-reordered
       leaf_cap: the next power of two at or above the most points in a leaf
       max_steps: 3 * n_nodes + 2, a bound the walk never reaches (each node
               is ``cur`` at most three times: entered, and left back from
               each child; JAX nn.py:77-83)
     """
 
-    nodes: torch.Tensor
-    boxes: torch.Tensor
-    points: torch.Tensor
+    table: torch.Tensor
+    n_nodes: int
     leaf_cap: int
     max_steps: int
 
     @classmethod
     def from_tree(cls, tree: KDTree, device) -> "KDTreeDevice":
-        m = tree.n_nodes
-        nodes = np.zeros((m, 8), np.int32)
-        nodes[:, 0:2] = tree.child
-        nodes[:, 2] = tree.parent
-        nodes[:, 3] = tree.split_dim
-        nodes[:, 4] = tree.split_v.astype(np.float32).view(np.int32)
-        nodes[:, 5:7] = tree.bounds
-        boxes = np.zeros((m, 8), np.float32)
+        m, p = tree.n_nodes, len(tree.points)
+        leaf = tree.child[:, 0] < 0
+        if not (tree.child[~leaf, 1] == tree.child[~leaf, 0] + 1).all():
+            raise ValueError("KDTreeDevice needs consecutive siblings (child1 = child0 + 1)")
+        # the kernel's split-plane test (csrc/nn_kdtree.cu) skips a far box
+        # only where split_v lies between the two children's boxes
+        inner = np.flatnonzero(~leaf)
+        sd, c0 = tree.split_dim[inner].astype(np.int64), tree.child[inner, 0]
+        sv = tree.split_v[inner].astype(np.float32)
+        if not ((tree.bbox[c0, 2 * sd + 1] <= sv) & (sv <= tree.bbox[c0 + 1, 2 * sd])).all():
+            raise ValueError("KDTreeDevice needs each split_v between its children's boxes "
+                             "(child0's max <= split_v <= child1's min on split_dim)")
+        table = np.zeros((3 * m + p, 4), np.float32)
+        rec = table[:m].view(np.int32)
+        rec[:, 0] = tree.parent
+        rec[:, 1] = np.where(leaf, -1, tree.child[:, 0])
+        split_bits = tree.split_v.astype(np.float32).view(np.int32)
+        rec[:, 2] = np.where(leaf, tree.bounds[:, 0], split_bits)
+        rec[:, 3] = np.where(leaf, tree.bounds[:, 1], tree.split_dim)
+        boxes = table[m:3 * m].reshape(m, 8)
         boxes[:, 0:3] = tree.bbox[:, 0::2]
         boxes[:, 4:7] = tree.bbox[:, 1::2]
-        points = np.zeros((len(tree.points), 4), np.float32)
-        points[:, :3] = tree.points
+        table[3 * m:, :3] = tree.points
         leaf_cap = int(2 ** int(np.ceil(np.log2(max(tree.max_leaf_points(), 1)))))
-        return cls(nodes=torch.as_tensor(nodes, device=device),
-                   boxes=torch.as_tensor(boxes, device=device),
-                   points=torch.as_tensor(points, device=device),
-                   leaf_cap=leaf_cap, max_steps=3 * m + 2)
+        return cls(table=torch.as_tensor(table, device=device), n_nodes=m, leaf_cap=leaf_cap,
+                   max_steps=3 * m + 2)
 
     def to(self, device) -> "KDTreeDevice":
-        return KDTreeDevice(self.nodes.to(device), self.boxes.to(device),
-                            self.points.to(device), self.leaf_cap, self.max_steps)
+        return KDTreeDevice(self.table.to(device), self.n_nodes, self.leaf_cap, self.max_steps)
 
     @property
-    def n_nodes(self) -> int:
-        return self.nodes.shape[0]
+    def records(self) -> torch.Tensor:
+        """(M, 4) int32 node records."""
+        return self.table[:self.n_nodes].view(torch.int32)
+
+    @property
+    def boxes(self) -> torch.Tensor:
+        """(M, 8) float32 [xmin, ymin, zmin, 0, xmax, ymax, zmax, 0]."""
+        m = self.n_nodes
+        return self.table[m:3 * m].view(m, 8)
+
+    @property
+    def points(self) -> torch.Tensor:
+        """(P, 4) float32 [x, y, z, 0]."""
+        return self.table[3 * self.n_nodes:]
+
+    @property
+    def is_leaf(self) -> torch.Tensor:
+        return self.records[:, 1] < 0
 
     @property
     def child(self) -> torch.Tensor:
-        return self.nodes[:, 0:2]
+        c0 = self.records[:, 1]
+        leaf = c0 < 0
+        return torch.stack([c0, torch.where(leaf, c0, c0 + 1)], dim=1)
 
     @property
     def parent(self) -> torch.Tensor:
-        return self.nodes[:, 2]
+        return self.records[:, 0]
 
     @property
     def split_dim(self) -> torch.Tensor:
-        return self.nodes[:, 3]
+        return torch.where(self.is_leaf, 0, self.records[:, 3])
 
     @property
     def split_v(self) -> torch.Tensor:
-        return self.nodes[:, 4].contiguous().view(torch.float32)
+        v = self.table[:self.n_nodes, 2]
+        return torch.where(self.is_leaf, torch.zeros_like(v), v)
 
     @property
     def bounds(self) -> torch.Tensor:
-        return self.nodes[:, 5:7]
+        """(M, 2) int32 [left, right): a leaf's from its record; an interior
+        node's spans its children's, c0's left to c1's right, filled in from
+        the leaves up."""
+        rec = self.records
+        leaf = rec[:, 1] < 0
+        c0 = rec[:, 1].clamp(min=0).long()
+        left = torch.where(leaf, rec[:, 2], torch.iinfo(torch.int32).max)
+        right = torch.where(leaf, rec[:, 3], -1)
+        while True:
+            nl = torch.where(leaf, left, left[c0])
+            nr = torch.where(leaf, right, right[(c0 + 1).clamp(max=rec.shape[0] - 1)])
+            if torch.equal(nl, left) and torch.equal(nr, right):
+                return torch.stack([left, right], dim=1)
+            left, right = nl, nr
 
     @property
     def bbox(self) -> torch.Tensor:

@@ -49,7 +49,7 @@ from pose_refine_tpu_torch.ops.icp_reduce import (
 from pose_refine_tpu_torch.ops.normals import _OFFSETS, estimate_normals
 from pose_refine_tpu_torch.scene import nn_flash
 from pose_refine_tpu_torch.scene.kdtree import KDTreeDevice, build_kdtree
-from pose_refine_tpu_torch.scene.nn_kdtree import nn_kdtree, nn_kdtree_plain
+from pose_refine_tpu_torch.scene.nn_kdtree import KDLaunch, nn_kdtree, nn_kdtree_plain
 
 BACKENDS = ("kdtree", "bruteforce", "flash")
 # from_depth_device's pooling keeps a block's pixels within this depth (m)
@@ -186,14 +186,17 @@ class SceneNN:
             self, **{f.name: getattr(self, f.name).to(dev) for f in dataclasses.fields(self)
                      if isinstance(getattr(self, f.name), (torch.Tensor, KDTreeDevice))})
 
+    def _tree(self) -> KDTreeDevice:
+        if self.kd is None:
+            raise ValueError("this NN scene has no kd tree (device-built); query it with "
+                             "backend 'bruteforce' or 'flash'")
+        return self.kd
+
     def _nearest(self, src: torch.Tensor, plain: bool = False):
         """(idx, dist_sq) of the scene's exact nearest neighbour of (..., 3)
         points: the kd traversal, the gated kernel, or the full scan."""
         if self.backend == "kdtree":
-            if self.kd is None:
-                raise ValueError("this NN scene has no kd tree (device-built); query it with "
-                                 "backend 'bruteforce' or 'flash'")
-            return (nn_kdtree_plain if plain else nn_kdtree)(src, self.kd)
+            return (nn_kdtree_plain if plain else nn_kdtree)(src, self._tree())
         if self.backend == "flash":
             fn = nn_flash.nn_flash_packed_plain if plain else nn_flash.nn_flash_packed
             return fn(src, self.flash_table)
@@ -230,8 +233,15 @@ class SceneNN:
         icp.ICPState of (N, P, 3) CUDA clouds, updated in place and
         returned. Raises for CPU tensors; its plain version is
         ``icp.plain_association(functools.partial(query, plain=True)).iterate``."""
+        nearest = self._nearest
+        if self.backend == "kdtree":
+            # K1 bound once a refine: each pass one launch into the same buffers
+            launch = KDLaunch(self._tree(), state.cloud.shape[:-1], state.cloud.device)
+
+            def nearest(cloud):
+                return launch(cloud.contiguous())
         return icp_iterate_indexed_cuda(
-            state, valid, n_total, criteria, self.table, self._nearest,
+            state, valid, n_total, criteria, self.table, nearest,
             nn_flash.gate_sq(self.max_dist_diff), robust_delta, point_to_point)
 
 

@@ -5,7 +5,9 @@
 
 Runs chip_smoke.py's cells on its bench workload (256 hypotheses at
 640x480, render_scale 2, window 128 / stride 2, 2048 points): the
-projective refine and the three NN configurations. For each cell it
+projective refine, the three NN configurations on the gated flash kernel
+(scene="nn_bruteforce") and the kd cells kd-2mm-256 and kd-raw-256
+(scene="nn", the kd traversal K1 on the card). For each cell it
 prints one line with the host scene build, the refine's wall and
 CUDA-event ms (median of 5), the raster, lift and ICP stages each timed
 alone by CUDA events (median of 5; a cascade's ICP stage is its
@@ -13,7 +15,9 @@ full-resolution pass) with the raster's device kernel count, one
 association pass, and, from ``torch.profiler``
 around one refine, the number of device kernels, their summed time and
 its share of the unprofiled wall time (the device busy share); then the
-eight kernels with the most device time.
+eight kernels with the most device time. A kd cell also prints a
+``[passes]`` line: K1's launches in one profiled refine, their sum, its
+share of the refine's device kernel time, and each pass's ms.
 
 Then the stacked-scene cells multiscene-proj-4x64 and multiscene-nn-4x64
 (chip_smoke.py's [multiscene] workload: 4 frames x 64 hypotheses in one
@@ -109,6 +113,24 @@ def print_loops(torch, cell, old, new, rounds=6):
     print(f"[loops] {cell}: {' | '.join(parts)} | new/old wall={ratio}", flush=True)
 
 
+def print_passes(torch, cell, key, fn):
+    """The [passes] line of one cell: each launch of the device kernels
+    whose name holds ``key`` in one profiled fn() call, in launch order -
+    their count, summed ms, share of all the call's device kernel time, and
+    each launch's ms."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    every = sum(e.time_range.elapsed_us() for e in evs) / 1e3
+    ms = [e.time_range.elapsed_us() / 1e3 for e in evs if key in e.name]
+    print(f"[passes] {cell}: {key} launches={len(ms)} sum_ms={sum(ms)} share_of_kernel_sum="
+          f"{sum(ms) / every} per_launch_ms={[round(x, 4) for x in ms]}", flush=True)
+
+
 def print_async(torch, cell, enqueue, reps=7):
     """The [async] line of one cell: host ms until enqueue() (a
     refine_async / track_async call) returns, against ms until its
@@ -167,6 +189,9 @@ def main():
     cells = [("projective", dict(), CS.ITERS)]
     cells += [(f"nn-{label}", dict(scene="nn_bruteforce", **kw), iters)
               for label, kw, iters in CS.NN_CONFIGS]
+    # scene="nn": the kd traversal K1 on the card
+    cells += [("kd-2mm-256", dict(scene="nn", scene_voxel_mm=2.0), CS.ITERS),
+              ("kd-raw-256", dict(scene="nn"), CS.ITERS)]
 
     def plan(ref, crit, **kw):
         """refine_poses' keywords of ``ref``'s standing plan."""
@@ -225,6 +250,8 @@ def main():
                     ref.scene.query, crit)
         if cell == "projective":
             print_async(torch, "slice-bench-256", lambda: ref.refine_async(poses, crit))
+        if cell.startswith("kd-"):
+            print_passes(torch, cell, "nn_kdtree", lambda: ref.refine(poses, crit))
 
     # the stacked-scene and multi-model cells (chip_smoke.py's [multiscene],
     # [multiscene-nn] and [multimodel])

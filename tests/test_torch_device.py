@@ -50,8 +50,25 @@ def card():
 def test_resolve_device_refuses_cuda_without_card(no_card):
     with pytest.raises(RuntimeError, match="no CUDA card"):
         ptt.resolve_device("cuda")
-    assert ptt.resolve_device(None).type == "cpu"
     assert ptt.resolve_device("cpu").type == "cpu"
+
+
+def test_default_device_raises_without_card(no_card):
+    """device=None is the card: with none present it raises, it does not
+    fall back to the CPU - in resolve_device and at the entry points."""
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        ptt.resolve_device(None)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        ptt.resolve_device()
+    m = mesh.make_icosphere(40.0, 1)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        ptt.PoseRefiner(m, K=geometry.LINEMOD_K)
+    pts = np.random.default_rng(0).random((50, 3)).astype(np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        SceneNN.from_cloud(pts, pts)
+    proj = geometry.compute_proj(geometry.LINEMOD_K, 64, 48, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        RC.rasterize(m.tris, np.eye(4, dtype=np.float32)[None], 64, 48, proj)
 
 
 def test_refiner_on_cuda_raises_without_card(no_card):
@@ -486,6 +503,102 @@ def test_nn_kdtree_matches_plain_on_card(card, n_scene):
     dst, nrm, valid = scene.query(q)
     want = scene.query(q, plain=True)
     assert all(torch.equal(a, b) for a, b in zip((dst, nrm, valid), want))
+
+
+def cap_straddling_clouds(pts):
+    """The two prefixes of ``pts`` whose trees straddle the kernel's
+    shared-memory cap: n points give a table that it stages whole, n + 1 one
+    it walks through L1 (bisection over n)."""
+    from pose_refine_tpu_torch.scene.kdtree import build_kdtree
+
+    def fits(n):
+        t = build_kdtree(pts[:n], pts[:n])
+        return 16 * (3 * t.n_nodes + n) <= KD.STAGE_CAP_BYTES
+
+    lo, hi = 1, len(pts)
+    assert fits(lo) and not fits(hi)
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if fits(mid) else (lo, mid)
+    return pts[:lo], pts[:hi]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tree_size", ["whole", "grid", "largest_whole", "smallest_grid"])
+def test_nn_kdtree_shared_memory_and_grid_on_card(card, tree_size):
+    """The kernel's two walks: a tree staged whole in shared memory (3,000
+    points) and one too large for it walked through L1 (20,000 points),
+    and the pair of trees that straddles the cap (the largest prefix of the
+    larger cloud staged whole, one point more walked through L1); each
+    equals the plain version bit for bit in idx, dist^2 and steps, twice
+    (the tile counters reset)."""
+    rng = np.random.default_rng(7)
+    n = 3000 if tree_size == "whole" else 20000
+    pts = (rng.normal(size=(n, 3)) * [0.05, 0.05, 0.02] + [0, 0, 0.3]).astype(np.float32)
+    q = pts[rng.integers(0, n, 40000)] + rng.normal(0, 0.01, (40000, 3))
+    if tree_size in ("largest_whole", "smallest_grid"):
+        pts = cap_straddling_clouds(pts)[tree_size == "smallest_grid"]
+    tree = SceneNN.from_cloud(pts, pts, 0.005, device=card).kd
+    q = torch.as_tensor(q.astype(np.float32), device=card)
+    launch = KD.KDLaunch(tree, q.shape[:1], card)
+    assert launch.whole == (tree_size in ("whole", "largest_whole"))
+    steps = torch.empty(q.shape[0], dtype=torch.int32, device=card)
+    for _ in range(2):  # the second launch finds the tile counters reset
+        ki, kd = launch(q, steps)
+        torch.cuda.synchronize()
+        pi, pd, ps = KD.nn_kdtree_plain(q, tree, return_steps=True)
+        assert torch.equal(ki, pi) and torch.equal(kd.view(torch.int32), pd.view(torch.int32))
+        assert torch.equal(steps, ps)
+    assert launch.counters.tolist() == [0, 0]
+
+
+@pytest.mark.cuda
+def test_nn_scene_refine_takes_kd_on_card(card):
+    """scene="nn" on the card is the kd traversal: a refine launches
+    nn_kdtree once a pass and the gated flash kernel never, and equals the
+    refine through the plain versions bit for bit; a stack and a tracked
+    frame of scene="nn" keep the gated kernel."""
+    from pose_refine_tpu_torch import icp
+    from pose_refine_tpu_torch.pipeline import refine_poses
+
+    m = mesh.make_bumpy_sphere(radius=50.0, subdivisions=4)
+    R = np.array([[0.34768538, 0.93761126, 0.0],
+                  [0.70540612, -0.26157897, -0.65877056],
+                  [-0.61767070, 0.22904489, -0.75234390]], np.float32)
+    truth = geometry.pose_from_Rt(R, np.array([0, 0, 300], np.float32))
+    proj = geometry.compute_proj(geometry.LINEMOD_K, 640, 480, device=card)
+    frame = RC.rasterize(m.tris, truth[None], 640, 480, proj, device="cuda")[0]
+    rng = np.random.default_rng(2)
+    ang = geometry.euler_to_rotation(rng.uniform(-0.1, 0.1, (12, 3)).astype(np.float32))
+    hyps = geometry.pose_from_Rt(ang @ truth[:3, :3],
+                                 truth[:3, 3] + rng.uniform(-10, 10, (12, 3)).astype(np.float32))
+    crit = ptt.ICPConvergenceCriteria(max_iteration=20)
+    ref = ptt.PoseRefiner(m, K=geometry.LINEMOD_K, device="cuda", scene="nn",
+                          scene_voxel_mm=2.0)
+    ref.set_scene_depth(frame)
+    assert ref.scene.backend == "kdtree"
+    before = (KD.launches, NF.gated_launches, IR.iterate_launches)
+    refined, res = ref.refine(hyps, crit)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip((KD.launches, NF.gated_launches, IR.iterate_launches),
+                                       before)) == (21, 0, 21)
+    p_refined, p_res = refine_poses(
+        ref.tris, torch.as_tensor(hyps, device=card), ref.scene, ref.proj, ref._K_render_t,
+        width=ref.render_w, height=ref.render_h, max_points=ref.max_points, criteria=crit,
+        window=ref.window, stride=ref.stride, roi=ref.roi, raster=RC.rasterize_plain,
+        query=icp.plain_association(lambda c: ref.scene.query(c, plain=True)))
+    assert torch.equal(refined, p_refined) and torch.equal(res.fitness, p_res.fitness)
+    assert float(res.fitness.min()) > 0.5
+    ref.set_scene_depths(torch.stack([frame, frame]).cpu().numpy())
+    assert ref.scene.backend == "bruteforce"
+    before = (KD.launches, NF.stacked_launches)
+    ref.refine(hyps, crit, scene_ids=np.zeros(12, np.int32))
+    torch.cuda.synchronize()
+    assert KD.launches == before[0] and NF.stacked_launches > before[1]
+    before = (KD.launches, NF.gated_launches)
+    ref.track(frame, hyps[:4])
+    torch.cuda.synchronize()
+    assert KD.launches == before[0] and NF.gated_launches > before[1]
 
 
 @pytest.mark.cuda

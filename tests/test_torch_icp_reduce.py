@@ -137,7 +137,7 @@ def test_plain_matches_jax_nn():
     depths, src, valid = frames_and_clouds(n=4, p=256)
     K = small_K()
     jscene = jnn.SceneNN.from_depth(depths[0], K, 0.01, backend="flash")
-    scene = tnn.SceneNN.from_depth(depths[0], K, 0.01, backend="bruteforce")
+    scene = tnn.SceneNN.from_depth(depths[0], K, 0.01, backend="bruteforce", device="cpu")
     cloud, mask = torch.as_tensor(src), torch.as_tensor(valid)
     sums, scale = plain_and_scale(cloud, mask, functools.partial(scene.query, plain=True))
     check_against_jax(sums, scale, [jscene.query] * len(src), src, valid)

@@ -184,17 +184,114 @@ def test_kd_validation():
 
 
 def test_nn_backend_choice():
-    """_nn_backend (JAX pipeline.py:821-833) keyed on the refiner's device:
-    "nn" is the kd traversal on the CPU and the gated flash kernel on a
+    """_nn_backend (JAX pipeline.py:821-833's rule, the fastest exact
+    backend of the runtime): "nn" is the kd traversal on the CPU and on a
     card; the other two kinds name theirs."""
     m = mesh.make_icosphere(40.0, 1)
-    want = {"nn": ("kdtree", "bruteforce"), "nn_kdtree": ("kdtree", "kdtree"),
+    want = {"nn": ("kdtree", "kdtree"), "nn_kdtree": ("kdtree", "kdtree"),
             "nn_bruteforce": ("bruteforce", "bruteforce")}
     for kind, (cpu, card) in want.items():
         ref = ptt.PoseRefiner(m, K=small_K(), width=W, height=H, device="cpu", scene=kind)
         assert ref._nn_backend() == cpu
         ref.device = torch.device("cuda")  # the choice only, nothing runs
         assert ref._nn_backend() == card
+
+
+def bench_clouds():
+    """(points, normals) of the bench scene at 320x240 (the icosphere
+    stand-in for obj_06 at the reference viewpoint, JAX's dense raster): raw
+    and voxelised at 2 mm, the clouds of the kd cells at a quarter of their
+    pixels."""
+    m = mesh.load_benchmark_model()
+    K = small_K()
+    truth = np.asarray(jgeo.pose_from_Rt(R_REN, np.array([0, 0, 300], np.float32)))
+    depth = np.asarray(JR.rasterize_dense(m.tris, truth[None], W, H,
+                                          jgeo.compute_proj(K, W, H)))[0]
+    out = {}
+    for label, voxel in (("raw", 0.0), ("2mm", 2.0)):
+        [(p, n)] = tnn._host_clouds([depth], K, voxel)
+        out[label] = (p, n)
+    return out
+
+
+@pytest.mark.parametrize("name", ["raw", "2mm", "single_leaf", "quantised"])
+def test_packed_records_match_jax_scene(name):
+    """The 16-byte records (interior [parent, child0, split_v, split_dim],
+    leaf [parent, -1, left, right]) and the box rows give back the JAX
+    SceneNN's arrays through the field views - child, parent, split_dim,
+    split_v, bounds (an interior node's derived from its children's) and
+    bbox - on the bench clouds, a single-leaf tree and a quantised cloud
+    with equal coordinates; the table's parts are where the kernel reads
+    them."""
+    if name in ("raw", "2mm"):
+        pts, nrm = bench_clouds()[name]
+    else:
+        pts, nrm, _q = clouds(name)
+    js = jnn.SceneNN.from_cloud(pts, nrm, 10.0)
+    tree = tnn.SceneNN.from_cloud(pts, nrm, 10.0, device="cpu").kd
+    m, p = tree.n_nodes, len(pts)
+    assert tree.table.shape == (3 * m + p, 4) and tree.table.dtype == torch.float32
+    for f in ("parent", "child", "split_dim", "split_v", "bbox", "bounds"):
+        got, want = getattr(tree, f).numpy(), np.asarray(getattr(js, f))
+        assert got.dtype == want.dtype, f
+        np.testing.assert_array_equal(got, want, err_msg=f)
+    rec = tree.records.numpy()
+    leaf = np.asarray(js.child)[:, 0] < 0
+    np.testing.assert_array_equal(rec[leaf, 2:4], np.asarray(js.bounds)[leaf])
+    assert (rec[leaf, 1] == -1).all() and (rec[~leaf, 1] > 0).all()
+    np.testing.assert_array_equal(tree.points.numpy()[:, :3], np.asarray(js.points))
+    assert (tree.points.numpy()[:, 3] == 0).all() and (tree.boxes.numpy()[:, 3::4] == 0).all()
+    assert (tree.leaf_cap, tree.max_steps) == (js.leaf_cap, js.max_steps)
+    if name == "single_leaf":
+        assert m == 1 and rec.tolist() == [[-1, -1, 0, p]]
+
+
+@pytest.mark.parametrize("case", ["as_built", "split_at_child0_max", "siblings",
+                                  "split_below_child0", "split_above_child1"])
+def test_packed_records_refuse_what_the_kernel_cannot_walk(case):
+    """KDTreeDevice.from_tree takes a tree only where the kernel's walk is
+    JAX's: siblings consecutive, and every split_v between its children's
+    boxes on split_dim (the kernel skips a far box by the split plane,
+    csrc/nn_kdtree.cu); the builder's trees qualify, a split_v on child 0's
+    face still does, one a float32 step past either face does not."""
+    pts, nrm, _q = clouds("uniform")
+    tree = tkd.build_kdtree(pts, nrm, 10)
+    inner = np.flatnonzero(tree.child[:, 0] >= 0)
+    node = inner[len(inner) // 2]
+    c0, sd = tree.child[node, 0], tree.split_dim[node]
+    lo1, hi0 = tree.bbox[c0 + 1, 2 * sd], tree.bbox[c0, 2 * sd + 1]
+    if case == "siblings":
+        tree.child[node, 1] = c0 + 2
+    elif case == "split_at_child0_max":
+        tree.split_v[node] = hi0
+    elif case == "split_below_child0":
+        tree.split_v[node] = np.nextafter(hi0, np.float32(-np.inf))
+    elif case == "split_above_child1":
+        tree.split_v[node] = np.nextafter(lo1, np.float32(np.inf))
+    if case in ("as_built", "split_at_child0_max"):
+        assert tkd.KDTreeDevice.from_tree(tree, "cpu").n_nodes == tree.n_nodes
+    else:
+        with pytest.raises(ValueError, match="siblings" if case == "siblings" else "split_v"):
+            tkd.KDTreeDevice.from_tree(tree, "cpu")
+
+
+@pytest.mark.parametrize("name", ["uniform", "quantised"])
+def test_plain_work_counts(name):
+    """The work counts of the plain walk, which give K1's bound: leaf
+    points scanned are the leaves' sizes, and of the far children tested
+    only those the split plane does not settle read their box - fewer than
+    all on these clouds; the counts change nothing of the walk."""
+    pts, nrm, q = clouds(name)
+    tree = tkd.KDTreeDevice.from_tree(tkd.build_kdtree(pts, nrm, 10), "cpu")
+    qt = torch.as_tensor(q)
+    i, d, st, scanned, tested, box_reads = TK.nn_kdtree_plain(qt, tree, return_steps=True,
+                                                              return_work=True)
+    i0, d0, st0 = TK.nn_kdtree_plain(qt, tree, return_steps=True)
+    assert torch.equal(i, i0) and torch.equal(d, d0) and torch.equal(st, st0)
+    assert (box_reads <= tested).all() and (tested <= st).all()
+    assert int(box_reads.sum()) < int(tested.sum())
+    fin = torch.isfinite(qt).all(-1) & (qt.abs() < 1e10).all(-1)
+    assert (scanned[fin] >= 1).all() and (scanned <= st * tree.leaf_cap).all()
 
 
 @pytest.fixture(scope="module")

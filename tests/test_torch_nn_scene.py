@@ -84,7 +84,7 @@ def test_host_scene_arrays_and_voxels_match_jax(scene_depth):
 def test_scene_tables_match_jax(scene_depth, voxel_mm):
     K = small_K()
     want = jnn.SceneNN.from_depth(scene_depth, K, 0.1, voxel_mm=voxel_mm)
-    got = tnn.SceneNN.from_depth(scene_depth, K, 0.1, voxel_mm=voxel_mm)
+    got = tnn.SceneNN.from_depth(scene_depth, K, 0.1, voxel_mm=voxel_mm, device="cpu")
     for f in SCENE_FIELDS:
         np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(getattr(want, f)),
                                       err_msg=f)
@@ -94,7 +94,7 @@ def test_scene_tables_match_jax(scene_depth, voxel_mm):
     # from_cloud on the same cloud gives the same tables
     pts, nrm, mask = tnn._depth_scene_arrays_host(scene_depth, K)
     if voxel_mm == 0.0:
-        again = tnn.SceneNN.from_cloud(pts[mask], nrm[mask], 0.1)
+        again = tnn.SceneNN.from_cloud(pts[mask], nrm[mask], 0.1, device="cpu")
         for f in SCENE_FIELDS:
             assert torch.equal(getattr(again, f), getattr(got, f)), f
 
@@ -116,7 +116,7 @@ def test_query_matches_jax(scene_depth):
     gate = 0.02
     jflash = jnn.SceneNN.from_depth(scene_depth, K, gate, backend="flash")
     jbrute = jnn.SceneNN.from_depth(scene_depth, K, gate, backend="bruteforce")
-    scene = tnn.SceneNN.from_depth(scene_depth, K, gate, backend="bruteforce")
+    scene = tnn.SceneNN.from_depth(scene_depth, K, gate, backend="bruteforce", device="cpu")
     q = queries_near(np.asarray(jflash.points), np.random.default_rng(4))
     dst, nrm, valid = scene.query(torch.as_tensor(q))
     jd, jn, jv = map(np.asarray, jflash.query(jnp.asarray(q)))
@@ -157,7 +157,7 @@ def test_out_of_gate_tile_gives_finite_rows(scene_depth):
     assert (idx == 0).all() and (dist == np.float32(JP.BIG)).all()
     assert np.isnan(np.asarray(jnp.take(jscene.table, jnp.array([JP.IBIG - 1]), axis=0))).all()
 
-    scene = tnn.SceneNN.from_depth(scene_depth, K, gate, backend="bruteforce")
+    scene = tnn.SceneNN.from_depth(scene_depth, K, gate, backend="bruteforce", device="cpu")
     dst, nrm, valid = scene.query(torch.as_tensor(far))
     assert not valid.any()
     assert torch.isfinite(dst).all() and torch.isfinite(nrm).all()

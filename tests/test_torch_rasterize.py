@@ -88,8 +88,8 @@ def test_rasterize_dispatches_to_plain_on_cpu(setup):
     bit for bit, and launches no kernel."""
     tris, proj, poses = setup
     before = TC.launches
-    got = TC.rasterize(tris_from_numpy(tris), torch.as_tensor(poses), W, H,
-                       proj_from_numpy(proj))
+    got = TC.rasterize(tris_from_numpy(tris, "cpu"), torch.as_tensor(poses), W, H,
+                       proj_from_numpy(proj, "cpu"))
     want = TC.rasterize_plain(tris, poses, W, H, proj, device="cpu")
     assert torch.equal(got, want)
     assert TC.launches == before
@@ -260,7 +260,7 @@ def edge_case(name, roi):
     tris, poses = raster_edges.cases()[name]
     proj = proj_from_numpy(np.asarray(jgeo.compute_proj(raster_edges.camera_k(),
                                                         raster_edges.WIDTH,
-                                                        raster_edges.HEIGHT)))
+                                                        raster_edges.HEIGHT)), "cpu")
     coef = TC.triangle_setup(torch.as_tensor(tris), torch.as_tensor(poses), proj,
                              raster_edges.WIDTH, raster_edges.HEIGHT, roi)
     cover = cover_boxes(tris, poses, proj, raster_edges.WIDTH, raster_edges.HEIGHT, roi)
@@ -410,7 +410,7 @@ def test_indexed_table_matches_gathered_and_pallas(setup, roi):
     gathered = TC.rasterize_plain(per_pose, poses, W, H, proj, roi=roi, device="cpu")
     assert torch.equal(got, gathered)
     assert torch.equal(got, TC.rasterize(TC.IndexedTris(table, ids), torch.as_tensor(poses), W,
-                                         H, proj_from_numpy(proj), roi=roi))
+                                         H, proj_from_numpy(proj, "cpu"), roi=roi))
     want = np.asarray(rasterize_pallas(per_pose, poses, W, H, proj, roi=roi, interpret=True))
     assert (got.numpy() != want).mean() < MISMATCH_GATE
     assert (want > 0).sum() > 500
@@ -432,7 +432,8 @@ def test_cover_boxes_hold_the_exact_boxes(name, roi):
         poses = np.asarray(jgeo.pose_from_Rt(R3, t))
         proj = proj_from_numpy(np.asarray(jgeo.compute_proj(raster_edges.camera_k(),
                                                             raster_edges.WIDTH,
-                                                            raster_edges.HEIGHT)))
+                                                            raster_edges.HEIGHT)),
+                               "cpu")
         coef = TC.triangle_setup(torch.as_tensor(tris), torch.as_tensor(poses), proj,
                                  raster_edges.WIDTH, raster_edges.HEIGHT, roi)
         cover = cover_boxes(tris, poses, proj, raster_edges.WIDTH, raster_edges.HEIGHT, roi)

@@ -5,6 +5,7 @@ scene depth the JAX renderer gives, against the JAX package's refiner on the
 same inputs - and the open finding that 4 mm decimation breaks the recovery,
 which the port reproduces (13.8 deg, fitness 0.47, as the JAX package)."""
 
+import functools
 import os
 
 import numpy as np
@@ -12,6 +13,7 @@ import pytest
 import torch
 
 import pose_refine_tpu as prt
+import pose_refine_tpu.ops.rasterize_pallas as JRP
 import pose_refine_tpu_torch as ptt
 from pose_refine_tpu import geometry as jgeo
 from pose_refine_tpu import mesh as jmesh
@@ -58,6 +60,35 @@ def test_bracket_recovery_matches_jax(setup):
     assert np.abs(t_pose[:3, 3] - pose2[:3, 3]).max() < 6.0 and t_fit > 0.7
     assert float(rotation_angle_deg(t_pose, j_pose)) <= 0.1
     assert np.abs(t_pose[:3, 3] - j_pose[:3, 3]).max() <= 0.2 and abs(t_fit - j_fit) <= 5e-3
+
+
+@pytest.mark.parametrize("estimation", ["point_to_plane", "point_to_point"])
+def test_bracket_nn_matches_jax(setup, monkeypatch, estimation):
+    """The recipe through scene="nn" - the kd traversal in both packages on
+    the CPU, as in the port on the card - point to plane and point to point,
+    against the JAX refiner of the same options on its CPU, both rendering
+    through the Pallas raster's function (interpret mode): the same auto
+    window and point budget, the pose within 0.1 deg and 0.2 mm of JAX's and
+    the fitness within 5e-3 (the slice bounds). The bar of
+    tests/test_second_mesh.py (< 4 deg, < 6 mm, fitness > 0.7) is met or
+    missed by both packages alike."""
+    monkeypatch.setattr(JRP, "rasterize_pallas",
+                        functools.partial(JRP.rasterize_pallas, interpret=True))
+    K, pose1, pose2, scene_depth = setup
+    kw = dict(scene="nn", estimation=estimation)
+    t_pose, t_fit, t_ref = refine(ptt, K, pose1, scene_depth, device="cpu", **kw)
+    j_pose, j_fit, j_ref = refine(prt, K, pose1, scene_depth, use_pallas=True, **kw)
+    assert t_ref.scene.backend == j_ref.scene.backend == "kdtree"
+    assert (t_ref.window, t_ref.max_points, t_ref.roi) == (j_ref.window, j_ref.max_points,
+                                                           j_ref.roi)
+    assert float(rotation_angle_deg(t_pose, j_pose)) <= 0.1
+    assert np.abs(t_pose[:3, 3] - j_pose[:3, 3]).max() <= 0.2 and abs(t_fit - j_fit) <= 5e-3
+
+    def bar(pose, fit):
+        return (float(rotation_angle_deg(pose, pose2)) < 4.0
+                and np.abs(pose[:3, 3] - pose2[:3, 3]).max() < 6.0 and fit > 0.7)
+
+    assert bar(t_pose, t_fit) == bar(j_pose, j_fit)
 
 
 @pytest.mark.slow
