@@ -180,6 +180,33 @@ are collected and fail the run at its end.
  16. mxu    - P1 on its probe (probes/mxu_nn.py, scripts/probe_mxu_nn.py's
               262,144 queries): B2 and P1 times, P1 against its plain version
               and against B2 up to near-ties.
+ 17. coarse - bench.py:305-327's serving ceiling: the bench refiner with
+              coarse_iters=16, coarse_stride=4, 4 x refine_async of bench.py's
+              512 hypotheses (its 256 twice) then fence, median of 7 after a
+              warm round (wall and CUDA-event ms a batch, poses/s, busy
+              share), in turns with the same rounds without the schedule
+              ([slice]'s refiner); 2 iteration-kernel launches a refine (the
+              coarse phase with the hand-off, then the rest); verdict flips
+              against the batch without the schedule (printed); the refine
+              held to its plain path. The coarse launch alone against icp_coarse_plain +
+              handoff_plain, bit for bit, at 512 x 2,048 (coarse rows 512)
+              and one coarse iteration on K1's output (kd-2mm): times alone,
+              with the wrapper, plain, bound. A scene="nn" coarse refine (K1
+              on the strided copy): 25 K1 and 25 iteration launches, held to
+              its plain path.
+ 18. schedule - tests/test_pipeline.py:104-126's levels [(0.4, 15), (0.1,
+              20), (0.03, 15)] from its 25 deg / 40 mm start (row 0) and the
+              bench hypotheses, projective and scene="nn" (2 mm): each
+              level's gate (float32) and launches recorded, held to the
+              plain path (each level through the plain versions against the
+              same gated scene).
+ 19. compact - the slice-bench-256 refine with lift="compact" at
+              render_scale 1, 32,768 points: wall and device ms;
+              compact_points on the card == on the CPU bit for bit.
+ 20. renderer - PoseRenderer.render_depth_mask at bench.py:181-183's
+              render-256 and render-100-roi, full size and down_sample 2,
+              against rasterize_plain + the converters (< 1e-4 of pixels):
+              renders/s, wall and device ms, one launch a call.
 
 Each kernel is timed by CUDA events (median of 20 launches, the wrapper's
 host time included; plain versions fewer; B1, P2 and the fused pass also
@@ -189,9 +216,10 @@ work, from the bytes it must move and the operations it must do on this
 run's inputs at the H100's published peaks (see bound()).
 
 The two lines before the last are the card line from nvidia-smi and a JSON
-object of the eight kernels (rasterize, nn_flash_packed, nn_flash_gated with
-its stacked launches apart, gather_rows, assoc_reduce with its modes,
-icp_iterate with its cases, nn_kdtree, nn_flash_mxu); the last line is
+object of the eight kernels (rasterize with [renderer]'s renders,
+nn_flash_packed, nn_flash_gated with its stacked launches apart,
+gather_rows, assoc_reduce with its modes, icp_iterate with its cases and its
+coarse mode, nn_kdtree, nn_flash_mxu); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -223,6 +251,10 @@ CFG = dict(render_scale=2, max_points=2048, window=128, stride=2, decimate_mm=4.
 ITERS = 24
 VERDICT_DEG = 3.0
 MISMATCH_GATE = 1e-4
+# bench.py:305-327's serving ceiling: (coarse_iters, coarse_stride)
+COARSE = (16, 4)
+# tests/test_pipeline.py:104-126's gate schedule: (max_dist m, iterations)
+SCHEDULE = [(0.4, 15), (0.1, 20), (0.03, 15)]
 # kernel path vs plain path (tests/test_torch_slice.py bounds)
 MAX_DROT_DEG, MAX_DT_MM, MAX_DFIT = 0.1, 0.2, 5e-3
 # bench.py:354-358: (label, refiner options, ICP iterations)
@@ -335,6 +367,22 @@ def device_kernels(torch, fn):
         if d > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
             rows.append((e.key, d / 1e3, e.count))
     return sorted(rows, key=lambda r: -r[1])
+
+
+def busy_line(torch, fn, wall_ms):
+    """Where one fn() call's device time goes, from torch.profiler: the
+    device kernels (count, summed ms), their share of ``wall_ms`` (the
+    call's unprofiled wall: the busy share; 1 - it is the idle share) and
+    the three longest kernels by name."""
+    rows = []
+    for _ in range(5):  # the profiler now and then records no device activity
+        rows = device_kernels(torch, fn)
+        if rows:
+            break
+    total = sum(ms for _name, ms, _calls in rows)
+    top = [(name[:48], round(ms, 4), calls) for name, ms, calls in rows[:3]]
+    return (f"device_kernels={sum(calls for _n, _m, calls in rows)} kernel_sum_ms={total} "
+            f"busy_share={total / wall_ms} top={top}")
 
 
 def workload(geometry, mesh):
@@ -972,6 +1020,113 @@ def icp_iterate_phase(torch, IR, icp, cases):
         check(float(got.fitness.max()) > 0, f"icp-iterate {label}: no inlier")
         out[label] = stats
     return out
+
+
+# the coarse tail a pose and iteration: TAIL_OPS less the scores and latch
+COARSE_TAIL_OPS = TAIL_OPS - 10
+
+
+def coarse_launch_phase(torch, IR, icp, c):
+    """The iteration kernel's coarse mode alone on one case ``c`` (a dict):
+    label; cloud, valid (a refine's first-pass clouds, anchored here by
+    icp._icp_start); crit; iters, the coarse iterations; stride; front, the
+    launcher's front-end keywords; plain_query, the front end's plain
+    version on the strided copy; rows, the scene rows its first pass
+    names; point_bytes / instr as for [icp-iterate]; nearest, for the
+    indexed front end, the NN output (idx, dist_sq) of the strided copy
+    (one iteration then). The launch - its coarse iterations, then the
+    hand-off of the full clouds - against icp_coarse_plain + handoff_plain:
+    the strided clouds, T and the full clouds bit for bit, two runs bit for
+    bit. Times alone and with the wrapper (the launcher built and run, as
+    the scenes' iterate runs it), the plain version's, and the bound: the
+    bytes once a launch (the strided copy, its valid mask and front-end
+    inputs read once, the copy of every pose that moves written once, T
+    read and written, the full clouds read and written once by the
+    hand-off, the rows the first pass names read once) and the operations
+    of the pose-iterations that run (the body a point, COARSE_TAIL_OPS a
+    pose; a held pose leaves the loop), of every move (MOVE_OPS a point)
+    and of the hand-off (MOVE_OPS a full-cloud point). Returns the stats."""
+    label, iters, stride = c["label"], c["iters"], c["stride"]
+    state0, valid, n_total = icp._icp_start(c["cloud"], c["valid"])
+    cstate0, cvalid = IR.coarse_start(state0, valid, stride)
+    n, p = state0.cloud.shape[:2]
+    pc = cstate0.cloud.shape[1]
+    nearest = c.get("nearest")
+
+    def fresh():
+        st = IR.ICPState(*(t.clone() for t in cstate0))
+        return st._replace(T=st.T.clone()), state0.cloud.clone()
+
+    def make(pair):
+        st, full = pair
+        return IR._IterateLaunch(st, cvalid, n_total, c["crit"], coarse=True, handoff=full,
+                                 **c["front"])
+
+    def run(launcher):
+        if nearest is None:
+            return launcher(0, iters, handoff=True)
+        for it in range(iters):
+            launcher(it, it + 1, *nearest, handoff=it == iters - 1)
+        return launcher.state
+
+    # the plain version, timed; then its counts a coarse iteration, untimed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p_cloud, p_T = IR.icp_coarse_plain(cstate0.cloud, state0.T, cvalid, c["plain_query"], iters,
+                                       *c.get("modes", (0.0, False)))
+    p_full = IR.handoff_plain(p_T, state0.cloud)
+    torch.cuda.synchronize()
+    p_ms = (time.perf_counter() - t0) * 1e3
+    held = torch.zeros(n, dtype=torch.bool, device=p_T.device)
+    moved = torch.zeros_like(held)
+    cl, T, active, moving = cstate0.cloud, state0.T, 0, 0
+    for _ in range(iters):
+        count = IR.unpack_sums(IR.assoc_reduce_plain(cl, cvalid, c["plain_query"],
+                                                     *c.get("modes", (0.0, False))))[2]
+        active += int((~held).sum())
+        held |= count == 0
+        moving += int((~held).sum())
+        moved |= ~held
+        cl, T = IR.icp_coarse_plain(cl, T, cvalid, c["plain_query"], 1,
+                                    *c.get("modes", (0.0, False)))
+    before = IR.iterate_launches
+    pair = fresh()
+    k_state = run(make(pair))
+    torch.cuda.synchronize()
+    k = IR.iterate_launches - before
+    again_pair = fresh()
+    again = run(make(again_pair))
+    torch.cuda.synchronize()
+    got = (k_state.cloud, k_state.T, pair[1])
+    same = {name: same_bits(a, b) for name, a, b in zip(("cloud", "T", "full cloud"), got,
+                                                        (p_cloud, p_T, p_full))}
+    bits = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(got, (again.cloud, again.T, again_pair[1])))
+    err = max(float((a - b)[torch.isfinite(a) & torch.isfinite(b)].abs().max())
+              for a, b in zip(got, (p_cloud, p_T, p_full)))
+    pool = iter([make(fresh()) for _ in range(150)])
+    stats = dict(alone_ms=alone_ms(torch, lambda: run(next(pool))))
+    pairs = iter([fresh() for _ in range(25)])
+    stats["ms"], _ = median_ms(torch, lambda: run(make(next(pairs))), 20)
+    n_bytes = (n * (pc * (13 + c["point_bytes"]) + 128 + 24 * p)
+               + int(moved.sum()) * pc * 12 + c["rows"] * 32)
+    stats.update(bound(n_bytes=n_bytes, n_instr=active * (pc * c["instr"] + COARSE_TAIL_OPS)
+                       + moving * pc * MOVE_OPS + n * p * MOVE_OPS))
+    stats.update(plain_ms=p_ms, library_ms=None, launches=k, iterations=iters, max_abs_err=err,
+                 pose_iterations=active, moves=moving,
+                 share_of_bound=stats["bound_ms"] / stats["alone_ms"])
+    phase("coarse", f"{label}: {n} poses x {p} points, coarse rows {pc} (stride {stride}), "
+          f"{IR.slabs_for(n, pc)} CTAs a pose, {iters} coarse iteration(s) and the hand-off: "
+          f"{active} pose-iterations, {moving} moves, {int(held.sum())} poses held; "
+          f"equals_plain_bit_for_bit={same} two_runs_bit_equal={bits} launches={k} "
+          f"kernel_alone_ms={stats['alone_ms']} kernel_ms={stats['ms']} (with the wrapper) "
+          f"plain_ms={p_ms} bound_ms={stats['bound_ms']} ({stats['bound_by']}, "
+          f"{stats['share_of_bound']} of it alone) library=none")
+    check(all(same.values()), f"coarse {label}: the kernel differs from its plain version: "
+          f"{same}")
+    check(bits, f"coarse {label}: two runs differ")
+    check(k == (1 if nearest is None else iters), f"coarse {label}: {k} launches")
+    return stats
 
 
 def track_frames(geometry, raster, truth):
@@ -2380,6 +2535,290 @@ def main():
     iterate_stats = icp_iterate_phase(torch, IR, icp, iterate_cases)
     phase("icp-iterate", f"phase seconds={time.perf_counter() - t0}")
 
+    # 17. [coarse] the serving ceiling (bench.py:305-327): the bench
+    # refiner with the coarse-to-fine point schedule, 4 x refine_async of
+    # bench.py's 512 hypotheses (its 256 twice) in flight, one fence
+    t0 = time.perf_counter()
+    coarse_ref = ptt.PoseRefiner(model, K=K, device="cuda", coarse_iters=COARSE[0],
+                                 coarse_stride=COARSE[1], **CFG)
+    coarse_ref.set_scene_depth(scene)
+    poses512_np = np.concatenate([poses_np, poses_np])
+    poses512 = torch.as_tensor(poses512_np, device=dev)
+    reset_counts()
+    c_refined, c_res = coarse_ref.refine(poses512, crit)
+    torch.cuda.synchronize()
+    coarse_counts = counts()
+    check(coarse_counts["icp_iterate"] == 2 and coarse_counts["rasterize"] == 1
+          and coarse_counts["assoc_reduce"] == 0,
+          f"coarse: not one render and two iteration launches a refine: {coarse_counts}")
+    c_np, c_fit = c_refined.cpu().numpy(), c_res.fitness.cpu().numpy()
+    check(np.isfinite(c_np).all() and float(c_fit.mean()) > 0.9,
+          f"coarse: poses not finite or mean fitness {float(c_fit.mean())}")
+    c_mm = np.linalg.norm(c_np[:, :3, 3] - truth[:3, 3], axis=-1)
+    # rounds of 4 in flight, the schedule's refiner and [slice]'s (no
+    # schedule) in turns, after a warm round of each
+    walls, dev_ms, u_walls = [], [], []
+    for ref_ in (coarse_ref, refiner):
+        ptt.fence(*[ref_.refine_async(poses512, crit) for _ in range(4)])
+    for _ in range(7):
+        for ref_, out_ in ((coarse_ref, walls), (refiner, u_walls)):
+            torch.cuda.synchronize()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            t1 = time.perf_counter()
+            a.record()
+            done_ = ptt.fence(*[ref_.refine_async(poses512, crit) for _ in range(4)])
+            b.record()
+            torch.cuda.synchronize()
+            out_.append((time.perf_counter() - t1) * 1e3 / 4)
+            if ref_ is coarse_ref:
+                done = done_
+                dev_ms.append(a.elapsed_time(b) / 4)
+    check(len(done) == 4 and all(torch.equal(d[0], c_refined) for d in done),
+          "coarse: a fenced batch differs from the synchronous refine")
+    s_wall, s_dev = float(np.median(walls)), float(np.median(dev_ms))
+    s_busy = busy_line(torch, lambda: ptt.fence(*[coarse_ref.refine_async(poses512, crit)
+                                                  for _ in range(4)]), 4 * s_wall)
+    phase("coarse", f"serving ceiling: 4 x refine_async(512) then fence, coarse_iters="
+          f"{COARSE[0]}, coarse_stride={COARSE[1]}, {ITERS} iterations: wall_ms_per_batch median="
+          f"{s_wall} (min {min(walls)}, max {max(walls)}) device_ms_per_batch={s_dev} "
+          f"poses_per_s={512 / s_wall * 1e3} translation_err_mm median={float(np.median(c_mm))} "
+          f"mean_fitness={float(c_fit.mean())} launches_per_refine={coarse_counts}; one round of "
+          f"4: {s_busy}; the same rounds without the schedule ([slice]'s refiner, in turns): "
+          f"wall_ms_per_batch median={float(np.median(u_walls))} (min {min(u_walls)}, max "
+          f"{max(u_walls)}) poses_per_s={512 / float(np.median(u_walls)) * 1e3}")
+    # the same batch without the schedule ([slice]'s refiner): verdict flips
+    u_refined, u_res = refiner.refine(poses512, crit)
+    u_np = u_refined.cpu().numpy()
+    u_mm = np.linalg.norm(u_np[:, :3, 3] - truth[:3, 3], axis=-1)
+    flips_t = float(((c_mm < 2.0) != (u_mm < 2.0)).mean())
+    flips_r = float(((rotation_angle_deg(c_np, truth) < VERDICT_DEG)
+                     != (rotation_angle_deg(u_np, truth) < VERDICT_DEG)).mean())
+    st = agreement(rotation_angle_deg, truth, c_np, u_np, c_fit, u_res.fitness.cpu().numpy())
+    phase("coarse", f"against the same 512 refined without the schedule (printed, not held; "
+          f"bench.py expects ~4-5% of borderline verdicts to flip): verdict flips "
+          f"{1 - st['agree']} "
+          f"(translation < 2 mm: {flips_t}, rotation < {VERDICT_DEG} deg: {flips_r}) "
+          f"(median, max) drot_deg={st['rot']} dt_mm={st['t']} dfit={st['fit']}")
+    # the kernel path against the plain path, whole refine
+    t1 = time.perf_counter()
+    cp_refined, cp_res = refine_poses(
+        coarse_ref.tris, poses512, coarse_ref.scene, coarse_ref.proj, coarse_ref._K_render_t,
+        width=coarse_ref.render_w, height=coarse_ref.render_h,
+        max_points=coarse_ref.max_points, criteria=crit, window=coarse_ref.window,
+        stride=coarse_ref.stride, roi=coarse_ref.roi, coarse_iters=COARSE[0],
+        coarse_stride=COARSE[1], raster=RC.rasterize_plain,
+        query=icp.plain_association(functools.partial(coarse_ref.scene.query, plain=True)))
+    torch.cuda.synchronize()
+    hold_paths("coarse", "serving refine through the plain versions", agreement(
+        rotation_angle_deg, truth, c_np, cp_refined.cpu().numpy(), c_fit,
+        cp_res.fitness.cpu().numpy()), path_failures,
+        extra=f"wall_ms={(time.perf_counter() - t1) * 1e3} ")
+    # the coarse launch alone: 512 x 2,048 (coarse rows 512), projective,
+    # and one coarse iteration on K1's output for the strided 2 mm queries
+    c_cloud, c_valid = first_pass_clouds(ptt, refine_poses, coarse_ref, coarse_ref.scene,
+                                         poses512)
+    csc = coarse_ref.scene
+    c_front = dict(table=csc.table, K=csc.K, gate=csc.max_dist_diff, height=csc.height,
+                   width=csc.width)
+    c_anchor, c_v, _nt = icp._icp_start(c_cloud, c_valid)
+    coarse_stats = {"serving, 512 x 2,048, projective": coarse_launch_phase(torch, IR, icp, dict(
+        label="serving shape, 512 x 2,048, projective", cloud=c_cloud, valid=c_valid,
+        crit=crit, iters=COARSE[0], stride=COARSE[1], front=c_front,
+        plain_query=functools.partial(csc.query, plain=True),
+        rows=rows_named(csc, IR.coarse_start(c_anchor, c_v, COARSE[1])[0].cloud),
+        point_bytes=0, instr=11 + body_instr((0.0, False))))}
+    kd_cstate, kd_cvalid = IR.coarse_start(*icp._icp_start(nn_cloud, nn_valid)[:2], COARSE[1])
+    kd_near = kd2._nearest(kd_cstate.cloud)
+    coarse_stats["kd-2mm, 256 x 2,048, one iteration"] = coarse_launch_phase(torch, IR, icp, dict(
+        label="kd-2mm, 256 x 2,048 (K1 on the strided copy), one coarse iteration",
+        cloud=nn_cloud, valid=nn_valid, crit=crit, iters=1, stride=COARSE[1],
+        front=dict(table=kd2.table, idx=kd_near[0], dist_sq=kd_near[1],
+                   gate_sq=NF.gate_sq(kd2.max_dist_diff)),
+        plain_query=lambda q: _rows_in_gate(kd2.table, *kd_near, kd2.max_dist_diff, plain=True),
+        rows=int(kd_near[0].clamp(0, kd2.table.shape[0] - 1).unique().numel()),
+        point_bytes=8, instr=1 + body_instr((0.0, False)), nearest=kd_near))
+    # a scene="nn" coarse refine: K1 on the strided copy, one coarse launch a
+    # coarse pass, then the fine passes
+    kd_ref = ptt.PoseRefiner(model, K=K, device="cuda", scene="nn", scene_voxel_mm=2.0,
+                             coarse_iters=COARSE[0], coarse_stride=COARSE[1], **CFG)
+    kd_ref.set_scene_depth(scene)
+    reset_counts()
+    kc_refined, kc_res = kd_ref.refine(poses, crit)
+    torch.cuda.synchronize()
+    kd_coarse_counts = counts()
+    check(kd_coarse_counts["nn_kdtree"] == ITERS + 1
+          and kd_coarse_counts["icp_iterate"] == ITERS + 1,
+          f"coarse: scene='nn' launches {kd_coarse_counts}")
+    kc_wall, kc_dev = refine_ms(torch, lambda: kd_ref.refine(poses, crit))
+    kp_refined, kp_res = refine_poses(
+        kd_ref.tris, poses, kd_ref.scene, kd_ref.proj, kd_ref._K_render_t, width=kd_ref.render_w,
+        height=kd_ref.render_h, max_points=kd_ref.max_points, criteria=crit,
+        window=kd_ref.window, stride=kd_ref.stride, roi=kd_ref.roi, coarse_iters=COARSE[0],
+        coarse_stride=COARSE[1],
+        query=icp.plain_association(functools.partial(kd_ref.scene.query, plain=True)))
+    hold_paths("coarse", "scene='nn' 2 mm coarse refine (256) through the plain versions",
+               agreement(rotation_angle_deg, truth, kc_refined.cpu().numpy(),
+                         kp_refined.cpu().numpy(), kc_res.fitness.cpu().numpy(),
+                         kp_res.fitness.cpu().numpy()), path_failures,
+               extra=f"wall_ms={kc_wall} device_ms={kc_dev} launches={kd_coarse_counts} ")
+    phase("coarse", f"phase seconds={time.perf_counter() - t0}")
+
+    # 18. [schedule] tests/test_pipeline.py:104-126's three levels, from its
+    # 25 deg / 40 mm start (row 0) and the bench hypotheses, projective and
+    # scene="nn" on the 2 mm cloud; each level's scene carries its gate
+    t0 = time.perf_counter()
+    big = np.float32(25.0 / 180.0 * np.pi)
+    far = geometry.pose_from_Rt(
+        geometry.euler_to_rotation(np.array([big, big, big], np.float32)).numpy()
+        @ truth[:3, :3], truth[:3, 3] + np.float32(40.0)).numpy()
+    sched_starts_np = poses_np.copy()
+    sched_starts_np[0] = far
+    sched_starts = torch.as_tensor(sched_starts_np, device=dev)
+    schedule_stats = {}
+    from pose_refine_tpu_torch import pipeline as PL
+
+    for label, kw in (("projective", dict()), ("scene='nn' 2 mm", dict(scene="nn",
+                                                                       scene_voxel_mm=2.0))):
+        s_ref = ptt.PoseRefiner(model, K=K, device="cuda", **kw, **CFG)
+        s_ref.set_scene_depth(scene)
+        gates, level_counts = [], []
+        inner = PL.refine_poses
+
+        def recording(tris, init, s_scene, *args, **kwargs):
+            out = inner(tris, init, s_scene, *args, **kwargs)
+            torch.cuda.synchronize()
+            gates.append(float(s_scene.max_dist_diff))
+            level_counts.append(counts())
+            reset_counts()
+            return out
+
+        PL.refine_poses = recording
+        try:
+            reset_counts()
+            s_poses, s_res = s_ref.refine(sched_starts, crit, schedule=SCHEDULE)
+        finally:
+            PL.refine_poses = inner
+        want_gates = [float(np.float32(g)) for g, _ in SCHEDULE]
+        check(gates == want_gates, f"schedule {label}: level gates {gates}, not {want_gates}")
+        per_pass = "nn_kdtree" if "nn" in label else None
+        for (g, iters), lc in zip(SCHEDULE, level_counts):
+            want = iters + 1 if per_pass else 1
+            check(lc["rasterize"] == 1 and lc["icp_iterate"] == want
+                  and (per_pass is None or lc[per_pass] == iters + 1),
+                  f"schedule {label}: level {g} launches {lc}")
+        s_np, s_fit = s_poses.cpu().numpy(), s_res.fitness.cpu().numpy()
+        single, _res1 = s_ref.refine(sched_starts, crit)
+        s_mm = np.linalg.norm(s_np[:, :3, 3] - truth[:3, 3], axis=-1)
+        one_mm = np.linalg.norm(single.cpu().numpy()[:, :3, 3] - truth[:3, 3], axis=-1)
+        wall_ms, dev_ms = refine_ms(torch, lambda: s_ref.refine(sched_starts, crit,
+                                                                schedule=SCHEDULE))
+        s_busy = busy_line(torch, lambda: s_ref.refine(sched_starts, crit, schedule=SCHEDULE),
+                           wall_ms)
+        phase("schedule", f"{label}: {N_POSES} starts (row 0 tests/test_pipeline.py:111's 25 "
+              f"deg / 40 mm), schedule {SCHEDULE}: wall_ms={wall_ms} device_ms={dev_ms} "
+              f"level gates {gates} launches per level {level_counts}; translation_err_mm "
+              f"median={float(np.median(s_mm))} (one level {float(np.median(one_mm))}), the far "
+              f"start {float(s_mm[0])} mm (one level {float(one_mm[0])}) "
+              f"mean_fitness={float(s_fit.mean())}; {s_busy}")
+        check(np.isfinite(s_np).all() and float(s_fit.mean()) > 0.9,
+              f"schedule {label}: poses not finite or mean fitness {float(s_fit.mean())}")
+        # the plain path: each level through the plain raster and the plain
+        # association against the same gated scene
+        p_poses = sched_starts
+        t1 = time.perf_counter()
+        for g, iters in SCHEDULE:
+            g_scene = PL._scene_with_gate(s_ref.scene, g)
+            p_poses, p_res = refine_poses(
+                s_ref.tris, p_poses, g_scene, s_ref.proj, s_ref._K_render_t,
+                width=s_ref.render_w, height=s_ref.render_h, max_points=s_ref.max_points,
+                criteria=ptt.ICPConvergenceCriteria(crit.relative_fitness, crit.relative_rmse,
+                                                    iters),
+                window=s_ref.window, stride=s_ref.stride, roi=s_ref.roi, raster=RC.rasterize_plain,
+                query=icp.plain_association(functools.partial(g_scene.query, plain=True)))
+        torch.cuda.synchronize()
+        hold_paths("schedule", f"{label} through the plain versions", agreement(
+            rotation_angle_deg, truth, s_np, p_poses.cpu().numpy(), s_fit,
+            p_res.fitness.cpu().numpy()), path_failures,
+            extra=f"wall_ms={(time.perf_counter() - t1) * 1e3} ")
+        schedule_stats[label] = dict(wall_ms=wall_ms, device_ms=dev_ms, launches=level_counts)
+    phase("schedule", f"phase seconds={time.perf_counter() - t0}")
+
+    # 19. [compact] the slice-bench-256 refine with lift="compact" at full
+    # resolution, 32,768 points: every valid render pixel in scan order
+    t0 = time.perf_counter()
+    cm_ref = ptt.PoseRefiner(model, K=K, device="cuda", lift="compact", render_scale=1,
+                             max_points=32768, decimate_mm=CFG["decimate_mm"])
+    cm_ref.set_scene_depth(scene)
+    reset_counts()
+    cm_refined, cm_res = cm_ref.refine(poses, crit)
+    torch.cuda.synchronize()
+    cm_counts = counts()
+    check(cm_counts["rasterize"] == 1 and cm_counts["icp_iterate"] == 1,
+          f"compact: launches {cm_counts}")
+    cm_np, cm_fit = cm_refined.cpu().numpy(), cm_res.fitness.cpu().numpy()
+    cm_mm = np.linalg.norm(cm_np[:, :3, 3] - truth[:3, 3], axis=-1)
+    cm_wall, cm_dev = refine_ms(torch, lambda: cm_ref.refine(poses, crit))
+    cm_busy = busy_line(torch, lambda: cm_ref.refine(poses, crit), cm_wall)
+    cm_depth = RC.rasterize(cm_ref.tris, poses, cm_ref.render_w, cm_ref.render_h, cm_ref.proj,
+                            roi=cm_ref.roi)
+    from pose_refine_tpu_torch.ops.depth_to_cloud import compact_points, depth_image_to_points
+
+    pts_img, mask_img = depth_image_to_points(cm_depth, cm_ref._K_render_t, tl_x=cm_ref.roi[0],
+                                              tl_y=cm_ref.roi[1])
+    on_card = compact_points(pts_img, mask_img, cm_ref.max_points)
+    on_cpu = compact_points(pts_img.cpu(), mask_img.cpu(), cm_ref.max_points)
+    cm_same = all(torch.equal(a.cpu(), b) for a, b in zip(on_card, on_cpu))
+    cp_ms, _ = median_ms(torch, lambda: compact_points(pts_img, mask_img, cm_ref.max_points), 20)
+    phase("compact", f"lift='compact', render_scale 1, roi={cm_ref.roi}, max_points="
+          f"{cm_ref.max_points}: {N_POSES} poses, n_points median="
+          f"{float(cm_res.n_points.median())} max={float(cm_res.n_points.max())}: wall_ms="
+          f"{cm_wall} device_ms={cm_dev} poses_per_s={N_POSES / cm_wall * 1e3} "
+          f"translation_err_mm median={float(np.median(cm_mm))} mean_fitness="
+          f"{float(cm_fit.mean())} launches={cm_counts}; compact_points on the card == on the "
+          f"CPU bit for bit: {cm_same} (card ms {cp_ms}); {cm_busy}")
+    check(cm_same, "compact: compact_points on the card differs from the CPU's")
+    check(np.isfinite(cm_np).all() and float(cm_fit.mean()) > 0.9,
+          f"compact: poses not finite or mean fitness {float(cm_fit.mean())}")
+    phase("compact", f"phase seconds={time.perf_counter() - t0}")
+
+    # 20. [renderer] PoseRenderer at bench.py:181-183's renders: 256 and 100
+    # copies of the truth at 640x480, 100 in the ROI, full size and
+    # down_sample 2, against the plain raster of the truth + the converters
+    t0 = time.perf_counter()
+    renderer = ptt.PoseRenderer(model, K=K, device="cuda")
+    renderer_stats = {}
+    from pose_refine_tpu_torch.ops import convert
+
+    for label, n_r, ds, roi in (("render-256", 256, 1, (0, 0, 0, 0)),
+                                ("render-256, down_sample 2", 256, 2, (0, 0, 0, 0)),
+                                ("render-100-roi", 100, 1, (160, 80, 320, 240)),
+                                ("render-100-roi, down_sample 2", 100, 2, (80, 40, 160, 120))):
+        r_poses = torch.as_tensor(np.tile(truth, (n_r, 1, 1)), device=dev)
+        reset_counts()
+        r_depth, r_mask = renderer.render_depth_mask(r_poses, ds, roi)
+        torch.cuda.synchronize()
+        r_counts = counts()
+        w_r, h_r = int(WIDTH / ds), int(HEIGHT / ds)
+        plain = RC.rasterize_plain(renderer.tris, r_poses[:1], w_r, h_r, renderer.proj_mat,
+                                   roi=roi)
+        p_depth, p_mask = convert.raw_to_depth_mask(plain)
+        mism = max(float((r_depth.to(torch.int32) != p_depth.to(torch.int32)).float().mean()),
+                   float((r_mask != p_mask).float().mean()))
+        r_wall, r_dev = refine_ms(torch, lambda: renderer.render_depth_mask(r_poses, ds, roi))
+        r_busy = busy_line(torch, lambda: renderer.render_depth_mask(r_poses, ds, roi), r_wall)
+        renderer_stats[label] = dict(wall_ms=r_wall, device_ms=r_dev, mismatch=mism,
+                                     renders_per_s=n_r / r_wall * 1e3)
+        phase("renderer", f"{label}: PoseRenderer.render_depth_mask of {n_r} poses, out "
+              f"{tuple(r_depth.shape[1:])} {r_depth.dtype} / {r_mask.dtype}: mismatch against "
+              f"rasterize_plain + convert={mism} covered_px={int((p_mask > 0).sum())} "
+              f"wall_ms={r_wall} device_ms={r_dev} renders_per_s={n_r / r_wall * 1e3} "
+              f"launches={r_counts}; {r_busy}")
+        check(mism < MISMATCH_GATE and int((p_mask > 0).sum()) > 0,
+              f"renderer {label}: mismatch {mism}")
+        check(r_counts["rasterize"] == 1, f"renderer {label}: launches {r_counts}")
+    phase("renderer", f"phase seconds={time.perf_counter() - t0}")
+
     # 16. P1 on its probe: scripts/probe_mxu_nn.py's workload at full size
     reset_counts()
     mxu = mxu_nn.run(device=dev)
@@ -2409,6 +2848,8 @@ def main():
         "bound_by": hyp_stats["bound_by"],
         "library_ms": None,
         "launches_multimodel": mm_launches["rasterize"],
+        # the render-only path: PoseRenderer ([renderer]), one launch a call
+        "renderer": renderer_stats,
         # every [kernel] shape: alone, with the wrapper, the old path (setup
         # + coefficient-table kernel) alone when its source was given, the
         # bound of the function
@@ -2479,6 +2920,21 @@ def main():
         "launches_stacked": ms_launches["multiscene"]["icp_iterate"],
         "launches_multimodel": mm_launches["icp_iterate"],
         "launches_kd": kd_slice["2mm"]["launches"]["icp_iterate"],
+        # the coarse mode (the point schedule): launches of the iteration
+        # kernel on each path (the serving refine: the coarse launch and the
+        # fine one; scene="nn": one a pass), and the coarse launch alone,
+        # with the wrapper, plain, bound and share
+        "coarse": {
+            "launches_serving": coarse_counts["icp_iterate"],
+            "launches_kd": kd_coarse_counts["icp_iterate"],
+            "launches_schedule": {label: [lc["icp_iterate"] for lc in st["launches"]]
+                                  for label, st in schedule_stats.items()},
+            "launches_compact": cm_counts["icp_iterate"],
+            "cases": {label: {k: st[k] for k in ("alone_ms", "ms", "plain_ms", "bound_ms",
+                                                 "bound_by", "share_of_bound", "launches",
+                                                 "pose_iterations", "max_abs_err")}
+                      for label, st in coarse_stats.items()},
+        },
         # every timed case: alone, with the wrapper, the bound
         "cases": {label: {k: st[k] for k in ("alone_ms", "ms", "first_ms", "score_only_alone_ms",
                                              "pass_alone_ms", "bound_ms", "bound_by",

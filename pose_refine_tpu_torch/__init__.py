@@ -10,12 +10,15 @@ and 29-float reduction in one kernel, ``csrc/icp_reduce.cu``), with its pose
 uncertainty, stacked scenes (``set_scene_depths``), several
 meshes in one batch (``MultiModelRefiner``), per-frame tracking
 (``PoseRefiner.track``), the filtered ``TrackingSession`` and
-``MultiObjectSession``, on an NVIDIA GPU or, with the kernels' plain
+``MultiObjectSession``, the coarse-to-fine point and gate schedules
+(``coarse_iters``, ``refine(schedule=)``), and the reference's renderer
+API (``PoseRenderer``), on an NVIDIA GPU or, with the kernels' plain
 PyTorch versions, on the CPU. Every public entry point takes an
 explicit ``device=``. The package imports torch and never jax.
 """
 
 from pose_refine_tpu_torch import geometry  # noqa: F401
+from pose_refine_tpu_torch.api import PoseRenderer, get_bbox  # noqa: F401
 from pose_refine_tpu_torch.device import resolve_device  # noqa: F401
 from pose_refine_tpu_torch.geometry import LINEMOD_K, compute_proj  # noqa: F401
 from pose_refine_tpu_torch.icp import (  # noqa: F401
@@ -26,6 +29,7 @@ from pose_refine_tpu_torch.icp import (  # noqa: F401
     PoseUncertainty,
     RegistrationResult,
     icp_point_to_plane,
+    icp_point_to_plane_batch,
     icp_point_to_point,
     pose_covariance,
     pose_information,
@@ -33,21 +37,37 @@ from pose_refine_tpu_torch.icp import (  # noqa: F401
 from pose_refine_tpu_torch.mesh import (  # noqa: F401
     Model,
     load_benchmark_model,
+    load_gltf,
+    load_obj,
+    load_ply,
+    load_stl,
     make_bumpy_sphere,
     make_icosphere,
     simplify_vertex_clustering,
 )
+from pose_refine_tpu_torch.ops.convert import (  # noqa: F401
+    raw_to_depth_mask,
+    raw_to_depth_u16,
+    raw_to_mask_u8,
+)
+from pose_refine_tpu_torch.ops.depth_to_cloud import depth_to_cloud  # noqa: F401
 from pose_refine_tpu_torch.ops.gather import gather_rows  # noqa: F401
-from pose_refine_tpu_torch.ops.rasterize import rasterize_dense  # noqa: F401
+from pose_refine_tpu_torch.ops.rasterize import (  # noqa: F401
+    rasterize_dense,
+    rasterize_scatter,
+    render,
+)
 from pose_refine_tpu_torch.ops.rasterize_cuda import rasterize, rasterize_plain  # noqa: F401
 from pose_refine_tpu_torch.pipeline import (  # noqa: F401
     MultiModelRefiner,
     PendingResult,
     PoseRefiner,
+    fence,
     refine_poses,
     track_poses,
     track_poses_nn,
 )
+from pose_refine_tpu_torch.scene.kdtree import KDTree, build_kdtree  # noqa: F401
 from pose_refine_tpu_torch.scene.nn import SceneNN, SceneNNStack  # noqa: F401
 from pose_refine_tpu_torch.scene.projective import (  # noqa: F401
     SceneProjective,

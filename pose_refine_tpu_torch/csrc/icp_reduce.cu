@@ -82,6 +82,16 @@
 // pose and iteration, a microsecond or two of one thread; it replaces ~75
 // small PyTorch launches of the solve and update a pass, which the host,
 // not the card, paid for.
+//
+// The coarse-to-fine point schedule (JAX icp.py:443-489) is a mode of the
+// same kernel: the first coarse iterations run on a strided copy of each
+// cloud (rows 0, cs, 2cs, ...), whose tail solves and moves without scores
+// or latch and holds a pose with no inlier; the launch that ends the coarse
+// phase then moves each pose's full cloud by its final T (the hand-off), and
+// the ordinary launches run the remaining iterations from zero scores. The
+// copy is contiguous, so the pass body, the slabs and the shared-memory slab
+// are the ordinary ones at the copy's size: a projective refine is two
+// launches, an NN refine one NN launch and one iteration launch a pass.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -374,6 +384,15 @@ struct Iter {
   int max_iter;           // the last (scoring-only) iteration
   float rf, rr;           // the convergence thresholds, float32
   int smem_cloud;         // 1: the slab lives in shared memory across iterations
+  // the coarse phase of the coarse-to-fine point schedule (JAX icp.py:456-474):
+  // cloud is the strided copy, and a pose's tail is coarse_tail (no scores,
+  // no latch; fitness, rmse, done and n_total are neither read nor written)
+  int coarse;
+  // the hand-off (JAX icp.py:476-484), or null: after the launch's last
+  // iteration every pose's full cloud (N, handoff_points, 3), the anchored
+  // cloud the strided copy was cut from, is moved in place by its final T
+  float* handoff;
+  int handoff_points;
 };
 
 // sum k of the 21 packed AtA sums: entry (i, j), i <= j, of the upper
@@ -449,29 +468,11 @@ __device__ __forceinline__ void sin_cos(float v, float& s, float& c) {
   c = cosf(v);
 }
 
-// The tail of one iteration of one pose, one thread: `s` the pose's 29
-// sums, `ps` its state [T (16), fitness, rmse, done], `step` the result the
-// pose's CTAs read: the update's rows [R | t] (12) and 1 where the cloud
-// moves, else 0. The pose is not done on entry. Scores and latch as
-// ops/icp_reduce.py::icp_iterate_plain, then, while not done, the damped
-// solve, the twist Rz Ry Rx (geometry.euler_to_rotation's formulas in their
-// order) and T <- upd @ T, each entry summed over k in order.
-__device__ __noinline__ void iteration_tail(const float* s, float* ps, float* step,
-                                            float n_total, int it, int max_iter, float rf,
-                                            float rr) {
-  const float count = s[28], mse = s[27];
-  const float fit = ps[16], rmse = ps[17];
-  const bool empty = count == 0.f;
-  const float new_fit = empty ? fit : __fdiv_rn(count, fmaxf(n_total, 1.f));
-  const float new_rmse = empty ? rmse : __fsqrt_rn(__fdiv_rn(mse, fmaxf(count, 1.f)));
-  const bool converged =
-      fabsf(__fsub_rn(new_fit, fit)) < rf && fabsf(__fsub_rn(new_rmse, rmse)) < rr;
-  const bool done = empty || converged || it == max_iter;
-  ps[16] = new_fit;
-  ps[17] = new_rmse;
-  ps[18] = done ? 1.f : 0.f;
-  step[12] = done ? 0.f : 1.f;
-  if (done) return;
+// The update of one pose, one thread: from `s`, the pose's 29 sums, the
+// damped solve, the twist Rz Ry Rx (geometry.euler_to_rotation's formulas in
+// their order) and T <- upd @ T in `ps` (its T, 16), each entry summed over
+// k in order; the update's rows [R | t] (12) in `step`
+__device__ __forceinline__ void update_tail(const float* s, float* ps, float* step) {
   float x[6];
   solve_damped(s, x);
   float cx, sx, cy, sy, cz, sz;
@@ -508,6 +509,40 @@ __device__ __noinline__ void iteration_tail(const float* s, float* ps, float* st
   }
 }
 
+// The tail of one iteration of one pose, one thread: `s` the pose's 29
+// sums, `ps` its state [T (16), fitness, rmse, done], `step` the result the
+// pose's CTAs read: the update's rows (12) and 1 where the cloud moves, else
+// 0. The pose is not done on entry. Scores and latch as
+// ops/icp_reduce.py::icp_iterate_plain, then, while not done, update_tail.
+__device__ __noinline__ void iteration_tail(const float* s, float* ps, float* step,
+                                            float n_total, int it, int max_iter, float rf,
+                                            float rr) {
+  const float count = s[28], mse = s[27];
+  const float fit = ps[16], rmse = ps[17];
+  const bool empty = count == 0.f;
+  const float new_fit = empty ? fit : __fdiv_rn(count, fmaxf(n_total, 1.f));
+  const float new_rmse = empty ? rmse : __fsqrt_rn(__fdiv_rn(mse, fmaxf(count, 1.f)));
+  const bool converged =
+      fabsf(__fsub_rn(new_fit, fit)) < rf && fabsf(__fsub_rn(new_rmse, rmse)) < rr;
+  const bool done = empty || converged || it == max_iter;
+  ps[16] = new_fit;
+  ps[17] = new_rmse;
+  ps[18] = done ? 1.f : 0.f;
+  step[12] = done ? 0.f : 1.f;
+  if (done) return;
+  update_tail(s, ps, step);
+}
+
+// The tail of one coarse iteration (JAX icp.py:465-474,
+// ops/icp_reduce.py::icp_coarse_plain): no scores and no latch; a pose
+// with no inlier holds (step[12] = 0: T and the cloud stay), any other
+// takes update_tail's step.
+__device__ __noinline__ void coarse_tail(const float* s, float* ps, float* step) {
+  step[12] = s[28] == 0.f ? 0.f : 1.f;
+  if (s[28] == 0.f) return;
+  update_tail(s, ps, step);
+}
+
 // Iterations it0 .. it_end - 1 of every pose that is not done, one pose a
 // CTA or a cluster of `slabs` CTAs. Each iteration: the pass's sums (the
 // same body, order and bits as assoc_reduce_kernel), merged by rank 0; its
@@ -516,6 +551,16 @@ __device__ __noinline__ void iteration_tail(const float* s, float* ps, float* st
 // its own slab, each thread the points it sums, so no barrier guards the
 // cloud. A pose that is done leaves the loop, every CTA of it at the same
 // iteration. The state is read once and written once a launch.
+//
+// The coarse mode (g.coarse) runs coarse_tail on the strided copy: a pose
+// moves while it has inliers; one with none holds, and its CTAs leave the
+// loop at once. That is exact: the held cloud is the cloud the empty pass
+// associated, so every later iteration (JAX runs them all) would find the
+// same empty association and hold again. With g.handoff set, the launch
+// then moves each pose's full cloud by its final T, the points split over
+// the pose's CTAs as its slabs are: ((T_i0 x + T_i1 y) + T_i2 z) + T_i3,
+// each operation rounded once (ops/icp_reduce.py::transform_plain), from
+// the cloud the copy was cut from, not from the moved copy.
 template <bool kProj, bool kP2P, typename Idx>
 __global__ void __launch_bounds__(kThreads) icp_iterate_kernel(const Args a, const Iter g) {
   extern __shared__ float slab_cloud[];  // the slab's points, when g.smem_cloud
@@ -527,7 +572,7 @@ __global__ void __launch_bounds__(kThreads) icp_iterate_kernel(const Args a, con
   const int tid = threadIdx.x;
   const int slab = blockIdx.x % a.slabs;
   const long long pose = blockIdx.x / a.slabs;
-  if (g.done[pose]) return;  // every CTA of the pose reads the same flag
+  if (!g.coarse && g.done[pose]) return;  // every CTA of the pose reads the same flag
   const int per_slab = (a.points + a.slabs - 1) / a.slabs;
   const int begin = slab * per_slab;
   const int end = min(begin + per_slab, a.points);
@@ -545,6 +590,7 @@ __global__ void __launch_bounds__(kThreads) icp_iterate_kernel(const Args a, con
   const bool lead = slab == 0;  // the cluster's rank 0 (rank = blockIdx.x % slabs)
   if (lead && tid < 19) {
     pose_state[tid] = tid < 16 ? g.T[16 * pose + tid]
+                    : g.coarse ? 0.f
                     : tid == 16 ? g.fitness[pose] : tid == 17 ? g.rmse[pose] : 0.f;
   }
   for (int it = g.it0; it < g.it_end; ++it) {
@@ -564,7 +610,12 @@ __global__ void __launch_bounds__(kThreads) icp_iterate_kernel(const Args a, con
       if (tid < kSums) cta_sums[tid] = total;
       __syncthreads();
       if (tid == 0) {
-        iteration_tail(cta_sums, pose_state, step, g.n_total[pose], it, g.max_iter, g.rf, g.rr);
+        if (g.coarse) {
+          coarse_tail(cta_sums, pose_state, step);
+        } else {
+          iteration_tail(cta_sums, pose_state, step, g.n_total[pose], it, g.max_iter, g.rf,
+                         g.rr);
+        }
       }
     }
     const float* st = step;
@@ -575,7 +626,7 @@ __global__ void __launch_bounds__(kThreads) icp_iterate_kernel(const Args a, con
     } else {
       __syncthreads();
     }
-    if (st[12] == 0.f) break;  // done: the pose moves no more
+    if (st[12] == 0.f) break;  // done (or held, coarse): the pose moves no more
     float u[12];
 #pragma unroll
     for (int k = 0; k < 12; ++k) u[k] = st[k];
@@ -590,7 +641,30 @@ __global__ void __launch_bounds__(kThreads) icp_iterate_kernel(const Args a, con
       }
     }
   }
-  // rank 0's step stays readable until every rank has read it
+  if (g.handoff != nullptr) {
+    // the final T: rank 0's state, published by the last iteration's barrier
+    const float* T = pose_state;
+    if (a.slabs > 1) T = cg::this_cluster().map_shared_rank(pose_state, 0);
+    float t[12];
+#pragma unroll
+    for (int k = 0; k < 12; ++k) t[k] = T[k];
+    const int hp = g.handoff_points;
+    const int per = (hp + a.slabs - 1) / a.slabs;
+    const int hb = slab * per;
+    const int he = min(hb + per, hp);
+    float* full = g.handoff + 3 * pose * hp;
+    for (int p = hb + tid; p < he; p += kThreads) {
+      float* c = full + 3 * p;
+      const float x = c[0], y = c[1], z = c[2];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        c[i] = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(t[4 * i], x), __fmul_rn(t[4 * i + 1], y)),
+                                   __fmul_rn(t[4 * i + 2], z)),
+                         t[4 * i + 3]);
+      }
+    }
+  }
+  // rank 0's step and state stay readable until every rank has read them
   if (a.slabs > 1) cg::this_cluster().sync();
   if (g.smem_cloud) {
     for (int p = begin + tid; p < end; p += kThreads) {
@@ -601,6 +675,8 @@ __global__ void __launch_bounds__(kThreads) icp_iterate_kernel(const Args a, con
   if (lead && tid < 19) {
     if (tid < 16) {
       g.T[16 * pose + tid] = pose_state[tid];
+    } else if (g.coarse) {
+      // the coarse phase keeps no scores and no latch
     } else if (tid == 16) {
       g.fitness[pose] = pose_state[16];
     } else if (tid == 17) {
@@ -741,22 +817,29 @@ extern "C" int prt_assoc_reduce(const float* cloud, const void* valid, int n_pos
 // (n_poses,) float32, done (n_poses,) bool; n_total (n_poses,) float32 the
 // fitness divisors; rf, rr the convergence thresholds. A pose's slab stays
 // in shared memory across the iterations when the launch runs more than one
-// and it fits in kSmemCloudMax bytes. Returns the cudaError_t of the launch.
+// and it fits in kSmemCloudMax bytes. coarse != 0 runs the coarse phase on
+// the strided copy `cloud` (fitness, rmse, done and n_total unused, may be
+// null); handoff, if not null, is the (n_poses, handoff_points, 3) full
+// cloud, moved in place by each pose's T after the last iteration. Returns
+// the cudaError_t of the launch.
 extern "C" int prt_icp_iterate(float* cloud, const void* valid, int n_poses, int points,
                                const float* table, long long rows, int slabs, const float* K,
                                const float* gate, const long long* base, int height, int width,
                                const void* idx, int idx_bytes, const float* dist_sq,
                                float gate_sq, float robust_delta, int point_to_point, float* T,
                                float* fitness, float* rmse, void* done, const float* n_total,
-                               int it0, int it_end, int max_iter, float rf, float rr,
-                               void* stream) {
+                               int it0, int it_end, int max_iter, float rf, float rr, int coarse,
+                               float* handoff, int handoff_points, void* stream) {
   if (n_poses <= 0 || it_end <= it0) return 0;
   Args a = {};
   const int bad = fill_args(a, cloud, valid, n_poses, points, table, rows, slabs, K, gate, base,
                             height, width, idx, idx_bytes, dist_sq, gate_sq, robust_delta);
   if (bad != 0) return bad;
-  if (T == nullptr || fitness == nullptr || rmse == nullptr || done == nullptr ||
-      n_total == nullptr || it0 < 0 || it_end > max_iter + 1) {
+  const bool scored = coarse == 0;
+  if (T == nullptr || it0 < 0 || it_end > max_iter + 1 ||
+      (scored && (fitness == nullptr || rmse == nullptr || done == nullptr ||
+                  n_total == nullptr)) ||
+      (handoff != nullptr && (!coarse || handoff_points <= 0))) {
     return (int)cudaErrorInvalidValue;
   }
   Iter g = {};
@@ -771,6 +854,9 @@ extern "C" int prt_icp_iterate(float* cloud, const void* valid, int n_poses, int
   g.max_iter = max_iter;
   g.rf = rf;
   g.rr = rr;
+  g.coarse = coarse != 0;
+  g.handoff = handoff;
+  g.handoff_points = handoff_points;
   const long long slab_bytes = 12LL * ((points + slabs - 1) / slabs);
   g.smem_cloud = it_end - it0 > 1 && slab_bytes <= kSmemCloudMax;
   const int smem_bytes = g.smem_cloud ? (int)slab_bytes : 0;

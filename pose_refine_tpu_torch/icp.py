@@ -40,6 +40,14 @@ normals ignored; JAX icp.py:160-213, 318-349) and ``robust_delta`` > 0,
 Huber IRLS weights on the plane residual or on |e| (JAX icp.py:102-125).
 Both change only the terms of a pass: the fused kernel computes them in
 its two modes, and the scores (count, point-to-point mse) stay unweighted.
+
+``coarse_iters`` / ``coarse_stride``: the coarse-to-fine point schedule
+(JAX icp.py:443-489). The first coarse_iters iterations run on rows 0, cs,
+2cs, ... of each anchored cloud with no scores and no latch (a pose with no
+inlier holds); then the full cloud is moved by their transform and the
+scored loop runs the remaining iterations from zero scores. The fitness
+divisor stays the full cloud's. On a card it is the iteration kernel's
+coarse mode (a scene's ``iterate``).
 """
 
 from __future__ import annotations
@@ -106,7 +114,8 @@ class Association(NamedTuple):
     ``scene.iterate_at(ids)``: the iteration kernel of ops/icp_reduce.py,
     one launch a refine against a projective scene, an NN launch and an
     iteration launch a pass against an NN scene; or plain_association's
-    plain iteration).
+    plain iteration). ``iterate`` also takes coarse_iters and coarse_stride
+    (the point schedule: 0 = none).
 
     The ICP loop runs ``iterate`` when the Association has one; without it,
     ``reduce`` a pass for CUDA tensors (the loop with the solve and update
@@ -149,6 +158,16 @@ def _solve_damped(AtA: torch.Tensor, Atb: torch.Tensor, penalty: float = 0.01):
     r = b - M @ x
     x = x + torch.cholesky_solve(r, L)
     return x[..., 0]
+
+
+def _update(AtA, Atb, cloud, T, hold):
+    """Where ``hold`` (N,) is false: the damped solve, the twist, the
+    clouds' move and T <- upd @ T; where it is true the clouds and T as
+    they are. Returns (cloud, T)."""
+    upd = geometry.twist_to_mat4(_solve_damped(AtA, Atb))
+    hold = hold[:, None, None]
+    return (torch.where(hold, cloud, geometry.transform_points(upd, cloud)),
+            torch.where(hold, T, upd @ T))
 
 
 def _check_options(robust_delta, estimation: str) -> float:
@@ -238,6 +257,26 @@ def _normal_equations(cloud, valid, assoc: Union[Callable, Association],
     return AtA, Atb, count, mse_sum
 
 
+def _check_coarse(coarse_iters, coarse_stride, criteria) -> int:
+    """JAX icp.py:452-462's checks of the point schedule; returns the coarse
+    iterations (0: none, as for coarse_iters <= 0 in JAX). The port has no
+    chunked loop, so JAX's check that the loop is fused has no
+    counterpart."""
+    c = int(coarse_iters)
+    if c <= 0:
+        return 0
+    max_iter = int(criteria.max_iteration)
+    if not 0 < c < max_iter:
+        raise ValueError(
+            f"coarse_iters={c} must leave at least one full-cloud "
+            f"iteration before the scoring pass (max_iteration={max_iter})"
+        )
+    cs = int(coarse_stride)
+    if cs < 2:
+        raise ValueError(f"coarse_stride={cs} must be >= 2")
+    return c
+
+
 def _icp_start(cloud, valid, n_points=None):
     """The loop's start from a (N, P, 3) cloud batch and (N, P) valid:
     (ICPState of new tensors - the clouds with their padded rows anchored
@@ -266,24 +305,38 @@ def _icp_start(cloud, valid, n_points=None):
 
 def _icp_run(cloud, valid, assoc: Union[Callable, Association],
              criteria: ICPConvergenceCriteria, n_points=None, reduction: str = "matmul",
-             robust_delta: float = 0.0, estimation: str = "point_to_plane"):
+             robust_delta: float = 0.0, estimation: str = "point_to_plane",
+             coarse_iters: int = 0, coarse_stride: int = 2):
     """The ICP outer loop over a (N, P, 3) cloud batch with (N, P) valid;
     ``assoc``, ``reduction``, ``robust_delta`` and ``estimation`` as in
-    _normal_equations (the JAX package's reduce_fn, icp.py:352-360). An
+    _normal_equations (the JAX package's reduce_fn, icp.py:352-360), and the
+    point schedule of coarse_iters / coarse_stride (see the module note). An
     Association with an ``iterate`` runs the whole loop through it (the
     iteration kernel, or its plain version); otherwise the loop below
     solves and updates in PyTorch after each pass.
 
     Returns (RegistrationResult batch, transformed clouds (N, P, 3))."""
     robust_delta = _check_options(robust_delta, estimation)
+    c = _check_coarse(coarse_iters, coarse_stride, criteria)
     state, valid, n_total = _icp_start(cloud, valid, n_points)
     if isinstance(assoc, Association) and assoc.iterate is not None:
         state = assoc.iterate(state, valid, n_total, criteria, robust_delta=robust_delta,
-                              point_to_point=estimation == "point_to_point")
+                              point_to_point=estimation == "point_to_point",
+                              coarse_iters=c, coarse_stride=int(coarse_stride))
         return RegistrationResult(state.T, state.fitness, state.rmse, n_total), state.cloud
     cloud, T, fitness, rmse, done = state
+    if c:
+        # the coarse phase (JAX icp.py:465-474): no scores, no latch; a pose
+        # with no inlier holds. Then the full cloud moves by its transform
+        cs = int(coarse_stride)
+        cc, vc = cloud[:, ::cs], valid[:, ::cs]
+        for _ in range(c):
+            AtA, Atb, count, _mse = _normal_equations(cc, vc, assoc, reduction, robust_delta,
+                                                      estimation)
+            cc, T = _update(AtA, Atb, cc, T, count == 0)
+        cloud = geometry.transform_points(T, cloud)
     max_iter = int(criteria.max_iteration)
-    for it in range(max_iter + 1):
+    for it in range(c, max_iter + 1):
         AtA, Atb, count, mse_sum = _normal_equations(cloud, valid, assoc, reduction,
                                                      robust_delta, estimation)
         empty = count == 0
@@ -299,10 +352,7 @@ def _icp_run(cloud, valid, assoc: Union[Callable, Association],
         fitness = torch.where(done, fitness, new_fit)
         rmse = torch.where(done, rmse, new_rmse)
         if it < max_iter:  # the scoring-only pass updates no pose
-            upd = geometry.twist_to_mat4(_solve_damped(AtA, Atb))
-            hold = new_done[:, None, None]
-            cloud = torch.where(hold, cloud, geometry.transform_points(upd, cloud))
-            T = torch.where(hold, T, upd @ T)
+            cloud, T = _update(AtA, Atb, cloud, T, new_done)
         done = new_done
     return RegistrationResult(T, fitness, rmse, n_total), cloud
 
@@ -368,18 +418,16 @@ def pose_covariance(info, sigma2, rel_ridge: float = 1e-6, inflation: float = 1.
 
 
 def _icp(cloud, valid, query_fn, criteria, n_points, reduction, robust_delta, coarse_iters,
-         estimation):
+         coarse_stride, estimation):
     if reduction not in REDUCTIONS:
         raise ValueError(f"unknown reduction {reduction!r}: expected 'matmul' or 'packed'")
-    if int(coarse_iters) != 0:
-        raise NotImplementedError("coarse_iters is not ported yet (ROADMAP A14)")
     cloud = torch.as_tensor(cloud, dtype=torch.float32)
     single = cloud.dim() == 2
     if single:
         cloud = cloud[None]
         valid = torch.as_tensor(valid, device=cloud.device)[None]
     res, out = _icp_run(cloud, valid, query_fn, criteria, n_points, reduction, robust_delta,
-                        estimation)
+                        estimation, coarse_iters, coarse_stride)
     if single:
         res = RegistrationResult(*(f[0] for f in res))
         out = out[0]
@@ -389,7 +437,8 @@ def _icp(cloud, valid, query_fn, criteria, n_points, reduction, robust_delta, co
 def icp_point_to_plane(cloud, valid, query_fn: Union[Callable, Association],
                        criteria: ICPConvergenceCriteria = ICPConvergenceCriteria(),
                        n_points=None, reduction: str = "matmul",
-                       robust_delta: float = 0.0, coarse_iters: int = 0):
+                       robust_delta: float = 0.0, coarse_iters: int = 0,
+                       coarse_stride: int = 2):
     """Refine a (P, 3) cloud, or a (N, P, 3) batch, against a scene.
 
     query_fn: scene.query - (..., 3) points -> (dst, normal, valid) - or
@@ -402,15 +451,19 @@ def icp_point_to_plane(cloud, valid, query_fn: Union[Callable, Association],
     robust_delta: > 0 (meters) Huber-IRLS weights on the plane residual
         with this inlier width; 0 is the reference's least squares. The
         scores stay unweighted.
+    coarse_iters, coarse_stride: the coarse-to-fine point schedule (see the
+        module note): 0 < coarse_iters < max_iteration, coarse_stride >= 2,
+        else ValueError; 0 runs none.
     Returns (RegistrationResult, transformed cloud), batched like ``cloud``.
     """
     return _icp(cloud, valid, query_fn, criteria, n_points, reduction, robust_delta,
-                coarse_iters, "point_to_plane")
+                coarse_iters, coarse_stride, "point_to_plane")
 
 
 def icp_point_to_point(cloud, valid, query_fn: Union[Callable, Association],
                        criteria: ICPConvergenceCriteria = ICPConvergenceCriteria(),
-                       n_points=None, robust_delta: float = 0.0, coarse_iters: int = 0):
+                       n_points=None, robust_delta: float = 0.0, coarse_iters: int = 0,
+                       coarse_stride: int = 2):
     """Refine with point-to-point Gauss-Newton estimation (JAX
     icp.py:318-349): the loop, scores and options of icp_point_to_plane,
     with the residual e = dst - p (three rows a point, scene normals
@@ -422,4 +475,20 @@ def icp_point_to_point(cloud, valid, query_fn: Union[Callable, Association],
     Returns (RegistrationResult, transformed cloud), batched like ``cloud``.
     """
     return _icp(cloud, valid, query_fn, criteria, n_points, "matmul", robust_delta,
-                coarse_iters, "point_to_point")
+                coarse_iters, coarse_stride, "point_to_point")
+
+
+def icp_point_to_plane_batch(clouds, valids, scene,
+                             criteria: ICPConvergenceCriteria = ICPConvergenceCriteria(),
+                             robust_delta: float = 0.0):
+    """icp_point_to_plane over a pose batch against one shared scene (JAX
+    icp.py:619-636): (N, P, 3) clouds and (N, P) valid, each pose's fitness
+    divided by its own valid count. CUDA clouds take the scene's iteration
+    kernel (``scene.iterate``), CPU clouds its query and the matrix-product
+    pass. JAX's ``chunk_iters`` has no counterpart: the port's loop is one
+    loop of max_iteration + 1 steps with a per-pose latch, not chunks of a
+    while loop. Returns (RegistrationResult batch, transformed clouds)."""
+    clouds = torch.as_tensor(clouds, dtype=torch.float32)
+    card = clouds.device.type == "cuda"
+    assoc = Association(scene.query, scene.reduce, scene.iterate if card else None)
+    return icp_point_to_plane(clouds, valids, assoc, criteria, robust_delta=robust_delta)

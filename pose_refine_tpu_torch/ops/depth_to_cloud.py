@@ -4,8 +4,10 @@
 The canonical form is a dense point image + validity mask; the refine path
 lifts each hypothesis render with ``window_cloud_batched`` (a crop around
 the rendered object, strided) and keeps a fixed budget of points with
-``compact_topk``. Both reproduce the JAX functions' results exactly: the
-same window, the same kept points in the same order.
+``compact_topk``, or, with ``lift="compact"``, keeps every valid pixel in
+scan order with ``compact_points`` (the reference's exclusive-scan
+compaction, icp.cpp:61-96). All reproduce the JAX functions' results
+exactly: the same window, the same kept points in the same order.
 """
 
 from __future__ import annotations
@@ -38,6 +40,42 @@ def depth_image_to_points(depth, K, stride: int = 1, tl_x: int = 0, tl_y: int = 
     pts = torch.stack([x, y, z], dim=-1)
     pts = torch.where(mask[..., None], pts, torch.zeros_like(pts))
     return pts, mask
+
+
+def compact_points(point_image, mask, max_points: int):
+    """Compact the valid points of (..., H, W, 3) point images into a static
+    (..., max_points, 3) buffer in scan order (JAX depth_to_cloud.py:47-65,
+    the reference's exclusive scan, icp.cpp:61-96): a valid pixel's slot is
+    the count of valid pixels before it (cumsum - 1); slots past the valid
+    count stay zero and invalid; points past ``max_points`` are dropped.
+    Plain PyTorch (a cumsum and a scatter) on any device: JAX computes it
+    as XLA code, with no kernel of its own.
+
+    Returns (points (..., max_points, 3), slot_valid (..., max_points),
+    n_valid (...) - the true count, which may exceed max_points)."""
+    point_image = torch.as_tensor(point_image, dtype=torch.float32)
+    lead = point_image.shape[:-3]
+    dev = point_image.device
+    flat_pts = point_image.reshape(lead + (-1, 3))
+    flat_mask = torch.as_tensor(mask, device=dev).reshape(lead + (-1,))
+    idx = torch.cumsum(flat_mask.to(torch.int64), dim=-1) - 1
+    n_valid = flat_mask.sum(dim=-1)
+    # dropped pixels go to one slot past the buffer, cut off below
+    dest = torch.where(flat_mask & (idx < max_points), idx, max_points)
+    out = torch.zeros(lead + (max_points + 1, 3), dtype=torch.float32, device=dev)
+    out.scatter_(-2, dest[..., None].expand(dest.shape + (3,)), flat_pts)
+    slot = torch.arange(max_points, device=dev)
+    slot_valid = slot < n_valid.clamp(max=max_points)[..., None]
+    return out[..., :max_points, :], slot_valid, n_valid
+
+
+def depth_to_cloud(depth, K, max_points: int, stride: int = 1, tl_x: int = 0, tl_y: int = 0):
+    """depth2cloud equivalent (icp.h:102-110) with a static point budget:
+    depth_image_to_points, then compact_points (JAX depth_to_cloud.py:68-71).
+    (..., H, W) int depth in mm -> (points (..., max_points, 3), slot_valid,
+    n_valid)."""
+    pts, mask = depth_image_to_points(depth, K, stride=stride, tl_x=tl_x, tl_y=tl_y)
+    return compact_points(pts, mask, max_points)
 
 
 def morton_key(idx: torch.Tensor, sh: int, sw: int) -> torch.Tensor:

@@ -38,7 +38,11 @@ CTAs loop until it is done); against an NN scene a launch is one iteration,
 between the NN kernel's launches. Its plain version, ``icp_iterate_plain``,
 writes each of those operations as one torch call on (N,) tensors in the
 kernel's order (no ``torch.linalg``, no matrix product), so a kernel path
-equals its plain path bit for bit.
+equals its plain path bit for bit. The coarse-to-fine point schedule (JAX
+icp.py:443-489) is the kernel's coarse mode: iterations on a strided copy
+of each cloud without scores or latch, then the hand-off, which moves the
+full cloud by the coarse phase's T (``icp_coarse_plain``,
+``handoff_plain``).
 
 The ``_cuda`` entry points launch the kernel and raise for CPU tensors;
 there is no fallback from the kernel to the plain version, and a kernel that
@@ -49,7 +53,7 @@ formulations for CPU tensors itself.
 from __future__ import annotations
 
 import functools
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -358,6 +362,16 @@ def compose_plain(u, T) -> torch.Tensor:
     return torch.cat([torch.stack(out, dim=-1).reshape(-1, 3, 4), T[:, 3:]], dim=1)
 
 
+def _update_plain(AtA, Atb, cloud, T, hold):
+    """Where ``hold`` (N,) is false: the damped solve, the twist, the move
+    and T <- upd @ T, as the kernel's update_tail and move compute them;
+    where it is true the cloud and T as they are. Returns (cloud, T)."""
+    u = _twist_rows(solve_damped_plain(AtA, Atb).unbind(dim=-1))
+    hold = hold[:, None, None]
+    return (torch.where(hold, cloud, transform_plain(u, cloud)),
+            torch.where(hold, T, compose_plain(u, T)))
+
+
 def icp_iterate_plain(state: ICPState, valid, n_total, query: Callable, it: int,
                       max_iteration: int, relative_fitness: float, relative_rmse: float,
                       robust_delta: float = 0.0, point_to_point: bool = False) -> ICPState:
@@ -383,20 +397,60 @@ def icp_iterate_plain(state: ICPState, valid, n_total, query: Callable, it: int,
     rmse = torch.where(done, rmse, new_rmse)
     cloud, T = state.cloud, state.T
     if it < max_iteration:  # the scoring-only pass moves no pose
-        u = _twist_rows(solve_damped_plain(AtA, Atb).unbind(dim=-1))
-        hold = new_done[:, None, None]
-        cloud = torch.where(hold, cloud, transform_plain(u, cloud))
-        T = torch.where(hold, T, compose_plain(u, T))
+        cloud, T = _update_plain(AtA, Atb, cloud, T, new_done)
     return ICPState(cloud, T, fitness, rmse, new_done)
 
 
+def coarse_start(state: ICPState, valid, coarse_stride: int):
+    """The coarse phase's input: rows 0, cs, 2cs, ... of the (N, P, 3)
+    anchored clouds as a contiguous copy, beside the state's T, scores and
+    latch (the same tensors), and valid's rows alike. Returns (ICPState,
+    valid)."""
+    cs = int(coarse_stride)
+    return (state._replace(cloud=state.cloud[:, ::cs].contiguous()),
+            valid[:, ::cs].contiguous())
+
+
+def icp_coarse_plain(cloud, T, valid, query: Callable, iters: int, robust_delta: float = 0.0,
+                     point_to_point: bool = False):
+    """The coarse phase, plain version of the kernel's coarse mode (JAX
+    icp.py:465-474): ``iters`` iterations of the strided (N, Pc, 3) clouds
+    with their valid rows - the pass's sums, then, where the count is not
+    0, the damped solve, the twist, the move and T <- upd @ T as
+    icp_iterate_plain computes them; no scores, no latch, and a pose with
+    no inlier holds. Returns (clouds, T)."""
+    for _ in range(int(iters)):
+        AtA, Atb, count, _mse = unpack_sums(
+            assoc_reduce_plain(cloud, valid, query, robust_delta, point_to_point))
+        cloud, T = _update_plain(AtA, Atb, cloud, T, count == 0)
+    return cloud, T
+
+
+def handoff_plain(T, cloud) -> torch.Tensor:
+    """The hand-off (JAX icp.py:476-484): the (N, P, 3) full clouds the
+    coarse phase's copy was cut from, moved by its (N, 4, 4) T, each
+    coordinate ((T_i0 x + T_i1 y) + T_i2 z) + T_i3 (transform_plain), as
+    the kernel's last coarse launch moves them."""
+    return transform_plain([T[:, i, j] for i in range(3) for j in range(4)], cloud)
+
+
 def icp_loop_plain(state: ICPState, valid, n_total, criteria, query: Callable,
-                   robust_delta: float = 0.0, point_to_point: bool = False) -> ICPState:
+                   robust_delta: float = 0.0, point_to_point: bool = False,
+                   coarse_iters: int = 0, coarse_stride: int = 2) -> ICPState:
     """Every iteration of a refine, 0 to criteria.max_iteration (the last
     one scoring only), through icp_iterate_plain: what the kernel path of
-    a scene's ``iterate`` computes."""
+    a scene's ``iterate`` computes. coarse_iters > 0 runs the first
+    coarse_iters iterations as the coarse phase (icp_coarse_plain on
+    coarse_start's copy, then handoff_plain) and the rest from the state's
+    zero scores, as JAX icp.py:476-484 does."""
     max_iter = int(criteria.max_iteration)
-    for it in range(max_iter + 1):
+    it0 = int(coarse_iters)
+    if it0:
+        cstate, cvalid = coarse_start(state, valid, coarse_stride)
+        _cloud, T = icp_coarse_plain(cstate.cloud, state.T, cvalid, query, it0, robust_delta,
+                                     point_to_point)
+        state = state._replace(cloud=handoff_plain(T, state.cloud), T=T)
+    for it in range(it0, max_iter + 1):
         state = icp_iterate_plain(state, valid, n_total, query, it, max_iter,
                                   criteria.relative_fitness, criteria.relative_rmse,
                                   robust_delta, point_to_point)
@@ -505,11 +559,14 @@ class _IterateLaunch:
     (N, P, 3) clouds) is updated in place on the card; ``self.state`` is
     what the launches update (the caller's tensors, or contiguous copies of
     them). The indexed front end takes a new (idx, dist_sq) each call, of
-    the first call's shape and dtype (the NN kernels' outputs)."""
+    the first call's shape and dtype (the NN kernels' outputs).
+    ``coarse`` runs the coarse mode (state.cloud the strided copy; its
+    scores and latch are not touched); ``handoff``, the (N, P, 3) full
+    clouds, is moved by T after the launch that a call asks it of."""
 
     def __init__(self, state: ICPState, valid, n_total, criteria, table, *, K=None, gate=None,
                  base=None, height=0, width=0, idx=None, dist_sq=None, gate_sq=0.0,
-                 robust_delta=0.0, point_to_point=False):
+                 robust_delta=0.0, point_to_point=False, coarse=False, handoff=None):
         cloud = state.cloud
         if cloud.dim() != 3:
             raise ValueError(f"the iteration kernel wants (N, P, 3) clouds, got "
@@ -525,10 +582,18 @@ class _IterateLaunch:
             if tuple(t.shape) != shape or t.dtype != dtype or t.device != dev:
                 raise ValueError(f"{name} must be {shape} {dtype} on {dev}, got "
                                  f"{tuple(t.shape)} {t.dtype} on {t.device}")
+        if handoff is not None and (
+                not coarse or handoff.dim() != 3 or handoff.shape[0] != n_poses
+                or handoff.shape[2] != 3 or handoff.dtype != torch.float32
+                or handoff.device != dev or not handoff.is_contiguous()):
+            raise ValueError(f"handoff must be a contiguous (N, P, 3) float32 tensor on {dev} "
+                             f"beside a coarse state, got {tuple(handoff.shape)} "
+                             f"{handoff.dtype} on {handoff.device}")
         from pose_refine_tpu_torch._build import load_kernels
 
         self.lib, _info = load_kernels()
         self.state = ICPState(*(t.contiguous() for t in state))
+        self.handoff = handoff
         self.max_iteration = int(criteria.max_iteration)
         self.dev = dev
         self.indexed = idx is not None
@@ -537,25 +602,30 @@ class _IterateLaunch:
         self._keep = (valid.contiguous(), n_total.contiguous(), table, front)
         points = cloud.shape[-2]
         st = self.state
-        # the C interface's arguments; [12] idx and [14] dist_sq, [23] it0
-        # and [24] it_end change from launch to launch
+        # the C interface's arguments; [12] idx and [14] dist_sq, [23] it0,
+        # [24] it_end and [29] the hand-off change from launch to launch
         self.args = [st.cloud.data_ptr(), self._keep[0].data_ptr(), n_poses, points,
                      table.data_ptr(), table.shape[0], slabs_for(n_poses, points), *proj_ptrs,
                      int(height), int(width), *idx_ptrs, float(gate_sq), float(robust_delta),
                      int(bool(point_to_point)), st.T.data_ptr(), st.fitness.data_ptr(),
                      st.rmse.data_ptr(), st.done.data_ptr(), self._keep[1].data_ptr(), 0, 0,
                      self.max_iteration, float(criteria.relative_fitness),
-                     float(criteria.relative_rmse), None]
+                     float(criteria.relative_rmse), int(bool(coarse)), None,
+                     0 if handoff is None else handoff.shape[1], None]
 
-    def __call__(self, it0: int, it_end: int, idx=None, dist_sq=None) -> ICPState:
+    def __call__(self, it0: int, it_end: int, idx=None, dist_sq=None,
+                 handoff: bool = False) -> ICPState:
         """Iterations it0 .. it_end - 1 on the current stream, without
         synchronising; the indexed front end with this iteration's NN
-        output."""
+        output; ``handoff`` moves the bound full clouds by T after them."""
         global iterate_launches
         args = self.args
         if self.indexed:
             args[12], args[14] = idx.data_ptr(), dist_sq.data_ptr()
+        if handoff and self.handoff is None:
+            raise ValueError("this launcher was bound without a hand-off cloud")
         args[23], args[24] = it0, it_end
+        args[29] = self.handoff.data_ptr() if handoff else None
         with torch.cuda.device(self.dev):
             args[-1] = torch.cuda.current_stream(self.dev).cuda_stream
             err = self.lib.prt_icp_iterate(*args)
@@ -566,36 +636,62 @@ class _IterateLaunch:
 
 def icp_iterate_projective_cuda(state: ICPState, valid, n_total, criteria, table, K,
                                 max_dist_diff, height: int, width: int, base=None,
-                                robust_delta: float = 0.0,
-                                point_to_point: bool = False) -> ICPState:
+                                robust_delta: float = 0.0, point_to_point: bool = False,
+                                coarse_iters: int = 0, coarse_stride: int = 2) -> ICPState:
     """A refine's whole ICP loop against a projective scene in ONE launch of
     the iteration kernel: iterations 0 .. criteria.max_iteration of every
     pose of ``state`` (CUDA tensors, updated in place and returned), the
     front end and terms of assoc_reduce_projective_cuda, ``n_total`` (N,)
-    the fitness divisors. Raises for CPU tensors; its plain version is
+    the fitness divisors. coarse_iters > 0 adds one launch before it: the
+    coarse phase on coarse_start's copy and the hand-off of the full clouds;
+    the ordinary launch then runs iterations coarse_iters ..
+    max_iteration. Raises for CPU tensors; its plain version is
     icp_loop_plain over the scene's plain query."""
-    run = _IterateLaunch(state, valid, n_total, criteria, table, K=K, gate=max_dist_diff,
-                         base=base, height=int(height), width=int(width),
-                         robust_delta=robust_delta, point_to_point=point_to_point)
-    return run(0, run.max_iteration + 1)
+    state = ICPState(*(t.contiguous() for t in state))
+    front = dict(K=K, gate=max_dist_diff, base=base, height=int(height), width=int(width),
+                 robust_delta=robust_delta, point_to_point=point_to_point)
+    it0 = int(coarse_iters)
+    if it0:
+        cstate, cvalid = coarse_start(state, valid, coarse_stride)
+        _IterateLaunch(cstate, cvalid, n_total, criteria, table, coarse=True,
+                       handoff=state.cloud, **front)(0, it0, handoff=True)
+    run = _IterateLaunch(state, valid, n_total, criteria, table, **front)
+    return run(it0, run.max_iteration + 1)
 
 
 def icp_iterate_indexed_cuda(state: ICPState, valid, n_total, criteria, table,
                              nearest: Callable, gate_sq: float, robust_delta: float = 0.0,
-                             point_to_point: bool = False) -> ICPState:
+                             point_to_point: bool = False, coarse_iters: int = 0,
+                             coarse_stride: int = 2,
+                             coarse_nearest: Optional[Callable] = None) -> ICPState:
     """A refine's ICP loop against an NN scene: each iteration one NN launch
     (``nearest``: (N, P, 3) clouds -> (idx, dist_sq), flash or kd) on the
     moved cloud, then one launch of the iteration kernel with the indexed
     front end; the state (CUDA tensors, updated in place and returned)
-    stays on the card between them, and the checks run once. Raises for
-    CPU tensors; its plain version is icp_loop_plain over the scene's plain
-    query."""
+    stays on the card between them, and the checks run once. coarse_iters >
+    0 runs the first coarse_iters iterations the same way on coarse_start's
+    copy (``coarse_nearest``, default ``nearest``, takes its shape) in the
+    kernel's coarse mode, the last of them handing the full clouds off.
+    Raises for CPU tensors; its plain version is icp_loop_plain over the
+    scene's plain query."""
+    state = ICPState(*(t.contiguous() for t in state))
+    modes = dict(gate_sq=gate_sq, robust_delta=robust_delta, point_to_point=point_to_point)
+    it0 = int(coarse_iters)
+    if it0:
+        near = nearest if coarse_nearest is None else coarse_nearest
+        cstate, cvalid = coarse_start(state, valid, coarse_stride)
+        idx, dist_sq = near(cstate.cloud)
+        run = _IterateLaunch(cstate, cvalid, n_total, criteria, table, idx=idx, dist_sq=dist_sq,
+                             coarse=True, handoff=state.cloud, **modes)
+        for it in range(it0):
+            if it:
+                idx, dist_sq = near(run.state.cloud)
+            run(it, it + 1, idx, dist_sq, handoff=it == it0 - 1)
     idx, dist_sq = nearest(state.cloud)
     run = _IterateLaunch(state, valid, n_total, criteria, table, idx=idx, dist_sq=dist_sq,
-                         gate_sq=gate_sq, robust_delta=robust_delta,
-                         point_to_point=point_to_point)
-    for it in range(run.max_iteration + 1):
-        if it:
+                         **modes)
+    for it in range(it0, run.max_iteration + 1):
+        if it > it0:
             idx, dist_sq = nearest(run.state.cloud)
         run(it, it + 1, idx, dist_sq)
     return run.state

@@ -180,3 +180,70 @@ def rasterize_dense(tris, poses, width: int, height: int, proj,
         d = torch.where(m, d, torch.full_like(d, INT32_MAX))
         fb = torch.minimum(fb, d.amin(dim=1))
     return finalize_depth(fb).reshape(n, out_h, out_w)
+
+
+def rasterize_scatter(tris, poses, width: int, height: int, proj,
+                      roi: ROI = (0, 0, 0, 0), window: int = 32, tri_chunk: int = 1024):
+    """Per-triangle window x window pixel block + a scatter-min (JAX
+    ops/rasterize.py:263-318; ``scatter_reduce`` "amin" here). Exact when
+    every clamped triangle box fits in ``window`` pixels on both axes (check
+    with ``max_bbox_extent``). Plain PyTorch on any device; O(T * window^2)
+    work a pose. Returns (N, out_h, out_w) int32 mm, 0 = empty."""
+    out_w, out_h = roi_shape(width, height, roi)
+    rx, ry = roi[0], roi[1]
+    pts2, zcam = screen_triangles(tris, poses, proj, width, height)
+    n, t = zcam.shape[:2]
+    dev = zcam.device
+    dxy = torch.arange(window, dtype=torch.float32, device=dev)
+    sink = out_h * out_w  # one slot past the frame takes every non-write
+    fb = torch.full((n, sink + 1), INT32_MAX, dtype=torch.int32, device=dev)
+    for s in range(0, t, tri_chunk):
+        p2 = pts2[:, s:s + tri_chunk]  # (N, C, 3, 2)
+        zc = zcam[:, s:s + tri_chunk]  # (N, C, 3)
+        bbmin, bbmax = triangle_bbox(p2, width, height, roi)
+        x0 = torch.trunc(bbmin[..., 0] + 0.5)
+        y0 = torch.trunc(bbmin[..., 1] + 0.5)
+        px = (x0[..., None, None] + dxy[None, :]).expand(*x0.shape, window, window)
+        py = (y0[..., None, None] + dxy[:, None]).expand(*y0.shape, window, window)
+        d = fragment_depths(p2[:, :, None, None], zc[:, :, None, None], px, py)
+        m = (px <= bbmax[..., 0, None, None]) & (py <= bbmax[..., 1, None, None])
+        d = torch.where(m, d, torch.full_like(d, INT32_MAX))
+        rows = (height - 1 - ry - py).to(torch.int64)
+        cols = (px - rx).to(torch.int64)
+        keep = (d != INT32_MAX) & (rows >= 0) & (rows < out_h) & (cols >= 0) & (cols < out_w)
+        lin = torch.where(keep, rows * out_w + cols, sink)
+        fb.scatter_reduce_(1, lin.reshape(n, -1), d.reshape(n, -1), "amin")
+    return finalize_depth(fb[:, :sink]).reshape(n, out_h, out_w)
+
+
+def max_bbox_extent(tris, poses, width: int, height: int, proj, roi: ROI = (0, 0, 0, 0)) -> int:
+    """The largest clamped triangle-box extent in pixels over all poses: the
+    least ``window`` that keeps rasterize_scatter exact (JAX
+    ops/rasterize.py:321-328)."""
+    pts2, _ = screen_triangles(tris, poses, proj, width, height)
+    bbmin, bbmax = triangle_bbox(pts2, width, height, roi)
+    x0 = torch.trunc(bbmin + 0.5)
+    ext = (torch.floor(bbmax) - x0 + 1.0).clamp(min=0.0)
+    return int(ext.max())
+
+
+def render(tris, poses, width: int, height: int, proj, roi: ROI = (0, 0, 0, 0),
+           backend=None, device=None, **kwargs) -> torch.Tensor:
+    """Render N poses -> (N, out_h, out_w) int32 depth mm, 0 = empty (JAX
+    ops/rasterize.py:331-372). ``backend``: None or "pallas" - the
+    production rasterizer, ops.rasterize_cuda.rasterize (the raster kernel
+    on a card, its plain version on the CPU); "dense" or "scatter" - the
+    plain rasterizers above. ``device`` as for rasterize. JAX's fallback
+    from a failing kernel to the scatter path is not ported: a kernel that
+    fails raises."""
+    from pose_refine_tpu_torch.ops import rasterize_cuda as RC
+
+    if backend in (None, "pallas"):
+        return RC.rasterize(tris, poses, width, height, proj, roi=roi, device=device, **kwargs)
+    if backend not in ("dense", "scatter"):
+        raise ValueError(f"unknown rasterize backend {backend!r}")
+    tris, poses, proj = RC._inputs(tris, poses, proj, device)
+    if isinstance(tris, RC.IndexedTris):
+        tris = tris.gathered()
+    fn = rasterize_dense if backend == "dense" else rasterize_scatter
+    return fn(tris, poses, width, height, proj, roi, **kwargs)

@@ -1,24 +1,27 @@
 """End-to-end batched pose refinement: render -> lift -> associate -> solve
 (PyTorch port of ``pose_refine_tpu/pipeline.py``).
 
-``refine_poses`` is the body of the JAX package's ``refine_poses_jit`` for
-the window lift and point-to-plane or point-to-point ICP (``estimation``,
-``robust_delta``), with its in-program uncertainty (``with_information``);
+``refine_poses`` is the body of the JAX package's ``refine_poses_jit``: the
+window or compact lift, point-to-plane or point-to-point ICP
+(``estimation``, ``robust_delta``) with the coarse-to-fine point schedule
+(``coarse_iters``), and its in-program uncertainty (``with_information``);
 ``track_poses`` / ``track_poses_nn`` are ``track_poses_jit`` /
 ``track_poses_nn_jit``: the per-frame scene build on the device followed by
 the refine. ``PoseRefiner`` is the refiner for projective scenes and
 nearest-neighbour scenes (``scene="nn"`` / ``"nn_kdtree"`` /
 ``"nn_bruteforce"``, with ``scene_voxel_mm``, ``scene_cascade``,
 ``scene_stride`` and ``scene_pool``), with the same host-side planning (auto
-ROI, auto lift sizes, warnings), ``refine``, ``track`` and their enqueueing
-twins, and stacked scenes (``set_scene_depths`` + ``refine(scene_ids=)``).
-``MultiModelRefiner`` refines hypotheses of several meshes in one batch.
-Options the port does not carry yet raise ``NotImplementedError`` naming
-the ROADMAP item that will carry them.
+ROI, auto lift sizes, warnings), ``refine`` (with the gate ``schedule=``),
+``track`` and their enqueueing twins with ``fence``, and stacked scenes
+(``set_scene_depths`` + ``refine(scene_ids=)``). ``MultiModelRefiner``
+refines hypotheses of several meshes in one batch. Options the port does
+not carry yet raise ``NotImplementedError`` naming the ROADMAP item that
+will carry them.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import logging
 from typing import Callable, Optional, Union
@@ -30,7 +33,9 @@ from pose_refine_tpu_torch import geometry, icp
 from pose_refine_tpu_torch.device import DeviceLike, resolve_device, to_device
 from pose_refine_tpu_torch.mesh import Model, morton_order, simplify_vertex_clustering
 from pose_refine_tpu_torch.ops.depth_to_cloud import (
+    compact_points,
     compact_topk,
+    depth_image_to_points,
     morton_key,
     window_cloud_batched,
 )
@@ -47,6 +52,24 @@ NN_SCENES = ("nn", "nn_kdtree", "nn_bruteforce")
 STACKS = (SceneProjectiveStack, SceneNNStack)
 
 logger = logging.getLogger("pose_refine_tpu_torch")
+LIFTS = ("window", "compact")
+
+
+def _scene_with_gate(scene, max_dist: float):
+    """The scene with another association gate, its tables shared (JAX
+    pipeline.py:37-43, which stores jnp.float32(max_dist)). The gate is
+    rounded to float32 as JAX rounds it: a 0-d float32 tensor on the
+    table's device for projective scenes (filled there, no copy from the
+    host), the float32 value as a host float for NN scenes. Every launch
+    reads the gate from the scene it is given, so nothing cached keeps the
+    old one: the kd traversal (KDLaunch) takes no gate, and the gated
+    kernel's ball and box tables do not depend on it."""
+    if isinstance(scene.max_dist_diff, torch.Tensor):
+        gate = torch.full((), float(max_dist), dtype=torch.float32,
+                          device=scene.max_dist_diff.device)
+    else:
+        gate = float(np.float32(max_dist))
+    return dataclasses.replace(scene, max_dist_diff=gate)
 
 
 def refine_poses(tris, init_poses, scene: Union[SceneProjective, SceneNN, SceneProjectiveStack,
@@ -56,7 +79,8 @@ def refine_poses(tris, init_poses, scene: Union[SceneProjective, SceneNN, SceneP
                  stride: int = 2, roi=(0, 0, 0, 0), with_information: bool = False,
                  scene_ids=None, raster: Optional[Callable] = None,
                  query: Optional[Callable] = None, robust_delta: float = 0.0,
-                 estimation: str = "point_to_plane"):
+                 estimation: str = "point_to_plane", lift: str = "window",
+                 coarse_iters: int = 0, coarse_stride: int = 2):
     """Render N poses, lift each render to a cloud, run batched ICP.
 
     All tensors on one device. ``tris`` is (T, 3, 3) or per pose (N, T, 3,
@@ -82,7 +106,14 @@ def refine_poses(tris, init_poses, scene: Union[SceneProjective, SceneNN, SceneP
     ``estimation`` ("point_to_plane" / "point_to_point") and
     ``robust_delta`` (Huber width in meters, 0 = none) select the ICP terms
     of every pass and of the information pass (JAX pipeline.py:159-205).
+    ``lift``: "window" (a strided crop around each render's object, top-k
+    compaction, Morton order for NN scenes) or "compact" (every valid pixel
+    of the render in scan order, up to max_points: compact_points; JAX
+    pipeline.py:150-157). ``coarse_iters`` / ``coarse_stride``: the ICP's
+    coarse-to-fine point schedule (icp.py).
     """
+    if lift not in LIFTS:
+        raise ValueError(f"unknown lift {lift!r}: expected 'window' or 'compact'")
     raster = rasterize if raster is None else raster
     card = init_poses.device.type == "cuda"
     if query is None and scene_ids is None:
@@ -91,27 +122,16 @@ def refine_poses(tris, init_poses, scene: Union[SceneProjective, SceneNN, SceneP
         query = icp.Association(scene.query_at(scene_ids), scene.reduce_at(scene_ids),
                                 scene.iterate_at(scene_ids) if card else None)
     depth = raster(tris, init_poses, width, height, proj, roi=roi)
-    out_h, out_w = depth.shape[1:]
-
-    wh = -(-min(window, out_h) // stride)
-    ww = -(-min(window, out_w) // stride)
-    clouds, valids, _n = window_cloud_batched(
-        depth, K, window=window, stride=stride, tl_x=roi[0], tl_y=roi[1]
-    )
-    # NN scenes take the clouds in morton order of the window grid, so the
-    # flash kernel's query tiles are local patches its chunk pruning can
-    # bound; projective association is an image gather, order-free
-    nn_order = isinstance(scene, (SceneNN, SceneNNStack))
-    if max_points < wh * ww:
-        clouds, valids, _n = compact_topk(
-            clouds, valids, max_points, order_shape=(wh, ww) if nn_order else None)
-    elif nn_order:
-        code = morton_key(torch.arange(wh * ww, device=clouds.device), wh, ww)
-        perm = torch.argsort(code, stable=True)
-        clouds, valids = clouds[:, perm], valids[:, perm]
+    if lift == "window":
+        clouds, valids = _window_lift(depth, K, scene, max_points, window, stride, roi)
+    else:
+        # the ROI render's pixel (0, 0) is image pixel (roi_x, roi_y)
+        pts, mask = depth_image_to_points(depth, K, tl_x=roi[0], tl_y=roi[1])
+        clouds, valids, _n = compact_points(pts, mask, max_points)
 
     results, final = icp._icp_run(clouds, valids, query, criteria, robust_delta=robust_delta,
-                                  estimation=estimation)
+                                  estimation=estimation, coarse_iters=coarse_iters,
+                                  coarse_stride=coarse_stride)
     # ICP acts on camera-space clouds in meters (common.h:53); poses carry
     # mm translations: scale t_icp to mm before left-composing
     T_mm = results.transformation.clone()
@@ -130,6 +150,29 @@ def refine_poses(tris, init_poses, scene: Union[SceneProjective, SceneNN, SceneP
     cov = icp.pose_covariance(info, sigma2, inflation=icp.RENDER_COV_INFLATION,
                               sigma2_floor=icp.DEPTH_QUANT_SIGMA_M ** 2 + lateral ** 2)
     return refined, results, icp.PoseUncertainty(info, sigma2, count, cov)
+
+
+def _window_lift(depth, K, scene, max_points: int, window: int, stride: int, roi):
+    """The window lift of (N, H, W) renders: (clouds (N, P, 3), valid (N,
+    P)), P = max_points or the strided window's size if that is smaller."""
+    out_h, out_w = depth.shape[1:]
+    wh = -(-min(window, out_h) // stride)
+    ww = -(-min(window, out_w) // stride)
+    clouds, valids, _n = window_cloud_batched(
+        depth, K, window=window, stride=stride, tl_x=roi[0], tl_y=roi[1]
+    )
+    # NN scenes take the clouds in morton order of the window grid, so the
+    # flash kernel's query tiles are local patches its chunk pruning can
+    # bound; projective association is an image gather, order-free
+    nn_order = isinstance(scene, (SceneNN, SceneNNStack))
+    if max_points < wh * ww:
+        clouds, valids, _n = compact_topk(
+            clouds, valids, max_points, order_shape=(wh, ww) if nn_order else None)
+    elif nn_order:
+        code = morton_key(torch.arange(wh * ww, device=clouds.device), wh, ww)
+        perm = torch.argsort(code, stable=True)
+        clouds, valids = clouds[:, perm], valids[:, perm]
+    return clouds, valids
 
 
 def _pack_track_outputs(refined, results: icp.RegistrationResult,
@@ -167,7 +210,7 @@ def track_poses(tris, init_poses, frame_depth, proj, K_render, K_full, max_dist:
     build the scene from the (H, W) mm ``frame_depth`` on its device, then
     refine. ``kw``: refine_poses' keywords (width, height, max_points,
     criteria, window, stride, roi, with_information, robust_delta,
-    estimation). pack_outputs=True
+    estimation, lift, coarse_iters, coarse_stride). pack_outputs=True
     returns the (N, 71) session buffer instead."""
     scene = SceneProjective.from_depth(frame_depth, K_full, max_dist, device=frame_depth.device)
     return _refine_frame(scene, tris, init_poses, proj, K_render, pack_outputs, plain, **kw)
@@ -204,6 +247,14 @@ class PendingResult:
         if self._event is not None:
             self._event.synchronize()
         return self.outputs
+
+
+def fence(*pending: PendingResult) -> list:
+    """Wait for any number of enqueued refines or tracked frames (JAX
+    pipeline.py:260-269): each PendingResult's own event, in turn. Returns
+    their outputs in argument order. The events are the fence: there is no
+    probe (the JAX package's ``sync`` is not ported)."""
+    return [p.wait() for p in pending]
 
 
 def _first(out):
@@ -243,6 +294,10 @@ class PoseRefiner:
 
     Tracking (the scene rebuilt on the device from every frame):
         poses, results = refiner.track(frame_depth_mm, init_poses)
+
+    Streaming (serving) - several batches in flight:
+        pending = [refiner.refine_async(b) for b in batches]
+        for poses, results in fence(*pending): ...
     """
 
     def __init__(
@@ -267,6 +322,7 @@ class PoseRefiner:
         scene_cascade=None,
         robust_delta: float = 0.0,
         coarse_iters: int = 0,
+        coarse_stride: int = 2,
         estimation: str = "point_to_plane",
         devices=None,
         device: DeviceLike = None,
@@ -277,9 +333,11 @@ class PoseRefiner:
                 "'nn', 'nn_kdtree' or 'nn_bruteforce'"
             )
         self.scene_kind = scene
-        if lift not in ("window", "compact"):
+        if lift not in LIFTS:
             raise ValueError(f"unknown lift {lift!r}: expected 'window' or 'compact'")
-        _unported("lift", lift, "window", "A14")
+        # lift: "window" crops and strides around each render's object;
+        # "compact" keeps every valid pixel in scan order (refine_poses)
+        self.lift = lift
         # scene_voxel_mm: voxel-downsample the NN scene cloud at build time
         # (exact-NN cost is O(queries x scene)); no effect on projective scenes
         self.scene_voxel_mm = float(scene_voxel_mm)
@@ -323,7 +381,12 @@ class PoseRefiner:
         # robust_delta (m): Huber-IRLS inlier width of the ICP terms (0 =
         # the reference's least squares); the scores stay unweighted
         self.robust_delta = float(robust_delta)
-        _unported("coarse_iters", int(coarse_iters), 0, "A14")
+        # coarse_iters / coarse_stride: the ICP's coarse-to-fine point
+        # schedule - the first coarse_iters iterations on a 1-in-coarse_stride
+        # subsample of each cloud, then the scored loop on the full cloud
+        # (icp.py); checked at refine time, as in JAX
+        self.coarse_iters = int(coarse_iters)
+        self.coarse_stride = int(coarse_stride)
         # estimation: the ICP residual model; association and scores are
         # the same for both (icp.icp_point_to_point)
         if estimation not in icp.ESTIMATIONS:
@@ -546,10 +609,16 @@ class PoseRefiner:
                 window = int(np.clip(w, 32, min(self.render_w, self.render_h)))
         max_points = self.max_points
         if self._auto_points:
-            # the window lift strides; budget = strided object pixels
-            n_obj = len(xs) // (s * s * self.stride * self.stride)
-            cand = (-(-window // self.stride)) ** 2
-            mp = min(-(-int(n_obj * 1.3) // 256) * 256, cand)
+            if self.lift == "window":
+                # the window lift strides; budget = strided object pixels
+                n_obj = len(xs) // (s * s * self.stride * self.stride)
+                cand = (-(-window // self.stride)) ** 2
+                mp = min(-(-int(n_obj * 1.3) // 256) * 256, cand)
+            else:
+                # the compact lift keeps every valid pixel (no window, no
+                # stride): the budget covers the whole object
+                n_obj = len(xs) // (s * s)
+                mp = -(-int(n_obj * 1.3) // 256) * 256
             max_points = int(max(mp, 256))
         return window, max_points
 
@@ -627,7 +696,7 @@ class PoseRefiner:
             logger.info("auto ROI (x, y, w, h) = %s (render px)", self.roi)
         # the window lift crops a window x window region around the rendered
         # object; a larger object loses boundary points without this check
-        if self._obj_extent_px > self.window:
+        if self.lift == "window" and self._obj_extent_px > self.window:
             logger.warning(
                 "object extent ~%d render px exceeds the window lift "
                 "crop of %d px: boundary points will be cropped. "
@@ -762,20 +831,27 @@ class PoseRefiner:
         the card are checked by shape only, and an out-of-range one clamps
         to the nearest frame (it associates against frame 0 or K - 1).
 
+        schedule: [(max_dist, iters), ...] - one refine a level against the
+        scene with its gate replaced by max_dist (meters), each from the
+        last one's poses, with criteria's thresholds and iters iterations
+        (JAX pipeline.py:1114-1148); only the last level computes the
+        covariance. With coarse_iters set, every level must run more
+        iterations than it (ValueError).
+
         With ``scene_cascade=(coarse_voxel_mm, coarse_iters)`` a coarse
         pre-pass of coarse_iters iterations against the voxelized twin of
-        the scene runs first; ``criteria`` then governs the full-resolution
-        pass, which alone computes the covariance. ``_scene`` (internal)
-        refines against that scene instead of the refiner's, with no
-        pre-pass."""
+        the scene runs first (before the schedule); ``criteria`` then
+        governs the full-resolution pass, which alone computes the
+        covariance. ``_scene`` (internal) refines against that scene instead
+        of the refiner's, with no pre-pass."""
         return self._refine(self.tris, init_poses, criteria, schedule, with_covariance,
                             scene_ids, _scene)
 
     def _refine(self, tris, init_poses, criteria=icp.ICPConvergenceCriteria(), schedule=None,
                 with_covariance: bool = False, scene_ids=None, _scene=None):
         """refine() rendering ``tris``: the refiner's (T, 3, 3) mesh, or
-        MultiModelRefiner's per-pose meshes (an IndexedTris)."""
-        _unported("schedule", schedule, None, "A14")
+        MultiModelRefiner's per-pose meshes (an IndexedTris); a schedule's
+        levels recurse here, so a subclass's refine() never sees them."""
         scene = self.scene if _scene is None else _scene
         if scene is None:  # usage error: must survive python -O
             raise RuntimeError("set_scene_depth / set_scene_cloud first")
@@ -793,16 +869,46 @@ class PoseRefiner:
             coarse = icp.ICPConvergenceCriteria(
                 criteria.relative_fitness, criteria.relative_rmse, self.scene_cascade[1])
             init, _ = self._refine(tris, init, coarse, _scene=self._scene_coarse)
+        if schedule:
+            self._check_schedule(schedule)
+            for level, (max_dist, iters) in enumerate(schedule):
+                out = self._refine(
+                    tris, init,
+                    icp.ICPConvergenceCriteria(criteria.relative_fitness,
+                                               criteria.relative_rmse, int(iters)),
+                    with_covariance=with_covariance and level == len(schedule) - 1,
+                    scene_ids=ids, _scene=_scene_with_gate(scene, max_dist))
+                init = out[0]
+            return tuple(map(_first, out)) if squeeze else out
         out = refine_poses(
             tris, init, scene, self.proj, self._K_render_t,
             width=self.render_w, height=self.render_h,
             max_points=self.max_points, criteria=criteria,
             window=self.window, stride=self.stride, roi=self.roi,
             with_information=with_covariance, scene_ids=ids,
-            robust_delta=self.robust_delta, estimation=self.estimation,
+            robust_delta=self.robust_delta, estimation=self.estimation, lift=self.lift,
+            coarse_iters=self.coarse_iters, coarse_stride=self.coarse_stride,
         )
         self._warn_if_saturated(out[1])
         return tuple(map(_first, out)) if squeeze else out
+
+    def _check_schedule(self, schedule):
+        """JAX pipeline.py:1115-1127: every level must run more iterations
+        than coarse_iters."""
+        if not self.coarse_iters:
+            return
+        bad = [int(i) for _, i in schedule if int(i) <= self.coarse_iters]
+        if bad:
+            raise ValueError(
+                f"coarse_iters={self.coarse_iters} needs every schedule "
+                f"level to run more iterations than it (each level must "
+                f"finish with at least one full-cloud iteration), but "
+                f"schedule has level(s) with max_iteration={bad}. Raise "
+                f"those levels' iteration counts or drop one of the two "
+                f"coarse-to-fine mechanisms (schedule= gates association "
+                f"distance across re-renders; coarse_iters subsamples "
+                f"the cloud inside each ICP run)."
+            )
 
     def _enqueue(self, fn, *args, **kwargs) -> PendingResult:
         """fn(*args, **kwargs) (refine or track) without a host
@@ -873,7 +979,8 @@ class PoseRefiner:
         kw = dict(width=self.render_w, height=self.render_h, max_points=self.max_points,
                   criteria=criteria, window=self.window, stride=self.stride, roi=self.roi,
                   with_information=with_covariance, pack_outputs=_pack_outputs, plain=_plain,
-                  robust_delta=self.robust_delta, estimation=self.estimation)
+                  robust_delta=self.robust_delta, estimation=self.estimation, lift=self.lift,
+                  coarse_iters=self.coarse_iters, coarse_stride=self.coarse_stride)
         args = (tris, init, frame, self.proj, self._K_render_t, self._K_t, self.max_dist_diff)
         if self.scene_kind == "projective":
             out = track_poses(*args, **kw)

@@ -226,23 +226,37 @@ class SceneNN:
             nn_flash.gate_sq(self.max_dist_diff), robust_delta, point_to_point))
 
     def iterate(self, state, valid, n_total, criteria, robust_delta: float = 0.0,
-                point_to_point: bool = False):
+                point_to_point: bool = False, coarse_iters: int = 0, coarse_stride: int = 2):
         """A refine's ICP loop against this scene
         (ops.icp_reduce.icp_iterate_indexed_cuda): each iteration the NN
-        kernel on the moved cloud, then one iteration launch; the
-        icp.ICPState of (N, P, 3) CUDA clouds, updated in place and
-        returned. Raises for CPU tensors; its plain version is
-        ``icp.plain_association(functools.partial(query, plain=True)).iterate``."""
-        nearest = self._nearest
+        kernel on the moved cloud, then one iteration launch; with
+        coarse_iters > 0 the first coarse_iters of them on the strided copy
+        (the point schedule's coarse phase). The icp.ICPState of (N, P, 3)
+        CUDA clouds, updated in place and returned. Raises for CPU tensors;
+        its plain version is ``icp.plain_association(functools.partial(
+        query, plain=True)).iterate``."""
+        nearest = coarse_nearest = self._nearest
         if self.backend == "kdtree":
-            # K1 bound once a refine: each pass one launch into the same buffers
-            launch = KDLaunch(self._tree(), state.cloud.shape[:-1], state.cloud.device)
-
-            def nearest(cloud):
-                return launch(cloud.contiguous())
+            # K1 bound once a refine and cloud shape: each pass one launch
+            # into the same buffers
+            n, p = state.cloud.shape[:2]
+            nearest = self._kd_launch((n, p), state.cloud.device)
+            if coarse_iters:
+                coarse_nearest = self._kd_launch((n, len(range(0, p, int(coarse_stride)))),
+                                                 state.cloud.device)
         return icp_iterate_indexed_cuda(
             state, valid, n_total, criteria, self.table, nearest,
-            nn_flash.gate_sq(self.max_dist_diff), robust_delta, point_to_point)
+            nn_flash.gate_sq(self.max_dist_diff), robust_delta, point_to_point,
+            coarse_iters, coarse_stride, coarse_nearest)
+
+    def _kd_launch(self, shape, device):
+        """K1 bound to (N, P) queries: (N, P, 3) clouds -> (idx, dist_sq)."""
+        launch = KDLaunch(self._tree(), shape, device)
+
+        def nearest(cloud):
+            return launch(cloud.contiguous())
+
+        return nearest
 
 
 def _rows_in_gate(table, idx, dist_sq, max_dist_diff: float, plain: bool):
@@ -405,15 +419,16 @@ class SceneNNStack:
     def iterate_at(self, sids):
         """``SceneNN.iterate`` bound to per-pose scene ids (see query_at):
         returns iterate(state, valid, n_total, criteria, robust_delta=0.0,
-        point_to_point=False) -> state, each iteration one stacked gated
-        launch and one iteration launch."""
+        point_to_point=False, coarse_iters=0, coarse_stride=2) -> state,
+        each iteration one stacked gated launch and one iteration launch."""
         sids = self._frame_ids(sids)
 
-        def iterate(state, valid, n_total, criteria, robust_delta=0.0, point_to_point=False):
+        def iterate(state, valid, n_total, criteria, robust_delta=0.0, point_to_point=False,
+                    coarse_iters=0, coarse_stride=2):
             return icp_iterate_indexed_cuda(
                 state, valid, n_total, criteria, self.table,
                 functools.partial(self._nearest_at, sids), nn_flash.gate_sq(self.max_dist_diff),
-                robust_delta, point_to_point)
+                robust_delta, point_to_point, coarse_iters, coarse_stride)
 
         return iterate
 

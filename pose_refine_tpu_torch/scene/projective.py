@@ -116,15 +116,17 @@ class SceneProjective:
             robust_delta=robust_delta, point_to_point=point_to_point))
 
     def iterate(self, state, valid, n_total, criteria, robust_delta: float = 0.0,
-                point_to_point: bool = False):
+                point_to_point: bool = False, coarse_iters: int = 0, coarse_stride: int = 2):
         """A refine's whole ICP loop against this scene in one kernel launch
-        (ops.icp_reduce.icp_iterate_projective_cuda): the icp.ICPState of
+        (ops.icp_reduce.icp_iterate_projective_cuda; two with coarse_iters >
+        0, the point schedule's coarse phase first): the icp.ICPState of
         (N, P, 3) CUDA clouds, updated in place and returned. Raises for CPU
         tensors; its plain version is ``icp.plain_association(
         functools.partial(query, plain=True)).iterate``."""
         return icp_iterate_projective_cuda(
             state, valid, n_total, criteria, self.table, self.K, self.max_dist_diff,
-            self.height, self.width, robust_delta=robust_delta, point_to_point=point_to_point)
+            self.height, self.width, robust_delta=robust_delta, point_to_point=point_to_point,
+            coarse_iters=coarse_iters, coarse_stride=coarse_stride)
 
 
 def _project_gate(table, K, max_dist_diff, h: int, w: int, src, base=0,
@@ -235,15 +237,18 @@ class SceneProjectiveStack:
     def iterate_at(self, sids):
         """``SceneProjective.iterate`` bound to per-pose scene ids (see
         query_at): returns iterate(state, valid, n_total, criteria,
-        robust_delta=0.0, point_to_point=False) -> state, one launch a
-        refine with each pose's row offset."""
+        robust_delta=0.0, point_to_point=False, coarse_iters=0,
+        coarse_stride=2) -> state, one launch a refine (two with the coarse
+        phase) with each pose's row offset."""
         base = self._base(sids)
 
-        def iterate(state, valid, n_total, criteria, robust_delta=0.0, point_to_point=False):
+        def iterate(state, valid, n_total, criteria, robust_delta=0.0, point_to_point=False,
+                    coarse_iters=0, coarse_stride=2):
             return icp_iterate_projective_cuda(
                 state, valid, n_total, criteria, self.table, self.K, self.max_dist_diff,
                 self.height, self.width,
                 base=base.expand(state.cloud.shape[:1]) if base.dim() == 0 else base,
-                robust_delta=robust_delta, point_to_point=point_to_point)
+                robust_delta=robust_delta, point_to_point=point_to_point,
+                coarse_iters=coarse_iters, coarse_stride=coarse_stride)
 
         return iterate

@@ -7,6 +7,7 @@ has no jax installed:
     python -m pytest --noconftest tests/test_torch_device.py -q -m cuda
 """
 
+import functools
 import re
 import subprocess
 import sys
@@ -807,20 +808,25 @@ MODES = {"plane": (0.0, False), "huber": (0.004, False), "p2p": (0.0, True),
          "p2p-huber": (0.004, True)}
 
 
-def iterate_both(card, case, crit, mode=(0.0, False), start=None):
+def iterate_both(card, case, crit, mode=(0.0, False), start=None, coarse=(0, 2),
+                 valid_map=None):
     """The ICP of scene_case(case)'s clouds through the scene's iteration
     kernel and through plain_association's plain iteration (both through
     icp._icp_run, which anchors the padded rows): (kernel result, kernel
     cloud, plain result, plain cloud, iteration launches of the kernel run).
     ``start`` maps the initial state (the ICPState of _icp_run) for the
-    edge cases, on both runs alike."""
+    edge cases, on both runs alike; ``coarse`` = (coarse_iters,
+    coarse_stride) the point schedule; ``valid_map`` maps the valid mask."""
     from pose_refine_tpu_torch import icp
 
     sc, ids, plain_query, cloud, valid = scene_case(card, case)
+    if valid_map is not None:
+        valid = valid_map(valid)
     iterate = sc.iterate if ids is None else sc.iterate_at(ids)
     reduce = sc.reduce if ids is None else sc.reduce_at(ids)
     query = sc.query if ids is None else sc.query_at(ids)
-    kw = dict(robust_delta=mode[0], estimation="point_to_point" if mode[1] else "point_to_plane")
+    kw = dict(robust_delta=mode[0], estimation="point_to_point" if mode[1] else "point_to_plane",
+              coarse_iters=coarse[0], coarse_stride=coarse[1])
 
     def wrap(fn):
         if start is None:
@@ -894,6 +900,198 @@ def test_icp_iterate_kernel_edges_on_card(card, case, edge):
         assert not bool(k_res.fitness.any()) and not bool(k_res.inlier_rmse.any())
     elif edge == "max_iteration_0":
         assert float(k_res.fitness.max()) > 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["plane", "p2p-huber"])
+@pytest.mark.parametrize("case", ["projective", "stacked", "slabs16", "nn", "kd", "nn_stacked"])
+@pytest.mark.parametrize("coarse", [(5, 2), (1, 3)])
+def test_icp_coarse_mode_matches_plain_on_card(card, case, mode, coarse):
+    """The point schedule through the iteration kernel's coarse mode against
+    its plain version (icp_coarse_plain, handoff_plain, then the ordinary
+    iterations), 12 iterations: T, fitness, rmse and the final cloud bit
+    for bit. A projective refine is 2 launches (the coarse phase with the
+    hand-off, then the rest); an NN refine one a pass, 13. The pose with no
+    valid point holds through the coarse phase and stays the identity."""
+    crit = ptt.ICPConvergenceCriteria(max_iteration=12)
+    k_res, k_cloud, p_res, p_cloud, n = iterate_both(card, case, crit, MODES[mode],
+                                                     coarse=coarse)
+    assert_same_icp(k_res, k_cloud, p_res, p_cloud)
+    assert n == (13 if case in ("nn", "kd", "nn_stacked") else 2)
+    assert torch.equal(k_res.transformation[2], torch.eye(4, device=card))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["projective", "slabs16", "kd"])
+def test_icp_coarse_holds_where_strided_rows_are_invalid_on_card(card, case):
+    """Pose 0's rows 0, 2, 4, ... invalid: its coarse phase finds no inlier
+    and holds (the kernel leaves its loop, the plain version iterates on:
+    equal, as the held cloud associates the same way again), and its fine
+    phase starts from the identity; kernel == plain bit for bit, and the
+    coarse launch alone leaves pose 0's T the identity."""
+    from pose_refine_tpu_torch import icp
+
+    def drop_even(valid):
+        valid = valid.clone()
+        valid[0, ::2] = False
+        return valid
+
+    crit = ptt.ICPConvergenceCriteria(max_iteration=10)
+    k_res, k_cloud, p_res, p_cloud, _n = iterate_both(card, case, crit, coarse=(4, 2),
+                                                      valid_map=drop_even)
+    assert_same_icp(k_res, k_cloud, p_res, p_cloud)
+    sc, _ids, plain_query, cloud, valid = scene_case(card, case)
+    state, valid, n_total = icp._icp_start(cloud, drop_even(valid))
+    cstate, cvalid = IR.coarse_start(state, valid, 2)
+    k = sc.iterate(IR.ICPState(*(t.clone() for t in state)), valid, n_total, crit,
+                   coarse_iters=4, coarse_stride=2)
+    _c, T = IR.icp_coarse_plain(cstate.cloud, state.T, cvalid, plain_query, 4)
+    assert torch.equal(T[0], torch.eye(4, device=card))
+    assert not torch.equal(T[1], torch.eye(4, device=card))
+    assert bool(torch.isfinite(k.T).all())
+
+
+@pytest.mark.cuda
+def test_icp_coarse_refuses_what_it_cannot_launch_on_card(card):
+    """The hand-off belongs to a coarse launch and to the state's poses."""
+    from pose_refine_tpu_torch import icp
+
+    sc, _ids, _q, cloud, valid = scene_case(card, "projective")
+    state, valid, n_total = icp._icp_start(cloud, valid)
+    crit = ptt.ICPConvergenceCriteria(max_iteration=4)
+    front = dict(K=sc.K, gate=sc.max_dist_diff, height=sc.height, width=sc.width)
+    with pytest.raises(ValueError, match="handoff"):
+        IR._IterateLaunch(state, valid, n_total, crit, sc.table, handoff=state.cloud, **front)
+    with pytest.raises(ValueError, match="handoff"):
+        IR._IterateLaunch(state, valid, n_total, crit, sc.table, coarse=True,
+                          handoff=state.cloud[:2].contiguous(), **front)
+    run = IR._IterateLaunch(state, valid, n_total, crit, sc.table, coarse=True, **front)
+    with pytest.raises(ValueError, match="hand-off"):
+        run(0, 2, handoff=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", ["projective", "nn", "nn_bruteforce"])
+def test_schedule_refine_on_card_matches_cpu(card, scene):
+    """refine(schedule=[(0.4, 15), (0.1, 20), (0.03, 15)]) with
+    coarse_iters=6 on the card (raster kernel, the NN kernels, the iteration
+    kernel's coarse mode) against the same levels through the plain
+    versions (each level a refine_poses against the gated scene, the plain
+    raster, plain_association's plain iteration), on the card and on the
+    CPU: 100% verdicts, every pose within 0.1 deg, 0.2 mm and 5e-3 of
+    fitness. The workload is the bench recipe (+-10 deg/axis, +-20 mm) on
+    the bumpy sphere (50, 4) at 320x240, where every start converges: the
+    CPU path differs from the card's in last bits (torch's CPU sine and
+    cosine, and the lift's z, which the card's division by a host scalar
+    takes as a product with the rounded reciprocal), and at 160x120 with
+    +-17 deg starts three levels of re-renders turned those bits into 0.2-0.7
+    deg at poses that converge slowly. Each level's scene carries the
+    replaced gate: the card refine against _scene_with_gate equals the one
+    against a scene built with that gate, bit for bit."""
+    from pose_refine_tpu_torch import icp
+    from pose_refine_tpu_torch.pipeline import _scene_with_gate, refine_poses
+
+    m = mesh.make_bumpy_sphere(radius=50.0, subdivisions=4)
+    K = geometry.LINEMOD_K.copy()
+    K[:2] *= 0.5
+    R = np.array([[0.34768538, 0.93761126, 0.0],
+                  [0.70540612, -0.26157897, -0.65877056],
+                  [-0.61767070, 0.22904489, -0.75234390]], np.float32)
+    truth = geometry.pose_from_Rt(R, np.array([20, 20, 320], np.float32)).numpy()
+    rng = np.random.default_rng(4)
+    d_rot = geometry.euler_to_rotation(rng.uniform(-0.17, 0.17, (8, 3)).astype(np.float32))
+    starts = geometry.pose_from_Rt(d_rot.numpy() @ truth[:3, :3],
+                                   truth[:3, 3] + rng.uniform(-20, 20, (8, 3))).numpy()
+    proj = geometry.compute_proj(K, 320, 240, device="cpu")
+    depth = RC.rasterize_plain(m.tris, truth[None], 320, 240, proj, device="cpu")[0].numpy()
+    kw = dict(K=K, width=320, height=240, max_points=2048, coarse_iters=6)
+    if scene != "projective":
+        kw.update(scene=scene, scene_voxel_mm=2.0)
+    sched = [(0.4, 15), (0.1, 20), (0.03, 15)]
+
+    def plain_levels(ref):
+        poses = torch.as_tensor(starts, device=ref.device)
+        for gate, iters in sched:
+            gs = _scene_with_gate(ref.scene, gate)
+            poses, res = refine_poses(
+                ref.tris, poses, gs, ref.proj, ref._K_render_t, width=ref.render_w,
+                height=ref.render_h, max_points=ref.max_points,
+                criteria=ptt.ICPConvergenceCriteria(max_iteration=iters), window=ref.window,
+                stride=ref.stride, roi=ref.roi, coarse_iters=6, coarse_stride=2,
+                raster=RC.rasterize_plain,
+                query=icp.plain_association(functools.partial(gs.query, plain=True)))
+        return poses.cpu().numpy(), res.fitness.cpu().numpy()
+
+    ref = ptt.PoseRefiner(m, device="cuda", **kw).set_scene_depth(depth)
+    poses, res = ref.refine(starts, schedule=sched)
+    kp, kf = poses.cpu().numpy(), res.fitness.cpu().numpy()
+    cpu = ptt.PoseRefiner(m, device="cpu", **kw).set_scene_depth(depth)
+    assert (rotation_angle_deg(kp, truth) < 3.0).all()
+    for pp, pf in (plain_levels(ref), plain_levels(cpu)):
+        np.testing.assert_array_equal(rotation_angle_deg(kp, truth) < 3.0,
+                                      rotation_angle_deg(pp, truth) < 3.0)
+        assert rotation_angle_deg(kp, pp).max() <= 0.1
+        assert np.abs(kp[:, :3, 3] - pp[:, :3, 3]).max() <= 0.2
+        assert np.abs(kf - pf).max() <= 5e-3
+    narrow = ptt.PoseRefiner(m, device="cuda", max_dist_diff=0.004, **kw).set_scene_depth(depth)
+    crit = ptt.ICPConvergenceCriteria(max_iteration=8)
+    got = ref.refine(starts, crit, _scene=_scene_with_gate(ref.scene, 0.004))
+    want = narrow.refine(starts, crit)
+    wide = ref.refine(starts, crit)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1].fitness, want[1].fitness)
+    assert not torch.equal(got[0], wide[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("down_sample,roi", [(1, (0, 0, 0, 0)), (2, (40, 30, 200, 160))])
+def test_pose_renderer_on_card_matches_plain(card, down_sample, roi):
+    """PoseRenderer on the card (the raster kernel, one launch a render)
+    against the same renderer on the CPU (the kernel's plain version):
+    depth and mask equal, the converters run on the card."""
+    m = mesh.make_bumpy_sphere(radius=50.0, subdivisions=4)
+    R = np.array([[0.34768538, 0.93761126, 0.0],
+                  [0.70540612, -0.26157897, -0.65877056],
+                  [-0.61767070, 0.22904489, -0.75234390]], np.float32)
+    rng = np.random.default_rng(5)
+    d_rot = geometry.euler_to_rotation(rng.uniform(-0.5, 0.5, (6, 3)).astype(np.float32))
+    poses = geometry.pose_from_Rt(d_rot.numpy() @ R,
+                                  np.array([0, 0, 300], np.float32) + rng.uniform(-20, 20, (6, 3))
+                                  ).numpy()
+    k = ptt.PoseRenderer(m, K=geometry.LINEMOD_K, device="cuda")
+    p = ptt.PoseRenderer(m, K=geometry.LINEMOD_K, device="cpu")
+    before = RC.launches
+    kd, km = k.render_depth_mask(poses, down_sample, roi)
+    torch.cuda.synchronize()
+    assert RC.launches == before + 1
+    assert kd.device.type == "cuda" and kd.dtype == torch.uint16 and km.dtype == torch.uint8
+    pd, pm = p.render_depth_mask(poses, down_sample, roi)
+    assert torch.equal(kd.cpu(), pd) and torch.equal(km.cpu(), pm)
+    assert int((pm > 0).sum()) > 1000
+
+
+@pytest.mark.cuda
+def test_compact_points_on_card_equals_cpu(card):
+    """compact_points on the card equals the CPU's bit for bit on the same
+    point images, overflow included; depth_to_cloud's slots and counts are
+    equal and its coordinates within 2 ULPs (the card's division of the
+    depth by the host scalar 1000 is a product with its rounded reciprocal,
+    as XLA's is; the CPU divides)."""
+    from pose_refine_tpu_torch.ops.depth_to_cloud import compact_points, depth_image_to_points
+
+    rng = np.random.default_rng(6)
+    depth = np.where(rng.uniform(size=(4, 120, 160)) > 0.4,
+                     rng.integers(250, 400, (4, 120, 160)), 0).astype(np.int32)
+    pts, mask = depth_image_to_points(torch.as_tensor(depth), geometry.LINEMOD_K)
+    for budget in (16384, 5000):
+        got = compact_points(pts.to(card), mask.to(card), budget)
+        want = compact_points(pts, mask, budget)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+        lifted = ptt.depth_to_cloud(torch.as_tensor(depth, device=card), geometry.LINEMOD_K,
+                                    budget)
+        assert torch.equal(lifted[1].cpu(), want[1]) and torch.equal(lifted[2].cpu(), want[2])
+        ulps = (lifted[0].cpu().view(torch.int32).long() - want[0].view(torch.int32).long()).abs()
+        assert int(ulps.max()) <= 2
 
 
 @pytest.mark.cuda

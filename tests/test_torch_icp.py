@@ -128,13 +128,6 @@ def test_icp_empty_association_returns_identity():
     assert (res.fitness == 0).all() and (res.inlier_rmse == 0).all()
 
 
-@pytest.mark.parametrize("kwargs", [{"coarse_iters": 4}])
-def test_unported_icp_options_raise(kwargs):
-    q = lambda src: (src, src, torch.ones(src.shape[:-1], dtype=torch.bool))  # noqa: E731
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        ticp.icp_point_to_plane(torch.zeros(8, 3), torch.ones(8, dtype=torch.bool), q, **kwargs)
-
-
 @pytest.mark.parametrize("reduction", ["packed", "matmul"])
 def test_icp_robust_delta_matches_jax(clouds_and_scene, reduction):
     """robust_delta (Huber IRLS, JAX icp.py:102-125) in both formulations.

@@ -195,8 +195,14 @@ def test_refine_multiscene_validation(setup):
                         scene_cascade=(8.0, 10), max_points=4096).set_scene_depths(frames)
     with pytest.raises(ValueError, match="K, H, W"):
         ref.set_scene_depths(frames[0])
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        ref.refine(hyps, scene_ids=ids, schedule=[(0.25, 10), (0.05, 20)])
+    # schedule= composes with scene_ids: the ids are checked once, before
+    # the levels (JAX pipeline.py:1055-1148), and every level refines the
+    # stack with them
+    with pytest.raises(ValueError, match="does not match"):
+        ref.refine(hyps, scene_ids=ids[:2], schedule=[(0.25, 2), (0.05, 2)])
+    sched, sched_res = ref.refine(hyps, scene_ids=ids, schedule=[(0.25, 2), (0.05, 2)])
+    assert sched.shape == (3, 4, 4) and bool(torch.isfinite(sched).all())
+    assert bool((sched_res.fitness > 0).all())
 
 
 def test_nn_stack_matches_jax(setup):

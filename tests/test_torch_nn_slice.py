@@ -224,10 +224,11 @@ def test_scene_cascade_validation(kwargs, match):
 
 @pytest.mark.parametrize(
     "kwargs,item",
-    [({"devices": 2}, "A13"), ({"lift": "compact"}, "A14")],
+    [({"devices": 2}, "A13")],
 )
 def test_unported_nn_options_raise(kwargs, item):
-    # scene_stride and scene_pool are ported with track() (test_torch_track.py)
+    # scene_stride and scene_pool are ported with track() (test_torch_track.py),
+    # lift="compact" with the point schedule (test_torch_api.py)
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         ptt.PoseRefiner(mesh.make_icosphere(40.0, 1), K=small_K(), width=W, height=H,
                         device="cpu", scene="nn", **kwargs)

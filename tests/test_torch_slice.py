@@ -113,12 +113,13 @@ def test_single_pose_refine_squeezes(workload):
 
 @pytest.mark.parametrize(
     "kwargs,item",
-    [({"lift": "compact"}, "A14"), ({"coarse_iters": 4}, "A14"), ({"devices": 2}, "A13")],
+    [({"devices": 2}, "A13")],
 )
 def test_unported_refiner_options_raise(kwargs, item):
     # scene="nn_kdtree", robust_delta and estimation="point_to_point" are
     # ported: tests/test_torch_kdtree.py and tests/test_torch_p2p.py hold
-    # them against the JAX refiner
+    # them against the JAX refiner; lift="compact" and coarse_iters:
+    # tests/test_torch_api.py and tests/test_torch_coarse.py
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         ptt.PoseRefiner(mesh.make_icosphere(40.0, 1), K=small_K(), width=W, height=H,
                         device="cpu", **kwargs)
@@ -126,17 +127,14 @@ def test_unported_refiner_options_raise(kwargs, item):
 
 @pytest.mark.parametrize(
     "kwargs,item",
-    [({"schedule": [(0.2, 5)], "with_covariance": True}, "A14"),
-     ({"schedule": [(0.2, 5)]}, "A14"), ({"scene_ids": [0]}, "A15")],
+    [({"scene_ids": [0]}, "A15")],
 )
 def test_unported_refine_options_raise(workload, kwargs, item):
-    # with_covariance is ported (tests/test_torch_track.py); a schedule
-    # beside it still raises. scene_ids landed with A15: on a single scene
-    # they are the JAX package's ValueError (tests/test_multiscene.py:135)
+    # with_covariance is ported (tests/test_torch_track.py), schedule= too
+    # (tests/test_torch_api.py). scene_ids landed with A15: on a single
+    # scene they are the JAX package's ValueError (tests/test_multiscene.py:135)
     m, K, truth, poses, scene = workload
     tref = ptt.PoseRefiner(m, K=K, width=W, height=H, device="cpu", **CFG)
     tref.set_scene_depth(scene)
-    exc, match = (ValueError, "scene_ids") if item == "A15" else \
-        (NotImplementedError, f"ROADMAP {item}")
-    with pytest.raises(exc, match=match):
+    with pytest.raises(ValueError, match="scene_ids"):
         tref.refine(poses[:1], **kwargs)
