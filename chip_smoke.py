@@ -207,6 +207,32 @@ are collected and fail the run at its end.
               render-256 and render-100-roi, full size and down_sample 2,
               against rasterize_plain + the converters (< 1e-4 of pixels):
               renders/s, wall and device ms, one launch a call.
+ 21. native - the native C++ kd builder (native/, built with g++ at first
+              use) must be available; it and the numpy builder build the
+              trees of slice-bench-256's 2 mm, raw and full-frame 640x480
+              clouds (the scene in front of a wall) with equal bits, both
+              times printed with the host CPU; set_scene_depth of
+              scene="nn" on the raw cloud with each builder, and the refines
+              on the two trees equal bit for bit (25 K1 launches); the
+              reference-algorithm verdict agreement (bench.py:379-440:
+              native/cpu_baseline.cpp's render + ICP) on slice-bench-256's
+              first 16 hypotheses and on 64 of the bumpy sphere (50, 5) at
+              +-10 deg / +-20 mm, with each side's recovered count.
+ 22. serialize - utils.serialization on the card: a projective scene, a
+              projective and an NN stack, the kd SceneNN of the raw cloud, a
+              device-built SceneNN (pool 4), a KDTree and [slice]'s
+              RegistrationResult saved and loaded back onto the card;
+              refines against each reloaded scene equal the originals' bit
+              for bit (the tree: arrays and K1's walk), and TrackingSessions
+              (both scene kinds) and a MultiObjectSession saved after 4
+              frames and reloaded with a fresh refiner track the next 4
+              frames as the uninterrupted session, bit for bit.
+ 23. sharded - devices=["cuda:0", "cuda:0"]: slice-bench-256 at 255 poses
+              (one pad row) and the stacked refine of phase 12 at 255
+              poses, split into two shards on two streams of the card,
+              equal the single-device refines bit for bit (wall and device
+              ms of each); devices=None on one card is the single-device
+              path with [slice]'s launches.
 
 Each kernel is timed by CUDA events (median of 20 launches, the wrapper's
 host time included; plain versions fewer; B1, P2 and the fused pass also
@@ -230,11 +256,15 @@ import json
 import logging
 import os
 import pathlib
+import platform
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
+import types
+import unittest.mock
 import warnings
 
 import numpy as np
@@ -893,8 +923,315 @@ def icp_registers(log):
     return out
 
 
-def same_bits(a, b):
-    """Equal tensors; float NaN where the other is NaN."""
+def host_cpu() -> str:
+    """The host CPU's model (lscpu's, else /proc/cpuinfo's), architecture
+    and core count, beside host build times."""
+    names = []
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=30).stdout
+        names = [line.split(":", 1)[1].strip() for line in out.splitlines()
+                 if line.startswith(("Model name", "Vendor ID"))]
+    except (OSError, subprocess.SubprocessError):
+        pass
+    if not names:
+        try:
+            with open("/proc/cpuinfo") as f:
+                names = [line.split(":", 1)[1].strip() for line in f
+                         if line.startswith("model name")][:1]
+        except OSError:
+            pass
+    return f"{' / '.join(names) or 'unknown CPU'}, {platform.machine()}, {os.cpu_count()} cores"
+
+
+def timed(fn, reps=1):
+    """(median ms of reps calls of fn(), the last call's result)."""
+    ms, out = [], None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ms)), out
+
+
+def full_frame(scene):
+    """slice-bench-256's scene in front of a tilted wall at 600-800 mm:
+    every pixel valid, a 640x480 cloud of 307,200 points."""
+    yy, xx = np.mgrid[0:scene.shape[0], 0:scene.shape[1]]
+    wall = (600 + 0.25 * xx + 0.1 * yy).astype(np.int32)
+    return np.where(scene > 0, scene, wall)
+
+
+def reference_agreement(native, rotation_angle_deg, tris, poses, proj, scene, K, truth, card_ok):
+    """bench.py:379-440's verdict agreement against the reference algorithm
+    in C++ (native/cpu_baseline.cpp: a scanline render of each hypothesis,
+    its full scan-order cloud up to 32,768 points, projective point-to-plane
+    ICP of 30 iterations against the projective ``scene``'s point and normal
+    images, OpenMP over poses): the share of poses whose verdict (rotation <
+    3 deg of ``truth``) equals the card refine's ``card_ok``, with how many
+    each side recovered, so that a constant verdict shows."""
+    t0 = time.perf_counter()
+    depths = native.cpu_render_baseline(tris, poses, proj, scene.width, scene.height)
+    render_ms = (time.perf_counter() - t0) * 1e3
+    n_pts = 32768
+    clouds = np.zeros((len(poses), n_pts, 3), np.float32)
+    valid = np.zeros((len(poses), n_pts), bool)
+    for i, d in enumerate(depths):
+        vs, us = np.nonzero(d > 0)  # row-major: scan order
+        z = d[vs, us].astype(np.float32) / 1000.0
+        pts = np.stack([(us.astype(np.float32) - K[0, 2]) / K[0, 0] * z,
+                        (vs.astype(np.float32) - K[1, 2]) / K[1, 1] * z, z], -1)[:n_pts]
+        clouds[i, :len(pts)] = pts
+        valid[i, :len(pts)] = True
+    t0 = time.perf_counter()
+    T, fit, _rmse = native.cpu_icp_baseline(clouds, valid, scene.pcd.cpu().numpy(),
+                                            scene.normal.cpu().numpy(), K)
+    icp_ms = (time.perf_counter() - t0) * 1e3
+    T_mm = T.copy()
+    T_mm[:, :3, 3] *= 1000.0
+    ref_ok = rotation_angle_deg(T_mm @ poses, truth) < VERDICT_DEG
+    return dict(hypotheses=len(poses), agreement=float((ref_ok == card_ok).mean()),
+                card_recovered=int(card_ok.sum()), reference_recovered=int(ref_ok.sum()),
+                reference_mean_fitness=float(fit.mean()), reference_render_ms=render_ms,
+                reference_icp_ms=icp_ms, threads=native.cpu_threads())
+
+
+TREE_FIELDS = ("points", "normals", "parent", "child", "split_dim", "split_v", "bbox", "bounds")
+
+
+def native_phase(c):
+    """[native]: the native C++ kd builder against the numpy builder on the
+    2 mm, raw and full-frame clouds of slice-bench-256's scene (equal bits,
+    both build times); set_scene_depth of scene="nn" on the raw cloud with
+    each builder, and the refines on the two trees (equal bits); the
+    reference-algorithm verdict agreement on slice-bench-256's first 16
+    hypotheses and on 64 of the bumpy sphere (50, 5). Sets c.kd_raw (the
+    scene="nn" refiner) and c.nat_scene (its natively built raw scene)."""
+    t0 = time.perf_counter()
+    native, tkd = c.native, c.tkd
+    check(native.native_available(),
+          f"native: the C++ library did not build: {native.unavailable_reason()}")
+    raw_p, raw_n, raw_m = c._depth_scene_arrays_host(c.scene, c.K)
+    ff_p, ff_n, ff_m = c._depth_scene_arrays_host(full_frame(c.scene), c.K)
+    c.raw_cloud = (raw_p[raw_m], raw_n[raw_m])
+    clouds = {"2mm": c.voxel_downsample(*c.raw_cloud, 0.002), "raw": c.raw_cloud,
+              "full-frame": (ff_p[ff_m], ff_n[ff_m])}
+    for label, (pts, nrm) in clouds.items():
+        nat_ms, nat_tree = timed(lambda: tkd.build_kdtree(pts, nrm, backend="native"), reps=3)
+        np_ms, np_tree = timed(lambda: tkd.build_kdtree(pts, nrm, backend="numpy"),
+                               reps=1 if len(pts) > 100000 else 3)
+        equal = all(np.array_equal(getattr(nat_tree, f), getattr(np_tree, f))
+                    for f in TREE_FIELDS)
+        phase("native", f"kd build, {label} cloud: {len(pts)} points, {nat_tree.n_nodes} "
+              f"nodes: native_ms={nat_ms} numpy_ms={np_ms} (x{np_ms / nat_ms}) "
+              f"equal_bits={equal} ({native.cpu_threads()} OpenMP threads; {host_cpu()})")
+        check(equal, f"native: the {label} tree differs from the numpy builder's")
+    c.kd_raw = kd_raw = c.ptt.PoseRefiner(c.model, K=c.K, device=c.dev, scene="nn", **CFG)
+
+    def set_depth():
+        kd_raw.set_scene_depth(c.scene)
+        c.sync()
+        return kd_raw.scene
+
+    nat_set_ms, c.nat_scene = timed(set_depth, reps=3)
+    with unittest.mock.patch.object(native, "build_kdtree_native", return_value=None):
+        np_set_ms, np_scene = timed(set_depth, reps=3)
+    c.reset_counts()
+    nat_out = kd_raw.refine(c.poses, c.crit, _scene=c.nat_scene)
+    c.sync()
+    kd_counts = c.counts()
+    kd_equal = same_bits(nat_out, kd_raw.refine(c.poses, c.crit, _scene=np_scene))
+    phase("native", f"set_scene_depth of scene='nn' on the raw cloud "
+          f"({c.nat_scene.points.shape[0]} points): native_ms={nat_set_ms} numpy_builder_ms="
+          f"{np_set_ms}; refine on the native tree == on the numpy tree: {kd_equal} "
+          f"launches={kd_counts}")
+    check(kd_equal and kd_counts["nn_kdtree"] == c.crit.max_iteration + 1,
+          f"native: scene='nn' refines on the two trees differ ({kd_equal}) or missed K1: "
+          f"{kd_counts}")
+    proj = c.proj.cpu().numpy()
+    agree = {"slice-bench-16": reference_agreement(
+        native, c.rotation_angle_deg, c.tris_np, c.poses_np[:16], proj, c.refiner.scene, c.K,
+        c.truth, c.err_deg[:16] < VERDICT_DEG)}
+    b_hyps = c.ptt.sample_hypotheses(c.pose2, 64, rot_deg=10.0, trans_mm=20.0, rng=0)
+    b_ref = c.ptt.PoseRefiner(c.bumpy, K=c.K, device=c.dev, **CFG).set_scene_depth(c.depth2)
+    b_refined = b_ref.refine(b_hyps, c.crit)[0].cpu().numpy()
+    agree["bumpy-64"] = reference_agreement(
+        native, c.rotation_angle_deg, c.bumpy.tris, b_hyps, proj, b_ref.scene, c.K, c.pose2,
+        c.rotation_angle_deg(b_refined, c.pose2) < VERDICT_DEG)
+    for label, st in agree.items():
+        phase("native", f"verdict agreement with the reference algorithm (bench.py:379-440), "
+              f"{label}: " + " ".join(f"{k}={v}" for k, v in st.items()))
+        check(st["reference_mean_fitness"] > 0.5,
+              f"native: the reference ICP fitted nothing on {label} ({st})")
+    phase("native", f"phase seconds={time.perf_counter() - t0}")
+
+
+def serialize_phase(c):
+    """[serialize]: a projective scene, a projective and an NN stack, the kd
+    SceneNN of the raw cloud, a device-built SceneNN, a KDTree and a
+    RegistrationResult saved and loaded back on the card: every refine
+    against a reloaded scene equals the refine against the original bit
+    for bit (the tree: its arrays and K1's walk; the result: its arrays);
+    a TrackingSession of each scene kind and a MultiObjectSession saved
+    after 4 frames and reloaded with a fresh refiner track 4 more frames as
+    the uninterrupted session does, bit for bit."""
+    t0 = time.perf_counter()
+    ptt, ser, crit = c.ptt, c.serialization, c.crit
+    stats = {}
+    with tempfile.TemporaryDirectory(prefix="prt_serialize_") as tmp:
+
+        def round_trip(obj, name):
+            path = os.path.join(tmp, f"{name}.npz")
+            ser.save(path, obj)
+            return ser.load(path, device=c.dev)
+
+        def hold_reload(label, fn, obj):
+            want = fn(obj)
+            loaded = round_trip(obj, f"scene{len(stats)}")
+            c.reset_counts()
+            got = fn(loaded)
+            c.sync()
+            stats[label] = dict(equal_bits=same_bits(got, want), launches=c.counts())
+            phase("serialize", f"{label}: {type(obj).__name__} reloaded on "
+                  f"{loaded.table.device}: refine equal_bits={stats[label]['equal_bits']} "
+                  f"launches={stats[label]['launches']}")
+
+        hold_reload("projective scene", lambda s: c.refiner.refine(c.poses, crit, _scene=s),
+                    c.refiner.scene)
+        for label, kw in (("projective stack", dict(scene="projective")),
+                          ("NN stack (B3)", dict(scene="nn_bruteforce", scene_voxel_mm=2.0))):
+            st_ref = ptt.PoseRefiner(c.ms_mesh, K=c.K, device=c.dev, **kw, **CFG)
+            st_ref.set_scene_depths(c.ms_frames)
+            hold_reload(label, lambda s, r=st_ref: r.refine(c.ms_hyps_t, crit,
+                                                           scene_ids=c.ms_ids_t, _scene=s),
+                        st_ref.scene)
+        hold_reload("kd SceneNN, raw cloud (K1)",
+                    lambda s: c.kd_raw.refine(c.poses, crit, _scene=s), c.nat_scene)
+        dev_scene = c.SceneNN.from_depth_device(c.torch.as_tensor(c.scene, device=c.dev), c.K_t,
+                                                0.1, pool=4)
+        hold_reload("device-built SceneNN, pool 4 (B3)",
+                    lambda s: c.nn_ref.refine(c.poses, crit, _scene=s), dev_scene)
+        tree = c.tkd.build_kdtree(*c.raw_cloud)
+        tree_back = round_trip(tree, "kdtree")
+        walk = [c.KD.nn_kdtree(c.queries, c.KDTreeDevice.from_tree(t, c.dev))
+                for t in (tree, tree_back)]
+        stats["KDTree"] = dict(equal_bits=same_bits(*walk) and all(
+            np.array_equal(getattr(tree, f), getattr(tree_back, f)) for f in TREE_FIELDS))
+        stats["RegistrationResult"] = dict(equal_bits=same_bits(round_trip(c.res, "res"),
+                                                                    c.res))
+        phase("serialize", f"KDTree of the raw cloud: arrays and K1's walk of the "
+              f"{c.queries.shape[0]} first-pass queries {stats['KDTree']}; RegistrationResult "
+              f"of [slice] {stats['RegistrationResult']}")
+
+        def resume(label, make_ref, make_session, stream, k=4):
+            """A session over 2k frames against one saved after k frames and
+            reloaded with a fresh refiner: the last k frames' poses."""
+            def poses_of(step):
+                return [s.pose for s in step] if isinstance(step, list) else [step.pose]
+
+            whole = make_session(make_ref())
+            want = [poses_of(whole.step(f)) for f in stream[:2 * k]][k:]
+            part = make_session(make_ref())
+            for f in stream[:k]:
+                part.step(f)
+            path = os.path.join(tmp, f"session{len(stats)}.npz")
+            ser.save(path, part)
+            resumed = ser.load(path, refiner=make_ref())
+            c.reset_counts()
+            got = [poses_of(resumed.step(f)) for f in stream[k:2 * k]]
+            c.sync()
+            equal = all(np.array_equal(a, b) for w, g in zip(want, got) for a, b in zip(w, g))
+            stats[label] = dict(equal_bits=equal, launches=c.counts())
+            phase("serialize", f"{label}: saved after {k} frames, reloaded with a fresh "
+                  f"refiner, the next {k} frames == the uninterrupted session's: {equal} "
+                  f"launches={stats[label]['launches']}")
+
+        level = c.pkg_log.level
+        c.pkg_log.setLevel(logging.ERROR)  # the once-per-frame lift-budget warning
+        try:
+            for label, kw in TRACK_CONFIGS:
+                resume(f"TrackingSession {label}",
+                       lambda kw=kw: ptt.PoseRefiner(c.model, K=c.K, device=c.dev, **kw, **CFG),
+                       lambda r: ptt.TrackingSession(r, c.truth, n_hypotheses=N_HYP,
+                                                     process_noise=TRACK_NOISE,
+                                                     seed=TRACK_SEED), c.frames)
+            resume("MultiObjectSession",
+                   lambda: ptt.MultiModelRefiner([c.bumpy40, c.ico30], K=c.K, device=c.dev,
+                                                 **CFG),
+                   lambda r: ptt.MultiObjectSession(r, [(0, c.starts[0]), (1, c.starts[1])],
+                                                    n_hypotheses=MT_HYP, seed=13,
+                                                    init_cov=MT_INIT_COV), c.mt_frames)
+        finally:
+            c.pkg_log.setLevel(level)
+    bad = [label for label, st in stats.items() if not st["equal_bits"]]
+    check(not bad, f"serialize: reloaded objects differ: {bad}")
+    check(stats["NN stack (B3)"]["launches"]["nn_flash_gated_stacked"] > 0
+          and stats["kd SceneNN, raw cloud (K1)"]["launches"]["nn_kdtree"]
+          == crit.max_iteration + 1,
+          f"serialize: reloaded NN scenes missed their kernels: {stats}")
+    phase("serialize", f"phase seconds={time.perf_counter() - t0}")
+
+
+def sharded_phase(c):
+    """[sharded]: slice-bench-256 at 255 poses (so one pad row) and the
+    stacked refine of [multiscene] at 255 poses, each with the batch split
+    over c.two (two shards on the one card), against the single-device
+    refine: equal bits, wall and device ms of each; devices=None on one
+    card: the single-device path, [slice]'s launches."""
+    t0 = time.perf_counter()
+    ptt, crit = c.ptt, c.crit
+    split = ptt.PoseRefiner(c.model, K=c.K, devices=c.two, **CFG).set_scene_depth(c.scene)
+    n = c.poses.shape[0] - 1
+    sh_poses = c.poses[:n]
+    want = c.refiner.refine(sh_poses, crit)
+    c.reset_counts()
+    got = split.refine(sh_poses, crit)
+    c.sync()
+    sh_counts = c.counts()
+    equal = same_bits(got, want)
+    one_ms = refine_ms(c.torch, lambda: c.refiner.refine(sh_poses, crit))
+    two_ms = refine_ms(c.torch, lambda: split.refine(sh_poses, crit))
+    phase("sharded", f"slice-bench-{n}, devices={c.two} (2 shards of {(n + 1) // 2}, 1 pad "
+          f"row): equal_bits={equal} single (wall_ms, device_ms)={one_ms} split={two_ms} "
+          f"launches={sh_counts}; profile single: "
+          f"{busy_line(c.torch, lambda: c.refiner.refine(sh_poses, crit), one_ms[0])}; "
+          f"split: {busy_line(c.torch, lambda: split.refine(sh_poses, crit), two_ms[0])}")
+    check(equal and sh_counts["icp_iterate"] == 2
+          and sh_counts["rasterize"] == 2 * c.slice_counts["rasterize"],
+          f"sharded: the split refine differs ({equal}) or its launches {sh_counts}")
+    st_one = ptt.PoseRefiner(c.ms_mesh, K=c.K, device=c.dev, **CFG).set_scene_depths(c.ms_frames)
+    st_two = ptt.PoseRefiner(c.ms_mesh, K=c.K, devices=c.two, **CFG)
+    st_two.set_scene_depths(c.ms_frames)
+    n_st = c.ms_hyps_t.shape[0] - 1
+    args, kw = (c.ms_hyps_t[:n_st], crit), dict(scene_ids=c.ms_ids_t[:n_st])
+    st_equal = same_bits(st_two.refine(*args, **kw), st_one.refine(*args, **kw))
+    st_one_ms = refine_ms(c.torch, lambda: st_one.refine(*args, **kw))
+    st_two_ms = refine_ms(c.torch, lambda: st_two.refine(*args, **kw))
+    phase("sharded", f"stacked refine, {n_st} poses routed to their frames by scene_ids, "
+          f"devices={c.two}: equal_bits={st_equal} single (wall_ms, device_ms)={st_one_ms} "
+          f"split={st_two_ms}")
+    check(st_equal, "sharded: the split stacked refine differs from the single-device one")
+    auto = ptt.PoseRefiner(c.model, K=c.K, **CFG).set_scene_depth(c.scene)  # both defaults
+    c.reset_counts()
+    auto.refine(c.poses, crit)
+    c.sync()
+    auto_counts = c.counts()
+    cards = c.torch.cuda.device_count()
+    phase("sharded", f"devices=None on {cards} card(s): devices={auto.devices} "
+          f"launches={auto_counts} ([slice]: {c.slice_counts})")
+    check(cards > 1 or (auto.devices is None and auto_counts == c.slice_counts),
+          f"sharded: devices=None on one card is not the single-device path: {auto_counts}")
+    phase("sharded", f"phase seconds={time.perf_counter() - t0}")
+
+
+def same_bits(a, b) -> bool:
+    """Equal tensors (or tuples / NamedTuples of them, None fields alike,
+    as two refines' outputs); float NaN where the other is NaN."""
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(same_bits(x, y) for x, y in zip(a, b))
+    if a is None or b is None:
+        return a is None and b is None
+    if a.dtype != b.dtype:
+        return False
     if a.dtype.is_floating_point:
         return a.shape == b.shape and bool(((a == b) | (a.isnan() & b.isnan())).all())
     return bool((a == b).all()) and a.shape == b.shape
@@ -1557,7 +1894,16 @@ def main():
     from pose_refine_tpu_torch.scene import nn_flash as NF
     from pose_refine_tpu_torch.scene import nn_kdtree as KD
     from pose_refine_tpu_torch.scene import nn_mxu as NM
-    from pose_refine_tpu_torch.scene.nn import SceneNN, _rows_in_gate
+    from pose_refine_tpu_torch import native
+    from pose_refine_tpu_torch.scene import kdtree as tkd
+    from pose_refine_tpu_torch.scene.kdtree import KDTreeDevice
+    from pose_refine_tpu_torch.scene.nn import (
+        SceneNN,
+        _depth_scene_arrays_host,
+        _rows_in_gate,
+        voxel_downsample,
+    )
+    from pose_refine_tpu_torch.utils import serialization
     from pose_refine_tpu_torch.scene.projective import SceneProjective, _project_gate
 
     def reset_counts():
@@ -2828,6 +3174,13 @@ def main():
     check(mxu["b2_near_ties"] and mxu["b2_dist_in_band"] and mxu["plain_near_ties"]
           and mxu["plain_dist_in_band"], "mxu: a disagreement outside the near-tie band")
     mxu_pairs = float(mxu["queries"]) * mxu["table_columns"]
+
+    # 21-23. the native kd builder and the reference baseline, save / load
+    # on the card, the pose batch split over devices
+    c = types.SimpleNamespace(**locals(), sync=torch.cuda.synchronize, two=["cuda:0", "cuda:0"])
+    native_phase(c)
+    serialize_phase(c)
+    sharded_phase(c)
 
     check(not path_failures, "; ".join(path_failures))
     print(card_line)

@@ -13,14 +13,18 @@ meshes in one batch (``MultiModelRefiner``), per-frame tracking
 ``MultiObjectSession``, the coarse-to-fine point and gate schedules
 (``coarse_iters``, ``refine(schedule=)``), and the reference's renderer
 API (``PoseRenderer``), on an NVIDIA GPU or, with the kernels' plain
-PyTorch versions, on the CPU. Every public entry point takes an
-explicit ``device=``. The package imports torch and never jax.
+PyTorch versions, on the CPU; ``devices=`` splits the pose batch over
+several devices (``parallel/``), ``utils.serialization`` saves and loads
+scenes, trees, results and sessions in the JAX package's ``.npz`` format,
+and ``native/`` holds the C++ kd-tree builder and the reference-algorithm
+CPU baseline. Every public entry point takes an explicit ``device=``. The
+package imports torch and never jax.
 """
 
 from pose_refine_tpu_torch import geometry  # noqa: F401
 from pose_refine_tpu_torch.api import PoseRenderer, get_bbox  # noqa: F401
 from pose_refine_tpu_torch.device import resolve_device  # noqa: F401
-from pose_refine_tpu_torch.geometry import LINEMOD_K, compute_proj  # noqa: F401
+from pose_refine_tpu_torch.geometry import LINEMOD_K, compute_proj, sample_hypotheses  # noqa: F401
 from pose_refine_tpu_torch.icp import (  # noqa: F401
     DEPTH_QUANT_SIGMA_M,
     LATERAL_QUANT_COEFF,

@@ -95,6 +95,19 @@ def euler_to_rotation(theta) -> torch.Tensor:
     )
 
 
+def rotation_to_euler(R) -> torch.Tensor:
+    """Inverse of euler_to_rotation (helper.h:165-185): (..., 3, 3) ->
+    (..., 3) [x, y, z], the singular branch (sy < 1e-6) with z = 0."""
+    R = _f32(R)
+    sy = torch.sqrt(R[..., 0, 0] ** 2 + R[..., 1, 0] ** 2)
+    singular = sy < 1e-6
+    x = torch.where(singular, torch.atan2(-R[..., 1, 2], R[..., 1, 1]),
+                    torch.atan2(R[..., 2, 1], R[..., 2, 2]))
+    y = torch.atan2(-R[..., 2, 0], sy)
+    z = torch.where(singular, torch.zeros_like(sy), torch.atan2(R[..., 1, 0], R[..., 0, 0]))
+    return torch.stack([x, y, z], dim=-1)
+
+
 def twist_to_mat4(v6) -> torch.Tensor:
     """6-vector ICP update [rx, ry, rz, tx, ty, tz] -> 4x4 transform:
     Rz(rz) @ Ry(ry) @ Rx(rx) with translation v6[3:6] (icp.cpp:7-17).
@@ -144,3 +157,50 @@ def pcd2dep(pcd, K, tl_x: int = 0, tl_y: int = 0) -> torch.Tensor:
     x = _trunc_int(pcd[..., 0] / pcd[..., 2] * K[0, 0] + K[0, 2] - tl_x + 0.5)
     y = _trunc_int(pcd[..., 1] / pcd[..., 2] * K[1, 1] + K[1, 2] - tl_y + 0.5)
     return torch.stack([x, y, dep], dim=-1)
+
+
+def _euler_to_rotation_np(theta) -> np.ndarray:
+    """Numpy twin of euler_to_rotation (Rz @ Ry @ Rx, helper.h:187-209),
+    float32, for sample_hypotheses' host-only draw."""
+    t = np.asarray(theta, np.float32)
+    x, y, z = t[..., 0], t[..., 1], t[..., 2]
+    cx, sx = np.cos(x), np.sin(x)
+    cy, sy = np.cos(y), np.sin(y)
+    cz, sz = np.cos(z), np.sin(z)
+    R = np.empty(t.shape[:-1] + (3, 3), np.float32)
+    R[..., 0, 0] = cz * cy
+    R[..., 0, 1] = cz * sy * sx - sz * cx
+    R[..., 0, 2] = cz * sy * cx + sz * sx
+    R[..., 1, 0] = sz * cy
+    R[..., 1, 1] = sz * sy * sx + cz * cx
+    R[..., 1, 2] = sz * sy * cx - cz * sx
+    R[..., 2, 0] = -sy
+    R[..., 2, 1] = cy * sx
+    R[..., 2, 2] = cy * cx
+    return R
+
+
+def sample_hypotheses(center_pose, n: int, rot_deg: float = 10.0,
+                      trans_mm: float = 20.0, rng=None, include_center=False) -> np.ndarray:
+    """Draw n pose hypotheses around a detection (JAX geometry.py:194-218):
+    uniform per-axis Euler jitter of +-rot_deg degrees left-composed onto
+    the rotation, uniform +-trans_mm translation jitter (the reference
+    acceptance recipe, test.cpp:29-44, generalized). Host numpy in JAX's
+    draw order, so the same ``rng`` (a seed or a numpy Generator) gives the
+    same poses bit for bit. Returns (n, 4, 4) float32.
+
+    include_center makes hypothesis 0 the unperturbed center pose (useful
+    in tracking loops where the prior is already good)."""
+    rng = np.random.default_rng(rng) if not isinstance(rng, np.random.Generator) else rng
+    center = np.asarray(center_pose, np.float32)
+    ang = rng.uniform(-1.0, 1.0, (n, 3)).astype(np.float32) * np.float32(np.radians(rot_deg))
+    d_rot = _euler_to_rotation_np(ang)
+    d_t = rng.uniform(-trans_mm, trans_mm, (n, 3)).astype(np.float32)
+    if include_center and n > 0:
+        d_rot[0] = np.eye(3, dtype=np.float32)
+        d_t[0] = 0.0
+    out = np.zeros((n, 4, 4), np.float32)
+    out[:, :3, :3] = np.einsum("nij,jk->nik", d_rot, center[:3, :3])
+    out[:, :3, 3] = center[:3, 3] + d_t
+    out[:, 3, 3] = 1.0
+    return out

@@ -149,6 +149,15 @@ def compact_topk(pts, valid, k: int, spread: bool = True, order_shape=None):
     return out, v, valid.sum(dim=-1)
 
 
+def window_cloud(depth, K, window: int = 256, stride: int = 2, tl_x: int = 0, tl_y: int = 0):
+    """The window lift of one (H, W) render (JAX depth_to_cloud.py:150-195):
+    window_cloud_batched's crop and stride on a batch of one. Returns
+    (points (P, 3) m, valid (P,), n_valid ()), P = ceil(win/stride)^2."""
+    pts, valid, n_valid = window_cloud_batched(torch.as_tensor(depth)[None], K, window=window,
+                                               stride=stride, tl_x=tl_x, tl_y=tl_y)
+    return pts[0], valid[0], n_valid[0]
+
+
 def window_cloud_batched(depth, K, window: int = 256, stride: int = 2,
                          tl_x: int = 0, tl_y: int = 0):
     """Crop a (window, window) region centred on each render's object,

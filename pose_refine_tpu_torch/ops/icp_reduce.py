@@ -44,6 +44,12 @@ of each cloud without scores or latch, then the hand-off, which moves the
 full cloud by the coarse phase's T (``icp_coarse_plain``,
 ``handoff_plain``).
 
+How a pose's points split into slabs, and so the order of its sums,
+depends on the batch's size (``slabs_for``). The iteration and its plain
+version take an ``order_batch``: a shard of a batch split over devices
+(parallel/sharding.py) passes the whole batch's size, and then sums each
+pose as the whole batch does on one device.
+
 The ``_cuda`` entry points launch the kernel and raise for CPU tensors;
 there is no fallback from the kernel to the plain version, and a kernel that
 does not build or launch raises. The ICP loop (icp.py) takes the plain
@@ -146,9 +152,10 @@ def packed_terms(cloud, valid, dst, nrm, q_valid, robust_delta: float = 0.0,
     return torch.stack(ata + atb + [sq * v, v], dim=-1)
 
 
-def ordered_sum(terms: torch.Tensor) -> torch.Tensor:
+def ordered_sum(terms: torch.Tensor, order_batch: Optional[int] = None) -> torch.Tensor:
     """(..., P, 29) terms -> (..., 29) sums in the kernel's order, one
-    float add a step: a pose's points split into slabs_for(poses, P) slabs;
+    float add a step: a pose's points split into slabs_for(poses, P) slabs
+    (poses: ``order_batch`` where given, see the module note);
     in a slab, thread t of 256 adds points t, t + 256, ... in rising order;
     a warp's 32 sums merge by halving (what lane 0 of the kernel's xor
     butterfly holds); the 8 warps are added in warp order; the slabs in slab
@@ -156,7 +163,7 @@ def ordered_sum(terms: torch.Tensor) -> torch.Tensor:
     lead, (p, k) = terms.shape[:-2], terms.shape[-2:]
     terms = terms.reshape(-1, p, k)
     n = terms.shape[0]
-    slabs = slabs_for(n, p)
+    slabs = slabs_for(order_batch or n, p)
     per_slab = -(-p // slabs)
     total = None
     for s in range(slabs):
@@ -176,11 +183,12 @@ def ordered_sum(terms: torch.Tensor) -> torch.Tensor:
 
 
 def packed_sums_plain(cloud, valid, dst, nrm, q_valid, robust_delta: float = 0.0,
-                      point_to_point: bool = False) -> torch.Tensor:
+                      point_to_point: bool = False,
+                      order_batch: Optional[int] = None) -> torch.Tensor:
     """The packed formulation from a given association: (..., 29) sums of
     packed_terms over the points, in the kernel's order (ordered_sum)."""
     return ordered_sum(packed_terms(cloud, valid, dst, nrm, q_valid, robust_delta,
-                                    point_to_point))
+                                    point_to_point), order_batch)
 
 
 def sums_error(sums, cloud, valid, dst, nrm, q_valid, robust_delta: float = 0.0,
@@ -202,13 +210,15 @@ def sums_error(sums, cloud, valid, dst, nrm, q_valid, robust_delta: float = 0.0,
 
 
 def assoc_reduce_plain(cloud, valid, query: Callable, robust_delta: float = 0.0,
-                       point_to_point: bool = False) -> torch.Tensor:
+                       point_to_point: bool = False,
+                       order_batch: Optional[int] = None) -> torch.Tensor:
     """Plain PyTorch version of the kernel on any device: the scene query's
     plain version (``query``: src -> (dst, normal, valid), e.g.
     ``functools.partial(scene.query, plain=True)``) followed by the packed
     formulation, term by term and add by add in the kernel's order: equal
     to the kernel bit for bit. (..., P, 3) clouds -> (..., 29)."""
-    return packed_sums_plain(cloud, valid, *query(cloud), robust_delta, point_to_point)
+    return packed_sums_plain(cloud, valid, *query(cloud), robust_delta, point_to_point,
+                             order_batch)
 
 
 @functools.lru_cache(maxsize=None)
@@ -374,7 +384,8 @@ def _update_plain(AtA, Atb, cloud, T, hold):
 
 def icp_iterate_plain(state: ICPState, valid, n_total, query: Callable, it: int,
                       max_iteration: int, relative_fitness: float, relative_rmse: float,
-                      robust_delta: float = 0.0, point_to_point: bool = False) -> ICPState:
+                      robust_delta: float = 0.0, point_to_point: bool = False,
+                      order_batch: Optional[int] = None) -> ICPState:
     """One ICP iteration of every pose, the plain version of the kernel's
     (JAX icp.py:398-428): the pass's sums (assoc_reduce_plain over the
     plain ``query``), the scores, the latch ``done | empty | converged |
@@ -383,7 +394,8 @@ def icp_iterate_plain(state: ICPState, valid, n_total, query: Callable, it: int,
     solve, the twist, the cloud's move and T <- upd @ T. The thresholds are
     float32, as torch compares a float32 tensor with a Python float. On any
     device; (N,) n_total is the fitness divisor. Returns the new state."""
-    sums = assoc_reduce_plain(state.cloud, valid, query, robust_delta, point_to_point)
+    sums = assoc_reduce_plain(state.cloud, valid, query, robust_delta, point_to_point,
+                              order_batch)
     AtA, Atb, count, mse_sum = unpack_sums(sums)
     fitness, rmse, done = state.fitness, state.rmse, state.done
     empty = count == 0
@@ -412,7 +424,7 @@ def coarse_start(state: ICPState, valid, coarse_stride: int):
 
 
 def icp_coarse_plain(cloud, T, valid, query: Callable, iters: int, robust_delta: float = 0.0,
-                     point_to_point: bool = False):
+                     point_to_point: bool = False, order_batch: Optional[int] = None):
     """The coarse phase, plain version of the kernel's coarse mode (JAX
     icp.py:465-474): ``iters`` iterations of the strided (N, Pc, 3) clouds
     with their valid rows - the pass's sums, then, where the count is not
@@ -421,7 +433,7 @@ def icp_coarse_plain(cloud, T, valid, query: Callable, iters: int, robust_delta:
     no inlier holds. Returns (clouds, T)."""
     for _ in range(int(iters)):
         AtA, Atb, count, _mse = unpack_sums(
-            assoc_reduce_plain(cloud, valid, query, robust_delta, point_to_point))
+            assoc_reduce_plain(cloud, valid, query, robust_delta, point_to_point, order_batch))
         cloud, T = _update_plain(AtA, Atb, cloud, T, count == 0)
     return cloud, T
 
@@ -436,7 +448,8 @@ def handoff_plain(T, cloud) -> torch.Tensor:
 
 def icp_loop_plain(state: ICPState, valid, n_total, criteria, query: Callable,
                    robust_delta: float = 0.0, point_to_point: bool = False,
-                   coarse_iters: int = 0, coarse_stride: int = 2) -> ICPState:
+                   coarse_iters: int = 0, coarse_stride: int = 2,
+                   order_batch: Optional[int] = None) -> ICPState:
     """Every iteration of a refine, 0 to criteria.max_iteration (the last
     one scoring only), through icp_iterate_plain: what the kernel path of
     a scene's ``iterate`` computes. coarse_iters > 0 runs the first
@@ -448,12 +461,12 @@ def icp_loop_plain(state: ICPState, valid, n_total, criteria, query: Callable,
     if it0:
         cstate, cvalid = coarse_start(state, valid, coarse_stride)
         _cloud, T = icp_coarse_plain(cstate.cloud, state.T, cvalid, query, it0, robust_delta,
-                                     point_to_point)
+                                     point_to_point, order_batch)
         state = state._replace(cloud=handoff_plain(T, state.cloud), T=T)
     for it in range(it0, max_iter + 1):
         state = icp_iterate_plain(state, valid, n_total, query, it, max_iter,
                                   criteria.relative_fitness, criteria.relative_rmse,
-                                  robust_delta, point_to_point)
+                                  robust_delta, point_to_point, order_batch)
     return state
 
 
@@ -566,7 +579,8 @@ class _IterateLaunch:
 
     def __init__(self, state: ICPState, valid, n_total, criteria, table, *, K=None, gate=None,
                  base=None, height=0, width=0, idx=None, dist_sq=None, gate_sq=0.0,
-                 robust_delta=0.0, point_to_point=False, coarse=False, handoff=None):
+                 robust_delta=0.0, point_to_point=False, coarse=False, handoff=None,
+                 order_batch=None):
         cloud = state.cloud
         if cloud.dim() != 3:
             raise ValueError(f"the iteration kernel wants (N, P, 3) clouds, got "
@@ -605,7 +619,8 @@ class _IterateLaunch:
         # the C interface's arguments; [12] idx and [14] dist_sq, [23] it0,
         # [24] it_end and [29] the hand-off change from launch to launch
         self.args = [st.cloud.data_ptr(), self._keep[0].data_ptr(), n_poses, points,
-                     table.data_ptr(), table.shape[0], slabs_for(n_poses, points), *proj_ptrs,
+                     table.data_ptr(), table.shape[0], slabs_for(order_batch or n_poses, points),
+                     *proj_ptrs,
                      int(height), int(width), *idx_ptrs, float(gate_sq), float(robust_delta),
                      int(bool(point_to_point)), st.T.data_ptr(), st.fitness.data_ptr(),
                      st.rmse.data_ptr(), st.done.data_ptr(), self._keep[1].data_ptr(), 0, 0,
@@ -637,7 +652,8 @@ class _IterateLaunch:
 def icp_iterate_projective_cuda(state: ICPState, valid, n_total, criteria, table, K,
                                 max_dist_diff, height: int, width: int, base=None,
                                 robust_delta: float = 0.0, point_to_point: bool = False,
-                                coarse_iters: int = 0, coarse_stride: int = 2) -> ICPState:
+                                coarse_iters: int = 0, coarse_stride: int = 2,
+                                order_batch: Optional[int] = None) -> ICPState:
     """A refine's whole ICP loop against a projective scene in ONE launch of
     the iteration kernel: iterations 0 .. criteria.max_iteration of every
     pose of ``state`` (CUDA tensors, updated in place and returned), the
@@ -649,7 +665,8 @@ def icp_iterate_projective_cuda(state: ICPState, valid, n_total, criteria, table
     icp_loop_plain over the scene's plain query."""
     state = ICPState(*(t.contiguous() for t in state))
     front = dict(K=K, gate=max_dist_diff, base=base, height=int(height), width=int(width),
-                 robust_delta=robust_delta, point_to_point=point_to_point)
+                 robust_delta=robust_delta, point_to_point=point_to_point,
+                 order_batch=order_batch)
     it0 = int(coarse_iters)
     if it0:
         cstate, cvalid = coarse_start(state, valid, coarse_stride)
@@ -663,7 +680,8 @@ def icp_iterate_indexed_cuda(state: ICPState, valid, n_total, criteria, table,
                              nearest: Callable, gate_sq: float, robust_delta: float = 0.0,
                              point_to_point: bool = False, coarse_iters: int = 0,
                              coarse_stride: int = 2,
-                             coarse_nearest: Optional[Callable] = None) -> ICPState:
+                             coarse_nearest: Optional[Callable] = None,
+                             order_batch: Optional[int] = None) -> ICPState:
     """A refine's ICP loop against an NN scene: each iteration one NN launch
     (``nearest``: (N, P, 3) clouds -> (idx, dist_sq), flash or kd) on the
     moved cloud, then one launch of the iteration kernel with the indexed
@@ -675,7 +693,8 @@ def icp_iterate_indexed_cuda(state: ICPState, valid, n_total, criteria, table,
     Raises for CPU tensors; its plain version is icp_loop_plain over the
     scene's plain query."""
     state = ICPState(*(t.contiguous() for t in state))
-    modes = dict(gate_sq=gate_sq, robust_delta=robust_delta, point_to_point=point_to_point)
+    modes = dict(gate_sq=gate_sq, robust_delta=robust_delta, point_to_point=point_to_point,
+                 order_batch=order_batch)
     it0 = int(coarse_iters)
     if it0:
         near = nearest if coarse_nearest is None else coarse_nearest

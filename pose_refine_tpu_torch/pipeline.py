@@ -13,10 +13,9 @@ nearest-neighbour scenes (``scene="nn"`` / ``"nn_kdtree"`` /
 ``scene_stride`` and ``scene_pool``), with the same host-side planning (auto
 ROI, auto lift sizes, warnings), ``refine`` (with the gate ``schedule=``),
 ``track`` and their enqueueing twins with ``fence``, and stacked scenes
-(``set_scene_depths`` + ``refine(scene_ids=)``). ``MultiModelRefiner``
-refines hypotheses of several meshes in one batch. Options the port does
-not carry yet raise ``NotImplementedError`` naming the ROADMAP item that
-will carry them.
+(``set_scene_depths`` + ``refine(scene_ids=)``), with ``devices=`` data
+parallelism over the pose batch (``parallel/sharding.py``).
+``MultiModelRefiner`` refines hypotheses of several meshes in one batch.
 """
 
 from __future__ import annotations
@@ -40,6 +39,7 @@ from pose_refine_tpu_torch.ops.depth_to_cloud import (
     window_cloud_batched,
 )
 from pose_refine_tpu_torch.ops.rasterize_cuda import IndexedTris, rasterize, rasterize_plain
+from pose_refine_tpu_torch.parallel import sharding
 from pose_refine_tpu_torch.scene.nn import (
     SceneNN,
     SceneNNStack,
@@ -114,13 +114,47 @@ def refine_poses(tris, init_poses, scene: Union[SceneProjective, SceneNN, SceneP
     """
     if lift not in LIFTS:
         raise ValueError(f"unknown lift {lift!r}: expected 'window' or 'compact'")
-    raster = rasterize if raster is None else raster
-    card = init_poses.device.type == "cuda"
-    if query is None and scene_ids is None:
-        query = icp.Association(scene.query, scene.reduce, scene.iterate if card else None)
-    elif query is None:
-        query = icp.Association(scene.query_at(scene_ids), scene.reduce_at(scene_ids),
+    if query is None:
+        query = _association(scene, scene_ids, init_poses.device.type == "cuda")
+    refined, results, final, valids = _refine_clouds(
+        tris, init_poses, scene, proj, K, query, width=width, height=height,
+        max_points=max_points, criteria=criteria, window=window, stride=stride, roi=roi,
+        raster=raster, robust_delta=robust_delta, estimation=estimation, lift=lift,
+        coarse_iters=coarse_iters, coarse_stride=coarse_stride)
+    if not with_information:
+        return refined, results
+    return refined, results, _information(final, valids, query, K, robust_delta, estimation)
+
+
+def _association(scene, scene_ids, card: bool, plain: bool = False,
+                 order_batch: Optional[int] = None) -> icp.Association:
+    """The scene's ICP association (bound to per-pose ``scene_ids`` for a
+    stacked scene): query and reduce, and on a card the iteration kernel's
+    iterate; plain=True the plain versions' association on any device.
+    ``order_batch``: the iterate sums each pose as a batch of that size
+    does (a shard of a split refine; ops/icp_reduce.py's note)."""
+    if plain:
+        q = (functools.partial(scene.query, plain=True) if scene_ids is None
+             else scene.query_at(scene_ids, plain=True))
+        assoc = icp.plain_association(q)
+    elif scene_ids is None:
+        assoc = icp.Association(scene.query, scene.reduce, scene.iterate if card else None)
+    else:
+        assoc = icp.Association(scene.query_at(scene_ids), scene.reduce_at(scene_ids),
                                 scene.iterate_at(scene_ids) if card else None)
+    if order_batch is None or assoc.iterate is None:
+        return assoc
+    return assoc._replace(iterate=functools.partial(assoc.iterate, order_batch=order_batch))
+
+
+def _refine_clouds(tris, init_poses, scene, proj, K, query, *, width: int, height: int,
+                   max_points: int, criteria: icp.ICPConvergenceCriteria, window: int = 256,
+                   stride: int = 2, roi=(0, 0, 0, 0), raster: Optional[Callable] = None,
+                   robust_delta: float = 0.0, estimation: str = "point_to_plane",
+                   lift: str = "window", coarse_iters: int = 0, coarse_stride: int = 2):
+    """refine_poses up to the ICP against ``query``: (refined, results, the
+    final clouds, their valid masks)."""
+    raster = rasterize if raster is None else raster
     depth = raster(tris, init_poses, width, height, proj, roi=roi)
     if lift == "window":
         clouds, valids = _window_lift(depth, K, scene, max_points, window, stride, roi)
@@ -136,9 +170,13 @@ def refine_poses(tris, init_poses, scene: Union[SceneProjective, SceneNN, SceneP
     # mm translations: scale t_icp to mm before left-composing
     T_mm = results.transformation.clone()
     T_mm[:, :3, 3] *= 1000.0
-    refined = T_mm @ init_poses
-    if not with_information:
-        return refined, results
+    return T_mm @ init_poses, results, final, valids
+
+
+def _information(final, valids, query, K, robust_delta: float,
+                 estimation: str) -> icp.PoseUncertainty:
+    """The refined poses' uncertainty from one more association pass at the
+    final clouds (JAX pipeline.py:193-226)."""
     info, sigma2, count = icp.pose_information(final, valids, query, robust_delta=robust_delta,
                                                estimation=estimation)
     # render-calibrated, not the pure Laplace (icp.RENDER_COV_INFLATION):
@@ -149,7 +187,44 @@ def refine_poses(tris, init_poses, scene: Union[SceneProjective, SceneNN, SceneP
     lateral = icp.LATERAL_QUANT_COEFF * mean_z / K[0, 0]
     cov = icp.pose_covariance(info, sigma2, inflation=icp.RENDER_COV_INFLATION,
                               sigma2_floor=icp.DEPTH_QUANT_SIGMA_M ** 2 + lateral ** 2)
-    return refined, results, icp.PoseUncertainty(info, sigma2, count, cov)
+    return icp.PoseUncertainty(info, sigma2, count, cov)
+
+
+def _shard_clouds(tris, init_poses, scene, proj, K, scene_ids=None, plain: bool = False,
+                  order_batch: Optional[int] = None, **kw):
+    """One shard of a split refine: _refine_clouds against the shard's
+    replica of the scene (plain=True: the kernels' plain versions), its
+    sums in the order of a batch of ``order_batch`` poses."""
+    query = _association(scene, scene_ids, init_poses.device.type == "cuda", plain,
+                         order_batch)
+    return _refine_clouds(tris, init_poses, scene, proj, K, query,
+                          raster=rasterize_plain if plain else None, **kw)
+
+
+def refine_poses_split(devices, tris, init_poses, scene, proj, K, *, scene_ids=None,
+                       with_information: bool = False, plain: bool = False,
+                       replicas: Optional[dict] = None, **kw):
+    """refine_poses with the pose batch split over ``devices``
+    (sharding.run_sharded, with its ``replicas`` memo): each shard renders,
+    lifts and runs the ICP on its device, summing each pose in the whole
+    batch's order (``order_batch``); the information pass runs once, on the
+    gathered clouds of the whole batch against the scene on devices[0] -
+    the pass's reductions and matrix products pick their order on a card
+    from the batch's size, so only the whole batch gives the one-device
+    refine's bits. Every output equals refine_poses' bit for bit.
+    plain=True runs the kernels' plain versions (the raster and the
+    association)."""
+    refined, results, final, valids = sharding.run_sharded(
+        devices, _shard_clouds, tris, init_poses, (scene, proj, K), {"scene_ids": scene_ids},
+        replicas=replicas, plain=plain, order_batch=int(init_poses.shape[0]), **kw)
+    if not with_information:
+        return refined, results
+    home = refined.device
+    ids = None if scene_ids is None else scene_ids.to(home)
+    query = _association(sharding.replicate(scene, home), ids, home.type == "cuda", plain)
+    return refined, results, _information(final, valids, query, K.to(home),
+                                          kw.get("robust_delta", 0.0),
+                                          kw.get("estimation", "point_to_plane"))
 
 
 def _window_lift(depth, K, scene, max_points: int, window: int, stride: int, roi):
@@ -192,15 +267,18 @@ def _pack_track_outputs(refined, results: icp.RegistrationResult,
     ], dim=1)
 
 
-def _refine_frame(scene, tris, init_poses, proj, K_render, pack_outputs: bool, plain: bool,
-                  **kw):
+def _refine_frame(scene, tris, init_poses, proj, K_render, pack_outputs: bool = False,
+                  plain: bool = False, devices=None, replicas: Optional[dict] = None, **kw):
     """The refine of one tracked frame against its freshly built scene;
     plain=True runs the kernels' plain versions (raster, NN, gather, the
-    fused ICP pass)."""
-    if plain:
-        kw.update(raster=rasterize_plain,
-                  query=icp.plain_association(functools.partial(scene.query, plain=True)))
-    out = refine_poses(tris, init_poses, scene, proj, K_render, **kw)
+    fused ICP pass); ``devices`` splits the batch (refine_poses_split)."""
+    if devices:
+        out = refine_poses_split(devices, tris, init_poses, scene, proj, K_render, plain=plain,
+                                 replicas=replicas, **kw)
+    else:
+        if plain:
+            kw.update(raster=rasterize_plain, query=_association(scene, None, False, plain=True))
+        out = refine_poses(tris, init_poses, scene, proj, K_render, **kw)
     return _pack_track_outputs(*out) if pack_outputs else out
 
 
@@ -210,8 +288,9 @@ def track_poses(tris, init_poses, frame_depth, proj, K_render, K_full, max_dist:
     build the scene from the (H, W) mm ``frame_depth`` on its device, then
     refine. ``kw``: refine_poses' keywords (width, height, max_points,
     criteria, window, stride, roi, with_information, robust_delta,
-    estimation, lift, coarse_iters, coarse_stride). pack_outputs=True
-    returns the (N, 71) session buffer instead."""
+    estimation, lift, coarse_iters, coarse_stride), and ``devices`` (with
+    its ``replicas`` memo) to split the batch. pack_outputs=True returns the
+    (N, 71) session buffer instead."""
     scene = SceneProjective.from_depth(frame_depth, K_full, max_dist, device=frame_depth.device)
     return _refine_frame(scene, tris, init_poses, proj, K_render, pack_outputs, plain, **kw)
 
@@ -272,12 +351,20 @@ def _on_card(x) -> bool:
     return isinstance(x, torch.Tensor) and x.device.type == "cuda"
 
 
-def _unported(name: str, value, default, item: str):
-    if value != default:
-        raise NotImplementedError(
-            f"{name}={value!r} is not ported to pose_refine_tpu_torch yet "
-            f"(ROADMAP {item})"
-        )
+def _resolve_devices(devices) -> Optional[list]:
+    """PoseRefiner's ``devices=`` (JAX pipeline.py:477-487) as the list of
+    the shards' devices, or None for one device: a sequence of devices is
+    one shard each (a device may repeat); an int n > 1 the first n cards;
+    1 and False one device. None is resolved by the caller: every card of a
+    machine with more than one, unless the caller named the refiner's
+    device."""
+    if devices is None or devices is False or (isinstance(devices, int) and devices <= 1):
+        return None
+    if isinstance(devices, int):
+        out = sharding.make_mesh(devices)
+    else:
+        out = [sharding.canonical(resolve_device(d)) for d in devices]
+    return out if len(out) > 1 else None
 
 
 class PoseRefiner:
@@ -298,6 +385,11 @@ class PoseRefiner:
     Streaming (serving) - several batches in flight:
         pending = [refiner.refine_async(b) for b in batches]
         for poses, results in fence(*pending): ...
+
+    Several cards: ``devices=["cuda:0", "cuda:1"]`` (or 2; None, with no
+    ``device=``, is every card of a machine with more than one) splits each batch of
+    refine / refine_async / track over them (parallel/sharding.py), with
+    the single-device results bit for bit, gathered on the first.
     """
 
     def __init__(
@@ -406,8 +498,20 @@ class PoseRefiner:
                 "point-to-point, or keep point_to_plane for projective."
             )
         self.estimation = estimation
-        _unported("devices", devices, None, "A13")
-        self.device = resolve_device(device)
+        # devices: data parallelism over the pose batch (the workload's one
+        # parallel axis, parallel/sharding.py), resolved to the list of
+        # shards' devices, or None for one device (_resolve_devices)
+        self.devices = _resolve_devices(devices)
+        if devices is None and device is None and torch.cuda.device_count() > 1:
+            self.devices = sharding.make_mesh()
+        self.device = resolve_device(self.devices[0] if device is None and self.devices
+                                     else device)
+        if self.devices and sharding.canonical(self.device) != self.devices[0]:
+            raise ValueError(f"device {str(self.device)!r} must be the first of devices "
+                             f"{[str(d) for d in self.devices]} (results gather there)")
+        # the scene's, the mesh's and the camera's replica on each device,
+        # made at a split refine's first use of them (sharding.replicate)
+        self._replicas = {}
 
         self.model = Model.load(model) if isinstance(model, str) else model
         # decimate_mm: vertex-cluster the HYPOTHESIS render mesh (the
@@ -880,15 +984,17 @@ class PoseRefiner:
                     scene_ids=ids, _scene=_scene_with_gate(scene, max_dist))
                 init = out[0]
             return tuple(map(_first, out)) if squeeze else out
-        out = refine_poses(
-            tris, init, scene, self.proj, self._K_render_t,
-            width=self.render_w, height=self.render_h,
-            max_points=self.max_points, criteria=criteria,
-            window=self.window, stride=self.stride, roi=self.roi,
-            with_information=with_covariance, scene_ids=ids,
-            robust_delta=self.robust_delta, estimation=self.estimation, lift=self.lift,
-            coarse_iters=self.coarse_iters, coarse_stride=self.coarse_stride,
-        )
+        kw = dict(width=self.render_w, height=self.render_h,
+                  max_points=self.max_points, criteria=criteria,
+                  window=self.window, stride=self.stride, roi=self.roi,
+                  with_information=with_covariance, scene_ids=ids,
+                  robust_delta=self.robust_delta, estimation=self.estimation, lift=self.lift,
+                  coarse_iters=self.coarse_iters, coarse_stride=self.coarse_stride)
+        if self.devices:
+            out = refine_poses_split(self.devices, tris, init, scene, self.proj,
+                                     self._K_render_t, replicas=self._replicas, **kw)
+        else:
+            out = refine_poses(tris, init, scene, self.proj, self._K_render_t, **kw)
         self._warn_if_saturated(out[1])
         return tuple(map(_first, out)) if squeeze else out
 
@@ -981,6 +1087,8 @@ class PoseRefiner:
                   with_information=with_covariance, pack_outputs=_pack_outputs, plain=_plain,
                   robust_delta=self.robust_delta, estimation=self.estimation, lift=self.lift,
                   coarse_iters=self.coarse_iters, coarse_stride=self.coarse_stride)
+        if self.devices:
+            kw.update(devices=self.devices, replicas=self._replicas)
         args = (tris, init, frame, self.proj, self._K_render_t, self._K_t, self.max_dist_diff)
         if self.scene_kind == "projective":
             out = track_poses(*args, **kw)

@@ -18,9 +18,9 @@ Build semantics preserved (so the order matches the reference exactly):
   * points/normals reordered so leaf ranges are contiguous
     (pcd_scene.cpp:173-183)
 
-The JAX package also has a native C++ builder with identical output
-(``pose_refine_tpu/native``); it is not ported yet (ROADMAP A16), so
-``backend="auto"`` is the numpy builder here.
+A native C++ builder with identical output (``native/``, compiled at
+first use) is taken by ``backend="auto"`` when it is built, as in the JAX
+package; this numpy builder is the portable fallback and the parity oracle.
 """
 
 from __future__ import annotations
@@ -29,6 +29,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from pose_refine_tpu_torch import native
 
 
 @dataclass
@@ -66,16 +68,33 @@ class KDTree:
         return int((self.bounds[leaf, 1] - self.bounds[leaf, 0]).max())
 
 
+def ensure_leaf_bboxes(points, child, bounds, bbox):
+    """Fill missing (all-zero) LEAF bbox rows from the reordered points
+    (JAX kdtree.py:65-81). Trees saved before the JAX package's round 3
+    carry boxes for interior nodes only; the kd traversal reads the descend
+    target's box, and a zero leaf box would prune correct descents -
+    silently wrong neighbours. Returns bbox (updated copy, numpy)."""
+    bbox = np.array(bbox, np.float32, copy=True)
+    pts = np.asarray(points)
+    bounds = np.asarray(bounds)
+    leaf = np.asarray(child)[:, 0] < 0
+    stale = leaf & (np.abs(bbox).sum(axis=1) == 0.0)
+    for i in np.nonzero(stale)[0]:
+        left, right = bounds[i]
+        if right > left:
+            seg = pts[left:right]
+            lo, hi = seg.min(axis=0), seg.max(axis=0)
+            bbox[i] = (lo[0], hi[0], lo[1], hi[1], lo[2], hi[2])
+    return bbox
+
+
 def build_kdtree(points, normals, leaf_size: int = 10, backend: str = "auto") -> KDTree:
-    """Build a kd-tree. backend: 'auto' or 'numpy' (the same builder);
-    'native' raises until the C++ builder is ported (ROADMAP A16)."""
-    if backend == "native":
-        raise NotImplementedError(
-            "the native kd-tree builder is not ported to pose_refine_tpu_torch "
-            "yet (ROADMAP A16); backend='auto' uses the numpy builder"
-        )
-    if backend not in ("auto", "numpy"):
-        raise ValueError(f"unknown kd-tree backend {backend!r}: expected 'auto' or 'numpy'")
+    """Build a kd-tree. backend: 'auto' (the native C++ builder when it is
+    built, else numpy), 'native' (raises when it cannot be built) or
+    'numpy'. Both builders give the same tree bit for bit."""
+    if backend not in ("auto", "native", "numpy"):
+        raise ValueError(
+            f"unknown kd-tree backend {backend!r}: expected 'auto', 'native' or 'numpy'")
     points = np.ascontiguousarray(points, np.float32)
     normals = np.ascontiguousarray(normals, np.float32)
     n = len(points)
@@ -95,6 +114,17 @@ def build_kdtree(points, normals, leaf_size: int = 10, backend: str = "auto") ->
         # leaf_size=0 never terminates a 1-point node (the single point
         # ties at the bbox midpoint and re-splits forever)
         raise ValueError(f"build_kdtree: leaf_size must be >= 1, got {leaf_size}")
+
+    if backend in ("auto", "native"):
+        out = native.build_kdtree_native(points, leaf_size)
+        if out is not None:
+            order, parent, child, split_dim, split_v, bbox, bounds, _m = out
+            return KDTree(points=points[order], normals=normals[order], parent=parent,
+                          child=child, split_dim=split_dim, split_v=split_v, bbox=bbox,
+                          bounds=bounds)
+        if backend == "native":
+            raise RuntimeError(
+                f"native kd-tree builder unavailable: {native.unavailable_reason()}")
 
     # worst case node count: every split peels off >= 1 point per side
     cap = max(2 * n, 16)

@@ -49,7 +49,7 @@ from pose_refine_tpu_torch.ops.icp_reduce import (
 from pose_refine_tpu_torch.ops.normals import _OFFSETS, estimate_normals
 from pose_refine_tpu_torch.scene import nn_flash
 from pose_refine_tpu_torch.scene.kdtree import KDTreeDevice, build_kdtree
-from pose_refine_tpu_torch.scene.nn_kdtree import KDLaunch, nn_kdtree, nn_kdtree_plain
+from pose_refine_tpu_torch.scene.nn_kdtree import FLT_MAX, KDLaunch, nn_kdtree, nn_kdtree_plain
 
 BACKENDS = ("kdtree", "bruteforce", "flash")
 # from_depth_device's pooling keeps a block's pixels within this depth (m)
@@ -226,15 +226,17 @@ class SceneNN:
             nn_flash.gate_sq(self.max_dist_diff), robust_delta, point_to_point))
 
     def iterate(self, state, valid, n_total, criteria, robust_delta: float = 0.0,
-                point_to_point: bool = False, coarse_iters: int = 0, coarse_stride: int = 2):
+                point_to_point: bool = False, coarse_iters: int = 0, coarse_stride: int = 2,
+                order_batch=None):
         """A refine's ICP loop against this scene
         (ops.icp_reduce.icp_iterate_indexed_cuda): each iteration the NN
         kernel on the moved cloud, then one iteration launch; with
         coarse_iters > 0 the first coarse_iters of them on the strided copy
         (the point schedule's coarse phase). The icp.ICPState of (N, P, 3)
-        CUDA clouds, updated in place and returned. Raises for CPU tensors;
-        its plain version is ``icp.plain_association(functools.partial(
-        query, plain=True)).iterate``."""
+        CUDA clouds, updated in place and returned; ``order_batch`` the
+        batch whose summation order to keep (ops/icp_reduce.py's note).
+        Raises for CPU tensors; its plain version is
+        ``icp.plain_association(functools.partial(query, plain=True)).iterate``."""
         nearest = coarse_nearest = self._nearest
         if self.backend == "kdtree":
             # K1 bound once a refine and cloud shape: each pass one launch
@@ -247,7 +249,7 @@ class SceneNN:
         return icp_iterate_indexed_cuda(
             state, valid, n_total, criteria, self.table, nearest,
             nn_flash.gate_sq(self.max_dist_diff), robust_delta, point_to_point,
-            coarse_iters, coarse_stride, coarse_nearest)
+            coarse_iters, coarse_stride, coarse_nearest, order_batch)
 
     def _kd_launch(self, shape, device):
         """K1 bound to (N, P) queries: (N, P, 3) clouds -> (idx, dist_sq)."""
@@ -371,6 +373,12 @@ class SceneNNStack:
         return cls.from_clouds([p for p, _ in clouds], [n for _, n in clouds], max_dist_diff,
                                leaf_size, backend, device=device)
 
+    def to(self, device) -> "SceneNNStack":
+        dev = resolve_device(device)
+        return dataclasses.replace(
+            self, **{f.name: getattr(self, f.name).to(dev) for f in dataclasses.fields(self)
+                     if isinstance(getattr(self, f.name), torch.Tensor)})
+
     def query_at(self, sids, plain: bool = False):
         """The query bound to per-pose scene ids: ``sids`` a scalar or an
         (N,) integer tensor (one id per pose of (N, ..., 3) sources),
@@ -419,16 +427,18 @@ class SceneNNStack:
     def iterate_at(self, sids):
         """``SceneNN.iterate`` bound to per-pose scene ids (see query_at):
         returns iterate(state, valid, n_total, criteria, robust_delta=0.0,
-        point_to_point=False, coarse_iters=0, coarse_stride=2) -> state,
-        each iteration one stacked gated launch and one iteration launch."""
+        point_to_point=False, coarse_iters=0, coarse_stride=2,
+        order_batch=None) -> state, each iteration one stacked gated launch
+        and one iteration launch."""
         sids = self._frame_ids(sids)
 
         def iterate(state, valid, n_total, criteria, robust_delta=0.0, point_to_point=False,
-                    coarse_iters=0, coarse_stride=2):
+                    coarse_iters=0, coarse_stride=2, order_batch=None):
             return icp_iterate_indexed_cuda(
                 state, valid, n_total, criteria, self.table,
                 functools.partial(self._nearest_at, sids), nn_flash.gate_sq(self.max_dist_diff),
-                robust_delta, point_to_point, coarse_iters, coarse_stride)
+                robust_delta, point_to_point, coarse_iters, coarse_stride,
+                order_batch=order_batch)
 
         return iterate
 
@@ -565,3 +575,32 @@ def voxel_downsample(points, normals, voxel_m: float):
     norm = np.linalg.norm(ns, axis=1, keepdims=True)
     ns = np.where(norm > 1e-12, ns / np.maximum(norm, 1e-12), ns)
     return ps.astype(np.float32), ns.astype(np.float32)
+
+
+def _nn_bruteforce(src, scene_pts, chunk: int = 2048):
+    """Exact NN by a chunked distance matrix (JAX nn.py:729-763): dist^2 =
+    |p|^2 - 2 p.q + |q|^2, the cross term one (Q, 3) x (3, chunk) matrix
+    product a chunk, a running (dist, idx) min across chunks (ties to the
+    lower index), dist^2 clamped at 0. Plain PyTorch for parity tests only:
+    no path falls back to it (a card's bruteforce backend is the gated
+    kernel, scene/nn_flash.py). Returns (idx int32, dist^2 float32) of
+    src's leading shape."""
+    src = torch.as_tensor(src, dtype=torch.float32)
+    flat = src.reshape(-1, 3)
+    pts = torch.as_tensor(scene_pts, dtype=torch.float32, device=flat.device)
+    pad = (-pts.shape[0]) % chunk
+    if pad:
+        pts = torch.cat([pts, pts.new_full((pad, 3), 1e30)])
+    p_sq = (flat * flat).sum(dim=-1)
+    best_d = torch.full_like(p_sq, FLT_MAX)
+    best_i = torch.zeros(flat.shape[0], dtype=torch.int32, device=flat.device)
+    for base in range(0, pts.shape[0], chunk):
+        sc = pts[base:base + chunk]
+        d = p_sq[:, None] - 2.0 * (flat @ sc.T) + (sc * sc).sum(dim=-1)[None, :]
+        j = d.argmin(dim=1)
+        dmin = d.gather(1, j[:, None])[:, 0]
+        better = dmin < best_d
+        best_d = torch.where(better, dmin, best_d)
+        best_i = torch.where(better, (base + j).to(torch.int32), best_i)
+    best_d = best_d.clamp(min=0.0)
+    return best_i.reshape(src.shape[:-1]), best_d.reshape(src.shape[:-1])

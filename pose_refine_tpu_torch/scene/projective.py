@@ -116,17 +116,19 @@ class SceneProjective:
             robust_delta=robust_delta, point_to_point=point_to_point))
 
     def iterate(self, state, valid, n_total, criteria, robust_delta: float = 0.0,
-                point_to_point: bool = False, coarse_iters: int = 0, coarse_stride: int = 2):
+                point_to_point: bool = False, coarse_iters: int = 0, coarse_stride: int = 2,
+                order_batch=None):
         """A refine's whole ICP loop against this scene in one kernel launch
         (ops.icp_reduce.icp_iterate_projective_cuda; two with coarse_iters >
         0, the point schedule's coarse phase first): the icp.ICPState of
-        (N, P, 3) CUDA clouds, updated in place and returned. Raises for CPU
-        tensors; its plain version is ``icp.plain_association(
+        (N, P, 3) CUDA clouds, updated in place and returned; ``order_batch``
+        the batch whose summation order to keep (ops/icp_reduce.py's note).
+        Raises for CPU tensors; its plain version is ``icp.plain_association(
         functools.partial(query, plain=True)).iterate``."""
         return icp_iterate_projective_cuda(
             state, valid, n_total, criteria, self.table, self.K, self.max_dist_diff,
             self.height, self.width, robust_delta=robust_delta, point_to_point=point_to_point,
-            coarse_iters=coarse_iters, coarse_stride=coarse_stride)
+            coarse_iters=coarse_iters, coarse_stride=coarse_stride, order_batch=order_batch)
 
 
 def _project_gate(table, K, max_dist_diff, h: int, w: int, src, base=0,
@@ -185,6 +187,13 @@ class SceneProjectiveStack:
             n_scenes=int(k),
         )
 
+    def to(self, device) -> "SceneProjectiveStack":
+        dev = resolve_device(device)
+        return dataclasses.replace(
+            self, table=self.table.to(dev), K=self.K.to(dev),
+            max_dist_diff=self.max_dist_diff.to(dev),
+        )
+
     def lane(self, i: int) -> SceneProjective:
         """Frame ``i`` as a standalone SceneProjective (a view of its rows):
         the parity anchor, refine(scene_ids=ids) equals refining each pose
@@ -238,17 +247,17 @@ class SceneProjectiveStack:
         """``SceneProjective.iterate`` bound to per-pose scene ids (see
         query_at): returns iterate(state, valid, n_total, criteria,
         robust_delta=0.0, point_to_point=False, coarse_iters=0,
-        coarse_stride=2) -> state, one launch a refine (two with the coarse
-        phase) with each pose's row offset."""
+        coarse_stride=2, order_batch=None) -> state, one launch a refine (two
+        with the coarse phase) with each pose's row offset."""
         base = self._base(sids)
 
         def iterate(state, valid, n_total, criteria, robust_delta=0.0, point_to_point=False,
-                    coarse_iters=0, coarse_stride=2):
+                    coarse_iters=0, coarse_stride=2, order_batch=None):
             return icp_iterate_projective_cuda(
                 state, valid, n_total, criteria, self.table, self.K, self.max_dist_diff,
                 self.height, self.width,
                 base=base.expand(state.cloud.shape[:1]) if base.dim() == 0 else base,
                 robust_delta=robust_delta, point_to_point=point_to_point,
-                coarse_iters=coarse_iters, coarse_stride=coarse_stride)
+                coarse_iters=coarse_iters, coarse_stride=coarse_stride, order_batch=order_batch)
 
         return iterate

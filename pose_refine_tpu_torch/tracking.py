@@ -19,8 +19,10 @@ the (N, 71) packed buffer.
 
 ``MultiObjectSession`` tracks several objects of a ``MultiModelRefiner`` in
 one track() per frame; both sessions run one loop (``_SessionLoop``), a
-TrackingSession being that loop with one object. Saving a session to
-``.npz`` waits for ROADMAP A12.
+TrackingSession being that loop with one object. A session saves to
+``.npz`` between frames with ``utils.serialization.save`` and resumes
+bit for bit with ``load(path, refiner=...)`` (its ``state_dict`` /
+``from_state``).
 """
 
 from __future__ import annotations
@@ -341,7 +343,7 @@ class _SessionLoop:
 
     # -- checkpoint/resume: the refiner is rebuilt by the caller; the
     # session state is the filters, the hypothesis rng stream and the loop
-    # config (saving it to .npz waits for ROADMAP A12)
+    # config (utils.serialization stores it in the JAX package's .npz)
 
     def _loop_state(self) -> dict:
         if self._inflight is not None:

@@ -1172,3 +1172,88 @@ def test_sin_cos_equal_torch_on_card(card):
                         device=card)
     s, c = IR.sin_cos_cuda(x)
     assert torch.equal(s, torch.sin(x)) and torch.equal(c, torch.cos(x))
+
+
+def _bench_like_case(card, n=12, seed=1):
+    """A bumpy sphere at 640x480 rendered on the card at the reference
+    viewpoint, and n hypotheses +-6 deg / +-10 mm around it."""
+    m = mesh.make_bumpy_sphere(radius=50.0, subdivisions=4)
+    R = np.array([[0.34768538, 0.93761126, 0.0],
+                  [0.70540612, -0.26157897, -0.65877056],
+                  [-0.61767070, 0.22904489, -0.75234390]], np.float32)
+    truth = geometry.pose_from_Rt(R, np.array([0, 0, 300], np.float32))
+    proj = geometry.compute_proj(geometry.LINEMOD_K, 640, 480, device=card)
+    frame = RC.rasterize(m.tris, truth[None], 640, 480, proj, device="cuda")[0]
+    hyps = ptt.sample_hypotheses(truth.numpy(), n, rot_deg=6.0, trans_mm=10.0, rng=seed)
+    return m, frame, hyps
+
+
+@pytest.mark.cuda
+def test_native_kdtree_builds_on_card_machine(card):
+    """The card machine has the compiler: the native builder is built at
+    first use, taken by backend="auto", and equals the numpy builder bit
+    for bit on the device-lifted scene cloud; a scene="nn" refine's scene
+    is built on it."""
+    from pose_refine_tpu_torch import native
+    from pose_refine_tpu_torch.scene import kdtree as tkd
+    from pose_refine_tpu_torch.scene.nn import _depth_scene_arrays_host
+
+    assert native.native_available(), native.unavailable_reason()
+    m, frame, _hyps = _bench_like_case(card)
+    pts, nrm, mask = _depth_scene_arrays_host(frame.cpu().numpy(), geometry.LINEMOD_K)
+    a = tkd.build_kdtree(pts[mask], nrm[mask], backend="native")
+    b = tkd.build_kdtree(pts[mask], nrm[mask], backend="numpy")
+    for f in ("points", "normals", "parent", "child", "split_dim", "split_v", "bbox", "bounds"):
+        assert np.array_equal(getattr(a, f), getattr(b, f)), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", ["projective", "nn", "nn_bruteforce"])
+def test_scene_save_load_refines_alike_on_card(card, tmp_path, scene):
+    """A card scene saved to .npz and loaded back onto the card refines the
+    same hypotheses bit for bit as the original."""
+    from pose_refine_tpu_torch.utils import serialization
+
+    m, frame, hyps = _bench_like_case(card)
+    ref = ptt.PoseRefiner(m, K=geometry.LINEMOD_K, device="cuda", scene=scene,
+                          scene_voxel_mm=2.0 if scene != "projective" else 0.0)
+    ref.set_scene_depth(frame)
+    crit = ptt.ICPConvergenceCriteria(max_iteration=12)
+    want = ref.refine(hyps, crit)
+    path = str(tmp_path / "scene.npz")
+    serialization.save(path, ref.scene)
+    loaded = serialization.load(path)
+    assert loaded.table.device.type == "cuda"
+    got = ref.refine(hyps, crit, _scene=loaded)
+    assert torch.equal(got[0], want[0])
+    for a, b in zip(got[1], want[1]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", ["projective", "nn"])
+def test_devices_split_equals_single_on_card(card, scene):
+    """devices=["cuda:0", "cuda:0"]: the batch padded (133 poses, 2 shards
+    of 67; the whole batch sums a pose of 2,048 points in one slab, a shard
+    alone would take two), split over two streams of the card and gathered
+    equals the single device's refine bit for bit, covariance included,
+    and so does a tracked frame's packed session buffer; devices=None on
+    one card is the single-device path."""
+    m, frame, hyps = _bench_like_case(card, n=133)
+    kw = dict(K=geometry.LINEMOD_K, scene=scene, render_scale=2, max_points=2048, window=128,
+              scene_voxel_mm=2.0 if scene == "nn" else 0.0)
+    one = ptt.PoseRefiner(m, device="cuda", **kw).set_scene_depth(frame)
+    split = ptt.PoseRefiner(m, devices=["cuda:0", "cuda:0"], **kw).set_scene_depth(frame)
+    assert split.devices == [torch.device("cuda", 0)] * 2
+    if torch.cuda.device_count() == 1:
+        assert one.devices is None
+    assert IR.slabs_for(133, 2048) != IR.slabs_for(67, 2048)
+    crit = ptt.ICPConvergenceCriteria(max_iteration=12)
+    want = one.refine(hyps, crit, with_covariance=True)
+    got = split.refine(hyps, crit, with_covariance=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0])
+    for a, b in zip((*got[1], *got[2]), (*want[1], *want[2])):
+        assert (a is None and b is None) or torch.equal(a, b)
+    packed = [r.track_packed_async(frame, hyps, crit).wait()[0] for r in (split, one)]
+    assert torch.equal(*packed)

@@ -59,11 +59,23 @@ def test_kdtree_matches_jax(backend):
     assert got.max_leaf_points() == want.max_leaf_points()
 
 
-def test_kdtree_refuses_what_it_cannot_build():
-    with pytest.raises(NotImplementedError, match="ROADMAP A16"):
-        tkd.build_kdtree(np.zeros((4, 3)), np.zeros((4, 3)), backend="native")
+def test_kdtree_refuses_what_it_cannot_build(monkeypatch):
+    """backend="native" builds the tree (tests/test_torch_native.py holds it
+    to JAX's); without the native library it raises, as JAX's does, while
+    "auto" takes the numpy builder. An unknown backend and an empty cloud
+    raise."""
+    pts = np.zeros((4, 3))
+    assert tkd.build_kdtree(pts, pts, backend="native").n_nodes == 1
+    with pytest.raises(ValueError, match="unknown kd-tree backend"):
+        tkd.build_kdtree(pts, pts, backend="cuda")
     with pytest.raises(ValueError, match="empty cloud"):
         tkd.build_kdtree(np.zeros((0, 3)), np.zeros((0, 3)))
+    from pose_refine_tpu_torch import native
+
+    monkeypatch.setattr(native, "build_kdtree_native", lambda *a, **k: None)
+    with pytest.raises(RuntimeError, match="native kd-tree builder unavailable"):
+        tkd.build_kdtree(pts, pts, backend="native")
+    assert tkd.build_kdtree(pts, pts).n_nodes == 1
 
 
 def test_host_scene_arrays_and_voxels_match_jax(scene_depth):

@@ -222,16 +222,19 @@ def test_scene_cascade_validation(kwargs, match):
                         device="cpu", **kwargs)
 
 
-@pytest.mark.parametrize(
-    "kwargs,item",
-    [({"devices": 2}, "A13")],
-)
-def test_unported_nn_options_raise(kwargs, item):
-    # scene_stride and scene_pool are ported with track() (test_torch_track.py),
-    # lift="compact" with the point schedule (test_torch_api.py)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+def test_unported_nn_options_raise():
+    """Every NN option is ported: devices= splits the batch (an int names
+    that many cards, so more than the machine has raises;
+    tests/test_torch_sharding.py holds a split NN refine to the single
+    one). scene_stride and scene_pool are ported with track()
+    (test_torch_track.py), lift="compact" with the point schedule
+    (test_torch_api.py)."""
+    with pytest.raises(ValueError, match="CUDA cards present"):
         ptt.PoseRefiner(mesh.make_icosphere(40.0, 1), K=small_K(), width=W, height=H,
-                        device="cpu", scene="nn", **kwargs)
+                        device="cpu", scene="nn", devices=torch.cuda.device_count() + 2)
+    ref = ptt.PoseRefiner(mesh.make_icosphere(40.0, 1), K=small_K(), width=W, height=H,
+                          scene="nn", devices=["cpu", "cpu"])
+    assert ref.device.type == "cpu" and len(ref.devices) == 2
 
 
 def test_set_scene_depths_raises():

@@ -111,18 +111,25 @@ def test_single_pose_refine_squeezes(workload):
     assert pose.shape == (4, 4) and res.fitness.shape == ()
 
 
-@pytest.mark.parametrize(
-    "kwargs,item",
-    [({"devices": 2}, "A13")],
-)
-def test_unported_refiner_options_raise(kwargs, item):
-    # scene="nn_kdtree", robust_delta and estimation="point_to_point" are
-    # ported: tests/test_torch_kdtree.py and tests/test_torch_p2p.py hold
-    # them against the JAX refiner; lift="compact" and coarse_iters:
-    # tests/test_torch_api.py and tests/test_torch_coarse.py
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        ptt.PoseRefiner(mesh.make_icosphere(40.0, 1), K=small_K(), width=W, height=H,
-                        device="cpu", **kwargs)
+def test_unported_refiner_options_raise(workload):
+    """Every refiner option is ported. devices= on the slice: the batch
+    split over two shards of the CPU equals the single-device refine bit
+    for bit (tests/test_torch_sharding.py has the other paths); devices=1
+    is one device. scene="nn_kdtree", robust_delta and
+    estimation="point_to_point": tests/test_torch_kdtree.py and
+    tests/test_torch_p2p.py hold them against the JAX refiner;
+    lift="compact" and coarse_iters: tests/test_torch_api.py and
+    tests/test_torch_coarse.py."""
+    m, K, _truth, poses, scene = workload
+    crit = ptt.ICPConvergenceCriteria(max_iteration=6)
+    one = ptt.PoseRefiner(m, K=K, width=W, height=H, device="cpu", devices=1, **CFG)
+    split = ptt.PoseRefiner(m, K=K, width=W, height=H, devices=["cpu", "cpu"], **CFG)
+    assert one.devices is None and len(split.devices) == 2
+    want = one.set_scene_depth(scene).refine(poses[:5], crit)
+    got = split.set_scene_depth(scene).refine(poses[:5], crit)
+    assert torch.equal(got[0], want[0])
+    for a, b in zip(got[1], want[1]):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize(
