@@ -99,8 +99,11 @@ non-zero without printing a result:
               version at three shapes: the bench projective scene (307,200
               rows) at the 524,288 first-pass pixels, the raw NN scene
               (29,440 rows) and the device-built 640x480 NN scene (307,200
-              rows) at the 524,288 first-pass neighbours. Bit for bit;
-              median times of both, and the kernel alone.
+              rows) at the 524,288 first-pass neighbours; after phase 10 at
+              the shape the main path launches it, a tracked frame's
+              information pass (projective and NN). Bit for bit; times
+              alone and median times of kernel, plain version and
+              index_select.
  10. track  - bench.py's tracking workload (bench.py:258-304): 12
               pre-rendered frames drifting +-0.035 rad / +-5 mm per frame,
               TrackingSession(n_hypotheses=16, process_noise=(2 deg, 5 mm))
@@ -178,8 +181,13 @@ are collected and fail the run at its end.
               launch, the operations of this run's pose-iterations.
               [build] prints ptxas's registers of each instantiation.
  16. mxu    - P1 on its probe (probes/mxu_nn.py, scripts/probe_mxu_nn.py's
-              262,144 queries): B2 and P1 times, P1 against its plain version
-              and against B2 up to near-ties.
+              262,144 queries x 29,440 points): idx and dist^2 equal to B2's
+              kernel and to P1's plain version bit for bit, also on the tie
+              lattice (probes/mxu_nn.tie_lattice: 16^3 integer points, 30,000
+              queries with 2, 4 or 8 points at one distance). Times with the
+              wrapper, P1 and B2 alone in turns, the prologue alone, the
+              bound; eps_q's constant, the re-scored pairs a query (mean,
+              max) and the largest |screen - B2 score| / eps_q seen.
  17. coarse - bench.py:305-327's serving ceiling: the bench refiner with
               coarse_iters=16, coarse_stride=4, 4 x refine_async of bench.py's
               512 hypotheses (its 256 twice) then fence, median of 7 after a
@@ -800,33 +808,46 @@ def nn_tie_phase(torch, NF, nn_ties, dev):
 
 def gather_phase(torch, G, tables):
     """The row-gather kernel against its plain version on each (label,
-    table, idx); returns the stats of the first (the bench projective
-    association) with max_abs_err over all."""
-    out, max_err = None, 0.0
+    table, idx): bit for bit, times alone, with the wrapper, plain and
+    index_select's. Returns the stats of the first (the bench projective
+    association) with max_abs_err over all and every shape's stats under
+    "shapes"."""
+    out, max_err, shapes = None, 0.0, {}
     for label, table, idx in tables:
         k_ms, k = median_ms(torch, lambda: G.gather_rows_cuda(table, idx), 20)
         a_ms = alone_ms(torch, lambda: G.gather_rows_cuda(table, idx))
         p_ms, p = median_ms(torch, lambda: G.gather_rows_plain(table, idx), 20)
-        # one PyTorch call of the same function: the indices are in range
-        check(bool(((idx >= 0) & (idx < table.shape[0])).all()), f"gather {label}: index range")
-        lib_ms, _ = median_ms(torch, lambda: table.index_select(0, idx), 20)
+        # one PyTorch call of the same function: index_select of the
+        # clamped indices (clamped here where the flash kernels' guard
+        # index lies past the table)
+        in_range = bool(((idx >= 0) & (idx < table.shape[0])).all())
+        lib_idx = (idx if in_range else idx.clamp(0, table.shape[0] - 1)).reshape(-1)
+        lib_ms, _ = median_ms(torch, lambda: table.index_select(0, lib_idx), 20)
+        lib_alone = alone_ms(torch, lambda: table.index_select(0, lib_idx))
         err = float((k - p).abs().max())
         n = idx.numel()
         mbytes = n * (2 * 4 * G.ROW + idx.element_size()) / 1e6
         # the least traffic: the indices read, the rows written, and each
         # table row that this run's indices name read once
-        n_read = int(idx.unique().numel())
+        n_read = int(idx.clamp(0, table.shape[0] - 1).unique().numel())
         g_bound = bound(n_bytes=n * (4 * G.ROW + idx.element_size()) + n_read * 4 * G.ROW)
-        phase("gather", f"{label}: table {tuple(table.shape)} x {n} {idx.dtype} indices: "
+        phase("gather", f"{label}: table {tuple(table.shape)} x {n} {idx.dtype} indices "
+              f"(in range: {in_range}, distinct rows {n_read}): "
               f"equal={torch.equal(k, p)} max_abs_err={err} kernel_ms={k_ms} "
               f"kernel_alone_ms={a_ms} plain_ms={p_ms} "
-              f"index_select_ms={lib_ms} bound_ms={g_bound['bound_ms']} "
+              f"index_select_ms={lib_ms} index_select_alone_ms={lib_alone} "
+              f"bound_ms={g_bound['bound_ms']} share_of_bound={g_bound['bound_ms'] / a_ms} "
               f"traffic_MB={mbytes} kernel_GB_s={mbytes / k_ms} plain_GB_s={mbytes / p_ms}")
         check(torch.equal(k, p), f"gather {label}: kernel != plain")
         max_err = max(max_err, err)
+        shapes[label] = dict(ms=k_ms, alone_ms=a_ms, plain_ms=p_ms, library_ms=lib_ms,
+                             library_alone_ms=lib_alone, rows=int(table.shape[0]), indices=n,
+                             **g_bound)
         if out is None:
-            out = dict(ms=k_ms, alone_ms=a_ms, plain_ms=p_ms, library_ms=lib_ms, **g_bound)
+            out = dict(ms=k_ms, alone_ms=a_ms, plain_ms=p_ms, library_ms=lib_ms,
+                       library_alone_ms=lib_alone, **g_bound)
     out["max_abs_err"] = max_err
+    out["shapes"] = shapes
     return out
 
 
@@ -1905,6 +1926,8 @@ def main():
     )
     from pose_refine_tpu_torch.utils import serialization
     from pose_refine_tpu_torch.scene.projective import SceneProjective, _project_gate
+    from pose_refine_tpu_torch.scene import nn as scene_nn
+    from pose_refine_tpu_torch.scene import projective as scene_projective
 
     def reset_counts():
         RC.launches = NF.packed_launches = NF.gated_launches = G.launches = 0
@@ -2533,7 +2556,7 @@ def main():
     hyps0 = first_hypotheses(ptt, truth)
     control = sync_sites(torch, lambda: torch.ones(1, device=dev).item())
     check(sum(control.values()) >= 1, f"the sync counter missed an .item(): {dict(control)}")
-    track_counts = {}
+    track_counts, track_gathers = {}, {}
     pkg_log = logging.getLogger("pose_refine_tpu_torch")
     for label, kw in TRACK_CONFIGS:
         ref = ptt.PoseRefiner(model, K=K, device="cuda", **kw, **CFG)
@@ -2575,8 +2598,20 @@ def main():
               f"track {label}: launches {c}")
         check(np.isfinite(last.pose).all() and t_err < 20.0,
               f"track {label}: final translation error {t_err} mm")
-        # the first frame through the kernels against the plain versions
-        k_out = ref.track(frames[0], hyps0, with_covariance=True)
+        # the first frame through the kernels against the plain versions;
+        # its information pass's row gather (table, indices) is kept for
+        # [gather]'s tracked-frame shape
+        captured = []
+
+        def capture_gather(table, idx, _gather=G.gather_rows):
+            captured.append((table, idx))
+            return _gather(table, idx)
+
+        with unittest.mock.patch.object(scene_projective, "gather_rows", capture_gather), \
+                unittest.mock.patch.object(scene_nn, "gather_rows", capture_gather):
+            k_out = ref.track(frames[0], hyps0, with_covariance=True)
+        check(len(captured) == 1, f"track {label}: {len(captured)} row gathers in a frame")
+        track_gathers[label] = captured[0]
         p_out = ref.track(frames[0], hyps0, with_covariance=True, _plain=True)
         d_cov = float(((k_out[2].covariance - p_out[2].covariance).abs().amax(dim=(1, 2))
                        / p_out[2].covariance.abs().amax(dim=(1, 2))).max())
@@ -2608,6 +2643,12 @@ def main():
         track_b3 = gated_kernel_check(
             torch, NF, "track", f"tracking shape (pool {pool})", track_q, track_scene,
             ref.max_dist_diff, full=NF.nn_flash_packed_cuda(track_q, track_scene.flash_table))
+
+    # 9b. the row gather at the shape a tracked frame launches it: the
+    # information pass of the first frame above
+    gather_track = gather_phase(torch, G, [
+        (f"tracked frame's information pass, {label}", *track_gathers[label])
+        for label, _kw in TRACK_CONFIGS])["shapes"]
 
     # 11. tests/test_tracking.py's drift recipe on the bumpy sphere at 640x480
     rng = np.random.default_rng(7)
@@ -3165,15 +3206,49 @@ def main():
         check(r_counts["rasterize"] == 1, f"renderer {label}: launches {r_counts}")
     phase("renderer", f"phase seconds={time.perf_counter() - t0}")
 
-    # 16. P1 on its probe: scripts/probe_mxu_nn.py's workload at full size
+    # 16. P1 on its probe: scripts/probe_mxu_nn.py's workload at full size,
+    # then the kernel alone beside B2 alone (in turns), its prologue alone
+    # and the tie lattice
+    t0 = time.perf_counter()
     reset_counts()
     mxu = mxu_nn.run(device=dev)
     phase("mxu", " ".join(f"{k}={v}" for k, v in mxu.items()))
     check(mxu["launches"]["nn_flash_mxu"] > 0 and mxu["launches"]["nn_flash_packed"] > 0,
           f"mxu: launches {mxu['launches']}")
-    check(mxu["b2_near_ties"] and mxu["b2_dist_in_band"] and mxu["plain_near_ties"]
-          and mxu["plain_dist_in_band"], "mxu: a disagreement outside the near-tie band")
+    check(mxu["vs_b2"]["equal"] and mxu["vs_plain"]["equal"] and mxu["stats_build_equal"],
+          f"mxu: P1 is not B2 bit for bit: against B2 {mxu['vs_b2']}, against its plain "
+          f"version {mxu['vs_plain']}, instrumented build equal {mxu['stats_build_equal']}")
+    mxu_obj, mxu_q = mxu_nn.workload(device=dev)
+    mxu_b2_t = NF.pack_scene(mxu_obj).to(dev)
+    mxu_t = NM.pack_scene_mxu(mxu_obj).to(dev)
+    mxu_alone = {"b2": [], "p1": []}
+    for name in ("b2", "p1", "p1", "b2"):
+        fn = ((lambda: NF.nn_flash_packed_cuda(mxu_q, mxu_b2_t)) if name == "b2"
+              else (lambda: NM.nn_flash_mxu_cuda(mxu_q, mxu_t)))
+        mxu_alone[name].append(alone_ms(torch, fn, launches=10, rounds=3))
+    prologue_ms = alone_ms(torch, lambda: NM.split_scene_cuda(mxu_t))
+    lat_pts, lat_q = mxu_nn.tie_lattice(16, 30000, seed=5)
+    lat_q = torch.as_tensor(lat_q, device=dev)
+    lat_t = NM.pack_scene_mxu(lat_pts).to(dev)
+    li, ld = NM.nn_flash_mxu_cuda(lat_q, lat_t)
+    lat = {"vs_b2": mxu_nn.compare(li, ld, *NF.nn_flash_packed_cuda(
+               lat_q, NF.pack_scene(lat_pts).to(dev))),
+           "vs_plain": mxu_nn.compare(li, ld, *NM.nn_flash_mxu_plain(lat_q, lat_t))}
     mxu_pairs = float(mxu["queries"]) * mxu["table_columns"]
+    # the least argmin work a pair needs on the CUDA cores: one min of the
+    # score and one compare to find the rare pairs that improve it, against
+    # the 3xTF32 product's 3 x 4 useful MACs a pair on the tensor cores
+    mxu_bound = bound(n_instr=2 * mxu_pairs, n_tensor_flop=24 * mxu_pairs)
+    p1_alone, b2_alone = float(np.median(mxu_alone["p1"])), float(np.median(mxu_alone["b2"]))
+    phase("mxu", f"alone ms (turns B2, P1, P1, B2): P1 {mxu_alone['p1']} B2 {mxu_alone['b2']} "
+          f"P1 / B2 {p1_alone / b2_alone} prologue_alone_ms={prologue_ms} "
+          f"bound_ms={mxu_bound['bound_ms']} ({mxu_bound['bound_by']}) share_of_bound="
+          f"{mxu_bound['bound_ms'] / p1_alone} eps_q = {NM.EPS_C} M_q, re-scored pairs a query "
+          f"mean {mxu['rescored_mean']} max {mxu['rescored_max']}, largest |screen - B2| / "
+          f"eps_q {mxu['screen_err_over_eps_max']}; tie lattice {tuple(lat_pts.shape)} points x "
+          f"{lat_q.shape[0]} queries: {lat}; phase seconds={time.perf_counter() - t0}")
+    check(lat["vs_b2"]["equal"] and lat["vs_plain"]["equal"],
+          f"mxu: P1 is not B2 bit for bit on the tie lattice: {lat}")
 
     # 21-23. the native kd builder and the reference baseline, save / load
     # on the card, the pose batch split over devices
@@ -3231,6 +3306,9 @@ def main():
         # look their rows up inside assoc_reduce
         "launches": track_counts["projective"]["gather_rows"],
         **gather_stats,
+        # the tracked frame's information pass: the shape the main path
+        # launches (1 a frame)
+        "track": gather_track,
     }, {
         "name": "assoc_reduce",
         "route": "cuda",
@@ -3314,13 +3392,19 @@ def main():
         "launches": mxu["launches"]["nn_flash_mxu"],
         "max_abs_err": mxu["max_abs_err"],
         "ms": mxu["p1_ms"],
+        "alone_ms": p1_alone,
         "plain_ms": mxu["p1_plain_ms"],
-        # the least argmin work a pair needs on the CUDA cores: one min of
-        # the score and one compare to find the rare chunks that improve it
-        # (the index update runs only there), against the 3xTF32 product's
-        # 3 x 4 useful MACs a pair on the tensor cores
-        **bound(n_instr=2 * mxu_pairs, n_tensor_flop=24 * mxu_pairs),
+        **mxu_bound,
         "library_ms": None,
+        "library": "none: no PyTorch call computes B2's argmin (torch.cdist + argmin rounds "
+                   "otherwise)",
+        "b2_alone_ms": b2_alone,
+        "prologue_alone_ms": prologue_ms,
+        "eps_c": NM.EPS_C,
+        "rescored_mean": mxu["rescored_mean"],
+        "rescored_max": mxu["rescored_max"],
+        "screen_err_over_eps_max": mxu["screen_err_over_eps_max"],
+        "equal_to_b2": mxu["vs_b2"]["equal"] and lat["vs_b2"]["equal"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

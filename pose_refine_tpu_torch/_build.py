@@ -38,7 +38,8 @@ SIGNATURES = {
     "prt_rasterize": ((_P, _P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P), _I),
     "prt_raster_setup": ((_P, _P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P), _I),
     "prt_nn_flash": ((_P, _I, _P, _I, _P, _P, _I, _F, _I, _P, _I, _I, _P, _P, _P, _P), _I),
-    "prt_nn_mxu": ((_P, _I, _P, _I, _P, _P, _P), _I),
+    "prt_nn_mxu_split": ((_P, _I, _P, _P, _P), _I),
+    "prt_nn_mxu": ((_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P), _I),
     "prt_nn_kdtree": ((_P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P), _I),
     "prt_gather_rows": ((_P, _L, _P, _I, _L, _P, _P), _I),
     "prt_assoc_reduce": ((_P, _P, _I, _I, _P, _L, _I, _P, _P, _P, _I, _I, _P, _I, _P, _F, _F,

@@ -54,6 +54,8 @@ def gather_rows_cuda(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     n = flat.numel()
     if n >= 2 ** 31:
         raise ValueError(f"too many indices for one launch: {n}")
+    if flat.data_ptr() % flat.element_size():
+        raise ValueError("idx must be aligned to its element size")
     from pose_refine_tpu_torch._build import load_kernels
 
     lib, _info = load_kernels()

@@ -1,21 +1,24 @@
-"""Exact nearest-neighbour search with the score as a matrix product ("P1"):
-the hand-written CUDA kernel ``csrc/nn_mxu.cu``, its wrapper, and its plain
+"""Exact nearest-neighbour search with a tensor-core screen ("P1"): the
+hand-written CUDA kernel ``csrc/nn_mxu.cu``, its wrapper, and its plain
 PyTorch version (PyTorch port of ``scripts/probe_mxu_nn.py``'s
 ``pack_scene_mxu`` and ``nn_flash_mxu``).
 
-The score |s|^2 - 2 q.s of B2 (``scene/nn_flash.py``) is the product of
-[1, qx, qy, qz] with the table rows [|s|^2, -2x, -2y, -2z]; the kernel takes
-it on the tensor cores (3xTF32, see the note in the .cu source), keeps the
-smallest score per query and, of equal scores, the smallest index. It is
-measured against B2 by ``probes/mxu_nn.py``; the association keeps B2/B3,
-as the JAX package does.
+The function is B2's (``scene/nn_flash.py``, ``nn_flash_packed``): for each
+query the smallest column among those whose B2 score |s|^2 - 2 q.s (rounded
+as B2 rounds it) is minimal, and dist^2 = max(score + |q|^2, 0), bit for
+bit. The kernel takes the score as the product of [1, qx, qy, qz] with the
+table rows [|s|^2, -2x, -2y, -2z] on the tensor cores (3xTF32), but only as
+a screen: every pair whose screened score lies within ``eps_q`` of the
+running minimum is scored again with B2's own arithmetic, and the argmin is
+taken over those exact scores (the argument is in the .cu source).
+``EPS_C`` is the constant of eps_q = EPS_C * (Smax^2 + 2 |q| Smax). The
+plain version is B2's plain version on the table's rows 0-3, which are
+``pack_scene``'s. It is measured against B2 by ``probes/mxu_nn.py``; the
+association keeps B2/B3, as the JAX package does.
 
-Its scores round otherwise than any fixed float32 expression, so it meets
-its plain version (the product in float64, rounded once to float32) and B2
-up to near-ties: where two scene points' squared distances to a query lie
-within ``near_tie_band`` of each other, either may win, and the reported
-dist^2 may differ by as much. ``near_ties`` checks that every disagreement
-is one.
+The JAX probe's kernel rounds its HIGHEST-precision product otherwise than
+B2, so against it P1 agrees up to near-ties: ``near_ties`` checks that every
+disagreement of two NN results is two candidates within ``near_tie_band``.
 
 Dispatch: ``nn_flash_mxu`` uses the plain version for CPU tensors and the
 kernel for CUDA tensors. There is no fallback from the kernel to the plain
@@ -26,12 +29,15 @@ from __future__ import annotations
 
 import torch
 
-from pose_refine_tpu_torch.scene.nn_flash import BIG, _flat, _sum_sq, pack_scene
+from pose_refine_tpu_torch.scene.nn_flash import (BIG, S_CHUNK, _flat, _sum_sq,
+                                                   nn_flash_packed_plain, pack_scene)
 
-# kernel launches by nn_flash_mxu_cuda (chip_smoke.py resets and reads it to
-# show the probe went through the kernel)
+# kernel launches by nn_flash_mxu_cuda, each the prologue and the scan
+# (chip_smoke.py resets and reads it to show the probe went through the
+# kernel)
 launches = 0
-NEAR_TIE_ULPS = 16  # of |q|^2: the disagreement band of kernel, plain and B2
+EPS_C = 2.0 ** -16  # csrc/nn_mxu.cu's kC: the screen's margin over M_q
+NEAR_TIE_ULPS = 16  # of |q|^2: the disagreement band against the JAX probe
 
 
 def pack_scene_mxu(scene_pts) -> torch.Tensor:
@@ -45,64 +51,97 @@ def pack_scene_mxu(scene_pts) -> torch.Tensor:
 
 def nn_flash_mxu_plain(queries, scene_table):
     """Plain PyTorch version on any device: queries (..., 3) -> (idx (...,)
-    int32, dist_sq (...,) float32). The score [1, q] . table[3:7] is taken
-    in float64 and rounded once to float32; the first index among equal
-    scores wins; dist_sq = max(score + |q|^2, 0)."""
-    flat, shape = _flat(queries)
-    n_s = scene_table.shape[1]
-    budget = 1 << 27 if flat.device.type == "cuda" else 1 << 20
-    step = max(1, budget // max(n_s, 1))
-    b = scene_table[3:7].double()
-    best = torch.empty(flat.shape[0], dtype=torch.float32, device=flat.device)
-    idx = torch.empty(flat.shape[0], dtype=torch.int64, device=flat.device)
-    for a in range(0, flat.shape[0], step):
-        q = flat[a:a + step].double()
-        lhs = torch.cat([torch.ones_like(q[:, :1]), q], dim=1)
-        best[a:a + step], idx[a:a + step] = (lhs @ b).float().min(dim=1)
-    dist = torch.clamp(best + _sum_sq(flat), min=0.0)
-    return idx.to(torch.int32).reshape(shape), dist.reshape(shape)
+    int32, dist_sq (...,) float32), B2's function (nn_flash_packed_plain)
+    on the table's rows 0-3."""
+    return nn_flash_packed_plain(queries, scene_table)
 
 
-def nn_flash_mxu_cuda(flat, scene_table):
-    """Launch csrc/nn_mxu.cu on (Q, 3) CUDA queries on the current stream,
-    without synchronising; raises for anything it cannot launch."""
+def _check_table(scene_table, dev):
+    if scene_table.device != dev or scene_table.dtype != torch.float32 \
+            or not scene_table.is_contiguous():
+        raise ValueError(f"scene_table must be a contiguous float32 tensor on {dev}, "
+                         f"got {scene_table.dtype} on {scene_table.device}")
+    if scene_table.dim() != 2 or scene_table.shape[0] != 8 or scene_table.shape[1] % S_CHUNK \
+            or scene_table.shape[1] == 0:
+        raise ValueError(f"scene_table must be (8, S_pad) from pack_scene_mxu, got "
+                         f"{tuple(scene_table.shape)}")
+    if scene_table.data_ptr() % 16:
+        raise ValueError("scene_table must be 16-byte aligned (the kernel copies it 16 bytes "
+                         "at a time)")
+    if 8 * scene_table.shape[1] >= 2 ** 31:
+        raise ValueError(f"too large for int32 sizes: {scene_table.shape[1]} scene columns")
+
+
+def split_scene_cuda(scene_table):
+    """Launch the kernel's prologue on the current stream: the table's
+    [|s|^2, -2x, -2y, -2z] split into TF32 (hi, lo) pairs, (S_pad / 128, 4,
+    128, 2) int32, and Smax^2 (1,) float32. nn_flash_mxu_cuda runs it
+    first; chip_smoke.py times it alone."""
+    dev = scene_table.device
+    if dev.type != "cuda":
+        raise ValueError(f"the nn_mxu kernel needs CUDA tensors, got {dev}")
+    _check_table(scene_table, dev)
+    from pose_refine_tpu_torch._build import load_kernels
+
+    lib, _info = load_kernels()
+    s_pad = scene_table.shape[1]
+    split = torch.empty((s_pad // S_CHUNK, 4, S_CHUNK, 2), dtype=torch.int32, device=dev)
+    smax2 = torch.empty(1, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.prt_nn_mxu_split(scene_table.data_ptr(), s_pad, split.data_ptr(),
+                                   smax2.data_ptr(), stream)
+    if err != 0:
+        msg = lib.prt_error_string(err).decode()
+        raise RuntimeError(f"nn_mxu prologue launch failed: CUDA error {err} ({msg})")
+    return split, smax2
+
+
+def nn_flash_mxu_cuda(flat, scene_table, stats: bool = False):
+    """Launch csrc/nn_mxu.cu (the prologue, then the scan) on (Q, 3) CUDA
+    queries on the current stream, without synchronising; raises for
+    anything it cannot launch. Returns (idx (Q,) int32, dist_sq (Q,)
+    float32), and with ``stats`` also each query's re-scored pairs (Q,)
+    int32 and the largest |screen - B2 score| / eps_q of its re-scores (Q,)
+    float32 (the kernel's instrumented instantiation)."""
     global launches
     dev = flat.device
     if dev.type != "cuda":
         raise ValueError(f"the nn_mxu kernel needs CUDA tensors, got {dev}")
-    for name, t in (("queries", flat), ("scene_table", scene_table)):
-        if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous float32 tensor on {dev}, "
-                             f"got {t.dtype} on {t.device}")
-    if scene_table.dim() != 2 or scene_table.shape[0] != 8 or scene_table.shape[1] % 128 \
-            or scene_table.shape[1] == 0:
-        raise ValueError(f"scene_table must be (8, S_pad) from pack_scene_mxu, got "
-                         f"{tuple(scene_table.shape)}")
+    if scene_table.device != dev or flat.dtype != torch.float32 or not flat.is_contiguous():
+        raise ValueError(f"queries must be a contiguous float32 tensor on "
+                         f"{scene_table.device}, got {flat.dtype} on {dev}")
+    _check_table(scene_table, dev)
     nq, s_pad = flat.shape[0], scene_table.shape[1]
-    if nq >= 2 ** 31 or 8 * s_pad >= 2 ** 31:
-        raise ValueError(f"too large for int32 sizes: {nq} queries, {s_pad} scene columns")
+    if nq >= 2 ** 31:
+        raise ValueError(f"too large for int32 sizes: {nq} queries")
+    idx = torch.empty(nq, dtype=torch.int32, device=dev)
+    dist = torch.empty(nq, dtype=torch.float32, device=dev)
+    rescored = torch.empty(nq, dtype=torch.int32, device=dev) if stats else None
+    ratio = torch.empty(nq, dtype=torch.float32, device=dev) if stats else None
+    if nq == 0:
+        return (idx, dist, rescored, ratio) if stats else (idx, dist)
+    split, smax2 = split_scene_cuda(scene_table)
     from pose_refine_tpu_torch._build import load_kernels
 
     lib, _info = load_kernels()
-    idx = torch.empty(nq, dtype=torch.int32, device=dev)
-    dist = torch.empty(nq, dtype=torch.float32, device=dev)
-    if nq == 0:
-        return idx, dist
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.prt_nn_mxu(flat.data_ptr(), nq, scene_table.data_ptr(), s_pad,
-                             idx.data_ptr(), dist.data_ptr(), stream)
+                             split.data_ptr(), smax2.data_ptr(), idx.data_ptr(),
+                             dist.data_ptr(), None if rescored is None else rescored.data_ptr(),
+                             None if ratio is None else ratio.data_ptr(), stream)
     if err != 0:
         msg = lib.prt_error_string(err).decode()
         raise RuntimeError(f"nn_mxu kernel launch failed: CUDA error {err} ({msg})")
     launches += 1
-    return idx, dist
+    return (idx, dist, rescored, ratio) if stats else (idx, dist)
 
 
 def nn_flash_mxu(queries, scene_table):
-    """Exact NN against a pack_scene_mxu table, the score as a matrix
-    product: queries (..., 3) -> (idx (...,) int32, dist_sq (...,)
-    float32). CUDA: the kernel; CPU: the plain version."""
+    """Exact NN against a pack_scene_mxu table, B2's bits through a
+    tensor-core screen: queries (..., 3) -> (idx (...,) int32, dist_sq
+    (...,) float32). CUDA: the kernel; CPU: the plain version."""
     flat, shape = _flat(queries)
     if flat.device.type == "cpu":
         return nn_flash_mxu_plain(queries, scene_table)
@@ -112,8 +151,8 @@ def nn_flash_mxu(queries, scene_table):
 
 def near_tie_band(queries) -> torch.Tensor:
     """NEAR_TIE_ULPS float32 ULPs of |q|^2 per query (~1e-7 m^2 at 0.3 m):
-    the bound on the score's rounding, within which two candidates are a
-    near-tie."""
+    the bound on a score's rounding, within which two candidates are a
+    near-tie (P1 and B2 against the JAX probe's HIGHEST product)."""
     qq = _sum_sq(_flat(queries)[0])
     return NEAR_TIE_ULPS * (torch.nextafter(qq, torch.full_like(qq, BIG)) - qq)
 

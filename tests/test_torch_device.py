@@ -350,21 +350,32 @@ def test_nn_query_through_kernel_on_card(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,dtype", [(307200, torch.int64), (29440, torch.int32),
-                                        (5, torch.int64)])
-def test_gather_kernel_matches_plain_on_card(card, rows, dtype):
+@pytest.mark.parametrize("rows,dtype,n,offset", [
+    (307200, torch.int64, 256 * 2048, 0), (29440, torch.int32, 256 * 2048, 0),
+    (5, torch.int64, 256 * 2048, 0),
+    # lengths that are no multiple of a CTA's rows, index views at an odd offset
+    (19200, torch.int32, 32768 + 7, 1), (19200, torch.int64, 32768 + 7, 1),
+    (307200, torch.int32, 3, 3), (307200, torch.int64, 1, 1), (1000, torch.int32, 8 * 25 + 5, 0)])
+def test_gather_kernel_matches_plain_on_card(card, rows, dtype, n, offset):
     """The row gather at the bench association's shapes (a 640x480
-    projective table, the raw NN scene; 256 x 2048 indices) and on a tiny
-    table with out-of-range indices: a gather rounds nothing, so the kernel
-    equals its plain version bit for bit."""
-    gen = torch.Generator(device=card).manual_seed(rows)
+    projective table, the raw NN scene; 256 x 2048 indices), on a tiny
+    table with out-of-range indices, and at ragged lengths with index views
+    that start ``offset`` elements into their storage, off a 16-byte
+    boundary (the wrapper's alignment check takes them, since each is
+    aligned to its element size, and the kernel reads them as they are): a
+    gather rounds nothing, so the kernel equals its plain version bit for
+    bit."""
+    gen = torch.Generator(device=card).manual_seed(rows + n)
     table = torch.randn((rows, 8), generator=gen, device=card)
-    idx = torch.randint(-3, rows + 3, (256, 2048), generator=gen, device=card).to(dtype)
+    idx = torch.randint(-3, rows + 3, (n + offset,), generator=gen, device=card).to(dtype)
+    idx = idx[offset:]
+    if n == 256 * 2048:
+        idx = idx.view(256, 2048)
     before = G.launches
     got = G.gather_rows(table, idx)
     torch.cuda.synchronize()
     assert G.launches == before + 1
-    assert got.shape == (256, 2048, 8)
+    assert got.shape == tuple(idx.shape) + (8,)
     assert torch.equal(got, G.gather_rows_plain(table, idx))
 
 
@@ -745,28 +756,34 @@ def test_nn_kernel_refuses_an_unaligned_table_on_card(card):
 
 @pytest.mark.cuda
 def test_mxu_kernel_matches_plain_on_card(card):
-    """P1 against its plain version (float64 product) and against B2 on a
-    structured cloud: every idx disagreement is a near-tie and every dist^2
-    within the band (scene/nn_mxu.py). The band is ~1.2e-7 m^2 in dist^2,
-    tens of um in distance at a 1 mm neighbour, so disagreements are a
-    fraction of a percent here (75 of 70,001 against the plain version on
-    an H100); the count bound only catches a kernel gone astray."""
+    """P1 computes B2's function: its idx and dist^2 equal its plain version's
+    and B2's kernel's bit for bit, on a structured cloud (20,000 lexsorted
+    points, 70,001 queries with 3 mm noise: a partial last CTA) and on the
+    tie lattice (16^3 points in a random column order, queries with 2, 4
+    or 8 points at exactly the same distance: the smallest index wins). The
+    instrumented build returns the same bits and re-scores at least one
+    pair a query, with every screened score within eps_q of B2's."""
+    from pose_refine_tpu_torch.probes import mxu_nn
+
     rng = np.random.default_rng(6)
     pts = (rng.normal(size=(20000, 3)) * [0.05, 0.05, 0.02] + [0, 0, 0.3]).astype(np.float32)
     pts = pts[np.lexsort((pts[:, 0], pts[:, 1], pts[:, 2]))]
-    q = torch.as_tensor((pts[rng.integers(0, 20000, 70001)]
-                         + rng.normal(0, 0.003, (70001, 3))).astype(np.float32), device=card)
-    table = NM.pack_scene_mxu(pts).to(card)
-    before = NM.launches
-    ki, kd = NM.nn_flash_mxu(q, table)
-    torch.cuda.synchronize()
-    assert NM.launches == before + 1 and ki.dtype == torch.int32 and kd.shape == (70001,)
-    pi, pd = NM.nn_flash_mxu_plain(q, table)
-    n_diff, ties_ok, dist_ok = NM.near_ties(q, pts, ki, kd, pi, pd)
-    assert ties_ok and dist_ok and n_diff < 700
-    bi, bd = NF.nn_flash_packed(q, NF.pack_scene(pts).to(card))
-    n_diff, ties_ok, dist_ok = NM.near_ties(q, pts, ki, kd, bi, bd)
-    assert ties_ok and dist_ok and n_diff < 700
+    q = (pts[rng.integers(0, 20000, 70001)]
+         + rng.normal(0, 0.003, (70001, 3))).astype(np.float32)
+    for pts, q in ((pts, q), mxu_nn.tie_lattice(16, 30000, seed=5)):
+        q = torch.as_tensor(q, device=card)
+        table = NM.pack_scene_mxu(pts).to(card)
+        before = NM.launches
+        ki, kd = NM.nn_flash_mxu(q, table)
+        torch.cuda.synchronize()
+        assert NM.launches == before + 1 and ki.dtype == torch.int32 and kd.shape == q.shape[:1]
+        pi, pd = NM.nn_flash_mxu_plain(q, table)
+        assert mxu_nn.compare(ki, kd, pi, pd)["equal"]
+        bi, bd = NF.nn_flash_packed(q, NF.pack_scene(pts).to(card))
+        assert mxu_nn.compare(ki, kd, bi, bd)["equal"]
+        si, sd, rescored, ratio = NM.nn_flash_mxu_cuda(q, table, stats=True)
+        assert mxu_nn.compare(si, sd, ki, kd)["equal"]
+        assert int(rescored.min()) >= 1 and float(ratio.max()) <= 1.0
 
 
 @pytest.mark.cuda
