@@ -32,7 +32,18 @@ non-zero without printing a result:
               version (hold_paths). The loop of before the iteration kernel
               (an Association without iterate: a fused-pass launch a pass,
               the solve in PyTorch) is printed beside it, verdicts held
-              (report_old_loop).
+              (report_old_loop). The line prints the device kernels of one
+              refine (torch.profiler); the lift must be one L1 launch.
+  4b. lift  - the window lift L1 (csrc/lift.cu) against its plain version
+              (ops.depth_to_cloud.window_lift) on the card, projective and
+              Morton order: the slice's renders (the bench shape), the bench
+              hypotheses at 640x480 under a full-resolution render's auto
+              window (480 / stride 2: P = 57,600, 8,192 points) and
+              probes/lift_cases.py's renders (empty, border-clipped, holes,
+              ROI offsets) at each of its shapes; clouds bit for bit, valid
+              equal, one launch a call. Times alone, with the wrapper and
+              plain at the first two, the bound; pipeline._window_lift of
+              the bench renders must be one device kernel.
   5. golden - the reference acceptance recipe (10 deg/axis + 20 mm) on a
               bumpy sphere at 640x480 recovers to under 1 degree, and agrees
               with the same refine through the plain versions.
@@ -250,7 +261,8 @@ work, from the bytes it must move and the operations it must do on this
 run's inputs at the H100's published peaks (see bound()).
 
 The two lines before the last are the card line from nvidia-smi and a JSON
-object of the eight kernels (rasterize with [renderer]'s renders,
+object of the nine kernels (rasterize with [renderer]'s renders,
+window_lift with its cases,
 nn_flash_packed, nn_flash_gated with its stacked launches apart,
 gather_rows, assoc_reduce with its modes, icp_iterate with its cases and its
 coarse mode, nn_kdtree, nn_flash_mxu); the last line is
@@ -405,6 +417,25 @@ def device_kernels(torch, fn):
         if d > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
             rows.append((e.key, d / 1e3, e.count))
     return sorted(rows, key=lambda r: -r[1])
+
+
+def most_kernels(torch, fn, tries=3):
+    """device_kernels of the profiled fn() call, of ``tries``, that recorded
+    the most device kernels: the profiler now and then records a call's
+    device activity in part or not at all."""
+    best = []
+    for _ in range(tries):
+        rows = device_kernels(torch, fn)
+        if sum(r[2] for r in rows) > sum(r[2] for r in best):
+            best = rows
+    return best
+
+
+def kernels_line(rows) -> str:
+    """The device kernels of one call: count, summed ms, the longest four."""
+    return (f"device_kernels={sum(calls for _n, _ms, calls in rows)} "
+            f"kernel_sum_ms={sum(ms for _n, ms, _c in rows)} "
+            f"top={[(name[:40], round(ms, 4), calls) for name, ms, calls in rows[:4]]}")
 
 
 def busy_line(torch, fn, wall_ms):
@@ -848,6 +879,62 @@ def gather_phase(torch, G, tables):
                        library_alone_ms=lib_alone, **g_bound)
     out["max_abs_err"] = max_err
     out["shapes"] = shapes
+    return out
+
+
+# FP32 operations of a kept valid point (z: convert, product; x and y: convert,
+# difference, quotient, product), and of a pixel's box test (a compare)
+LIFT_POINT_OPS = 2 + 2 * 4
+
+
+def lift_bound(depth, clouds, valid):
+    """L1's bound at one input: the framebuffer and K read once, the kept
+    rows (12 + 1 bytes) written once; a compare a pixel and LIFT_POINT_OPS a
+    valid kept point."""
+    n_valid = int(valid.sum())
+    return bound(n_bytes=depth.numel() * 4 + 36 + valid.numel() * 13,
+                 n_instr=depth.numel() + LIFT_POINT_OPS * n_valid)
+
+
+def lift_phase(torch, LC, window_lift, cases, timed):
+    """[lift]: L1 (ops/lift_cuda.py) against its plain version
+    (ops.depth_to_cloud.window_lift) on the card at each (label, depth, K,
+    window, stride, max_points, (tl_x, tl_y)), both orders (projective,
+    Morton): clouds bit for bit (as int32 views), valid equal, one launch a
+    call. At the ``timed`` labels: with the wrapper (median of 20), alone,
+    the plain version (median of 5), the bound and its share. Returns
+    {label/order: stats}."""
+    out = {}
+    for label, depth, K, window, stride, k, tl in cases:
+        for morton in (False, True):
+            kw = dict(window=window, stride=stride, max_points=k, morton=morton, tl_x=tl[0],
+                      tl_y=tl[1])
+            before = LC.launches
+            got = LC.window_lift_cuda(depth, K, **kw)
+            torch.cuda.synchronize()
+            launched = LC.launches - before
+            want = window_lift(depth, K, **kw)
+            same = (torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+                    and torch.equal(got[1], want[1]))
+            err = float((got[0] - want[0]).abs().max()) if got[0].numel() else 0.0
+            key = f"{label}, {'morton' if morton else 'projective'}"
+            st = dict(equal_bits=same, max_abs_err=err, launches=launched,
+                      shape=[*depth.shape], rows=int(got[1].shape[1]),
+                      valid_rows=int(got[1].sum()), **lift_bound(depth, *got))
+            line = ""
+            if label in timed:
+                st["ms"], _ = median_ms(torch, lambda: LC.window_lift_cuda(depth, K, **kw), 20)
+                st["alone_ms"] = alone_ms(torch, lambda: LC.window_lift_cuda(depth, K, **kw))
+                st["plain_ms"], _ = median_ms(torch, lambda: window_lift(depth, K, **kw), 5)
+                st["share_of_bound"] = st["bound_ms"] / st["alone_ms"]
+                line = (f" kernel_ms={st['ms']} kernel_alone_ms={st['alone_ms']} "
+                        f"plain_ms={st['plain_ms']} bound_ms={st['bound_ms']} "
+                        f"({st['bound_by']}) share_of_bound={st['share_of_bound']}")
+            phase("lift", f"{key}: {tuple(depth.shape)} window {window} / stride {stride}, "
+                  f"max_points {k}, tl {tl}: rows={st['rows']} valid_rows={st['valid_rows']} "
+                  f"equal_bits={same} max_abs_err={err} launches={launched}{line}")
+            check(same and launched == 1, f"lift {key}: kernel != plain or {launched} launches")
+            out[key] = st
     return out
 
 
@@ -1909,9 +1996,11 @@ def main():
     from pose_refine_tpu_torch import _build, geometry, icp, mesh
     from pose_refine_tpu_torch.ops import gather as G
     from pose_refine_tpu_torch.ops import icp_reduce as IR
+    from pose_refine_tpu_torch.ops import lift_cuda as LC
     from pose_refine_tpu_torch.ops import rasterize_cuda as RC
-    from pose_refine_tpu_torch.pipeline import refine_poses
-    from pose_refine_tpu_torch.probes import mxu_nn, nn_ties
+    from pose_refine_tpu_torch.ops.depth_to_cloud import window_lift
+    from pose_refine_tpu_torch.pipeline import _window_lift, refine_poses
+    from pose_refine_tpu_torch.probes import lift_cases, mxu_nn, nn_ties
     from pose_refine_tpu_torch.scene import nn_flash as NF
     from pose_refine_tpu_torch.scene import nn_kdtree as KD
     from pose_refine_tpu_torch.scene import nn_mxu as NM
@@ -1932,10 +2021,11 @@ def main():
     def reset_counts():
         RC.launches = NF.packed_launches = NF.gated_launches = G.launches = 0
         NF.stacked_launches = NM.launches = IR.launches = KD.launches = 0
-        IR.iterate_launches = 0
+        IR.iterate_launches = LC.launches = 0
 
     def counts():
-        return {"rasterize": RC.launches, "nn_flash_packed": NF.packed_launches,
+        return {"rasterize": RC.launches, "window_lift": LC.launches,
+                "nn_flash_packed": NF.packed_launches,
                 "nn_flash_gated": NF.gated_launches,
                 "nn_flash_gated_stacked": NF.stacked_launches, "gather_rows": G.launches,
                 "assoc_reduce": IR.launches, "icp_iterate": IR.iterate_launches,
@@ -2081,6 +2171,30 @@ def main():
     tris = torch.as_tensor(tris_np, device=dev)
     shapes, refiner, mm_ref, scene, _truth = raster_shapes(torch, ptt, geometry, mesh, dev)
     check(scene.max() > 0 and 200 < scene[scene > 0].min() < 300, "implausible scene depth")
+    poses = torch.as_tensor(poses_np, device=dev)
+    crit = ptt.ICPConvergenceCriteria(max_iteration=ITERS)
+    truths, frames = track_frames(
+        geometry, lambda p: RC.rasterize(tris, torch.as_tensor(p, device=dev), WIDTH, HEIGHT,
+                                         proj), truth)
+    hyps0 = first_hypotheses(ptt, truth)
+    # the device kernels of one refine ([slice]), one tracked frame of each
+    # scene kind ([track]) and the pipeline's lift of the bench renders
+    # ([lift]), profiled now: once the plain rasters of [kernel] have run
+    # (tens of seconds of launches), this process's profiler no longer
+    # records the port's kernels launched with <<<>>> (checked on the card;
+    # a fresh process records them, as compare_lift.py and profile_port.py do)
+    refiner.refine(poses, crit)
+    bench_depth = RC.rasterize(refiner.tris, poses, refiner.render_w, refiner.render_h,
+                               refiner.proj, roi=refiner.roi)
+    census = {"slice": most_kernels(torch, lambda: refiner.refine(poses, crit)),
+              "lift": most_kernels(torch, lambda: _window_lift(
+                  bench_depth, refiner._K_render_t, refiner.scene, refiner.max_points,
+                  refiner.window, refiner.stride, refiner.roi))}
+    for label, kw in TRACK_CONFIGS:
+        t_ref = ptt.PoseRefiner(model, K=K, device="cuda", **kw, **CFG)
+        t_ref.track(frames[0], hyps0, with_covariance=True)  # plans the ROI and the pool
+        census[label] = most_kernels(
+            torch, lambda: t_ref.track(frames[0], hyps0, with_covariance=True))
     old = None
     if os.path.exists(compare_raster.PARENT):
         old = compare_raster.OtherRaster(compare_raster.PARENT)
@@ -2093,20 +2207,18 @@ def main():
         if name == "scene":
             check(torch.equal(out[0].cpu(), torch.as_tensor(scene)), "scene render not repeatable")
     hyp_stats = raster_stats["hypotheses"]
-    poses = torch.as_tensor(poses_np, device=dev)
     rw, rh = refiner.render_w, refiner.render_h
 
     # 4. the slice end to end through the kernel
-    crit = ptt.ICPConvergenceCriteria(max_iteration=ITERS)
     reset_counts()
     refined, res = refiner.refine(poses, crit)
     torch.cuda.synchronize()
     slice_counts = counts()
     launches = slice_counts["rasterize"]
-    check(launches > 0 and slice_counts["icp_iterate"] == 1
+    check(launches > 0 and slice_counts["icp_iterate"] == 1 and slice_counts["window_lift"] == 1
           and slice_counts["assoc_reduce"] == 0 and slice_counts["gather_rows"] == 0,
-          f"refine did not launch the raster kernel and the ICP loop as one iteration-kernel "
-          f"launch: {slice_counts}")
+          f"refine did not launch the raster kernel, the lift as one L1 launch and the ICP loop "
+          f"as one iteration-kernel launch: {slice_counts}")
     refined_np = refined.cpu().numpy()
     check(refined_np.shape == (N_POSES, 4, 4) and np.isfinite(refined_np).all(),
           "refined poses not finite (N, 4, 4)")
@@ -2139,7 +2251,8 @@ def main():
           f"translation_err_mm median={float(np.median(err_mm))} "
           f"p90={float(np.percentile(err_mm, 90))} (start median "
           f"{float(np.median(start_mm))}) mean_fitness={float(fit.mean())} "
-          f"launches={slice_counts}")
+          f"launches={slice_counts}; one refine (profiled before [kernel]): "
+          f"{kernels_line(census['slice'])}")
     check(float(fit.mean()) > 0.9, f"mean fitness {float(fit.mean())} too low")
     check(float(np.median(err_mm)) < 0.25 * float(np.median(start_mm)),
           "the refine did not pull the translations toward the truth")
@@ -2151,7 +2264,7 @@ def main():
         torch.as_tensor(refiner.K_render, device=dev),
         width=rw, height=rh, max_points=refiner.max_points, criteria=crit,
         window=refiner.window, stride=refiner.stride, roi=refiner.roi,
-        raster=RC.rasterize_plain)
+        raster=RC.rasterize_plain, lifter=window_lift)
     torch.cuda.synchronize()
     p_wall = time.perf_counter() - t0
     p_np = p_refined.cpu().numpy()
@@ -2163,7 +2276,7 @@ def main():
         ((rotation_angle_deg(p_np, truth) < VERDICT_DEG) == (err_deg < VERDICT_DEG))
         & ((p_err_mm < 2.0) == (err_mm < 2.0))
     ).mean())
-    phase("slice", f"plain raster path: wall_ms={p_wall * 1e3} verdict_agreement={agree} "
+    phase("slice", f"plain raster and lift path: wall_ms={p_wall * 1e3} verdict_agreement={agree} "
           f"max_drot_deg={d_rot} max_dt_mm={d_t} max_dfit={d_fit}")
     check(agree == 1.0 and d_rot <= MAX_DROT_DEG and d_t <= MAX_DT_MM and d_fit <= MAX_DFIT,
           "kernel path and plain path disagree")
@@ -2187,6 +2300,34 @@ def main():
                                        m_refined.cpu().numpy(), fit,
                                        m_res.fitness.cpu().numpy()), path_failures,
                     old_loop_counts)
+
+    # 4b. the window lift L1 against its plain version: the slice's renders
+    # (the bench shape), the bench hypotheses at 640x480 under the auto
+    # window of a full-resolution render (480 / stride 2: P = 57,600, 8,192
+    # points), and lift_cases' renders at each of its regimes
+    t0 = time.perf_counter()
+    roi = refiner.roi
+    full_depth = RC.rasterize(refiner.tris, poses, WIDTH, HEIGHT, proj)
+    lift_inputs = [("bench", bench_depth, refiner._K_render_t, refiner.window, refiner.stride,
+                    refiner.max_points, (roi[0], roi[1])),
+                   ("full-frame p57600", full_depth, torch.as_tensor(K, device=dev), 480, 2,
+                    8192, (0, 0))]
+    for l_name, (l_h, l_w, *l_args) in lift_cases.SHAPES.items():
+        K_case = np.asarray(K, np.float32).copy()
+        K_case[0] *= l_w / WIDTH
+        K_case[1] *= l_h / HEIGHT
+        lift_inputs.append((l_name, torch.as_tensor(lift_cases.renders(l_h, l_w, seed=2),
+                                                    device=dev),
+                            torch.as_tensor(K_case, device=dev), *l_args))
+    lift_stats = lift_phase(torch, LC, window_lift, lift_inputs,
+                            timed=("bench", "full-frame p57600"))
+    # the pipeline's lift of the bench renders: one L1 launch, no other kernel
+    lift_kernels = census["lift"]
+    phase("lift", f"pipeline._window_lift of the bench renders: device kernels {lift_kernels}; "
+          f"phase seconds={time.perf_counter() - t0}")
+    check(len(lift_kernels) == 1 and lift_kernels[0][2] == 1
+          and "window_lift" in lift_kernels[0][0],
+          f"the pipeline's lift is not one L1 launch: {lift_kernels}")
 
     # 5. golden recovery (tests/test_icp.py:22-39 recipe) on the bumpy sphere
     ang = np.float32(10.0 / 180.0 * 3.14)
@@ -2214,6 +2355,7 @@ def main():
             ref._K_render_t, width=ref.render_w, height=ref.render_h,
             max_points=ref.max_points, criteria=criteria,
             window=ref.window, stride=ref.stride, roi=ref.roi, raster=RC.rasterize_plain,
+            lifter=window_lift,
             query=icp.plain_association(functools.partial(ref.scene.query, plain=True)),
             robust_delta=ref.robust_delta, estimation=ref.estimation)
         return agreement(rotation_angle_deg, pose2, k_pose.cpu().numpy(), p_pose.cpu().numpy(),
@@ -2288,7 +2430,8 @@ def main():
             roi=ref.roi, proj=ref.proj, K=ref._K_render_t)
         t0 = time.perf_counter()
         nn_plain = functools.partial(ref.scene.query, plain=True)
-        p_refined, p_res = rp(scene=ref.scene, query=icp.plain_association(nn_plain))
+        p_refined, p_res = rp(scene=ref.scene, lifter=window_lift,
+                              query=icp.plain_association(nn_plain))
         torch.cuda.synchronize()
         p_wall = (time.perf_counter() - t0) * 1e3
         hold_paths("nn-slice", "2mm through the plain NN and the plain fused pass",
@@ -2359,6 +2502,7 @@ def main():
             height=ref.render_h, max_points=ref.max_points, criteria=crit, window=ref.window,
             stride=ref.stride, roi=ref.roi, robust_delta=ref.robust_delta,
             estimation=ref.estimation,
+            lifter=window_lift,
             query=icp.plain_association(functools.partial(ref.scene.query, plain=True)))
         torch.cuda.synchronize()
         p_wall = (time.perf_counter() - t0) * 1e3
@@ -2550,10 +2694,6 @@ def main():
     projective_case("a gate that rejects everything", shut, slice_cloud, slice_valid, count=0.0)
 
     # 10. bench.py's tracking workload through TrackingSession
-    truths, frames = track_frames(
-        geometry, lambda p: RC.rasterize(tris, torch.as_tensor(p, device=dev), WIDTH, HEIGHT,
-                                         proj), truth)
-    hyps0 = first_hypotheses(ptt, truth)
     control = sync_sites(torch, lambda: torch.ones(1, device=dev).item())
     check(sum(control.values()) >= 1, f"the sync counter missed an .item(): {dict(control)}")
     track_counts, track_gathers = {}, {}
@@ -2587,12 +2727,14 @@ def main():
               f"step_async_ms_per_frame={a_ms} step_ms_per_frame={s_ms} "
               f"n_rejected={session.n_rejected} final_translation_err_mm={t_err} "
               f"final_rotation_err_deg={r_err} (icosphere: rotation unobservable) "
-              f"launches={c} syncs_in_one_step_async={sum(syncs.values())} {dict(syncs)}")
+              f"launches={c} syncs_in_one_step_async={sum(syncs.values())} {dict(syncs)}; "
+              f"one frame (profiled before [kernel]): {kernels_line(census[label])}")
         # a frame: the ICP loop through the iteration kernel (one launch
         # against the projective scene, one a pass - 30 iterations and the
         # scoring pass - against the NN scene), the information pass
         # through the row gather
         check(c["rasterize"] > 0 and c["gather_rows"] == N_TRACK and c["assoc_reduce"] == 0
+              and c["window_lift"] == N_TRACK
               and c["icp_iterate"] == (1 if label == "projective" else 31) * N_TRACK
               and (label == "projective" or c["nn_flash_gated"] > 0),
               f"track {label}: launches {c}")
@@ -2735,6 +2877,7 @@ def main():
         # fused pass)
         t0 = time.perf_counter()
         p_refined, p_res = rp(criteria=crit, raster=RC.rasterize_plain,
+                              lifter=window_lift,
                               query=icp.plain_association(stack.query_at(ms_ids_t, plain=True)))
         torch.cuda.synchronize()
         p_wall = (time.perf_counter() - t0) * 1e3
@@ -2788,6 +2931,7 @@ def main():
         mm_tris, poses, mm_ref.scene, mm_ref.proj, mm_ref._K_render_t, width=mm_ref.render_w,
         height=mm_ref.render_h, max_points=mm_ref.max_points, criteria=crit,
         window=mm_ref.window, stride=mm_ref.stride, roi=mm_ref.roi, raster=RC.rasterize_plain,
+        lifter=window_lift,
         query=icp.plain_association(functools.partial(mm_ref.scene.query, plain=True)))
     hold_paths("multimodel", "through the plain versions",
                agreement(rotation_angle_deg, truth, mm_np, p_refined.cpu().numpy(), mm_fit,
@@ -2995,6 +3139,7 @@ def main():
         max_points=coarse_ref.max_points, criteria=crit, window=coarse_ref.window,
         stride=coarse_ref.stride, roi=coarse_ref.roi, coarse_iters=COARSE[0],
         coarse_stride=COARSE[1], raster=RC.rasterize_plain,
+        lifter=window_lift,
         query=icp.plain_association(functools.partial(coarse_ref.scene.query, plain=True)))
     torch.cuda.synchronize()
     hold_paths("coarse", "serving refine through the plain versions", agreement(
@@ -3043,6 +3188,7 @@ def main():
         height=kd_ref.render_h, max_points=kd_ref.max_points, criteria=crit,
         window=kd_ref.window, stride=kd_ref.stride, roi=kd_ref.roi, coarse_iters=COARSE[0],
         coarse_stride=COARSE[1],
+        lifter=window_lift,
         query=icp.plain_association(functools.partial(kd_ref.scene.query, plain=True)))
     hold_paths("coarse", "scene='nn' 2 mm coarse refine (256) through the plain versions",
                agreement(rotation_angle_deg, truth, kc_refined.cpu().numpy(),
@@ -3122,6 +3268,7 @@ def main():
                 criteria=ptt.ICPConvergenceCriteria(crit.relative_fitness, crit.relative_rmse,
                                                     iters),
                 window=s_ref.window, stride=s_ref.stride, roi=s_ref.roi, raster=RC.rasterize_plain,
+                lifter=window_lift,
                 query=icp.plain_association(functools.partial(g_scene.query, plain=True)))
         torch.cuda.synchronize()
         hold_paths("schedule", f"{label} through the plain versions", agreement(
@@ -3284,6 +3431,28 @@ def main():
         "shapes": {name: {k: st[k] for k in ("alone_ms", "ms", "old_alone_ms",
                                              "old_setup_alone_ms", "bound_ms", "bound_by")}
                    for name, st in raster_stats.items()},
+    }, {
+        "name": "window_lift",
+        "route": "cuda",
+        "source": "pose_refine_tpu_torch/csrc/lift.cu",
+        # XLA code, not a Pallas kernel: window_cloud_batched, compact_topk
+        # and morton_key as the JAX pipeline composes them
+        "replaces": "pose_refine_tpu/ops/depth_to_cloud.py:101,198 + "
+                    "pose_refine_tpu/pipeline.py:111-146",
+        "launches": slice_counts["window_lift"],
+        "launches_track": track_counts["projective"]["window_lift"],
+        "launches_track_nn": track_counts["nn"]["window_lift"],
+        "max_abs_err": max(st["max_abs_err"] for st in lift_stats.values()),
+        **{k: lift_stats["bench, projective"][k]
+           for k in ("ms", "alone_ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound")},
+        "library_ms": None,
+        "library": "none: no one PyTorch call computes the crop, the selection and the order",
+        # every [lift] case: bit for bit; the timed ones alone, with the
+        # wrapper, plain, the bound
+        "cases": {key: {k: st[k] for k in ("equal_bits", "rows", "valid_rows", "alone_ms", "ms",
+                                           "plain_ms", "bound_ms", "bound_by", "share_of_bound")
+                        if k in st}
+                  for key, st in lift_stats.items()},
     }, {
         "name": "nn_flash_packed", **nn_sources,
         "replaces": "pose_refine_tpu/scene/nn_pallas.py:101",

@@ -8,6 +8,8 @@ the rendered object, strided) and keeps a fixed budget of points with
 scan order with ``compact_points`` (the reference's exclusive-scan
 compaction, icp.cpp:61-96). All reproduce the JAX functions' results
 exactly: the same window, the same kept points in the same order.
+``window_lift`` is the refine's whole window lift (crop, compaction,
+Morton order), the plain version of the kernel L1 (``ops/lift_cuda.py``).
 """
 
 from __future__ import annotations
@@ -99,7 +101,7 @@ def morton_key(idx: torch.Tensor, sh: int, sw: int) -> torch.Tensor:
 
 
 def _hash_rank(p: int, device) -> torch.Tensor:
-    """(r * 507951913 as wrapping int32) mod p, Python-sign remainder, for
+    """(r * 506952113 as wrapping int32) mod p, Python-sign remainder, for
     r in [0, p): the JAX package's int32 product and ``%``, computed in
     int64 so the wrap is explicit rather than left to the platform."""
     r = torch.arange(p, dtype=torch.int64, device=device)
@@ -206,3 +208,35 @@ def window_cloud_batched(depth, K, window: int = 256, stride: int = 2,
     pts = torch.stack([x, y, z], dim=-1)
     pts = torch.where(valid[..., None], pts, torch.zeros_like(pts))
     return pts, valid, valid.sum(dim=1)
+
+
+def window_grid(h: int, w: int, window: int, stride: int):
+    """(sh, sw): the strided window's grid on an (h, w) render, each side
+    ceil(min(window, side) / stride)."""
+    return -(-min(window, h) // stride), -(-min(window, w) // stride)
+
+
+def window_lift(depth, K, *, window: int, stride: int, max_points: int, morton: bool,
+                tl_x: int = 0, tl_y: int = 0):
+    """The refine's window lift of (N, H, W) int32 renders (JAX
+    pipeline.py:111-146): window_cloud_batched's crop, then, when the
+    window's P = sh * sw slots exceed ``max_points``, compact_topk's
+    selection. ``morton`` (NN scenes): the rows in Morton order of the
+    window grid - the kept valid rows, then the kept invalid ones; without
+    a selection all P rows, invalid ones interleaved. Plain PyTorch on any
+    device: the plain version of the kernel L1 (ops/lift_cuda.py).
+
+    Returns (clouds (N, P', 3) float32 m, invalid rows zero; valid (N, P')),
+    P' = min(max_points, P)."""
+    depth = torch.as_tensor(depth)
+    sh, sw = window_grid(depth.shape[1], depth.shape[2], window, stride)
+    clouds, valids, _n = window_cloud_batched(depth, K, window=window, stride=stride,
+                                              tl_x=tl_x, tl_y=tl_y)
+    if max_points < sh * sw:
+        clouds, valids, _n = compact_topk(clouds, valids, max_points,
+                                          order_shape=(sh, sw) if morton else None)
+    elif morton:
+        code = morton_key(torch.arange(sh * sw, device=clouds.device), sh, sw)
+        perm = torch.argsort(code, stable=True)
+        clouds, valids = clouds[:, perm], valids[:, perm]
+    return clouds, valids

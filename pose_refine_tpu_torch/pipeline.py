@@ -33,11 +33,10 @@ from pose_refine_tpu_torch.device import DeviceLike, resolve_device, to_device
 from pose_refine_tpu_torch.mesh import Model, morton_order, simplify_vertex_clustering
 from pose_refine_tpu_torch.ops.depth_to_cloud import (
     compact_points,
-    compact_topk,
     depth_image_to_points,
-    morton_key,
-    window_cloud_batched,
+    window_lift,
 )
+from pose_refine_tpu_torch.ops.lift_cuda import window_lift_cuda
 from pose_refine_tpu_torch.ops.rasterize_cuda import IndexedTris, rasterize, rasterize_plain
 from pose_refine_tpu_torch.parallel import sharding
 from pose_refine_tpu_torch.scene.nn import (
@@ -78,6 +77,7 @@ def refine_poses(tris, init_poses, scene: Union[SceneProjective, SceneNN, SceneP
                  criteria: icp.ICPConvergenceCriteria, window: int = 256,
                  stride: int = 2, roi=(0, 0, 0, 0), with_information: bool = False,
                  scene_ids=None, raster: Optional[Callable] = None,
+                 lifter: Optional[Callable] = None,
                  query: Optional[Callable] = None, robust_delta: float = 0.0,
                  estimation: str = "point_to_plane", lift: str = "window",
                  coarse_iters: int = 0, coarse_stride: int = 2):
@@ -92,7 +92,9 @@ def refine_poses(tris, init_poses, scene: Union[SceneProjective, SceneNN, SceneP
     an (N,) integer tensor of each pose's frame: every association pass is
     one batched ``scene.query_at(scene_ids)`` over all poses.
     ``raster`` replaces the rasterizer (default: ops.rasterize_cuda.rasterize,
-    the kernel on CUDA tensors) and ``query`` the association. By default
+    the kernel on CUDA tensors), ``lifter`` the window lift (default: the
+    kernel L1 on CUDA renders, see _window_lift; ops.depth_to_cloud.window_lift
+    is its plain version on any device) and ``query`` the association. By default
     the ICP loop gets the scene's icp.Association (query, reduce and, on a
     card, iterate; or query_at, reduce_at and iterate_at of scene_ids): on a
     card the loop is the iteration kernel of ops/icp_reduce.py, one launch a
@@ -119,8 +121,8 @@ def refine_poses(tris, init_poses, scene: Union[SceneProjective, SceneNN, SceneP
     refined, results, final, valids = _refine_clouds(
         tris, init_poses, scene, proj, K, query, width=width, height=height,
         max_points=max_points, criteria=criteria, window=window, stride=stride, roi=roi,
-        raster=raster, robust_delta=robust_delta, estimation=estimation, lift=lift,
-        coarse_iters=coarse_iters, coarse_stride=coarse_stride)
+        raster=raster, lifter=lifter, robust_delta=robust_delta, estimation=estimation,
+        lift=lift, coarse_iters=coarse_iters, coarse_stride=coarse_stride)
     if not with_information:
         return refined, results
     return refined, results, _information(final, valids, query, K, robust_delta, estimation)
@@ -150,6 +152,7 @@ def _association(scene, scene_ids, card: bool, plain: bool = False,
 def _refine_clouds(tris, init_poses, scene, proj, K, query, *, width: int, height: int,
                    max_points: int, criteria: icp.ICPConvergenceCriteria, window: int = 256,
                    stride: int = 2, roi=(0, 0, 0, 0), raster: Optional[Callable] = None,
+                   lifter: Optional[Callable] = None,
                    robust_delta: float = 0.0, estimation: str = "point_to_plane",
                    lift: str = "window", coarse_iters: int = 0, coarse_stride: int = 2):
     """refine_poses up to the ICP against ``query``: (refined, results, the
@@ -157,7 +160,8 @@ def _refine_clouds(tris, init_poses, scene, proj, K, query, *, width: int, heigh
     raster = rasterize if raster is None else raster
     depth = raster(tris, init_poses, width, height, proj, roi=roi)
     if lift == "window":
-        clouds, valids = _window_lift(depth, K, scene, max_points, window, stride, roi)
+        clouds, valids = _window_lift(depth, K, scene, max_points, window, stride, roi,
+                                      lifter)
     else:
         # the ROI render's pixel (0, 0) is image pixel (roi_x, roi_y)
         pts, mask = depth_image_to_points(depth, K, tl_x=roi[0], tl_y=roi[1])
@@ -197,8 +201,9 @@ def _shard_clouds(tris, init_poses, scene, proj, K, scene_ids=None, plain: bool 
     sums in the order of a batch of ``order_batch`` poses."""
     query = _association(scene, scene_ids, init_poses.device.type == "cuda", plain,
                          order_batch)
-    return _refine_clouds(tris, init_poses, scene, proj, K, query,
-                          raster=rasterize_plain if plain else None, **kw)
+    if plain:
+        kw.update(raster=rasterize_plain, lifter=window_lift)
+    return _refine_clouds(tris, init_poses, scene, proj, K, query, **kw)
 
 
 def refine_poses_split(devices, tris, init_poses, scene, proj, K, *, scene_ids=None,
@@ -212,8 +217,8 @@ def refine_poses_split(devices, tris, init_poses, scene, proj, K, *, scene_ids=N
     the pass's reductions and matrix products pick their order on a card
     from the batch's size, so only the whole batch gives the one-device
     refine's bits. Every output equals refine_poses' bit for bit.
-    plain=True runs the kernels' plain versions (the raster and the
-    association)."""
+    plain=True runs the kernels' plain versions (the raster, the lift and
+    the association)."""
     refined, results, final, valids = sharding.run_sharded(
         devices, _shard_clouds, tris, init_poses, (scene, proj, K), {"scene_ids": scene_ids},
         replicas=replicas, plain=plain, order_batch=int(init_poses.shape[0]), **kw)
@@ -227,27 +232,21 @@ def refine_poses_split(devices, tris, init_poses, scene, proj, K, *, scene_ids=N
                                           kw.get("estimation", "point_to_plane"))
 
 
-def _window_lift(depth, K, scene, max_points: int, window: int, stride: int, roi):
-    """The window lift of (N, H, W) renders: (clouds (N, P, 3), valid (N,
-    P)), P = max_points or the strided window's size if that is smaller."""
-    out_h, out_w = depth.shape[1:]
-    wh = -(-min(window, out_h) // stride)
-    ww = -(-min(window, out_w) // stride)
-    clouds, valids, _n = window_cloud_batched(
-        depth, K, window=window, stride=stride, tl_x=roi[0], tl_y=roi[1]
-    )
+def _window_lift(depth, K, scene, max_points: int, window: int, stride: int, roi,
+                 lifter: Optional[Callable] = None):
+    """The window lift of (N, H, W) renders (JAX pipeline.py:111-146):
+    (clouds (N, P, 3), valid (N, P)), P = max_points or the strided
+    window's size if that is smaller. CUDA renders go to the kernel L1
+    (ops/lift_cuda.py, one launch), CPU renders to its plain version
+    (ops.depth_to_cloud.window_lift); ``lifter`` replaces both."""
+    if lifter is None:
+        lifter = window_lift if depth.device.type == "cpu" else window_lift_cuda
     # NN scenes take the clouds in morton order of the window grid, so the
     # flash kernel's query tiles are local patches its chunk pruning can
     # bound; projective association is an image gather, order-free
     nn_order = isinstance(scene, (SceneNN, SceneNNStack))
-    if max_points < wh * ww:
-        clouds, valids, _n = compact_topk(
-            clouds, valids, max_points, order_shape=(wh, ww) if nn_order else None)
-    elif nn_order:
-        code = morton_key(torch.arange(wh * ww, device=clouds.device), wh, ww)
-        perm = torch.argsort(code, stable=True)
-        clouds, valids = clouds[:, perm], valids[:, perm]
-    return clouds, valids
+    return lifter(depth, K, window=window, stride=stride, max_points=max_points,
+                  morton=nn_order, tl_x=roi[0], tl_y=roi[1])
 
 
 def _pack_track_outputs(refined, results: icp.RegistrationResult,
@@ -270,14 +269,15 @@ def _pack_track_outputs(refined, results: icp.RegistrationResult,
 def _refine_frame(scene, tris, init_poses, proj, K_render, pack_outputs: bool = False,
                   plain: bool = False, devices=None, replicas: Optional[dict] = None, **kw):
     """The refine of one tracked frame against its freshly built scene;
-    plain=True runs the kernels' plain versions (raster, NN, gather, the
-    fused ICP pass); ``devices`` splits the batch (refine_poses_split)."""
+    plain=True runs the kernels' plain versions (raster, lift, NN, gather,
+    the fused ICP pass); ``devices`` splits the batch (refine_poses_split)."""
     if devices:
         out = refine_poses_split(devices, tris, init_poses, scene, proj, K_render, plain=plain,
                                  replicas=replicas, **kw)
     else:
         if plain:
-            kw.update(raster=rasterize_plain, query=_association(scene, None, False, plain=True))
+            kw.update(raster=rasterize_plain, lifter=window_lift,
+                      query=_association(scene, None, False, plain=True))
         out = refine_poses(tris, init_poses, scene, proj, K_render, **kw)
     return _pack_track_outputs(*out) if pack_outputs else out
 
@@ -1044,8 +1044,8 @@ class PoseRefiner:
         plus an icp.PoseUncertainty batch with with_covariance=True.
 
         ``_pack_outputs`` (sessions) returns the (N, 71) session buffer
-        instead; ``_plain`` runs the kernels' plain versions (raster, NN,
-        gather, the fused ICP pass), the reference a kernel path is held against."""
+        instead; ``_plain`` runs the kernels' plain versions (raster, lift,
+        NN, gather, the fused ICP pass), the reference a kernel path is held against."""
         return self._track(self.tris, frame_depth, init_poses, criteria, with_covariance,
                            _pack_outputs, _plain)
 

@@ -9,7 +9,8 @@ projective refine, the three NN configurations on the gated flash kernel
 (scene="nn_bruteforce") and the kd cells kd-2mm-256 and kd-raw-256
 (scene="nn", the kd traversal K1 on the card). For each cell it
 prints one line with the host scene build, the refine's wall and
-CUDA-event ms (median of 5), the raster, lift and ICP stages each timed
+CUDA-event ms (median of 5), the raster, lift (the pipeline's
+``_window_lift``: the kernel L1 on the card) and ICP stages each timed
 alone by CUDA events (median of 5; a cascade's ICP stage is its
 full-resolution pass) with the raster's device kernel count, one
 association pass, and, from ``torch.profiler``
@@ -162,21 +163,14 @@ def main():
     import pose_refine_tpu_torch as ptt
     from pose_refine_tpu_torch import geometry, icp, mesh
     from pose_refine_tpu_torch.ops import rasterize_cuda as RC
-    from pose_refine_tpu_torch.ops.depth_to_cloud import compact_topk, window_cloud_batched
-    from pose_refine_tpu_torch.pipeline import _pack_track_outputs, refine_poses
-    from pose_refine_tpu_torch.scene.nn import SceneNN, SceneNNStack
+    from pose_refine_tpu_torch.pipeline import _pack_track_outputs, _window_lift, refine_poses
+    from pose_refine_tpu_torch.scene.nn import SceneNN
     from pose_refine_tpu_torch.scene.projective import SceneProjective
 
-    def lift_fn(ref, depth, nn: bool):
-        win, stride = ref.window, ref.stride
-        wh = -(-min(win, depth.shape[1]) // stride)
-        ww = -(-min(win, depth.shape[2]) // stride)
-
-        def lift():
-            c, v, _ = window_cloud_batched(depth, ref._K_render_t, window=win, stride=stride,
-                                           tl_x=ref.roi[0], tl_y=ref.roi[1])
-            return compact_topk(c, v, ref.max_points, order_shape=(wh, ww) if nn else None)
-        return lift
+    def lift_fn(ref, scene, depth):
+        """The refine's lift of ``depth`` against ``scene``: L1 on the card."""
+        return lambda: _window_lift(depth, ref._K_render_t, scene, ref.max_points, ref.window,
+                                    ref.stride, ref.roi)
 
     dev = torch.device("cuda")
     model, tris_np, truth, poses_np = CS.workload(geometry, mesh)
@@ -201,7 +195,6 @@ def main():
     def refine_cell(cell, ref, build_ms, refine, tris, hyps, query, crit, scene_ids=None):
         """One refine cell's lines: wall, device span, stages, profile; then
         the loop of before the fused pass against the default one."""
-        nn = isinstance(ref.scene, (SceneNN, SceneNNStack))
         refine()  # warm
         wall_ms, span_ms = CS.refine_ms(torch, refine)
         rw, rh = ref.render_w, ref.render_h
@@ -210,7 +203,7 @@ def main():
 
         raster_ms, depth = event_ms(torch, raster)
         raster_kernels = sum(calls for _n, _ms, calls in CS.device_kernels(torch, raster))
-        lift_ms, (clouds, valids, _) = event_ms(torch, lift_fn(ref, depth, nn))
+        lift_ms, (clouds, valids) = event_ms(torch, lift_fn(ref, ref.scene, depth))
         if scene_ids is None:
             assoc = icp.Association(query, ref.scene.reduce, ref.scene.iterate)
         else:
@@ -311,7 +304,7 @@ def main():
 
         raster_ms, depth = event_ms(torch, raster)
         raster_kernels = sum(calls for _n, _ms, calls in CS.device_kernels(torch, raster))
-        lift_ms, (clouds, valids, _) = event_ms(torch, lift_fn(ref, depth, nn))
+        lift_ms, (clouds, valids) = event_ms(torch, lift_fn(ref, sc, depth))
         icp_ms, (_res, final) = event_ms(torch, lambda: icp._icp_run(
             clouds, valids, icp.Association(sc.query, sc.reduce, sc.iterate), crit))
 

@@ -21,8 +21,10 @@ import pose_refine_tpu_torch as ptt
 from pose_refine_tpu_torch import _build, geometry, mesh
 from pose_refine_tpu_torch.ops import gather as G
 from pose_refine_tpu_torch.ops import icp_reduce as IR
+from pose_refine_tpu_torch.ops import lift_cuda as LC
 from pose_refine_tpu_torch.ops import rasterize_cuda as RC
-from pose_refine_tpu_torch.probes import nn_ties, raster_edges
+from pose_refine_tpu_torch.ops.depth_to_cloud import window_lift
+from pose_refine_tpu_torch.probes import lift_cases, nn_ties, raster_edges
 from pose_refine_tpu_torch.scene import nn_flash as NF
 from pose_refine_tpu_torch.scene import nn_kdtree as KD
 from pose_refine_tpu_torch.scene import nn_mxu as NM
@@ -108,6 +110,9 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         IR.assoc_reduce_indexed_cuda(cloud, valid, torch.zeros((12, 8)),
                                      torch.zeros((2, 4), dtype=torch.int32),
                                      torch.zeros((2, 4)), 0.01)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        LC.window_lift_cuda(torch.zeros((2, 8, 8), dtype=torch.int32), torch.eye(3), window=4,
+                            stride=2, max_points=3, morton=False)
 
 
 def test_nn_scene_on_cuda_raises_without_card(no_card):
@@ -128,8 +133,9 @@ def test_build_without_nvcc_raises(no_card):
 def test_build_key_covers_sources_and_flags():
     key = _build.build_info_key()
     assert len(key) == 16 and key == _build.build_info_key()
-    assert [p.name for p in _build._sources()] == ["gather.cu", "icp_reduce.cu", "nn_flash.cu",
-                                                   "nn_kdtree.cu", "nn_mxu.cu", "rasterize.cu"]
+    assert [p.name for p in _build._sources()] == ["gather.cu", "icp_reduce.cu", "lift.cu",
+                                                   "nn_flash.cu", "nn_kdtree.cu", "nn_mxu.cu",
+                                                   "rasterize.cu"]
 
 
 def test_package_imports_without_jax():
@@ -598,7 +604,7 @@ def test_nn_scene_refine_takes_kd_on_card(card):
         ref.tris, torch.as_tensor(hyps, device=card), ref.scene, ref.proj, ref._K_render_t,
         width=ref.render_w, height=ref.render_h, max_points=ref.max_points, criteria=crit,
         window=ref.window, stride=ref.stride, roi=ref.roi, raster=RC.rasterize_plain,
-        query=icp.plain_association(lambda c: ref.scene.query(c, plain=True)))
+        lifter=window_lift, query=icp.plain_association(lambda c: ref.scene.query(c, plain=True)))
     assert torch.equal(refined, p_refined) and torch.equal(res.fitness, p_res.fitness)
     assert float(res.fitness.min()) > 0.5
     ref.set_scene_depths(torch.stack([frame, frame]).cpu().numpy())
@@ -1035,7 +1041,7 @@ def test_schedule_refine_on_card_matches_cpu(card, scene):
                 height=ref.render_h, max_points=ref.max_points,
                 criteria=ptt.ICPConvergenceCriteria(max_iteration=iters), window=ref.window,
                 stride=ref.stride, roi=ref.roi, coarse_iters=6, coarse_stride=2,
-                raster=RC.rasterize_plain,
+                raster=RC.rasterize_plain, lifter=window_lift,
                 query=icp.plain_association(functools.partial(gs.query, plain=True)))
         return poses.cpu().numpy(), res.fitness.cpu().numpy()
 
@@ -1146,7 +1152,7 @@ def test_refine_is_one_iteration_launch_on_card(card):
             ref.tris, torch.as_tensor(hyps, device=card), ref.scene, ref.proj,
             ref._K_render_t, width=ref.render_w, height=ref.render_h,
             max_points=ref.max_points, criteria=crit, window=ref.window, stride=ref.stride,
-            roi=ref.roi, raster=RC.rasterize_plain,
+            roi=ref.roi, raster=RC.rasterize_plain, lifter=window_lift,
             query=icp.plain_association(lambda c: ref.scene.query(c, plain=True)))
         assert torch.equal(refined, p_refined) and torch.equal(res.fitness, p_res.fitness)
         assert float(res.fitness.min()) > 0.5
@@ -1274,3 +1280,133 @@ def test_devices_split_equals_single_on_card(card, scene):
         assert (a is None and b is None) or torch.equal(a, b)
     packed = [r.track_packed_async(frame, hyps, crit).wait()[0] for r in (split, one)]
     assert torch.equal(*packed)
+
+
+def _lift_bits_equal(got, want):
+    """L1's (clouds, valid) equal to the plain version's bit for bit."""
+    return (got[0].shape == want[0].shape
+            and torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+            and torch.equal(got[1], want[1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("morton", [False, True], ids=["projective", "morton"])
+@pytest.mark.parametrize("name", sorted(lift_cases.SHAPES))
+def test_lift_kernel_matches_plain_on_card(card, name, morton):
+    """L1 equals window_lift on the card bit for bit on lift_cases' renders
+    (blobs, an empty render, border-clipped objects, holes and negative
+    pixels, a full render, ROI offsets) at every regime of SHAPES: P a
+    power of two, colliding ranks, no selection, a window taller than the
+    render, shared memory above 48 KB, the scratch buffer (P = 57,600 and
+    65,536); one launch a call, and twice the same bits."""
+    h, w, window, stride, k, tl = lift_cases.SHAPES[name]
+    depth = torch.as_tensor(lift_cases.renders(h, w, seed=2), device=card)
+    K = geometry.LINEMOD_K.copy()
+    K[0] *= w / 640.0
+    K[1] *= h / 480.0
+    K = torch.as_tensor(K, device=card)
+    kw = dict(window=window, stride=stride, max_points=k, morton=morton, tl_x=tl[0],
+              tl_y=tl[1])
+    before = LC.launches
+    got = LC.window_lift_cuda(depth, K, **kw)
+    again = LC.window_lift_cuda(depth, K, **kw)
+    torch.cuda.synchronize()
+    assert LC.launches == before + 2
+    want = window_lift(depth, K, **kw)
+    assert _lift_bits_equal(got, want) and _lift_bits_equal(again, want)
+    assert bool(want[1].any()) and not bool(want[1].all())
+
+
+@pytest.mark.cuda
+def test_window_lift_is_one_launch_at_the_bench_shape_on_card(card):
+    """The pipeline's lift of CUDA renders is one L1 launch and no other
+    device kernel (no sort, gather or argsort), at the bench's shape (the
+    decimated mesh's renders in the auto ROI, window 128 / stride 2, 2,048
+    points), projective and Morton, bit for bit with window_lift."""
+    from pose_refine_tpu_torch.pipeline import _window_lift
+
+    m, frame, hyps = _bench_like_case(card, n=256)
+    ref = ptt.PoseRefiner(m, K=geometry.LINEMOD_K, device="cuda", render_scale=2,
+                          max_points=2048, window=128, stride=2, decimate_mm=4.0)
+    ref.set_scene_depth(frame)
+    depth = RC.rasterize(ref.tris, torch.as_tensor(hyps, device=card), ref.render_w,
+                         ref.render_h, ref.proj, roi=ref.roi)
+    proj_scene = object.__new__(SceneProjective)
+    nn_scene = object.__new__(SceneNN)
+    for scene, morton in ((proj_scene, False), (nn_scene, True)):
+        args = (depth, ref._K_render_t, scene, ref.max_points, ref.window, ref.stride, ref.roi)
+        got = _window_lift(*args)
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        for _ in range(5):  # the profiler now and then records no device activity
+            before = LC.launches
+            with torch.profiler.profile(activities=acts) as prof:
+                _window_lift(*args)
+                torch.cuda.synchronize()
+            assert LC.launches == before + 1
+            kernels = [e.name for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA]
+            if kernels:
+                break
+        assert len(kernels) == 1 and "window_lift" in kernels[0], kernels
+        want = window_lift(depth, ref._K_render_t, window=ref.window, stride=ref.stride,
+                           max_points=ref.max_points, morton=morton, tl_x=ref.roi[0],
+                           tl_y=ref.roi[1])
+        assert got[0].shape == (256, 2048, 3) and _lift_bits_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["slice", "nn", "stacked", "multimodel", "track",
+                                  "track_nn"])
+def test_paths_through_lift_kernel_equal_the_plain_lift_on_card(card, path):
+    """Each path that reaches the window lift takes L1 once a refine or
+    tracked frame, and equals the same path with the plain lift in L1's
+    place bit for bit (every other kernel as it is): L1's order feeds B3's
+    pruning and the ICP's sums, so a difference in any row would show."""
+    import unittest.mock
+
+    from pose_refine_tpu_torch import pipeline
+
+    m, frame, hyps = _bench_like_case(card, n=24)
+    kw = dict(K=geometry.LINEMOD_K, render_scale=2, max_points=512, window=96, stride=2)
+    crit = ptt.ICPConvergenceCriteria(max_iteration=10)
+    if path == "slice":
+        ref = ptt.PoseRefiner(m, device="cuda", **kw).set_scene_depth(frame)
+        run = lambda: ref.refine(hyps, crit)  # noqa: E731
+    elif path == "nn":
+        ref = ptt.PoseRefiner(m, device="cuda", scene="nn", scene_voxel_mm=2.0,
+                              **kw).set_scene_depth(frame)
+        run = lambda: ref.refine(hyps, crit)  # noqa: E731
+    elif path == "stacked":
+        frames = torch.stack([frame, torch.roll(frame, 12, dims=1)]).cpu().numpy()
+        ref = ptt.PoseRefiner(m, device="cuda", scene="nn_bruteforce", scene_voxel_mm=2.0,
+                              **kw).set_scene_depths(frames)
+        ids = np.arange(24, dtype=np.int32) % 2
+        run = lambda: ref.refine(hyps, crit, scene_ids=ids)  # noqa: E731
+    elif path == "multimodel":
+        ref = ptt.MultiModelRefiner([m, mesh.make_bumpy_sphere(radius=60.0, subdivisions=3)],
+                                    device="cuda", **kw)
+        ref.set_scene_depth(frame)
+        ids = np.arange(24, dtype=np.int32) % 2
+        run = lambda: ref.refine(ids, hyps, criteria=crit)  # noqa: E731
+    else:
+        scene = "projective" if path == "track" else "nn_bruteforce"
+        ref = ptt.PoseRefiner(m, device="cuda", scene=scene,
+                              scene_voxel_mm=0.0 if scene == "projective" else 2.0, **kw)
+        run = lambda: ref.track(frame, hyps, crit, with_covariance=True,  # noqa: E731
+                                _pack_outputs=True)
+    run()  # plans the ROI (and the tracked NN scene's pool)
+    torch.cuda.synchronize()
+    before = LC.launches
+    got = run()
+    torch.cuda.synchronize()
+    assert LC.launches == before + 1
+    with unittest.mock.patch.object(pipeline, "window_lift_cuda", window_lift):
+        want = run()
+    torch.cuda.synchronize()
+    assert LC.launches == before + 1
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for a, b in zip(got, want):
+        for x, y in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
+            assert (x is None and y is None) or torch.equal(x, y)
