@@ -8,6 +8,16 @@ non-zero without printing a result:
 
   1. card   - torch.cuda.is_available(), and nvidia-smi's name and power limit
   2. build  - nvcc builds csrc/*.cu for sm_90a from the checkout (timed)
+  2b. census - the device kernels of the later phases' profiled calls
+              ([sharded], [coarse], [schedule], [compact], [renderer];
+              late_cells), profiled in a fresh child process
+              (``chip_smoke.py --census``): after tens of seconds of
+              launches a process's torch.profiler stops recording the
+              kernels launched with <<<>>> (B1, L1). Every profiled call,
+              here and in the in-process census of [slice], [lift] and
+              [track] taken before [kernel], holds its B1 (bin_kernel,
+              raster_kernel) and L1 (window_lift_kernel) rows to the
+              wrappers' launch counters for that call (checked_kernels).
   3. kernel - the raster kernel against its plain PyTorch version on the card
               at every shape of raster_shapes(): the observed-scene render
               (1 pose, 640x480), the 256 hypothesis renders (the decimated
@@ -252,6 +262,20 @@ are collected and fail the run at its end.
               equal the single-device refines bit for bit (wall and device
               ms of each); devices=None on one card is the single-device
               path with [slice]'s launches.
+ 24. jax-names - the JAX package's names on the card at slice-bench-256's
+              configuration: refine_poses_jit(use_pallas=True, chunk_iters=8)
+              and PoseRefiner built positionally in JAX's order
+              (use_pallas=None, chunk_iters=8) equal refine_poses / [slice]'s
+              refiner bit for bit with the same launches (B1 1, L1 1, the
+              iteration kernel 1); use_pallas=False (JAX's scatter raster,
+              ops.rasterize.rasterize_scatter) launches no B1, its renders
+              stay under 1e-4 of pixels from B1's and its verdicts agree
+              100% with the kernel path (wall ms of both printed); at the
+              tracking shape track_poses_jit / track_poses_nn_jit equal
+              track_poses / track_poses_nn bit for bit with equal launches;
+              a device-built NN scene of a crop of the frame (tl_x / tl_y)
+              pooled at pool_depth_tol=0.003 refines as its plain path does
+              (hold_paths).
 
 Each kernel is timed by CUDA events (median of 20 launches, the wrapper's
 host time included; plain versions fewer; B1, P2 and the fused pass also
@@ -419,15 +443,37 @@ def device_kernels(torch, fn):
     return sorted(rows, key=lambda r: -r[1])
 
 
-def most_kernels(torch, fn, tries=3):
-    """device_kernels of the profiled fn() call, of ``tries``, that recorded
-    the most device kernels: the profiler now and then records a call's
-    device activity in part or not at all."""
-    best = []
+# the device kernels of B1 (one render: bin_kernel, then raster_kernel) and
+# L1, by name, and the wrapper counter (ops/rasterize_cuda.launches,
+# ops/lift_cuda.launches) that counts their launches
+COUNTED_KERNELS = (("bin_kernel", "rasterize"), ("raster_kernel", "rasterize"),
+                   ("window_lift_kernel", "window_lift"))
+
+
+def checked_kernels(torch, fn, RC, LC, tries=3):
+    """device_kernels of one fn() call (after a warm call), held to the
+    launch counters: each profiled call starts from zero counts, and its
+    rows must hold as many bin_kernel, raster_kernel and window_lift_kernel
+    calls as the wrappers counted for it. Of ``tries`` profiles, the one
+    that holds them and records the most device kernels (the profiler now
+    and then records a call's device activity in part); none holding them
+    fails the run - a process that has launched for tens of seconds records
+    no more <<<>>> launches (ROADMAP C7), so such counts are taken early or
+    in a fresh process (census_main)."""
+    fn()
+    best, seen = None, []
     for _ in range(tries):
+        RC.launches = LC.launches = 0
         rows = device_kernels(torch, fn)
-        if sum(r[2] for r in rows) > sum(r[2] for r in best):
+        launched = {"rasterize": RC.launches, "window_lift": LC.launches}
+        got = {k: sum(calls for name, _ms, calls in rows if re.search(rf"\b{k}\b", name))
+               for k, _c in COUNTED_KERNELS}
+        want = {k: launched[c] for k, c in COUNTED_KERNELS}
+        seen.append(got)
+        if got == want and (best is None or sum(r[2] for r in rows) > sum(r[2] for r in best)):
             best = rows
+    check(best is not None, f"the profiler's B1 / L1 kernels {seen} fall short of the "
+          f"launch counters {want}")
     return best
 
 
@@ -438,20 +484,105 @@ def kernels_line(rows) -> str:
             f"top={[(name[:40], round(ms, 4), calls) for name, ms, calls in rows[:4]]}")
 
 
-def busy_line(torch, fn, wall_ms):
-    """Where one fn() call's device time goes, from torch.profiler: the
-    device kernels (count, summed ms), their share of ``wall_ms`` (the
-    call's unprofiled wall: the busy share; 1 - it is the idle share) and
-    the three longest kernels by name."""
-    rows = []
-    for _ in range(5):  # the profiler now and then records no device activity
-        rows = device_kernels(torch, fn)
-        if rows:
-            break
+def busy_line(rows, wall_ms):
+    """Where one call's device time goes: its device kernels (checked_kernels'
+    rows: count, summed ms), their share of ``wall_ms`` (the call's
+    unprofiled wall: the busy share; 1 - it is the idle share) and the three
+    longest kernels by name."""
     total = sum(ms for _name, ms, _calls in rows)
     top = [(name[:48], round(ms, 4), calls) for name, ms, calls in rows[:3]]
     return (f"device_kernels={sum(calls for _n, _m, calls in rows)} kernel_sum_ms={total} "
             f"busy_share={total / wall_ms} top={top}")
+
+
+# the profiled calls of the later phases, built alike in those phases and in
+# the census child (late_cells): [schedule]'s refiners, [compact]'s and
+# [renderer]'s renders (label, copies of the truth, down_sample, roi)
+SCHEDULE_CONFIGS = (("projective", dict()), ("scene='nn' 2 mm", dict(scene="nn",
+                                                                     scene_voxel_mm=2.0)))
+COMPACT_KW = dict(lift="compact", render_scale=1, max_points=32768, decimate_mm=CFG["decimate_mm"])
+RENDER_CELLS = (("render-256", 256, 1, (0, 0, 0, 0)),
+                ("render-256, down_sample 2", 256, 2, (0, 0, 0, 0)),
+                ("render-100-roi", 100, 1, (160, 80, 320, 240)),
+                ("render-100-roi, down_sample 2", 100, 2, (80, 40, 160, 120)))
+
+
+def schedule_starts(geometry, truth, poses_np):
+    """[schedule]'s starts: the bench hypotheses with row 0 at
+    tests/test_pipeline.py:111's 25 deg / 40 mm."""
+    big = np.float32(25.0 / 180.0 * np.pi)
+    starts = poses_np.copy()
+    starts[0] = geometry.pose_from_Rt(
+        geometry.euler_to_rotation(np.array([big, big, big], np.float32)).numpy()
+        @ truth[:3, :3], truth[:3, 3] + np.float32(40.0)).numpy()
+    return starts
+
+
+def late_cells(torch, ptt, geometry, mesh, RC, dev):
+    """{cell: fn} of the calls the later phases profile, built as they build
+    them: [sharded]'s single and split refines at 255 poses, [coarse]'s 4 x
+    refine_async(512) + fence, [schedule]'s two refines, [compact]'s refine
+    and [renderer]'s four renders."""
+    model, _tris, truth, poses_np = workload(geometry, mesh)
+    K = geometry.LINEMOD_K
+    scene = RC.rasterize(torch.as_tensor(model.tris[mesh.morton_order(model.tris)], device=dev),
+                         torch.as_tensor(truth[None], device=dev), WIDTH, HEIGHT,
+                         geometry.compute_proj(K, WIDTH, HEIGHT, device=dev))[0].cpu().numpy()
+    crit = ptt.ICPConvergenceCriteria(max_iteration=ITERS)
+    poses = torch.as_tensor(poses_np, device=dev)
+    n = poses.shape[0] - 1
+    one = ptt.PoseRefiner(model, K=K, device="cuda", **CFG).set_scene_depth(scene)
+    two = ptt.PoseRefiner(model, K=K, devices=["cuda:0", "cuda:0"], **CFG).set_scene_depth(scene)
+    coarse = ptt.PoseRefiner(model, K=K, device="cuda", coarse_iters=COARSE[0],
+                             coarse_stride=COARSE[1], **CFG).set_scene_depth(scene)
+    poses512 = torch.cat([poses, poses])
+    cells = {"sharded single": lambda: one.refine(poses[:n], crit),
+             "sharded split": lambda: two.refine(poses[:n], crit),
+             "coarse": lambda: ptt.fence(*[coarse.refine_async(poses512, crit)
+                                           for _ in range(4)])}
+    starts = torch.as_tensor(schedule_starts(geometry, truth, poses_np), device=dev)
+    for label, kw in SCHEDULE_CONFIGS:
+        s_ref = ptt.PoseRefiner(model, K=K, device="cuda", **kw, **CFG).set_scene_depth(scene)
+        cells[f"schedule {label}"] = functools.partial(s_ref.refine, starts, crit,
+                                                       schedule=SCHEDULE)
+    cm = ptt.PoseRefiner(model, K=K, device="cuda", **COMPACT_KW).set_scene_depth(scene)
+    cells["compact"] = lambda: cm.refine(poses, crit)
+    renderer = ptt.PoseRenderer(model, K=K, device="cuda")
+    for label, n_r, ds, roi in RENDER_CELLS:
+        r_poses = torch.as_tensor(np.tile(truth, (n_r, 1, 1)), device=dev)
+        cells[f"renderer {label}"] = functools.partial(renderer.render_depth_mask, r_poses, ds,
+                                                       roi)
+    return cells
+
+
+def census_main():
+    """``chip_smoke.py --census``: checked_kernels of every late_cells call
+    in this fresh process, printed as one JSON object {cell: rows}."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    import pose_refine_tpu_torch as ptt
+    from pose_refine_tpu_torch import geometry, mesh
+    from pose_refine_tpu_torch.ops import lift_cuda as LC
+    from pose_refine_tpu_torch.ops import rasterize_cuda as RC
+
+    logging.getLogger("pose_refine_tpu_torch").setLevel(logging.ERROR)
+    cells = late_cells(torch, ptt, geometry, mesh, RC, torch.device("cuda"))
+    print(json.dumps({name: checked_kernels(torch, fn, RC, LC) for name, fn in cells.items()}))
+    return 0
+
+
+def late_census():
+    """The census child's rows ([census]); a failed child fails the run."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, os.path.abspath(__file__), "--census"], cwd=REPO,
+                         capture_output=True, text=True, timeout=600)
+    check(out.returncode == 0, f"census child exited {out.returncode}: {out.stderr[-3000:]}")
+    rows = json.loads(out.stdout.strip().splitlines()[-1])
+    phase("census", f"{len(rows)} calls of the later phases profiled in a fresh process, B1 / "
+          f"L1 held to the launch counters: {({k: sum(r[2] for r in v) for k, v in rows.items()})} "
+          f"device kernels; seconds={time.perf_counter() - t0}")
+    return rows
 
 
 def workload(geometry, mesh):
@@ -1301,8 +1432,8 @@ def sharded_phase(c):
     phase("sharded", f"slice-bench-{n}, devices={c.two} (2 shards of {(n + 1) // 2}, 1 pad "
           f"row): equal_bits={equal} single (wall_ms, device_ms)={one_ms} split={two_ms} "
           f"launches={sh_counts}; profile single: "
-          f"{busy_line(c.torch, lambda: c.refiner.refine(sh_poses, crit), one_ms[0])}; "
-          f"split: {busy_line(c.torch, lambda: split.refine(sh_poses, crit), two_ms[0])}")
+          f"{busy_line(c.census['sharded single'], one_ms[0])}; "
+          f"split: {busy_line(c.census['sharded split'], two_ms[0])}")
     check(equal and sh_counts["icp_iterate"] == 2
           and sh_counts["rasterize"] == 2 * c.slice_counts["rasterize"],
           f"sharded: the split refine differs ({equal}) or its launches {sh_counts}")
@@ -1329,6 +1460,130 @@ def sharded_phase(c):
     check(cards > 1 or (auto.devices is None and auto_counts == c.slice_counts),
           f"sharded: devices=None on one card is not the single-device path: {auto_counts}")
     phase("sharded", f"phase seconds={time.perf_counter() - t0}")
+
+
+def jax_names_phase(c):
+    """[jax-names]: the JAX package's entry points and keywords on the card
+    (see the module docstring, 24); returns the raster's use_pallas=False
+    numbers for the kernels line."""
+    t0 = time.perf_counter()
+    torch, ptt, crit, ref = c.torch, c.ptt, c.crit, c.refiner
+    from pose_refine_tpu_torch import pipeline as PL
+
+    def run(fn):
+        c.reset_counts()
+        out = fn()
+        c.sync()
+        return out, c.counts()
+
+    main = ("rasterize", "window_lift", "icp_iterate")
+    plan = dict(width=ref.render_w, height=ref.render_h, max_points=ref.max_points,
+                window=ref.window, stride=ref.stride, roi=ref.roi)
+    args = (ref.tris, c.poses, ref.scene, ref.proj, ref._K_render_t)
+    want, want_n = run(lambda: PL.refine_poses(*args, criteria=crit, **plan))
+    got, got_n = run(lambda: ptt.refine_poses_jit(*args, None, criteria=crit, use_pallas=True,
+                                                  chunk_iters=8, **plan))
+    # JAX's positional order through chunk_iters, render_scale, decimate_mm
+    named = ptt.PoseRefiner(c.model, c.K, WIDTH, HEIGHT, "projective", CFG["max_points"], 0.1,
+                            None, "window", CFG["window"], CFG["stride"], True, 0.35, 8,
+                            CFG["render_scale"], CFG["decimate_mm"], device=c.dev)
+    named.set_scene_depth(c.scene)
+    r_want, r_want_n = run(lambda: ref.refine(c.poses, crit))
+    r_got, r_got_n = run(lambda: named.refine(c.poses, crit))
+    ones = {k: 1 for k in main}
+    jit_ok = same_bits(got, want) and got_n == want_n and {k: got_n[k] for k in main} == ones
+    ref_ok = same_bits(r_got, r_want) and r_got_n == r_want_n \
+        and {k: r_got_n[k] for k in main} == ones
+    phase("jax-names", f"slice-bench-{N_POSES}: refine_poses_jit(use_pallas=True, chunk_iters=8)"
+          f" == refine_poses: {jit_ok} launches={got_n}; PoseRefiner(use_pallas=None, "
+          f"chunk_iters=8, JAX's positional order) == [slice]'s refiner: {ref_ok} "
+          f"launches={r_got_n}")
+    check(jit_ok and ref_ok, "jax-names: the JAX-named refine differs from the port's")
+
+    # use_pallas=False: JAX's scatter raster, no B1 launch
+    s_out, s_n = run(lambda: ptt.refine_poses_jit(*args, criteria=crit, use_pallas=False,
+                                                  chunk_iters=8, **plan))
+    scatter_ref = ptt.PoseRefiner(c.model, K=c.K, use_pallas=False, device=c.dev, **CFG)
+    s_ref_out, s_ref_n = run(lambda: scatter_ref.set_scene_depth(c.scene).refine(c.poses, crit))
+    b1 = c.RC.rasterize(ref.tris, c.poses, ref.render_w, ref.render_h, ref.proj, roi=ref.roi)
+    sc = PL._scatter_raster(ref.tris, c.poses, ref.render_w, ref.render_h, ref.proj, ref.roi)
+    mism = float((b1 != sc).float().mean())
+    stats = agreement(c.rotation_angle_deg, c.truth, want[0].cpu().numpy(),
+                      s_out[0].cpu().numpy(), want[1].fitness.cpu().numpy(),
+                      s_out[1].fitness.cpu().numpy())
+    b1_ms = refine_ms(torch, lambda: PL.refine_poses(*args, criteria=crit, **plan))
+    sc_ms = refine_ms(torch, lambda: ptt.refine_poses_jit(
+        *args, criteria=crit, use_pallas=False, chunk_iters=8, **plan))
+    render_ms = refine_ms(torch, lambda: PL._scatter_raster(
+        ref.tris, c.poses, ref.render_w, ref.render_h, ref.proj, ref.roi))
+    phase("jax-names", f"use_pallas=False (rasterize_scatter): launches={s_n}; its renders "
+          f"against B1's: mismatch={mism} (gate {MISMATCH_GATE}); against the kernel path: "
+          f"verdict_agreement={stats['agree']} (median, max) drot_deg={stats['rot']} "
+          f"dt_mm={stats['t']} dfit={stats['fit']}; (wall_ms, device_ms) scatter refine "
+          f"{sc_ms}, B1 refine {b1_ms}, scatter render alone {render_ms}; "
+          f"PoseRefiner(use_pallas=False) equal: {same_bits(s_ref_out, s_out)}")
+    check(s_n["rasterize"] == 0 and s_ref_n["rasterize"] == 0 and mism < MISMATCH_GATE
+          and stats["agree"] == 1.0 and same_bits(s_ref_out, s_out),
+          f"jax-names: use_pallas=False launched B1 ({s_n}), split from B1 (mismatch {mism}) "
+          f"or from the kernel path's verdicts ({stats['agree']})")
+
+    # the tracking shape: track_poses_jit / track_poses_nn_jit, positional
+    hyps = torch.as_tensor(c.hyps0, dtype=torch.float32, device=c.dev)
+    frame = torch.as_tensor(c.frames[0], device=c.dev)
+    track_eq = {}
+    for label, kw in TRACK_CONFIGS:
+        t_ref = ptt.PoseRefiner(c.model, K=c.K, device=c.dev, **kw, **CFG)
+        t_ref.track(c.frames[0], c.hyps0, with_covariance=True)  # plans the ROI and the pool
+        base = (t_ref.tris, hyps, frame, t_ref.proj, t_ref._K_render_t, t_ref._K_t,
+                t_ref.max_dist_diff)
+        sizes = (t_ref.render_w, t_ref.render_h, t_ref.max_points)
+        opts = (t_ref.lift, t_ref.window, t_ref.stride, t_ref.roi, 8)
+        t_kw = dict(width=sizes[0], height=sizes[1], max_points=sizes[2], criteria=crit,
+                    lift=t_ref.lift, window=t_ref.window, stride=t_ref.stride, roi=t_ref.roi,
+                    with_information=True)
+        if label == "projective":
+            t_want, t_want_n = run(lambda: PL.track_poses(*base, **t_kw))
+            t_got, t_got_n = run(lambda: PL.track_poses_jit(*base, *sizes, crit, True, *opts,
+                                                            with_information=True))
+        else:
+            pool = t_ref._scene_pool_cache
+            perm = t_ref._scene_perm(c.frames[0].shape, pool)
+            t_want, t_want_n = run(lambda: PL.track_poses_nn(
+                *base, perm, scene_stride=t_ref.scene_stride, scene_pool=pool, **t_kw))
+            t_got, t_got_n = run(lambda: PL.track_poses_nn_jit(
+                *base, perm, *sizes, crit, True, *opts, 0.0, t_ref.scene_stride, pool,
+                with_information=True))
+        track_eq[label] = (same_bits(t_got, t_want) and t_got_n == t_want_n, t_got_n)
+    phase("jax-names", f"tracking shape ({N_HYP} hypotheses, frame 0): "
+          f"track_poses_jit / track_poses_nn_jit == track_poses / track_poses_nn bit for bit, "
+          f"launches: {track_eq}")
+    check(all(ok for ok, _n in track_eq.values()),
+          f"jax-names: a JAX-named tracking step differs: {track_eq}")
+
+    # a device-built NN scene of a crop, ROI offsets and pool_depth_tol
+    crop, tl = c.scene[96:416, 128:512], (128, 96)
+    scn = c.SceneNN.from_depth_device(torch.as_tensor(np.ascontiguousarray(crop), device=c.dev),
+                                      ref._K_t, 0.1, 1, *tl, None, 4, 0.003)
+    nn_poses = c.poses[:64]
+    k_out, k_n = run(lambda: c.nn_ref.refine(nn_poses, crit, _scene=scn))
+    nr = c.nn_ref
+    p_out = PL.refine_poses(
+        nr.tris, nn_poses, scn, nr.proj, nr._K_render_t, width=nr.render_w, height=nr.render_h,
+        max_points=nr.max_points, criteria=crit, window=nr.window, stride=nr.stride, roi=nr.roi,
+        raster=c.RC.rasterize_plain, lifter=c.window_lift,
+        query=c.icp.plain_association(functools.partial(scn.query, plain=True)))
+    hold_paths("jax-names", f"device-built SceneNN of a {crop.shape[1]}x{crop.shape[0]} crop at "
+               f"tl={tl}, pool 4, pool_depth_tol=0.003 ({scn.points.shape[0]} rows), "
+               f"{nn_poses.shape[0]} poses through the plain versions",
+               agreement(c.rotation_angle_deg, c.truth, k_out[0].cpu().numpy(),
+                         p_out[0].cpu().numpy(), k_out[1].fitness.cpu().numpy(),
+                         p_out[1].fitness.cpu().numpy()), c.path_failures,
+               extra=f"launches={k_n} ")
+    check(k_n["nn_flash_gated"] == ITERS + 1 and k_n["icp_iterate"] == ITERS + 1,
+          f"jax-names: the cropped device scene's refine launches {k_n}")
+    phase("jax-names", f"phase seconds={time.perf_counter() - t0}")
+    return dict(launches=s_n["rasterize"], mismatch_vs_b1=mism, verdict_agreement=stats["agree"],
+                refine_wall_ms=sc_ms[0], b1_refine_wall_ms=b1_ms[0], render_ms=render_ms[1])
 
 
 def same_bits(a, b) -> bool:
@@ -2163,6 +2418,9 @@ def main():
           f"built={info['built']}) -> {os.path.relpath(info['path'], REPO)}; registers of "
           f"csrc/icp_reduce.cu's kernels: {icp_registers(nvcc_log)}")
 
+    # 2b. the later phases' device-kernel counts, from a fresh process
+    census = late_census()
+
     # 3. kernel vs plain at the raster's shapes (the old path beside it when
     # the parent's source is at compare_raster.PARENT)
     model, tris_np, truth, poses_np = workload(geometry, mesh)
@@ -2181,20 +2439,19 @@ def main():
     # scene kind ([track]) and the pipeline's lift of the bench renders
     # ([lift]), profiled now: once the plain rasters of [kernel] have run
     # (tens of seconds of launches), this process's profiler no longer
-    # records the port's kernels launched with <<<>>> (checked on the card;
-    # a fresh process records them, as compare_lift.py and profile_port.py do)
-    refiner.refine(poses, crit)
+    # records the port's kernels launched with <<<>>> (ROADMAP C7); the
+    # later phases' calls were profiled by the census child ([census])
     bench_depth = RC.rasterize(refiner.tris, poses, refiner.render_w, refiner.render_h,
                                refiner.proj, roi=refiner.roi)
-    census = {"slice": most_kernels(torch, lambda: refiner.refine(poses, crit)),
-              "lift": most_kernels(torch, lambda: _window_lift(
-                  bench_depth, refiner._K_render_t, refiner.scene, refiner.max_points,
-                  refiner.window, refiner.stride, refiner.roi))}
+    census["slice"] = checked_kernels(torch, lambda: refiner.refine(poses, crit), RC, LC)
+    census["lift"] = checked_kernels(torch, lambda: _window_lift(
+        bench_depth, refiner._K_render_t, refiner.scene, refiner.max_points, refiner.window,
+        refiner.stride, refiner.roi), RC, LC)
     for label, kw in TRACK_CONFIGS:
         t_ref = ptt.PoseRefiner(model, K=K, device="cuda", **kw, **CFG)
         t_ref.track(frames[0], hyps0, with_covariance=True)  # plans the ROI and the pool
-        census[label] = most_kernels(
-            torch, lambda: t_ref.track(frames[0], hyps0, with_covariance=True))
+        census[label] = checked_kernels(
+            torch, lambda: t_ref.track(frames[0], hyps0, with_covariance=True), RC, LC)
     old = None
     if os.path.exists(compare_raster.PARENT):
         old = compare_raster.OtherRaster(compare_raster.PARENT)
@@ -3108,8 +3365,7 @@ def main():
     check(len(done) == 4 and all(torch.equal(d[0], c_refined) for d in done),
           "coarse: a fenced batch differs from the synchronous refine")
     s_wall, s_dev = float(np.median(walls)), float(np.median(dev_ms))
-    s_busy = busy_line(torch, lambda: ptt.fence(*[coarse_ref.refine_async(poses512, crit)
-                                                  for _ in range(4)]), 4 * s_wall)
+    s_busy = busy_line(census["coarse"], 4 * s_wall)
     phase("coarse", f"serving ceiling: 4 x refine_async(512) then fence, coarse_iters="
           f"{COARSE[0]}, coarse_stride={COARSE[1]}, {ITERS} iterations: wall_ms_per_batch median="
           f"{s_wall} (min {min(walls)}, max {max(walls)}) device_ms_per_batch={s_dev} "
@@ -3201,18 +3457,11 @@ def main():
     # 25 deg / 40 mm start (row 0) and the bench hypotheses, projective and
     # scene="nn" on the 2 mm cloud; each level's scene carries its gate
     t0 = time.perf_counter()
-    big = np.float32(25.0 / 180.0 * np.pi)
-    far = geometry.pose_from_Rt(
-        geometry.euler_to_rotation(np.array([big, big, big], np.float32)).numpy()
-        @ truth[:3, :3], truth[:3, 3] + np.float32(40.0)).numpy()
-    sched_starts_np = poses_np.copy()
-    sched_starts_np[0] = far
-    sched_starts = torch.as_tensor(sched_starts_np, device=dev)
+    sched_starts = torch.as_tensor(schedule_starts(geometry, truth, poses_np), device=dev)
     schedule_stats = {}
     from pose_refine_tpu_torch import pipeline as PL
 
-    for label, kw in (("projective", dict()), ("scene='nn' 2 mm", dict(scene="nn",
-                                                                       scene_voxel_mm=2.0))):
+    for label, kw in SCHEDULE_CONFIGS:
         s_ref = ptt.PoseRefiner(model, K=K, device="cuda", **kw, **CFG)
         s_ref.set_scene_depth(scene)
         gates, level_counts = [], []
@@ -3246,8 +3495,7 @@ def main():
         one_mm = np.linalg.norm(single.cpu().numpy()[:, :3, 3] - truth[:3, 3], axis=-1)
         wall_ms, dev_ms = refine_ms(torch, lambda: s_ref.refine(sched_starts, crit,
                                                                 schedule=SCHEDULE))
-        s_busy = busy_line(torch, lambda: s_ref.refine(sched_starts, crit, schedule=SCHEDULE),
-                           wall_ms)
+        s_busy = busy_line(census[f"schedule {label}"], wall_ms)
         phase("schedule", f"{label}: {N_POSES} starts (row 0 tests/test_pipeline.py:111's 25 "
               f"deg / 40 mm), schedule {SCHEDULE}: wall_ms={wall_ms} device_ms={dev_ms} "
               f"level gates {gates} launches per level {level_counts}; translation_err_mm "
@@ -3281,8 +3529,7 @@ def main():
     # 19. [compact] the slice-bench-256 refine with lift="compact" at full
     # resolution, 32,768 points: every valid render pixel in scan order
     t0 = time.perf_counter()
-    cm_ref = ptt.PoseRefiner(model, K=K, device="cuda", lift="compact", render_scale=1,
-                             max_points=32768, decimate_mm=CFG["decimate_mm"])
+    cm_ref = ptt.PoseRefiner(model, K=K, device="cuda", **COMPACT_KW)
     cm_ref.set_scene_depth(scene)
     reset_counts()
     cm_refined, cm_res = cm_ref.refine(poses, crit)
@@ -3293,7 +3540,7 @@ def main():
     cm_np, cm_fit = cm_refined.cpu().numpy(), cm_res.fitness.cpu().numpy()
     cm_mm = np.linalg.norm(cm_np[:, :3, 3] - truth[:3, 3], axis=-1)
     cm_wall, cm_dev = refine_ms(torch, lambda: cm_ref.refine(poses, crit))
-    cm_busy = busy_line(torch, lambda: cm_ref.refine(poses, crit), cm_wall)
+    cm_busy = busy_line(census["compact"], cm_wall)
     cm_depth = RC.rasterize(cm_ref.tris, poses, cm_ref.render_w, cm_ref.render_h, cm_ref.proj,
                             roi=cm_ref.roi)
     from pose_refine_tpu_torch.ops.depth_to_cloud import compact_points, depth_image_to_points
@@ -3324,10 +3571,7 @@ def main():
     renderer_stats = {}
     from pose_refine_tpu_torch.ops import convert
 
-    for label, n_r, ds, roi in (("render-256", 256, 1, (0, 0, 0, 0)),
-                                ("render-256, down_sample 2", 256, 2, (0, 0, 0, 0)),
-                                ("render-100-roi", 100, 1, (160, 80, 320, 240)),
-                                ("render-100-roi, down_sample 2", 100, 2, (80, 40, 160, 120))):
+    for label, n_r, ds, roi in RENDER_CELLS:
         r_poses = torch.as_tensor(np.tile(truth, (n_r, 1, 1)), device=dev)
         reset_counts()
         r_depth, r_mask = renderer.render_depth_mask(r_poses, ds, roi)
@@ -3340,7 +3584,7 @@ def main():
         mism = max(float((r_depth.to(torch.int32) != p_depth.to(torch.int32)).float().mean()),
                    float((r_mask != p_mask).float().mean()))
         r_wall, r_dev = refine_ms(torch, lambda: renderer.render_depth_mask(r_poses, ds, roi))
-        r_busy = busy_line(torch, lambda: renderer.render_depth_mask(r_poses, ds, roi), r_wall)
+        r_busy = busy_line(census[f"renderer {label}"], r_wall)
         renderer_stats[label] = dict(wall_ms=r_wall, device_ms=r_dev, mismatch=mism,
                                      renders_per_s=n_r / r_wall * 1e3)
         phase("renderer", f"{label}: PoseRenderer.render_depth_mask of {n_r} poses, out "
@@ -3403,6 +3647,7 @@ def main():
     native_phase(c)
     serialize_phase(c)
     sharded_phase(c)
+    scatter = jax_names_phase(c)
 
     check(not path_failures, "; ".join(path_failures))
     print(card_line)
@@ -3423,6 +3668,9 @@ def main():
         "bound_by": hyp_stats["bound_by"],
         "library_ms": None,
         "launches_multimodel": mm_launches["rasterize"],
+        # [jax-names]' use_pallas=False: JAX's scatter raster in B1's place
+        # (plain PyTorch, 0 B1 launches)
+        "use_pallas_false": scatter,
         # the render-only path: PoseRenderer ([renderer]), one launch a call
         "renderer": renderer_stats,
         # every [kernel] shape: alone, with the wrapper, the old path (setup
@@ -3581,4 +3829,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(census_main() if sys.argv[1:] == ["--census"] else main())

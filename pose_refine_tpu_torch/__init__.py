@@ -18,6 +18,9 @@ several devices (``parallel/``), ``utils.serialization`` saves and loads
 scenes, trees, results and sessions in the JAX package's ``.npz`` format,
 and ``native/`` holds the C++ kd-tree builder and the reference-algorithm
 CPU baseline. Every public entry point takes an explicit ``device=``. The
+JAX package's names, keywords and positional orders are accepted with its
+meaning (``refine_poses_jit``, ``track_poses_jit``, ``track_poses_nn_jit``,
+``use_pallas=``, ``chunk_iters=``, the sub-packages' exports). The
 package imports torch and never jax.
 """
 
@@ -68,6 +71,7 @@ from pose_refine_tpu_torch.pipeline import (  # noqa: F401
     PoseRefiner,
     fence,
     refine_poses,
+    refine_poses_jit,
     track_poses,
     track_poses_nn,
 )

@@ -15,7 +15,9 @@ through the JAX package:
 The whole pose batch refines at once: a fixed loop of max_iteration + 1
 steps with a per-pose done latch and no host synchronisation inside. The
 JAX package's chunked while-loop and fused fori are workarounds for its
-runtime with identical results. Everything stays float32, as in the JAX
+runtime with identical results: its ``chunk_iters`` is accepted at JAX's
+position and validated as JAX validates it (_check_coarse), with no other
+effect. Everything stays float32, as in the JAX
 package: the reductions, the solve residual and the pose composition.
 
 One association + reduction pass has two formulations, as in the JAX
@@ -257,15 +259,27 @@ def _normal_equations(cloud, valid, assoc: Union[Callable, Association],
     return AtA, Atb, count, mse_sum
 
 
-def _check_coarse(coarse_iters, coarse_stride, criteria) -> int:
-    """JAX icp.py:452-462's checks of the point schedule; returns the coarse
-    iterations (0: none, as for coarse_iters <= 0 in JAX). The port has no
-    chunked loop, so JAX's check that the loop is fused has no
-    counterpart."""
+def _check_coarse(coarse_iters, coarse_stride, criteria, chunk_iters=None) -> int:
+    """JAX icp.py:441-462's checks of the point schedule; returns the coarse
+    iterations (0: none, as for coarse_iters <= 0 in JAX). ``chunk_iters``
+    is JAX's early-exit granularity, clipped to [1, max_iteration + 1] as
+    JAX clips it: the schedule needs the fused loop, a chunk of the whole
+    max_iteration + 1 (ValueError otherwise, JAX's text). It has no other
+    effect: the port's loop is one loop of max_iteration + 1 steps with a
+    per-pose latch (one launch on a card), never chunks of a while loop.
+    None is the fused loop, what PoseRefiner resolves it to under
+    coarse_iters."""
     c = int(coarse_iters)
+    max_iter = int(criteria.max_iteration)
+    total = max_iter + 1
+    chunk = total if chunk_iters is None else max(1, min(int(chunk_iters), total))
     if c <= 0:
         return 0
-    max_iter = int(criteria.max_iteration)
+    if chunk < total:
+        raise ValueError(
+            "coarse_iters > 0 requires a fused loop "
+            "(chunk_iters >= max_iteration + 1)"
+        )
     if not 0 < c < max_iter:
         raise ValueError(
             f"coarse_iters={c} must leave at least one full-cloud "
@@ -306,18 +320,19 @@ def _icp_start(cloud, valid, n_points=None):
 def _icp_run(cloud, valid, assoc: Union[Callable, Association],
              criteria: ICPConvergenceCriteria, n_points=None, reduction: str = "matmul",
              robust_delta: float = 0.0, estimation: str = "point_to_plane",
-             coarse_iters: int = 0, coarse_stride: int = 2):
+             coarse_iters: int = 0, coarse_stride: int = 2, chunk_iters=None):
     """The ICP outer loop over a (N, P, 3) cloud batch with (N, P) valid;
     ``assoc``, ``reduction``, ``robust_delta`` and ``estimation`` as in
     _normal_equations (the JAX package's reduce_fn, icp.py:352-360), and the
-    point schedule of coarse_iters / coarse_stride (see the module note). An
+    point schedule of coarse_iters / coarse_stride (see the module note),
+    checked with ``chunk_iters`` (_check_coarse). An
     Association with an ``iterate`` runs the whole loop through it (the
     iteration kernel, or its plain version); otherwise the loop below
     solves and updates in PyTorch after each pass.
 
     Returns (RegistrationResult batch, transformed clouds (N, P, 3))."""
     robust_delta = _check_options(robust_delta, estimation)
-    c = _check_coarse(coarse_iters, coarse_stride, criteria)
+    c = _check_coarse(coarse_iters, coarse_stride, criteria, chunk_iters)
     state, valid, n_total = _icp_start(cloud, valid, n_points)
     if isinstance(assoc, Association) and assoc.iterate is not None:
         state = assoc.iterate(state, valid, n_total, criteria, robust_delta=robust_delta,
@@ -417,8 +432,8 @@ def pose_covariance(info, sigma2, rel_ridge: float = 1e-6, inflation: float = 1.
     return (inflation * sigma2)[..., None, None] * inv
 
 
-def _icp(cloud, valid, query_fn, criteria, n_points, reduction, robust_delta, coarse_iters,
-         coarse_stride, estimation):
+def _icp(cloud, valid, query_fn, criteria, n_points, reduction, chunk_iters, robust_delta,
+         coarse_iters, coarse_stride, estimation):
     if reduction not in REDUCTIONS:
         raise ValueError(f"unknown reduction {reduction!r}: expected 'matmul' or 'packed'")
     cloud = torch.as_tensor(cloud, dtype=torch.float32)
@@ -427,7 +442,7 @@ def _icp(cloud, valid, query_fn, criteria, n_points, reduction, robust_delta, co
         cloud = cloud[None]
         valid = torch.as_tensor(valid, device=cloud.device)[None]
     res, out = _icp_run(cloud, valid, query_fn, criteria, n_points, reduction, robust_delta,
-                        estimation, coarse_iters, coarse_stride)
+                        estimation, coarse_iters, coarse_stride, chunk_iters)
     if single:
         res = RegistrationResult(*(f[0] for f in res))
         out = out[0]
@@ -436,7 +451,7 @@ def _icp(cloud, valid, query_fn, criteria, n_points, reduction, robust_delta, co
 
 def icp_point_to_plane(cloud, valid, query_fn: Union[Callable, Association],
                        criteria: ICPConvergenceCriteria = ICPConvergenceCriteria(),
-                       n_points=None, reduction: str = "matmul",
+                       n_points=None, reduction: str = "matmul", chunk_iters: int = 8,
                        robust_delta: float = 0.0, coarse_iters: int = 0,
                        coarse_stride: int = 2):
     """Refine a (P, 3) cloud, or a (N, P, 3) batch, against a scene.
@@ -448,6 +463,9 @@ def icp_point_to_plane(cloud, valid, query_fn: Union[Callable, Association],
         a query (equal up to summation order). It is not consulted for an
         Association on CUDA tensors: its fused kernel computes the packed
         sums for either value.
+    chunk_iters: JAX's early-exit granularity, validated as JAX validates
+        it (coarse_iters needs chunk_iters >= max_iteration + 1) and
+        otherwise without effect: the loop is never chunked (_check_coarse).
     robust_delta: > 0 (meters) Huber-IRLS weights on the plane residual
         with this inlier width; 0 is the reference's least squares. The
         scores stay unweighted.
@@ -456,14 +474,14 @@ def icp_point_to_plane(cloud, valid, query_fn: Union[Callable, Association],
         else ValueError; 0 runs none.
     Returns (RegistrationResult, transformed cloud), batched like ``cloud``.
     """
-    return _icp(cloud, valid, query_fn, criteria, n_points, reduction, robust_delta,
-                coarse_iters, coarse_stride, "point_to_plane")
+    return _icp(cloud, valid, query_fn, criteria, n_points, reduction, chunk_iters,
+                robust_delta, coarse_iters, coarse_stride, "point_to_plane")
 
 
 def icp_point_to_point(cloud, valid, query_fn: Union[Callable, Association],
                        criteria: ICPConvergenceCriteria = ICPConvergenceCriteria(),
-                       n_points=None, robust_delta: float = 0.0, coarse_iters: int = 0,
-                       coarse_stride: int = 2):
+                       n_points=None, chunk_iters: int = 8, robust_delta: float = 0.0,
+                       coarse_iters: int = 0, coarse_stride: int = 2):
     """Refine with point-to-point Gauss-Newton estimation (JAX
     icp.py:318-349): the loop, scores and options of icp_point_to_plane,
     with the residual e = dst - p (three rows a point, scene normals
@@ -474,21 +492,22 @@ def icp_point_to_point(cloud, valid, query_fn: Union[Callable, Association],
     CUDA tensors takes the fused kernel's point-to-point mode.
     Returns (RegistrationResult, transformed cloud), batched like ``cloud``.
     """
-    return _icp(cloud, valid, query_fn, criteria, n_points, "matmul", robust_delta,
-                coarse_iters, coarse_stride, "point_to_point")
+    return _icp(cloud, valid, query_fn, criteria, n_points, "matmul", chunk_iters,
+                robust_delta, coarse_iters, coarse_stride, "point_to_point")
 
 
 def icp_point_to_plane_batch(clouds, valids, scene,
                              criteria: ICPConvergenceCriteria = ICPConvergenceCriteria(),
-                             robust_delta: float = 0.0):
+                             chunk_iters: int = 8, robust_delta: float = 0.0):
     """icp_point_to_plane over a pose batch against one shared scene (JAX
     icp.py:619-636): (N, P, 3) clouds and (N, P) valid, each pose's fitness
     divided by its own valid count. CUDA clouds take the scene's iteration
     kernel (``scene.iterate``), CPU clouds its query and the matrix-product
-    pass. JAX's ``chunk_iters`` has no counterpart: the port's loop is one
-    loop of max_iteration + 1 steps with a per-pose latch, not chunks of a
-    while loop. Returns (RegistrationResult batch, transformed clouds)."""
+    pass. ``chunk_iters`` is JAX's, checked and without effect, as in
+    icp_point_to_plane. Returns (RegistrationResult batch, transformed
+    clouds)."""
     clouds = torch.as_tensor(clouds, dtype=torch.float32)
     card = clouds.device.type == "cuda"
     assoc = Association(scene.query, scene.reduce, scene.iterate if card else None)
-    return icp_point_to_plane(clouds, valids, assoc, criteria, robust_delta=robust_delta)
+    return icp_point_to_plane(clouds, valids, assoc, criteria, chunk_iters=chunk_iters,
+                              robust_delta=robust_delta)

@@ -22,6 +22,10 @@ cards a pose is split over fewer CTAs than its shard alone would give it.
 The scene, the mesh and the camera go to each card once: ``run_sharded``
 keeps their replicas in the caller's ``replicas`` memo (a PoseRefiner's)
 while they are the same objects.
+
+The JAX package's names keep their signatures: its ``Mesh`` is the list of
+devices here (``make_mesh``), and its ``axis`` names the one data-parallel
+axis, so it is checked to be a string and has no other effect.
 """
 
 from __future__ import annotations
@@ -45,9 +49,18 @@ def canonical(device) -> torch.device:
     return dev
 
 
-def make_mesh(n_devices: Optional[int] = None) -> list:
-    """The devices of the pose batch's data-parallel axis: every card, or
-    the first ``n_devices`` of them."""
+def _check_axis(axis) -> None:
+    """JAX's mesh axis name: a string; the port has one data-parallel axis,
+    so the name selects nothing."""
+    if not isinstance(axis, str):
+        raise TypeError(f"axis must be a str naming the data-parallel axis, got {axis!r}")
+
+
+def make_mesh(n_devices: Optional[int] = None, axis: str = "dp") -> list:
+    """The devices of the pose batch's data-parallel axis ``axis`` (the
+    JAX package's 1-D mesh): every card, or the first ``n_devices`` of
+    them."""
+    _check_axis(axis)
     n = torch.cuda.device_count()
     if n_devices is not None:
         if n_devices > n:
@@ -95,15 +108,17 @@ def unpad_results(n: int, refined, *rest):
     return (refined[:n],) + tuple(_rows(r, slice(0, n)) for r in rest)
 
 
-def shard_pose_batch(devices: Sequence, init_poses) -> list:
-    """Cut (N, 4, 4) poses into len(devices) equal shards, each on its
-    device. N must be a multiple of the device count - pad_to_devices first
-    for arbitrary batch sizes (PoseRefiner does this itself)."""
+def shard_pose_batch(mesh: Sequence, init_poses, axis: str = "dp") -> list:
+    """Cut (N, 4, 4) poses into len(mesh) equal shards, each on its device
+    of ``mesh`` (a device list, make_mesh). N must be a multiple of the
+    device count - pad_to_devices first for arbitrary batch sizes
+    (PoseRefiner does this itself)."""
+    _check_axis(axis)
     poses = torch.as_tensor(init_poses, dtype=torch.float32)
-    if poses.shape[0] % len(devices):
-        raise ValueError(f"{poses.shape[0]} poses do not split over {len(devices)} devices; "
+    if poses.shape[0] % len(mesh):
+        raise ValueError(f"{poses.shape[0]} poses do not split over {len(mesh)} devices; "
                          "pad_to_devices first")
-    return [p.to(canonical(d)) for p, d in zip(poses.chunk(len(devices)), devices)]
+    return [p.to(canonical(d)) for p, d in zip(poses.chunk(len(mesh)), mesh)]
 
 
 def replicate(obj, device: torch.device):
@@ -219,19 +234,24 @@ def _record(x, stream):
 def refine_poses_sharded(tris, init_poses, scene, proj, K, width: int, height: int,
                          max_points: int = 16384,
                          criteria: icp.ICPConvergenceCriteria = icp.ICPConvergenceCriteria(),
-                         devices: Optional[Sequence] = None, scene_ids=None,
-                         **pipeline_kwargs):
-    """Data-parallel refine: pipeline.refine_poses with the pose batch (and
-    per-pose tris and ``scene_ids``) split over ``devices`` (default: every
-    card; pipeline.refine_poses_split). Returns (refined poses, results[,
-    uncertainty]) on devices[0], equal to the one-device refine bit for bit.
+                         mesh: Optional[Sequence] = None, axis: str = "dp",
+                         use_pallas: Optional[bool] = None, **pipeline_kwargs):
+    """Data-parallel refine: pipeline.refine_poses_jit with the pose batch
+    (and per-pose tris and a ``scene_ids`` keyword) split over the devices
+    of ``mesh`` (default: make_mesh(), every card;
+    pipeline.refine_poses_split). Returns (refined poses, results[,
+    uncertainty]) on mesh[0], equal to the one-device refine bit for bit.
 
-    pipeline_kwargs (window, stride, roi, lift, with_information, ...) pass
-    through to refine_poses, so the sharded refine runs the same
-    configuration as the single-device one."""
-    from pose_refine_tpu_torch.pipeline import refine_poses_split
+    use_pallas picks the raster as in refine_poses_jit (pipeline._raster);
+    pipeline_kwargs (window, stride, roi, lift, chunk_iters,
+    with_information, ...) pass through with refine_poses_jit's defaults,
+    so the sharded refine runs the same configuration as the single-device
+    one."""
+    from pose_refine_tpu_torch.pipeline import _raster, refine_poses_split
 
-    devices = make_mesh() if devices is None else list(devices)
-    return refine_poses_split(devices, tris, init_poses, scene, proj, K, scene_ids=scene_ids,
-                              width=width, height=height, max_points=max_points,
-                              criteria=criteria, **pipeline_kwargs)
+    _check_axis(axis)
+    devices = make_mesh(axis=axis) if mesh is None else list(mesh)
+    pipeline_kwargs.setdefault("chunk_iters", 8)
+    return refine_poses_split(devices, tris, init_poses, scene, proj, K, width=width,
+                              height=height, max_points=max_points, criteria=criteria,
+                              raster=_raster(use_pallas), **pipeline_kwargs)

@@ -7,7 +7,12 @@ window or compact lift, point-to-plane or point-to-point ICP
 (``coarse_iters``), and its in-program uncertainty (``with_information``);
 ``track_poses`` / ``track_poses_nn`` are ``track_poses_jit`` /
 ``track_poses_nn_jit``: the per-frame scene build on the device followed by
-the refine. ``PoseRefiner`` is the refiner for projective scenes and
+the refine. ``refine_poses_jit``, ``track_poses_jit`` and
+``track_poses_nn_jit`` are those three under the JAX package's names and
+signatures (positional orders and defaults, ``use_pallas``, ``chunk_iters``),
+without the port's test hooks (``raster=``, ``lifter=``, ``query=``,
+``plain=``); nothing is jitted, the names are kept for JAX's callers.
+``PoseRefiner`` is the refiner for projective scenes and
 nearest-neighbour scenes (``scene="nn"`` / ``"nn_kdtree"`` /
 ``"nn_bruteforce"``, with ``scene_voxel_mm``, ``scene_cascade``,
 ``scene_stride`` and ``scene_pool``), with the same host-side planning (auto
@@ -37,6 +42,7 @@ from pose_refine_tpu_torch.ops.depth_to_cloud import (
     window_lift,
 )
 from pose_refine_tpu_torch.ops.lift_cuda import window_lift_cuda
+from pose_refine_tpu_torch.ops.rasterize import rasterize_scatter
 from pose_refine_tpu_torch.ops.rasterize_cuda import IndexedTris, rasterize, rasterize_plain
 from pose_refine_tpu_torch.parallel import sharding
 from pose_refine_tpu_torch.scene.nn import (
@@ -80,7 +86,8 @@ def refine_poses(tris, init_poses, scene: Union[SceneProjective, SceneNN, SceneP
                  lifter: Optional[Callable] = None,
                  query: Optional[Callable] = None, robust_delta: float = 0.0,
                  estimation: str = "point_to_plane", lift: str = "window",
-                 coarse_iters: int = 0, coarse_stride: int = 2):
+                 coarse_iters: int = 0, coarse_stride: int = 2,
+                 chunk_iters: Optional[int] = None):
     """Render N poses, lift each render to a cloud, run batched ICP.
 
     All tensors on one device. ``tris`` is (T, 3, 3) or per pose (N, T, 3,
@@ -112,7 +119,9 @@ def refine_poses(tris, init_poses, scene: Union[SceneProjective, SceneNN, SceneP
     compaction, Morton order for NN scenes) or "compact" (every valid pixel
     of the render in scan order, up to max_points: compact_points; JAX
     pipeline.py:150-157). ``coarse_iters`` / ``coarse_stride``: the ICP's
-    coarse-to-fine point schedule (icp.py).
+    coarse-to-fine point schedule (icp.py); ``chunk_iters`` is checked
+    against it as JAX checks it and has no other effect (icp._check_coarse;
+    None, the default, is the fused loop).
     """
     if lift not in LIFTS:
         raise ValueError(f"unknown lift {lift!r}: expected 'window' or 'compact'")
@@ -122,7 +131,8 @@ def refine_poses(tris, init_poses, scene: Union[SceneProjective, SceneNN, SceneP
         tris, init_poses, scene, proj, K, query, width=width, height=height,
         max_points=max_points, criteria=criteria, window=window, stride=stride, roi=roi,
         raster=raster, lifter=lifter, robust_delta=robust_delta, estimation=estimation,
-        lift=lift, coarse_iters=coarse_iters, coarse_stride=coarse_stride)
+        lift=lift, coarse_iters=coarse_iters, coarse_stride=coarse_stride,
+        chunk_iters=chunk_iters)
     if not with_information:
         return refined, results
     return refined, results, _information(final, valids, query, K, robust_delta, estimation)
@@ -154,7 +164,8 @@ def _refine_clouds(tris, init_poses, scene, proj, K, query, *, width: int, heigh
                    stride: int = 2, roi=(0, 0, 0, 0), raster: Optional[Callable] = None,
                    lifter: Optional[Callable] = None,
                    robust_delta: float = 0.0, estimation: str = "point_to_plane",
-                   lift: str = "window", coarse_iters: int = 0, coarse_stride: int = 2):
+                   lift: str = "window", coarse_iters: int = 0, coarse_stride: int = 2,
+                   chunk_iters: Optional[int] = None):
     """refine_poses up to the ICP against ``query``: (refined, results, the
     final clouds, their valid masks)."""
     raster = rasterize if raster is None else raster
@@ -169,7 +180,7 @@ def _refine_clouds(tris, init_poses, scene, proj, K, query, *, width: int, heigh
 
     results, final = icp._icp_run(clouds, valids, query, criteria, robust_delta=robust_delta,
                                   estimation=estimation, coarse_iters=coarse_iters,
-                                  coarse_stride=coarse_stride)
+                                  coarse_stride=coarse_stride, chunk_iters=chunk_iters)
     # ICP acts on camera-space clouds in meters (common.h:53); poses carry
     # mm translations: scale t_icp to mm before left-composing
     T_mm = results.transformation.clone()
@@ -202,7 +213,7 @@ def _shard_clouds(tris, init_poses, scene, proj, K, scene_ids=None, plain: bool 
     query = _association(scene, scene_ids, init_poses.device.type == "cuda", plain,
                          order_batch)
     if plain:
-        kw.update(raster=rasterize_plain, lifter=window_lift)
+        kw.update(raster=kw.get("raster") or rasterize_plain, lifter=window_lift)
     return _refine_clouds(tris, init_poses, scene, proj, K, query, **kw)
 
 
@@ -250,11 +261,14 @@ def _window_lift(depth, K, scene, max_points: int, window: int, stride: int, roi
 
 
 def _pack_track_outputs(refined, results: icp.RegistrationResult,
-                        unc: icp.PoseUncertainty) -> torch.Tensor:
+                        unc: Optional[icp.PoseUncertainty] = None) -> torch.Tensor:
     """The (N, 71) session buffer [refined 16 | transformation 16 | fitness
     | rmse | n_points | cov 36] (JAX pipeline.py:1411-1433); a session reads
     one frame back in one copy. Host-side inverse:
     tracking._unpack_outputs."""
+    if unc is None or results.n_points is None:
+        raise ValueError("pack_outputs needs with_information=True and a lift that "
+                         "reports per-pose point counts")
     n = refined.shape[0]
     return torch.cat([
         refined.reshape(n, 16),
@@ -276,7 +290,7 @@ def _refine_frame(scene, tris, init_poses, proj, K_render, pack_outputs: bool = 
                                  replicas=replicas, **kw)
     else:
         if plain:
-            kw.update(raster=rasterize_plain, lifter=window_lift,
+            kw.update(raster=kw.get("raster") or rasterize_plain, lifter=window_lift,
                       query=_association(scene, None, False, plain=True))
         out = refine_poses(tris, init_poses, scene, proj, K_render, **kw)
     return _pack_track_outputs(*out) if pack_outputs else out
@@ -306,18 +320,95 @@ def track_poses_nn(tris, init_poses, frame_depth, proj, K_render, K_full, max_di
     return _refine_frame(scene, tris, init_poses, proj, K_render, pack_outputs, plain, **kw)
 
 
+def _scatter_raster(tris, poses, width: int, height: int, proj, roi=(0, 0, 0, 0)):
+    """use_pallas=False's raster: ops.rasterize.rasterize_scatter, the JAX
+    package's second raster (JAX pipeline.py:106-107), on any device; an
+    IndexedTris is gathered into its per-pose copy first, as JAX's
+    MultiModelRefiner gathers its table."""
+    if isinstance(tris, IndexedTris):
+        tris = tris.gathered()
+    return rasterize_scatter(tris, poses, width, height, proj, roi=roi)
+
+
+def _raster(use_pallas) -> Optional[Callable]:
+    """refine_poses' ``raster`` for JAX's ``use_pallas``: None or True is
+    the default, the raster kernel B1 (its plain version on the CPU);
+    False is the scatter raster, a caller's explicit choice of JAX's other
+    path, never a fallback."""
+    return None if use_pallas is None or use_pallas else _scatter_raster
+
+
+def refine_poses_jit(tris, init_poses, scene, proj, K, scene_ids=None, *, width: int,
+                     height: int, max_points: int, criteria: icp.ICPConvergenceCriteria,
+                     use_pallas: bool = True, lift: str = "window", window: int = 256,
+                     stride: int = 2, roi=(0, 0, 0, 0), chunk_iters: int = 8,
+                     robust_delta: float = 0.0, coarse_iters: int = 0, coarse_stride: int = 2,
+                     estimation: str = "point_to_plane", with_information: bool = False):
+    """The JAX package's ``refine_poses_jit`` (pipeline.py:44-75): refine_poses
+    with JAX's signature. ``use_pallas`` picks the raster (_raster) and
+    ``chunk_iters`` is checked as JAX checks it (icp._check_coarse)."""
+    return refine_poses(tris, init_poses, scene, proj, K, width=width, height=height,
+                        max_points=max_points, criteria=criteria, window=window, stride=stride,
+                        roi=roi, with_information=with_information, scene_ids=scene_ids,
+                        raster=_raster(use_pallas), robust_delta=robust_delta,
+                        estimation=estimation, lift=lift, coarse_iters=coarse_iters,
+                        coarse_stride=coarse_stride, chunk_iters=chunk_iters)
+
+
+def track_poses_jit(tris, init_poses, frame_depth, proj, K_render, K_full, max_dist,
+                    width, height, max_points, criteria, use_pallas, lift="window",
+                    window=256, stride=2, roi=(0, 0, 0, 0), chunk_iters=8, robust_delta=0.0,
+                    coarse_iters=0, coarse_stride=2, estimation="point_to_plane",
+                    with_information=False, pack_outputs=False):
+    """The JAX package's ``track_poses_jit`` (pipeline.py:1436-1470):
+    track_poses with JAX's signature (see refine_poses_jit)."""
+    return track_poses(tris, init_poses, frame_depth, proj, K_render, K_full, max_dist,
+                       width=width, height=height, max_points=max_points, criteria=criteria,
+                       raster=_raster(use_pallas), lift=lift, window=window, stride=stride,
+                       roi=roi, chunk_iters=chunk_iters, robust_delta=robust_delta,
+                       coarse_iters=coarse_iters, coarse_stride=coarse_stride,
+                       estimation=estimation, with_information=with_information,
+                       pack_outputs=pack_outputs)
+
+
+def track_poses_nn_jit(tris, init_poses, frame_depth, proj, K_render, K_full, max_dist, perm,
+                       width, height, max_points, criteria, use_pallas, lift="window",
+                       window=256, stride=2, roi=(0, 0, 0, 0), chunk_iters=8,
+                       robust_delta=0.0, scene_stride=1, scene_pool=1, coarse_iters=0,
+                       coarse_stride=2, estimation="point_to_plane", with_information=False,
+                       pack_outputs=False):
+    """The JAX package's ``track_poses_nn_jit`` (pipeline.py:1473-1510):
+    track_poses_nn with JAX's signature (see refine_poses_jit)."""
+    return track_poses_nn(tris, init_poses, frame_depth, proj, K_render, K_full, max_dist,
+                          perm, scene_stride=scene_stride, scene_pool=scene_pool,
+                          width=width, height=height, max_points=max_points,
+                          criteria=criteria, raster=_raster(use_pallas), lift=lift,
+                          window=window, stride=stride, roi=roi, chunk_iters=chunk_iters,
+                          robust_delta=robust_delta, coarse_iters=coarse_iters,
+                          coarse_stride=coarse_stride, estimation=estimation,
+                          with_information=with_information, pack_outputs=pack_outputs)
+
+
 class PendingResult:
     """Outputs enqueued on the device's current stream, with a CUDA event
     recorded after the last of them (None on the CPU, where the work is
-    done on return). ``wait()`` blocks on that event alone, not on the
-    stream, whose later work may belong to the next enqueued frame, and
-    returns the outputs."""
+    done on return). Its slots are JAX's (pipeline.py:229-257): ``refined``,
+    ``results`` and ``uncertainty`` (None unless requested). ``wait()``
+    blocks on the event alone, not on the stream, whose later work may
+    belong to the next enqueued frame, and returns (refined, results) plus
+    the uncertainty where requested. ``device`` (default: refined's) is
+    where the work runs. track_packed_async's session buffer is a pinned
+    host copy in ``refined`` with ``results`` None; wait() returns
+    (buffer,)."""
 
-    __slots__ = ("outputs", "_event")
+    __slots__ = ("refined", "results", "uncertainty", "_event")
 
-    def __init__(self, outputs: tuple, device: torch.device):
-        self.outputs = outputs
+    def __init__(self, refined, results, uncertainty=None, device: DeviceLike = None):
+        self.refined = refined
+        self.results = results
+        self.uncertainty = uncertainty
         self._event = None
+        device = refined.device if device is None else torch.device(device)
         if device.type == "cuda":
             self._event = torch.cuda.Event()
             self._event.record(torch.cuda.current_stream(device))
@@ -325,7 +416,8 @@ class PendingResult:
     def wait(self) -> tuple:
         if self._event is not None:
             self._event.synchronize()
-        return self.outputs
+        out = (self.refined,) if self.results is None else (self.refined, self.results)
+        return out if self.uncertainty is None else out + (self.uncertainty,)
 
 
 def fence(*pending: PendingResult) -> list:
@@ -401,11 +493,13 @@ class PoseRefiner:
         scene: str = "projective",
         max_points: Union[int, str] = 32768,
         max_dist_diff: float = 0.1,
+        use_pallas: Optional[bool] = None,
         lift: str = "window",
         window: Union[int, str] = 256,
         stride: int = 2,
         auto_roi: bool = True,
         roi_margin: float = 0.35,
+        chunk_iters="auto",
         render_scale: int = 1,
         decimate_mm: float = 0.0,
         scene_voxel_mm: float = 0.0,
@@ -425,6 +519,14 @@ class PoseRefiner:
                 "'nn', 'nn_kdtree' or 'nn_bruteforce'"
             )
         self.scene_kind = scene
+        # use_pallas (JAX's name): None or True renders with the raster
+        # kernel B1 (its plain version on the CPU), False with the scatter
+        # raster, JAX's other path (_raster)
+        self.use_pallas = True if use_pallas is None else bool(use_pallas)
+        # chunk_iters: JAX's ICP early-exit granularity, "auto" or an int,
+        # resolved per refine as JAX resolves it (_resolve_chunk_iters) and
+        # checked there; the port's loop is fused, so it has no other effect
+        self.chunk_iters = chunk_iters if chunk_iters == "auto" else int(chunk_iters)
         if lift not in LIFTS:
             raise ValueError(f"unknown lift {lift!r}: expected 'window' or 'compact'")
         # lift: "window" crops and strides around each render's object;
@@ -612,6 +714,26 @@ class PoseRefiner:
                         "(median depth %.0f mm)", self.scene_voxel_mm, pool, z_med * 1000.0)
         self._scene_pool_cache = pool
         return pool
+
+    def _resolve_chunk_iters(self, criteria: icp.ICPConvergenceCriteria) -> int:
+        """JAX pipeline.py:688-700: the fused loop (max_iteration + 1) under
+        coarse_iters, an explicit int as it is, and "auto" the fused loop -
+        JAX's choice on a device backend, and the port's loop on every
+        device (JAX takes chunks of 8 only on its CPU backend)."""
+        if self.coarse_iters > 0 or self.chunk_iters == "auto":
+            return int(criteria.max_iteration) + 1
+        return self.chunk_iters
+
+    def _pipeline_kw(self, criteria: icp.ICPConvergenceCriteria) -> dict:
+        """The refine keywords that refine() and track() share: the lift,
+        the ICP options, and the raster and chunk_iters of use_pallas and
+        chunk_iters."""
+        return dict(width=self.render_w, height=self.render_h, max_points=self.max_points,
+                    criteria=criteria, window=self.window, stride=self.stride, roi=self.roi,
+                    robust_delta=self.robust_delta, estimation=self.estimation,
+                    lift=self.lift, coarse_iters=self.coarse_iters,
+                    coarse_stride=self.coarse_stride, raster=_raster(self.use_pallas),
+                    chunk_iters=self._resolve_chunk_iters(criteria))
 
     def _nn_backend(self) -> str:
         """The SceneNN backend of this refiner's NN kind. JAX's rule
@@ -984,12 +1106,7 @@ class PoseRefiner:
                     scene_ids=ids, _scene=_scene_with_gate(scene, max_dist))
                 init = out[0]
             return tuple(map(_first, out)) if squeeze else out
-        kw = dict(width=self.render_w, height=self.render_h,
-                  max_points=self.max_points, criteria=criteria,
-                  window=self.window, stride=self.stride, roi=self.roi,
-                  with_information=with_covariance, scene_ids=ids,
-                  robust_delta=self.robust_delta, estimation=self.estimation, lift=self.lift,
-                  coarse_iters=self.coarse_iters, coarse_stride=self.coarse_stride)
+        kw = dict(self._pipeline_kw(criteria), with_information=with_covariance, scene_ids=ids)
         if self.devices:
             out = refine_poses_split(self.devices, tris, init, scene, self.proj,
                                      self._K_render_t, replicas=self._replicas, **kw)
@@ -1025,11 +1142,13 @@ class PoseRefiner:
             out = fn(*args, **kwargs)
         finally:
             self._suppress_saturation = False
-        return PendingResult(out, self.device)
+        return PendingResult(*out, device=self.device)
 
-    def refine_async(self, *args, **kwargs) -> PendingResult:
+    def refine_async(self, init_poses,
+                     criteria: icp.ICPConvergenceCriteria = icp.ICPConvergenceCriteria(),
+                     **kwargs) -> PendingResult:
         """refine() enqueued: returns a PendingResult (see _enqueue)."""
-        return self._enqueue(self.refine, *args, **kwargs)
+        return self._enqueue(self.refine, init_poses, criteria, **kwargs)
 
     def track(self, frame_depth, init_poses,
               criteria: icp.ICPConvergenceCriteria = icp.ICPConvergenceCriteria(),
@@ -1082,11 +1201,8 @@ class PoseRefiner:
         if squeeze:
             init = init[None]
         frame = to_device(frame_depth, self.device)
-        kw = dict(width=self.render_w, height=self.render_h, max_points=self.max_points,
-                  criteria=criteria, window=self.window, stride=self.stride, roi=self.roi,
-                  with_information=with_covariance, pack_outputs=_pack_outputs, plain=_plain,
-                  robust_delta=self.robust_delta, estimation=self.estimation, lift=self.lift,
-                  coarse_iters=self.coarse_iters, coarse_stride=self.coarse_stride)
+        kw = dict(self._pipeline_kw(criteria), with_information=with_covariance,
+                  pack_outputs=_pack_outputs, plain=_plain)
         if self.devices:
             kw.update(devices=self.devices, replicas=self._replicas)
         args = (tris, init, frame, self.proj, self._K_render_t, self._K_t, self.max_dist_diff)
@@ -1126,7 +1242,7 @@ class PoseRefiner:
             host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
             host.copy_(packed, non_blocking=True)
             packed = host
-        return PendingResult((packed,), self.device)
+        return PendingResult(packed, None, device=self.device)
 
     @staticmethod
     def rank(results: icp.RegistrationResult):
@@ -1192,6 +1308,10 @@ class MultiModelRefiner(PoseRefiner):
         tris, poses, squeeze = self._per_pose_tris(model_ids, init_poses)
         out = self._refine(tris, poses, **kwargs)
         return tuple(map(_first, out)) if squeeze else out
+
+    def refine_async(self, model_ids, init_poses=None, **kwargs) -> PendingResult:
+        """refine() with per-pose models, enqueued (PoseRefiner.refine_async)."""
+        return self._enqueue(self.refine, model_ids, init_poses, **kwargs)
 
     def track(self, frame_depth, model_ids, init_poses=None, **kwargs):
         """track() with per-pose models: (frame_depth, model_ids (N,),

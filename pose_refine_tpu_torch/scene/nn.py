@@ -118,14 +118,19 @@ class SceneNN:
 
     @classmethod
     def from_depth_device(cls, depth, K, max_dist_diff: float = 0.1, stride: int = 1,
-                          perm=None, pool: int = 1) -> "SceneNN":
+                          tl_x: int = 0, tl_y: int = 0, perm=None, pool: int = 1,
+                          pool_depth_tol: float = POOL_DEPTH_TOL_M) -> "SceneNN":
         """The NN scene built wholly on ``depth``'s device, with no host
         synchronisation (JAX nn.py:146-255): the tracking path rebuilds it
         every frame. No compaction and no kd tree: LINEMOD normals at full
         resolution, then the strided (``stride``) or centroid-pooled
-        (``pool``, see _pool_scene_grid) pixel grid is the scene, in the
-        Morton order ``perm`` of that grid (``_grid_morton_perm``; pass it
-        as a device tensor, cached per grid shape, or it is uploaded here).
+        (``pool``, keeping pixels within ``pool_depth_tol`` m of their
+        block's nearest, see _pool_scene_grid) pixel grid is the scene, in
+        the Morton order ``perm`` of that grid (``_grid_morton_perm``; pass
+        it as a device tensor, cached per grid shape, or it is uploaded
+        here). ``tl_x`` / ``tl_y``: the image pixel of ``depth``'s pixel (0,
+        0), for a depth cropped from a larger frame (JAX nn.py:183); the
+        normals' stencil does not depend on them.
 
         Invalid pixels are parked at their 128-row chunk's first valid
         point and normal, which keeps chunk boxes tight around the real
@@ -140,11 +145,11 @@ class SceneNN:
         depth = torch.as_tensor(depth)
         dev = depth.device
         nrm = estimate_normals(depth, K)  # full-resolution stencil
-        pts, mask = depth_image_to_points(depth, K)
+        pts, mask = depth_image_to_points(depth, K, tl_x=tl_x, tl_y=tl_y)
         if stride != 1:
             pts, nrm, mask = (x[::stride, ::stride] for x in (pts, nrm, mask))
         if pool > 1:
-            pts, nrm, mask = _pool_scene_grid(pts, nrm, mask, int(pool), POOL_DEPTH_TOL_M)
+            pts, nrm, mask = _pool_scene_grid(pts, nrm, mask, int(pool), float(pool_depth_tol))
         h, w = mask.shape
         if perm is None:
             perm = torch.as_tensor(_grid_morton_perm(h, w), device=dev)
@@ -379,14 +384,14 @@ class SceneNNStack:
             self, **{f.name: getattr(self, f.name).to(dev) for f in dataclasses.fields(self)
                      if isinstance(getattr(self, f.name), torch.Tensor)})
 
-    def query_at(self, sids, plain: bool = False):
-        """The query bound to per-pose scene ids: ``sids`` a scalar or an
+    def query_at(self, sid, plain: bool = False):
+        """The query bound to per-pose scene ids: ``sid`` a scalar or an
         (N,) integer tensor (one id per pose of (N, ..., 3) sources),
         clamped to [0, n_scenes) on its device, never read back (JAX
         nn.py:416-452). All poses go to the gated kernel in one launch.
         Returns query(src) -> (dst, normal, valid); plain=True runs the
         kernels' plain versions."""
-        sids = self._frame_ids(sids)
+        sids = self._frame_ids(sid)
 
         def query(src):
             idx, dist_sq = self._nearest_at(sids, src, plain)
@@ -409,13 +414,13 @@ class SceneNNStack:
             src, self.flash_table, self.flash_boxes, self.flash_balls, self.max_dist_diff,
             frame_id=sids, frames=self.n_scenes)
 
-    def reduce_at(self, sids):
+    def reduce_at(self, sid):
         """``SceneNN.reduce`` bound to per-pose scene ids (see query_at):
         returns reduce(cloud (N, P, 3), valid (N, P), robust_delta=0.0,
         point_to_point=False) -> (AtA, Atb, count, mse_sum); the stacked gated
         kernel's indices are rows of the stacked
         table, so the fused kernel needs no per-pose offset."""
-        sids = self._frame_ids(sids)
+        sids = self._frame_ids(sid)
 
         def reduce(cloud, valid, robust_delta=0.0, point_to_point=False):
             return unpack_sums(assoc_reduce_indexed_cuda(
@@ -424,13 +429,13 @@ class SceneNNStack:
 
         return reduce
 
-    def iterate_at(self, sids):
+    def iterate_at(self, sid):
         """``SceneNN.iterate`` bound to per-pose scene ids (see query_at):
         returns iterate(state, valid, n_total, criteria, robust_delta=0.0,
         point_to_point=False, coarse_iters=0, coarse_stride=2,
         order_batch=None) -> state, each iteration one stacked gated launch
         and one iteration launch."""
-        sids = self._frame_ids(sids)
+        sids = self._frame_ids(sid)
 
         def iterate(state, valid, n_total, criteria, robust_delta=0.0, point_to_point=False,
                     coarse_iters=0, coarse_stride=2, order_batch=None):

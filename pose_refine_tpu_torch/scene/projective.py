@@ -209,15 +209,15 @@ class SceneProjectiveStack:
         sids = torch.as_tensor(sids, device=self.table.device)
         return sids.clamp(0, self.n_scenes - 1).to(torch.int64) * (self.height * self.width)
 
-    def query_at(self, sids, plain: bool = False):
-        """The query bound to per-pose scene ids: ``sids`` a scalar or an
+    def query_at(self, sid, plain: bool = False):
+        """The query bound to per-pose scene ids: ``sid`` a scalar or an
         (N,) integer tensor (one id per pose of (N, ..., 3) sources),
         clamped to [0, n_scenes) on its device - ids on a card are checked
         by shape only and never read back, so an out-of-range id associates
         against the nearest frame (JAX projective.py:177-196). Returns
         query(src) -> (dst, normal, valid). plain=True gathers with the
         kernel's plain version."""
-        base = self._base(sids)
+        base = self._base(sid)
         gather = gather_rows_plain if plain else gather_rows
 
         def query(src):
@@ -227,13 +227,13 @@ class SceneProjectiveStack:
 
         return query
 
-    def reduce_at(self, sids):
+    def reduce_at(self, sid):
         """``SceneProjective.reduce`` bound to per-pose scene ids (see
         query_at): returns reduce(cloud (N, P, 3), valid (N, P),
         robust_delta=0.0, point_to_point=False) -> (AtA, Atb, count,
         mse_sum). The kernel takes each pose's row offset; the
         ids never leave the card."""
-        base = self._base(sids)
+        base = self._base(sid)
 
         def reduce(cloud, valid, robust_delta=0.0, point_to_point=False):
             return unpack_sums(assoc_reduce_projective_cuda(
@@ -243,13 +243,13 @@ class SceneProjectiveStack:
 
         return reduce
 
-    def iterate_at(self, sids):
+    def iterate_at(self, sid):
         """``SceneProjective.iterate`` bound to per-pose scene ids (see
         query_at): returns iterate(state, valid, n_total, criteria,
         robust_delta=0.0, point_to_point=False, coarse_iters=0,
         coarse_stride=2, order_batch=None) -> state, one launch a refine (two
         with the coarse phase) with each pose's row offset."""
-        base = self._base(sids)
+        base = self._base(sid)
 
         def iterate(state, valid, n_total, criteria, robust_delta=0.0, point_to_point=False,
                     coarse_iters=0, coarse_stride=2, order_batch=None):

@@ -197,8 +197,9 @@ def test_coarse_icp_matches_jax(estimation, cs, robust_delta):
     jres, jcloud = jfn(pts, valid, jq, jicp.ICPConvergenceCriteria(**crit), chunk_iters=64,
                        robust_delta=robust_delta, coarse_iters=8, coarse_stride=cs)
     tcrit = ticp.ICPConvergenceCriteria(**crit)
-    got = [tfn(torch.as_tensor(pts), torch.as_tensor(valid), q, tcrit, robust_delta=robust_delta,
-               coarse_iters=8, coarse_stride=cs) for q in (tq, ticp.plain_association(tq))]
+    got = [tfn(torch.as_tensor(pts), torch.as_tensor(valid), q, tcrit, chunk_iters=64,
+               robust_delta=robust_delta, coarse_iters=8, coarse_stride=cs)
+           for q in (tq, ticp.plain_association(tq))]
     for tres, tcloud in got:
         np.testing.assert_allclose(tres.transformation.numpy(), np.asarray(jres.transformation),
                                    atol=1e-5)
@@ -244,7 +245,7 @@ def test_coarse_holds_a_pose_whose_strided_rows_are_invalid():
     tcrit = ticp.ICPConvergenceCriteria(**crit)
     for q in (tq, ticp.plain_association(tq)):
         tres, _ = ticp.icp_point_to_plane(torch.as_tensor(clouds), torch.as_tensor(valid), q,
-                                          tcrit, coarse_iters=6)
+                                          tcrit, chunk_iters=64, coarse_iters=6)
         for i in range(2):
             jres, _ = jicp.icp_point_to_plane(pts, valid[i], jq,
                                               jicp.ICPConvergenceCriteria(**crit),
@@ -266,8 +267,9 @@ def test_coarse_holds_a_pose_whose_strided_rows_are_invalid():
 ])
 def test_coarse_validation_matches_jax(recipe, kwargs, match):
     """JAX's ValueErrors with their texts (tests/test_icp.py:432-440), from
-    the ICP functions and from a refine; JAX's third ("fused", chunked loops)
-    has no counterpart: the port has no chunked loop."""
+    the ICP functions (with JAX's fused chunk_iters, as the JAX side) and
+    from a refine; JAX's third ("fused", a short chunk_iters) is held in
+    tests/test_torch_jax_api.py."""
     m, K, truth, poses, scene = recipe
     cloud, vmask = np.zeros((64, 3), np.float32), np.ones(64, bool)
     jscene = prt.SceneProjective.from_depth(scene, K)
@@ -276,10 +278,10 @@ def test_coarse_validation_matches_jax(recipe, kwargs, match):
         jicp.icp_point_to_plane(cloud, vmask, jscene.query, chunk_iters=64, **kwargs)
     with pytest.raises(ValueError, match=match):
         ticp.icp_point_to_plane(torch.as_tensor(cloud), torch.as_tensor(vmask), tscene.query,
-                                **kwargs)
+                                chunk_iters=64, **kwargs)
     with pytest.raises(ValueError, match=match):
         ticp.icp_point_to_point(torch.as_tensor(cloud), torch.as_tensor(vmask), tscene.query,
-                                **kwargs)
+                                chunk_iters=64, **kwargs)
     ref = ptt.PoseRefiner(m, K=K, width=W, height=H, device="cpu", **BASE, **kwargs)
     ref.set_scene_depth(scene)
     with pytest.raises(ValueError, match=match):

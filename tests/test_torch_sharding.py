@@ -192,7 +192,7 @@ def test_sharded_stacked_and_multimodel_refines_equal_single(workload):
     kw = dict(width=mm_one.render_w, height=mm_one.render_h, max_points=mm_one.max_points,
               criteria=crit, window=mm_one.window, stride=mm_one.stride, roi=mm_one.roi)
     same(tsh.refine_poses_sharded(tris, torch.as_tensor(poses), mm_one.scene, mm_one.proj,
-                                  mm_one._K_render_t, devices=CPU3, **kw),
+                                  mm_one._K_render_t, mesh=CPU3, **kw),
          refine_poses(tris, torch.as_tensor(poses), mm_one.scene, mm_one.proj,
                       mm_one._K_render_t, **kw))
 
