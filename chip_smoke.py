@@ -187,8 +187,9 @@ are collected and fail the run at its end.
               icp_iterate_*) against its plain version (icp_iterate_plain
               over the front end's plain query): the whole projective loop
               at the slice shape (24 iterations) in every mode, at the
-              tracking shape (16 x 2,048, 8-CTA clusters, 30 iterations) and
-              on the stacked table; one indexed iteration on B3's output (2
+              serving ceiling's fine shape (512 x 2,048: 128-thread CTAs),
+              at the tracking shape (16 x 2,048, 8-CTA clusters, 30
+              iterations) and on the stacked table; one indexed iteration on B3's output (2
               mm, every mode) and on K1's (2 mm, raw) at 256 x 2,048; an NN
               loop of 4 iterations through B3 and through K1 against the
               plain NN (64 poses). T, fitness, rmse, done and the cloud bit
@@ -199,7 +200,10 @@ are collected and fail the run at its end.
               with its checks, and beside it the fused pass kernel alone
               and the scoring-only last iteration alone on the same
               inputs), the plain version's, the bound: the bytes once a
-              launch, the operations of this run's pose-iterations.
+              launch, the operations of this run's pose-iterations; the
+              kernel's registers, local bytes, threads, CTAs an SM and waves
+              and its tail alone at the case's poses (probes/icp_tail.py,
+              built beside the phases; [coarse] prints the same).
               [build] prints ptxas's registers of each instantiation.
  16. mxu    - P1 on its probe (probes/mxu_nn.py, scripts/probe_mxu_nn.py's
               262,144 queries x 29,440 points): idx and dist^2 equal to B2's
@@ -294,6 +298,7 @@ coarse mode, nn_kdtree, nn_flash_mxu); the last line is
 """
 
 import collections
+import concurrent.futures
 import dataclasses
 import functools
 import json
@@ -1143,7 +1148,7 @@ STATE_IN_BYTES, STATE_OUT_BYTES = 64 + 4 + 4 + 1 + 4, 64 + 4 + 4 + 1
 
 
 def icp_registers(log):
-    """{kernel<front end, terms, index type>: registers} of
+    """{kernel<threads, front end, terms, index type>: registers} of
     csrc/icp_reduce.cu's pass and iteration kernels, from ptxas's -v
     report in the build log."""
     out, name = {}, None
@@ -1153,10 +1158,10 @@ def icp_registers(log):
             name = entry.group(1)
         used = re.search(r"Used (\d+) registers", ln)
         inst = used and name and re.search(
-            r"(assoc_reduce_kernel|icp_iterate_kernel)ILb([01])ELb([01])E([ix])E", name)
+            r"(assoc_reduce_kernel|icp_iterate_kernel)ILi(\d+)ELb([01])ELb([01])E([ix])E", name)
         if inst:
-            kernel, proj, p2p, idx = inst.groups()
-            key = (f"{kernel}<{'proj' if proj == '1' else 'indexed'},"
+            kernel, threads, proj, p2p, idx = inst.groups()
+            key = (f"{kernel}<{threads},{'proj' if proj == '1' else 'indexed'},"
                    f"{'p2p' if p2p == '1' else 'plane'},{'int' if idx == 'i' else 'int64'}>")
             out[key] = int(used.group(1))
     return out
@@ -1600,7 +1605,27 @@ def same_bits(a, b) -> bool:
     return bool((a == b).all()) and a.shape == b.shape
 
 
-def icp_iterate_phase(torch, IR, icp, cases):
+# what [icp-iterate] and [coarse] print of a case beside its times
+RESIDENCY = ("tail_alone_ms", "registers", "local_bytes", "threads", "slabs", "ctas_per_sm",
+             "waves")
+
+
+def icp_residency(IR, icp_tail, probe, sms, n, rows, idx_bytes=0, iters=2):
+    """The iteration kernel's residency at a launch of n poses x ``rows``
+    points (probes/icp_tail.py, this checkout's source): registers and
+    local bytes a thread, threads a CTA, slabs a pose, CTAs an SM (with the
+    launch's dynamic shared memory: the slab when it runs more than one
+    iteration) and waves of the grid."""
+    slabs, threads = IR.geometry(n, rows)
+    slab_bytes = 12 * -(-rows // slabs)
+    smem = slab_bytes if iters > 1 and slab_bytes <= 200 * 1024 else 0
+    res = icp_tail.residency(probe, True, idx_bytes, False, threads, smem)
+    return dict(registers=res["registers"], local_bytes=res["local_bytes"], threads=threads,
+                slabs=slabs, ctas_per_sm=res["ctas_per_sm"],
+                waves=icp_tail.waves(n * slabs, res["ctas_per_sm"], sms))
+
+
+def icp_iterate_phase(torch, IR, icp, cases, tail):
     """The ICP iteration kernel (ops/icp_reduce.py) against its plain
     version on each case, a dict of: label; cloud, valid (the loop's input,
     anchored by icp._icp_start); crit; modes = (robust_delta,
@@ -1623,13 +1648,17 @@ def icp_iterate_phase(torch, IR, icp, cases):
     the cloud of every pose that moves and every pose's state written
     once, the rows the first pass names read once; and the operations of
     every pose-iteration the latch lets run (the body a point, TAIL_OPS a
-    pose) and of every move (MOVE_OPS a point). Returns {label: stats}."""
+    pose) and of every move (MOVE_OPS a point). ``tail`` = (probe module,
+    probe library, SMs): each timed case also gets the kernel's residency
+    (icp_residency) and the tail alone at its poses (the probe: one CTA a
+    pose, on the first pass's sums). Returns {label: stats}."""
     out = {}
     for c in cases:
         label, cloud, valid, crit = c["label"], c["cloud"], c["valid"], c["crit"]
         modes, iters = c.get("modes", (0.0, False)), c["iters"]
         state0, valid, n_total = icp._icp_start(cloud, valid)
         n, p = cloud.shape[:2]
+        dev = cloud.device
 
         def fresh():
             return IR.ICPState(*(t.clone() for t in state0))
@@ -1699,6 +1728,11 @@ def icp_iterate_phase(torch, IR, icp, cases):
             stats["alone_ms"] = alone_ms(torch, lambda: c["kernel"](next(states), valid, n_total))
             stats["ms"], _ = median_ms(torch, lambda: c["kernel"](next(states), valid, n_total),
                                        20)
+        icp_tail, probe, sms = tail
+        idx_bytes = c["nearest"][0].element_size() if "nearest" in c else 0
+        stats.update(icp_residency(IR, icp_tail, probe, sms, n, p, idx_bytes, iters))
+        sums = IR.assoc_reduce_plain(state0.cloud, valid, c["plain_query"], *modes)
+        stats["tail_alone_ms"] = icp_tail.tail_ms(probe, sums, icp_tail.start_state(n, dev))
         n_bytes = (n * (p * (13 + c["point_bytes"]) + c["pose_bytes"] + STATE_IN_BYTES
                         + STATE_OUT_BYTES) + int(moved.sum()) * p * 12 + c["rows"] * 32)
         stats.update(bound(n_bytes=n_bytes,
@@ -1706,8 +1740,8 @@ def icp_iterate_phase(torch, IR, icp, cases):
         stats.update(plain_ms=p_ms, library_ms=None, launches=k, iterations=iters, max_abs_err=err,
                      pose_iterations=active, moves=moving,
                      share_of_bound=stats["bound_ms"] / stats["alone_ms"])
-        extra = "".join(f" {k}={stats[k]}" for k in ("first_ms", "score_only_alone_ms",
-                                                      "pass_alone_ms") if k in stats)
+        extra = "".join(f" {k}={stats[k]}" for k in (
+            "first_ms", "score_only_alone_ms", "pass_alone_ms") + RESIDENCY if k in stats)
         phase("icp-iterate", f"{label}: {n} poses x {p} points, {IR.slabs_for(n, p)} CTAs a "
               f"pose, {iters} iteration(s): {active} pose-iterations, {moving} moves; "
               f"equals_plain_bit_for_bit={same} two_runs_bit_equal={bits} launches={k} "
@@ -1726,7 +1760,7 @@ def icp_iterate_phase(torch, IR, icp, cases):
 COARSE_TAIL_OPS = TAIL_OPS - 10
 
 
-def coarse_launch_phase(torch, IR, icp, c):
+def coarse_launch_phase(torch, IR, icp, c, tail):
     """The iteration kernel's coarse mode alone on one case ``c`` (a dict):
     label; cloud, valid (a refine's first-pass clouds, anchored here by
     icp._icp_start); crit; iters, the coarse iterations; stride; front, the
@@ -1745,7 +1779,8 @@ def coarse_launch_phase(torch, IR, icp, c):
     hand-off, the rows the first pass names read once) and the operations
     of the pose-iterations that run (the body a point, COARSE_TAIL_OPS a
     pose; a held pose leaves the loop), of every move (MOVE_OPS a point)
-    and of the hand-off (MOVE_OPS a full-cloud point). Returns the stats."""
+    and of the hand-off (MOVE_OPS a full-cloud point). ``tail`` as for
+    icp_iterate_phase (the coarse tail alone). Returns the stats."""
     label, iters, stride = c["label"], c["iters"], c["stride"]
     state0, valid, n_total = icp._icp_start(c["cloud"], c["valid"])
     cstate0, cvalid = IR.coarse_start(state0, valid, stride)
@@ -1808,6 +1843,13 @@ def coarse_launch_phase(torch, IR, icp, c):
     stats = dict(alone_ms=alone_ms(torch, lambda: run(next(pool))))
     pairs = iter([fresh() for _ in range(25)])
     stats["ms"], _ = median_ms(torch, lambda: run(make(next(pairs))), 20)
+    icp_tail, probe, sms = tail
+    stats.update(icp_residency(IR, icp_tail, probe, sms, n, pc,
+                               0 if nearest is None else nearest[0].element_size(), iters))
+    sums = IR.assoc_reduce_plain(cstate0.cloud, cvalid, c["plain_query"],
+                                 *c.get("modes", (0.0, False)))
+    stats["tail_alone_ms"] = icp_tail.tail_ms(probe, sums, icp_tail.start_state(n, p_T.device),
+                                              coarse=True)
     n_bytes = (n * (pc * (13 + c["point_bytes"]) + 128 + 24 * p)
                + int(moved.sum()) * pc * 12 + c["rows"] * 32)
     stats.update(bound(n_bytes=n_bytes, n_instr=active * (pc * c["instr"] + COARSE_TAIL_OPS)
@@ -1821,7 +1863,8 @@ def coarse_launch_phase(torch, IR, icp, c):
           f"equals_plain_bit_for_bit={same} two_runs_bit_equal={bits} launches={k} "
           f"kernel_alone_ms={stats['alone_ms']} kernel_ms={stats['ms']} (with the wrapper) "
           f"plain_ms={p_ms} bound_ms={stats['bound_ms']} ({stats['bound_by']}, "
-          f"{stats['share_of_bound']} of it alone) library=none")
+          f"{stats['share_of_bound']} of it alone) library=none"
+          + "".join(f" {k}={stats[k]}" for k in RESIDENCY if k in stats))
     check(all(same.values()), f"coarse {label}: the kernel differs from its plain version: "
           f"{same}")
     check(bits, f"coarse {label}: two runs differ")
@@ -2255,7 +2298,7 @@ def main():
     from pose_refine_tpu_torch.ops import rasterize_cuda as RC
     from pose_refine_tpu_torch.ops.depth_to_cloud import window_lift
     from pose_refine_tpu_torch.pipeline import _window_lift, refine_poses
-    from pose_refine_tpu_torch.probes import lift_cases, mxu_nn, nn_ties
+    from pose_refine_tpu_torch.probes import icp_tail, lift_cases, mxu_nn, nn_ties
     from pose_refine_tpu_torch.scene import nn_flash as NF
     from pose_refine_tpu_torch.scene import nn_kdtree as KD
     from pose_refine_tpu_torch.scene import nn_mxu as NM
@@ -2417,6 +2460,11 @@ def main():
     phase("build", f"ok in {time.perf_counter() - t0:.3f} s (nvcc {info['seconds']:.3f} s, "
           f"built={info['built']}) -> {os.path.relpath(info['path'], REPO)}; registers of "
           f"csrc/icp_reduce.cu's kernels: {icp_registers(nvcc_log)}")
+    # the iteration kernel's probe ([icp-iterate]: the tail alone, the
+    # residency), compiled by nvcc on the host while the phases run
+    probe_build = concurrent.futures.ThreadPoolExecutor(1)
+    probe_lib = probe_build.submit(icp_tail.build)
+    probe_build.shutdown(wait=False)
 
     # 2b. the later phases' device-kernel counts, from a fresh process
     census = late_census()
@@ -2902,6 +2950,12 @@ def main():
     sc_plain = functools.partial(sc.query, plain=True)
     loop_case("slice shape, whole loop", sc.iterate, sc_plain, slice_cloud, slice_valid, crit,
               slice_rows)
+    # the serving ceiling's fine shape: 512 poses (bench.py's 256 twice), the
+    # slice's scene; 128-thread CTAs, four an SM, one wave
+    fine_cloud, fine_valid = first_pass_clouds(ptt, refine_poses, refiner, sc,
+                                               torch.cat([poses, poses]))
+    loop_case("serving fine shape, 512 x 2,048, whole loop", sc.iterate, sc_plain, fine_cloud,
+              fine_valid, crit, rows_named(sc, fine_cloud))
     for m_label, modes in (("huber 5mm", (0.005, False)), ("point to point", (0.0, True)),
                            ("point to point huber 5mm", (0.005, True))):
         loop_case(f"slice shape, whole loop, {m_label}", sc.iterate, sc_plain, slice_cloud,
@@ -3320,7 +3374,9 @@ def main():
           f"{float(angles.abs().max())}) equal={trig_same[0]}; {wide.numel()} angles in "
           f"[-40, 40] equal={trig_same[1]}")
     check(all(trig_same), "icp-iterate: the kernel's sinf / cosf differ from torch's")
-    iterate_stats = icp_iterate_phase(torch, IR, icp, iterate_cases)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    probe_tail = (icp_tail, probe_lib.result(), sms)
+    iterate_stats = icp_iterate_phase(torch, IR, icp, iterate_cases, probe_tail)
     phase("icp-iterate", f"phase seconds={time.perf_counter() - t0}")
 
     # 17. [coarse] the serving ceiling (bench.py:305-327): the bench
@@ -3415,7 +3471,7 @@ def main():
         crit=crit, iters=COARSE[0], stride=COARSE[1], front=c_front,
         plain_query=functools.partial(csc.query, plain=True),
         rows=rows_named(csc, IR.coarse_start(c_anchor, c_v, COARSE[1])[0].cloud),
-        point_bytes=0, instr=11 + body_instr((0.0, False))))}
+        point_bytes=0, instr=11 + body_instr((0.0, False))), probe_tail)}
     kd_cstate, kd_cvalid = IR.coarse_start(*icp._icp_start(nn_cloud, nn_valid)[:2], COARSE[1])
     kd_near = kd2._nearest(kd_cstate.cloud)
     coarse_stats["kd-2mm, 256 x 2,048, one iteration"] = coarse_launch_phase(torch, IR, icp, dict(
@@ -3425,7 +3481,7 @@ def main():
                    gate_sq=NF.gate_sq(kd2.max_dist_diff)),
         plain_query=lambda q: _rows_in_gate(kd2.table, *kd_near, kd2.max_dist_diff, plain=True),
         rows=int(kd_near[0].clamp(0, kd2.table.shape[0] - 1).unique().numel()),
-        point_bytes=8, instr=1 + body_instr((0.0, False)), nearest=kd_near))
+        point_bytes=8, instr=1 + body_instr((0.0, False)), nearest=kd_near), probe_tail)
     # a scene="nn" coarse refine: K1 on the strided copy, one coarse launch a
     # coarse pass, then the fine passes
     kd_ref = ptt.PoseRefiner(model, K=K, device="cuda", scene="nn", scene_voxel_mm=2.0,
@@ -3780,13 +3836,15 @@ def main():
             "launches_compact": cm_counts["icp_iterate"],
             "cases": {label: {k: st[k] for k in ("alone_ms", "ms", "plain_ms", "bound_ms",
                                                  "bound_by", "share_of_bound", "launches",
-                                                 "pose_iterations", "max_abs_err")}
+                                                 "pose_iterations", "max_abs_err") + RESIDENCY
+                                if k in st}
                       for label, st in coarse_stats.items()},
         },
-        # every timed case: alone, with the wrapper, the bound
+        # every timed case: alone, with the wrapper, the bound, the tail
+        # alone and the residency
         "cases": {label: {k: st[k] for k in ("alone_ms", "ms", "first_ms", "score_only_alone_ms",
                                              "pass_alone_ms", "bound_ms", "bound_by",
-                                             "share_of_bound") if k in st}
+                                             "share_of_bound") + RESIDENCY if k in st}
                   for label, st in iterate_stats.items() if "alone_ms" in st},
     }, {
         "name": "nn_kdtree",

@@ -12,8 +12,10 @@ kernels, builds the workloads with this checkout's chip_smoke.py helpers
 (the same seeds for both), and prints one JSON line a cell: wall ms (median,
 min and max of --reps calls after a warm one), CUDA-event ms, and from
 torch.profiler around one call the device kernels, their summed ms and the
-busy share (that sum over the median wall; the profiled call of three
-that recorded the most kernels). Cells: slice-bench-256,
+busy share (that sum over the median wall; of three profiled calls, taken
+before the timed ones, the one that recorded the most kernels and holds
+B1's and L1's kernels to their launch counters, chip_smoke.checked_kernels).
+Cells: slice-bench-256,
 kd-2mm-256, multiscene-proj-4x64, multimodel-256, track-proj-16 (one tracked
 frame with the covariance and the packed session buffer) and
 coarse-serving-512x4 (4 x refine_async(512) then fence; ms a batch). Then
@@ -54,6 +56,7 @@ def measure(tree: str, reps: int) -> int:
     sys.path.insert(0, tree)
     import pose_refine_tpu_torch as ptt
     from pose_refine_tpu_torch import geometry, mesh
+    from pose_refine_tpu_torch.ops import lift_cuda as LC
     from pose_refine_tpu_torch.ops import rasterize_cuda as RC
 
     if not os.path.abspath(ptt.__file__).startswith(tree + os.sep):
@@ -106,8 +109,13 @@ def measure(tree: str, reps: int) -> int:
         lambda: ptt.fence(*[serving.refine_async(poses512, crit) for _ in range(4)]), 4)
     setup_s = time.perf_counter() - t0
 
+    # every cell's device kernels first, while the process's profiler still
+    # records every launch (ROADMAP C7), held to the B1 / L1 launch counters
+    # (checked_kernels warms each cell first: builds, the ROI, the tracked
+    # scene's pool)
+    profiled = {cell: CS.checked_kernels(torch, fn, RC, LC) for cell, (fn, _per) in cells.items()}
     for cell, (fn, per) in cells.items():
-        fn()  # warm: builds, plans the ROI, the tracked scene's pool
+        rows = profiled[cell]
         walls, dev_ms = [], []
         for _ in range(reps):
             torch.cuda.synchronize()
@@ -120,7 +128,6 @@ def measure(tree: str, reps: int) -> int:
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t1) * 1e3 / per)
             dev_ms.append(a.elapsed_time(b) / per)
-        rows = CS.most_kernels(torch, fn)
         wall = float(np.median(walls))
         kernel_ms = sum(r[1] for r in rows) / per
         print(json.dumps(dict(

@@ -42,10 +42,10 @@ SIGNATURES = {
     "prt_nn_mxu": ((_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P), _I),
     "prt_nn_kdtree": ((_P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P), _I),
     "prt_gather_rows": ((_P, _L, _P, _I, _L, _P, _P), _I),
-    "prt_assoc_reduce": ((_P, _P, _I, _I, _P, _L, _I, _P, _P, _P, _I, _I, _P, _I, _P, _F, _F,
-                          _I, _P, _P), _I),
-    "prt_icp_iterate": ((_P, _P, _I, _I, _P, _L, _I, _P, _P, _P, _I, _I, _P, _I, _P, _F, _F,
-                         _I, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P, _I, _P), _I),
+    "prt_assoc_reduce": ((_P, _P, _I, _I, _P, _L, _I, _I, _P, _P, _P, _I, _I, _P, _I, _P, _F,
+                          _F, _I, _P, _P), _I),
+    "prt_icp_iterate": ((_P, _P, _I, _I, _P, _L, _I, _I, _P, _P, _P, _I, _I, _P, _I, _P, _F,
+                         _F, _I, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P, _I, _P), _I),
     "prt_sin_cos": ((_P, _I, _P, _P, _P), _I),
     "prt_window_lift": ((_P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P), _I),
     "prt_error_string": ((_I,), ctypes.c_char_p),

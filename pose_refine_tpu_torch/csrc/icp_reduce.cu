@@ -38,10 +38,14 @@
 // in plane mode is the body of before the modes, bit for bit.
 //
 // The 28 float sums are taken in float32 (no TF32, no half), in a fixed
-// order: a thread adds its points in rising order, a warp merges by an xor
-// butterfly, the CTA's warps are added in warp order, and the CTAs of one
-// pose - a thread block cluster, one CTA per slab of points - are added in
-// rank order by rank 0 through distributed shared memory. No float atomics:
+// order: a thread adds its points in rising order, a warp merges by the tree
+// of an xor butterfly (steps 16, 8, 4, 2, 1, each halving the sums a lane
+// holds, so lane l ends with sum l), the CTA's warps are added in warp
+// order, and the CTAs of one pose - a thread block cluster, one CTA per slab
+// of points - are added in rank order through distributed shared memory.
+// The slabs a pose and the threads a CTA - 256 while two CTAs an SM hold the
+// grid, else 128, four an SM - are chosen by the caller from the batch's
+// shape (ops/icp_reduce.py::geometry), and with them the order. No float atomics:
 // two launches on equal inputs give equal bits. Every term is rounded one
 // operation at a time (no fused multiply-add), and the plain PyTorch version
 // (ops/icp_reduce.py::assoc_reduce_plain) takes the same terms in the same
@@ -51,24 +55,26 @@
 // What bounds it on the H100: bytes and latency, not arithmetic. A point
 // costs 13 bytes of cloud and valid mask from device memory, one 32-byte row
 // that mostly hits L2 (a 640x480 table is 9.8 MB of the 50 MB), and about 90
-// FP32 instructions (a product and its add are two); 256 poses x 2,048 points are 6.8 MB and 2 us at the
-// card's rates. What the design does about it: each thread issues the loads
-// of kBatch points before it consumes any (two dependent memory latencies a
-// batch, not a point), the grid is sized to the card (a pose is split over
-// up to 8 slabs when the poses alone leave SMs idle: 16 tracked hypotheses
-// give 128 CTAs), and the cluster merge keeps the pass at one launch.
+// FP32 instructions (a product and its add are two); 256 poses x 2,048
+// points are 6.8 MB and 2 us at the card's rates. What the design does about
+// it: each thread issues the loads of kBatch points before it consumes any
+// (two dependent memory latencies a batch, not a point), the grid is sized
+// to the card (a pose is split over up to 8 slabs when the poses alone leave
+// SMs idle: 16 tracked hypotheses give 128 CTAs; beyond two CTAs an SM they
+// are of 128 threads, so 512 poses are resident at once at the kernels' 128
+// registers a thread), and the cluster merge keeps the pass at one launch.
 //
 // A masked point contributes its terms multiplied by 0, as the plain version
 // does, so a non-finite coordinate of a masked point poisons the sums in
 // both; the ICP anchors padded rows to a real point for that reason.
 //
 // The same body carries a whole ICP iteration (icp_iterate_kernel, JAX
-// icp.py:398-428): after the pose's sums are merged, one thread of its
-// rank-0 CTA runs the tail - the scores, the done latch, the damped 6x6
+// icp.py:398-428): after the pose's sums are merged, warp 0 of each of the
+// pose's CTAs runs the tail - the scores, the done latch, the damped 6x6
 // Cholesky solve with one refinement step, the twist Rz Ry Rx with sinf /
-// cosf, T <- upd @ T - and publishes the update in shared memory; every CTA
-// of the pose reads it (a cluster through distributed shared memory) and
-// moves its own slab. Every operation is one _rn intrinsic, in the order of
+// cosf, T <- upd @ T - on its own copy of the pose's state, publishes the
+// update in its shared memory, and the CTA moves its own slab. Every
+// operation is one _rn intrinsic, in the order of
 // ops/icp_reduce.py::icp_iterate_plain, so kernel and plain version agree
 // bit for bit in T, fitness, rmse, done and the cloud. Against a projective
 // scene the table, K and the gate do not change between iterations, so one
@@ -78,8 +84,18 @@
 // Against an NN scene the NN kernel must run on the moved cloud between
 // iterations, so a launch is one iteration and the state stays in device
 // memory from launch to launch. What bounds it: the pass's bytes and
-// latency as above, plus ~400 dependent float operations of the tail a
-// pose and iteration, a microsecond or two of one thread; it replaces ~75
+// latency as above, plus the tail, which overlaps nothing: the pose's CTAs
+// wait for it, and the CTAs an SM holds run in step. The tail is one chain
+// of ~40 dependent correctly rounded divisions and roots (the factor's
+// columns, then four substitutions), the sines and ~300 other operations:
+// 2.0 us a pose on the H100 by a warp, 2.6 by one thread (compare_icp.py).
+// What the design does about it: the warp takes the Cholesky factor's rows,
+// the residual's rows, the three sines and the 12 entries of T on lanes,
+// and every lane the diagonal's roots and the substitutions, so no shuffle
+// sits between a root and its divisions; in a cluster every CTA merges the
+// ranks' sums itself (their loads at once) and runs the tail, so an
+// iteration has one cluster barrier, not two; the butterfly above takes 31
+// shuffles a warp, not 145; and 512 poses run in one wave. It replaces ~75
 // small PyTorch launches of the solve and update a pass, which the host,
 // not the card, paid for.
 //
@@ -102,14 +118,17 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+// threads a CTA: kWide while the grid's CTAs fit two an SM, kNarrow (four
+// an SM) beyond that; the caller chooses (ops/icp_reduce.py::geometry)
+constexpr int kWide = 256;
+constexpr int kNarrow = 128;
 constexpr int kSums = 29;     // 21 AtA + 6 Atb + mse + count
 constexpr int kBatch = 4;     // points a thread loads before it accumulates
 constexpr int kMaxSlabs = 8;  // the portable cluster size
 // the largest slab (bytes of its points) the iteration kernel keeps in
 // shared memory (the H100 gives a CTA up to 227 KB)
 constexpr long long kSmemCloudMax = 200 * 1024;
+constexpr unsigned kFull = 0xffffffffu;
 
 struct Args {
   const float* cloud;          // (N, P, 3)
@@ -179,15 +198,16 @@ __device__ __forceinline__ float load_coord(const float* p) {
 }
 
 // The CTA's 29 sums over points [begin, end) of pose `pose` (the pass's
-// body): thread t < kSums returns sum t, merged over the CTA's warps in
-// warp order. Point p's coordinates are read at cl + 3 * (p - cl_first):
-// the pose's cloud in device memory (cl_first = 0) or its slab in shared
-// memory (cl_first = begin). Thread t takes points begin + t, begin + t +
-// kThreads, ... in rising order.
-template <bool kProj, bool kP2P, typename Idx, bool kLdg>
+// body): thread t < kSums (lane t of warp 0) returns sum t, merged over the
+// CTA's warps in warp order, after a CTA barrier. Point p's coordinates are
+// read at cl + 3 * (p - cl_first): the pose's cloud in device memory
+// (cl_first = 0) or its slab in shared memory (cl_first = begin). Thread t
+// takes points begin + t, begin + t + kThreads, ... in rising order.
+template <int kThreads, bool kProj, bool kP2P, typename Idx, bool kLdg>
 __device__ __forceinline__ float slab_sums(const Args& a, const float* cl, int cl_first,
                                            long long pose, int begin, int end,
                                            float (*warp_sums)[kSums]) {
+  constexpr int kWarps = kThreads / 32;
   const int tid = threadIdx.x;
   const long long first = pose * a.points;
 
@@ -315,18 +335,29 @@ __device__ __forceinline__ float slab_sums(const Args& a, const float* cl, int c
     }
   }
 
-  // warp: xor butterfly, every lane ends with the warp's sum
+  // warp: the xor butterfly's tree (steps 16, 8, 4, 2, 1; a lane adds its
+  // partner's value to its own), each step halving the sums a lane holds:
+  // at step h the lane keeps the half of its sums whose index has the
+  // lane's bit h and sends the other half, so lane l ends with sum l, the
+  // value every lane of the full butterfly ends with (31 shuffles, not 145)
+  const int lane = tid & 31;
+  float h[16];
 #pragma unroll
-  for (int k = 0; k < kSums; ++k) {
+  for (int c = 0; c < 16; ++c) {
+    const float lo = acc[c], hi = c + 16 < kSums ? acc[min(c + 16, kSums - 1)] : 0.f;
+    const bool up = lane & 16;
+    h[c] = (up ? hi : lo) + __shfl_xor_sync(kFull, up ? lo : hi, 16);
+  }
 #pragma unroll
-    for (int step = 16; step > 0; step >>= 1) {
-      acc[k] += __shfl_xor_sync(0xffffffffu, acc[k], step);
+  for (int half = 8; half > 0; half >>= 1) {
+    const bool up = lane & half;
+#pragma unroll
+    for (int c = 0; c < half; ++c) {
+      const float lo = h[c], hi = h[c + half];
+      h[c] = (up ? hi : lo) + __shfl_xor_sync(kFull, up ? lo : hi, half);
     }
   }
-  if ((tid & 31) == 0) {
-#pragma unroll
-    for (int k = 0; k < kSums; ++k) warp_sums[tid >> 5][k] = acc[k];
-  }
+  if (lane < kSums) warp_sums[tid >> 5][lane] = h[0];
   __syncthreads();
   // CTA: the warps in warp order
   float total = 0.f;
@@ -338,9 +369,9 @@ __device__ __forceinline__ float slab_sums(const Args& a, const float* cl, int c
 }
 
 // One ICP pass: out (N, 29), the sums of every pose
-template <bool kProj, bool kP2P, typename Idx>
+template <int kThreads, bool kProj, bool kP2P, typename Idx>
 __global__ void __launch_bounds__(kThreads) assoc_reduce_kernel(const Args a) {
-  __shared__ float warp_sums[kWarps][kSums];
+  __shared__ float warp_sums[kThreads / 32][kSums];
   __shared__ float cta_sums[32];
 
   const int tid = threadIdx.x;
@@ -349,8 +380,8 @@ __global__ void __launch_bounds__(kThreads) assoc_reduce_kernel(const Args a) {
   const int per_slab = (a.points + a.slabs - 1) / a.slabs;
   const int begin = slab * per_slab;
   const int end = min(begin + per_slab, a.points);
-  float total = slab_sums<kProj, kP2P, Idx, true>(a, a.cloud + 3 * pose * a.points, 0, pose,
-                                                  begin, end, warp_sums);
+  float total = slab_sums<kThreads, kProj, kP2P, Idx, true>(a, a.cloud + 3 * pose * a.points,
+                                                            0, pose, begin, end, warp_sums);
   if (a.slabs == 1) {
     if (tid < kSums) a.out[pose * kSums + tid] = total;
     return;
@@ -371,7 +402,7 @@ __global__ void __launch_bounds__(kThreads) assoc_reduce_kernel(const Args a) {
 
 // ---------------------------------------------------------------------------
 // A whole ICP iteration (JAX icp.py:398-428, the port's icp.py loop body):
-// the pass's sums, then the pose's tail in one thread of its rank-0 CTA.
+// the pass's sums, then the pose's tail in one warp of each of its CTAs.
 
 struct Iter {
   float* cloud;           // (N, P, 3), moved in place
@@ -401,64 +432,83 @@ __device__ __forceinline__ constexpr int upper(int i, int j) {
   return i * 6 - i * (i - 1) / 2 + (j - i);
 }
 
-// x of L L^T x = b: forward, then back substitution, each sum in rising k
-// (ops/icp_reduce.py::_cho_solve_plain)
-__device__ __forceinline__ void cho_solve(const float (&L)[6][6], const float (&b)[6],
-                                          float (&x)[6]) {
+// x of L L^T x = b, L the lower factor (below the diagonal) and D its
+// diagonal: forward, then back substitution, each sum in rising k
+// (ops/icp_reduce.py::_cho_solve_plain). Every lane of the tail's warp runs
+// it on its own copy: the substitutions are one chain of dependent
+// divisions, which lanes would not shorten.
+__device__ __forceinline__ void cho_solve(const float (&L)[6][6], const float (&D)[6],
+                                          const float (&b)[6], float (&x)[6]) {
   float y[6];
 #pragma unroll
   for (int i = 0; i < 6; ++i) {
     float v = b[i];
 #pragma unroll
     for (int k = 0; k < i; ++k) v = __fsub_rn(v, __fmul_rn(L[i][k], y[k]));
-    y[i] = __fdiv_rn(v, L[i][i]);
+    y[i] = __fdiv_rn(v, D[i]);
   }
 #pragma unroll
   for (int i = 5; i >= 0; --i) {
     float v = y[i];
 #pragma unroll
     for (int k = i + 1; k < 6; ++k) v = __fsub_rn(v, __fmul_rn(L[k][i], x[k]));
-    x[i] = __fdiv_rn(v, L[i][i]);
+    x[i] = __fdiv_rn(v, D[i]);
   }
 }
 
-// (AtA + 0.01 I) x = Atb from the 29 sums: the Cholesky factor column by
-// column, a solve, the residual r = Atb - M x in float32 and one refinement
-// step (ops/icp_reduce.py::solve_damped_plain; JAX icp.py:87-99)
-__device__ __forceinline__ void solve_damped(const float* s, float (&x)[6]) {
-  float m[6][6], L[6][6], b[6], r[6], dx[6];
-#pragma unroll
-  for (int i = 0; i < 6; ++i) {
-    b[i] = s[21 + i];
-#pragma unroll
-    for (int j = 0; j < 6; ++j) m[i][j] = s[i <= j ? upper(i, j) : upper(j, i)];
-    m[i][i] = __fadd_rn(m[i][i], 0.01f);
-  }
+// (AtA + 0.01 I) x = Atb from the 29 sums, lane k of the warp holding sum
+// k (`sk`): the Cholesky factor column by column, a solve, the residual
+// r = Atb - M x in float32 and one refinement step
+// (ops/icp_reduce.py::solve_damped_plain; JAX icp.py:87-99). Lane l works
+// on row i = min(l, 5): in column j it takes m_ij - L_i0 L_j0 - ... -
+// L_i,j-1 L_j,j-1 (k rising), and every row below divides it by L_jj; row
+// j's entries reach every lane by shuffles as the columns need them, so each
+// lane ends with the whole factor and takes the diagonal's sums and roots
+// itself (no shuffle between a root and its divisions), and the residual's
+// rows are again one a lane. Every scalar is the one-thread solve's,
+// operation for operation. x (every lane).
+__device__ __forceinline__ void solve_damped(float sk, float (&x)[6]) {
+  const int i = min((int)(threadIdx.x & 31), 5);
+  float m[6], row[6], L[6][6], D[6];
 #pragma unroll
   for (int j = 0; j < 6; ++j) {
-    float d = m[j][j];
+    const float v = __shfl_sync(kFull, sk, i <= j ? upper(i, j) : upper(j, i));
+    m[j] = j == i ? __fadd_rn(v, 0.01f) : v;
+  }
+  const float b = __shfl_sync(kFull, sk, 21 + i);
+  float diag[6];
 #pragma unroll
-    for (int k = 0; k < j; ++k) d = __fsub_rn(d, __fmul_rn(L[j][k], L[j][k]));
-    L[j][j] = __fsqrt_rn(d);
+  for (int j = 0; j < 6; ++j) diag[j] = __shfl_sync(kFull, sk, upper(j, j));
 #pragma unroll
-    for (int i = j + 1; i < 6; ++i) {
-      float v = m[i][j];
+  for (int j = 0; j < 6; ++j) {
+    float v = m[j];
+    float d = __fadd_rn(diag[j], 0.01f);  // lane j's v, taken by every lane
 #pragma unroll
-      for (int k = 0; k < j; ++k) v = __fsub_rn(v, __fmul_rn(L[i][k], L[j][k]));
-      L[i][j] = __fdiv_rn(v, L[j][j]);
+    for (int k = 0; k < j; ++k) {
+      L[j][k] = __shfl_sync(kFull, row[k], j);
+      v = __fsub_rn(v, __fmul_rn(row[k], L[j][k]));
+      d = __fsub_rn(d, __fmul_rn(L[j][k], L[j][k]));
     }
+    D[j] = __fsqrt_rn(d);
+    // L_ij below the diagonal. A lane on or above it divides 1 instead: its
+    // sum there mixes entries no row uses, and a quotient of those can take
+    // the division's slow path, which the whole warp then waits for (the
+    // factor took 0.5 us longer so)
+    row[j] = __fdiv_rn(i > j ? v : 1.f, D[j]);
   }
-  cho_solve(L, b, x);
+  float rhs[6], dx[6];
 #pragma unroll
-  for (int i = 0; i < 6; ++i) {
-    float mx = __fmul_rn(m[i][0], x[0]);
+  for (int k = 0; k < 6; ++k) rhs[k] = __shfl_sync(kFull, b, k);
+  cho_solve(L, D, rhs, x);
+  float mx = __fmul_rn(m[0], x[0]);
 #pragma unroll
-    for (int j = 1; j < 6; ++j) mx = __fadd_rn(mx, __fmul_rn(m[i][j], x[j]));
-    r[i] = __fsub_rn(b[i], mx);
-  }
-  cho_solve(L, r, dx);
+  for (int j = 1; j < 6; ++j) mx = __fadd_rn(mx, __fmul_rn(m[j], x[j]));
+  const float r = __fsub_rn(b, mx);
 #pragma unroll
-  for (int i = 0; i < 6; ++i) x[i] = __fadd_rn(x[i], dx[i]);
+  for (int k = 0; k < 6; ++k) rhs[k] = __shfl_sync(kFull, r, k);
+  cho_solve(L, D, rhs, dx);
+#pragma unroll
+  for (int k = 0; k < 6; ++k) x[k] = __fadd_rn(x[k], dx[k]);
 }
 
 // the libm sine and cosine (sinf / cosf, not the __sinf approximations):
@@ -468,17 +518,23 @@ __device__ __forceinline__ void sin_cos(float v, float& s, float& c) {
   c = cosf(v);
 }
 
-// The update of one pose, one thread: from `s`, the pose's 29 sums, the
-// damped solve, the twist Rz Ry Rx (geometry.euler_to_rotation's formulas in
-// their order) and T <- upd @ T in `ps` (its T, 16), each entry summed over
-// k in order; the update's rows [R | t] (12) in `step`
-__device__ __forceinline__ void update_tail(const float* s, float* ps, float* step) {
+// The update of one pose by the 32 lanes of a warp: from the pose's sums
+// (lane k holds sum k), the damped solve, the twist Rz Ry Rx
+// (geometry.euler_to_rotation's formulas in their order; lane a < 3 takes
+// the sine and cosine of angle a) and T <- upd @ T in `ps` (its T, 16;
+// lane e < 12 sums entry e over k in order); the update's rows [R | t]
+// (12) in `step`.
+__device__ __forceinline__ void update_tail(float sk, float* ps, float* step) {
+  const int lane = threadIdx.x & 31;
+  const int e = min(lane, 11), ei = e >> 2, ej = e & 3;
+  const float T0 = ps[ej], T1 = ps[4 + ej], T2 = ps[8 + ej], T3 = ps[12 + ej];
   float x[6];
-  solve_damped(s, x);
-  float cx, sx, cy, sy, cz, sz;
-  sin_cos(x[0], sx, cx);
-  sin_cos(x[1], sy, cy);
-  sin_cos(x[2], sz, cz);
+  solve_damped(sk, x);
+  float s, c;
+  sin_cos(lane == 0 ? x[0] : lane == 1 ? x[1] : x[2], s, c);
+  const float sx = __shfl_sync(kFull, s, 0), cx = __shfl_sync(kFull, c, 0);
+  const float sy = __shfl_sync(kFull, s, 1), cy = __shfl_sync(kFull, c, 1);
+  const float sz = __shfl_sync(kFull, s, 2), cz = __shfl_sync(kFull, c, 2);
   float u[12];
   u[0] = __fmul_rn(cz, cy);
   u[1] = __fsub_rn(__fmul_rn(__fmul_rn(cz, sy), sx), __fmul_rn(sz, cx));
@@ -492,32 +548,31 @@ __device__ __forceinline__ void update_tail(const float* s, float* ps, float* st
   u[9] = __fmul_rn(cy, sx);
   u[10] = __fmul_rn(cy, cx);
   u[11] = x[5];
-  float t[12];
+  // entry (ei, ej) of upd @ T: ((u_i0 T_0j + u_i1 T_1j) + u_i2 T_2j) + u_i3 T_3j
+  const float a0 = ei == 0 ? u[0] : ei == 1 ? u[4] : u[8];
+  const float a1 = ei == 0 ? u[1] : ei == 1 ? u[5] : u[9];
+  const float a2 = ei == 0 ? u[2] : ei == 1 ? u[6] : u[10];
+  const float a3 = ei == 0 ? u[3] : ei == 1 ? u[7] : u[11];
+  float v = __fadd_rn(__fmul_rn(a0, T0), __fmul_rn(a1, T1));
+  v = __fadd_rn(v, __fmul_rn(a2, T2));
+  v = __fadd_rn(v, __fmul_rn(a3, T3));
+  __syncwarp();  // every lane has read T
+  if (lane < 12) ps[lane] = v;
+  if (lane == 0) {
 #pragma unroll
-  for (int i = 0; i < 3; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float v = __fadd_rn(__fmul_rn(u[4 * i], ps[j]), __fmul_rn(u[4 * i + 1], ps[4 + j]));
-      v = __fadd_rn(v, __fmul_rn(u[4 * i + 2], ps[8 + j]));
-      t[4 * i + j] = __fadd_rn(v, __fmul_rn(u[4 * i + 3], ps[12 + j]));
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < 12; ++k) {
-    ps[k] = t[k];
-    step[k] = u[k];
+    for (int k = 0; k < 12; ++k) step[k] = u[k];
   }
 }
 
-// The tail of one iteration of one pose, one thread: `s` the pose's 29
-// sums, `ps` its state [T (16), fitness, rmse, done], `step` the result the
-// pose's CTAs read: the update's rows (12) and 1 where the cloud moves, else
-// 0. The pose is not done on entry. Scores and latch as
-// ops/icp_reduce.py::icp_iterate_plain, then, while not done, update_tail.
-__device__ __noinline__ void iteration_tail(const float* s, float* ps, float* step,
-                                            float n_total, int it, int max_iter, float rf,
-                                            float rr) {
-  const float count = s[28], mse = s[27];
+// The tail of one iteration of one pose, by the 32 lanes of a warp: `sk`
+// the lane's sum of the pose (lane k < 29: sum k), `ps` its state [T (16),
+// fitness, rmse, done], `step` the result the pose's threads read: the
+// update's rows (12) and 1 where the cloud moves, else 0. The pose is not
+// done on entry. Scores and latch as ops/icp_reduce.py::icp_iterate_plain
+// (every lane alike), then, while not done, update_tail.
+__device__ __noinline__ void iteration_tail(float sk, float* ps, float* step, float n_total,
+                                            int it, int max_iter, float rf, float rr) {
+  const float count = __shfl_sync(kFull, sk, 28), mse = __shfl_sync(kFull, sk, 27);
   const float fit = ps[16], rmse = ps[17];
   const bool empty = count == 0.f;
   const float new_fit = empty ? fit : __fdiv_rn(count, fmaxf(n_total, 1.f));
@@ -525,32 +580,40 @@ __device__ __noinline__ void iteration_tail(const float* s, float* ps, float* st
   const bool converged =
       fabsf(__fsub_rn(new_fit, fit)) < rf && fabsf(__fsub_rn(new_rmse, rmse)) < rr;
   const bool done = empty || converged || it == max_iter;
-  ps[16] = new_fit;
-  ps[17] = new_rmse;
-  ps[18] = done ? 1.f : 0.f;
-  step[12] = done ? 0.f : 1.f;
+  __syncwarp();  // every lane has read the scores
+  if ((threadIdx.x & 31) == 0) {
+    ps[16] = new_fit;
+    ps[17] = new_rmse;
+    ps[18] = done ? 1.f : 0.f;
+    step[12] = done ? 0.f : 1.f;
+  }
   if (done) return;
-  update_tail(s, ps, step);
+  update_tail(sk, ps, step);
 }
 
 // The tail of one coarse iteration (JAX icp.py:465-474,
-// ops/icp_reduce.py::icp_coarse_plain): no scores and no latch; a pose
-// with no inlier holds (step[12] = 0: T and the cloud stay), any other
-// takes update_tail's step.
-__device__ __noinline__ void coarse_tail(const float* s, float* ps, float* step) {
-  step[12] = s[28] == 0.f ? 0.f : 1.f;
-  if (s[28] == 0.f) return;
-  update_tail(s, ps, step);
+// ops/icp_reduce.py::icp_coarse_plain), by a warp: no scores and no latch;
+// a pose with no inlier holds (step[12] = 0: T and the cloud stay), any
+// other takes update_tail's step.
+__device__ __noinline__ void coarse_tail(float sk, float* ps, float* step) {
+  const float count = __shfl_sync(kFull, sk, 28);
+  if ((threadIdx.x & 31) == 0) step[12] = count == 0.f ? 0.f : 1.f;
+  if (count == 0.f) return;
+  update_tail(sk, ps, step);
 }
 
 // Iterations it0 .. it_end - 1 of every pose that is not done, one pose a
 // CTA or a cluster of `slabs` CTAs. Each iteration: the pass's sums (the
-// same body, order and bits as assoc_reduce_kernel), merged by rank 0; its
-// thread 0 runs the tail and publishes `step` in its shared memory; every
-// CTA reads it (through distributed shared memory in a cluster) and moves
-// its own slab, each thread the points it sums, so no barrier guards the
-// cloud. A pose that is done leaves the loop, every CTA of it at the same
-// iteration. The state is read once and written once a launch.
+// same body, order and bits as assoc_reduce_kernel) in lanes 0-28 of warp
+// 0; in a cluster every CTA publishes its sums (double-buffered by the
+// iteration's parity), one cluster barrier, and warp 0 of every CTA adds
+// the ranks' sums in rank order. Then warp 0 of every CTA runs the tail on
+// its own copy of the pose's state - the same operations on the same sums,
+// so every CTA of a pose holds the same bits - and publishes `step`; after
+// one CTA barrier each thread moves the points it sums, so no barrier
+// guards the cloud. A pose that is done leaves the loop, every CTA of it at
+// the same iteration. The state is read once and written once a launch (by
+// rank 0).
 //
 // The coarse mode (g.coarse) runs coarse_tail on the strided copy: a pose
 // moves while it has inliers; one with none holds, and its CTAs leave the
@@ -561,13 +624,14 @@ __device__ __noinline__ void coarse_tail(const float* s, float* ps, float* step)
 // the pose's CTAs as its slabs are: ((T_i0 x + T_i1 y) + T_i2 z) + T_i3,
 // each operation rounded once (ops/icp_reduce.py::transform_plain), from
 // the cloud the copy was cut from, not from the moved copy.
-template <bool kProj, bool kP2P, typename Idx>
-__global__ void __launch_bounds__(kThreads) icp_iterate_kernel(const Args a, const Iter g) {
+template <int kThreads, bool kProj, bool kP2P, typename Idx>
+__global__ void __launch_bounds__(kThreads, 2 * kWide / kThreads)
+    icp_iterate_kernel(const Args a, const Iter g) {
   extern __shared__ float slab_cloud[];  // the slab's points, when g.smem_cloud
-  __shared__ float warp_sums[kWarps][kSums];
-  __shared__ float cta_sums[32];
-  __shared__ float pose_state[19];  // rank 0: T (16), fitness, rmse, done
-  __shared__ float step[13];        // rank 0: the update's rows (12), move
+  __shared__ float warp_sums[kThreads / 32][kSums];
+  __shared__ float cta_sums[2][32];  // a cluster: this CTA's sums, by iteration parity
+  __shared__ float pose_state[19];   // T (16), fitness, rmse, done
+  __shared__ float step[13];         // the update's rows (12), move
 
   const int tid = threadIdx.x;
   const int slab = blockIdx.x % a.slabs;
@@ -587,49 +651,46 @@ __global__ void __launch_bounds__(kThreads) icp_iterate_kernel(const Args a, con
     cl = slab_cloud;
     cl_first = begin;
   }
-  const bool lead = slab == 0;  // the cluster's rank 0 (rank = blockIdx.x % slabs)
-  if (lead && tid < 19) {
+  const float n_total = g.coarse ? 0.f : g.n_total[pose];
+  if (tid < 19) {
     pose_state[tid] = tid < 16 ? g.T[16 * pose + tid]
                     : g.coarse ? 0.f
                     : tid == 16 ? g.fitness[pose] : tid == 17 ? g.rmse[pose] : 0.f;
   }
   for (int it = g.it0; it < g.it_end; ++it) {
-    float total = slab_sums<kProj, kP2P, Idx, false>(a, cl, cl_first, pose, begin, end,
-                                                     warp_sums);
+    float total = slab_sums<kThreads, kProj, kP2P, Idx, false>(a, cl, cl_first, pose, begin,
+                                                               end, warp_sums);
     if (a.slabs > 1) {
       cg::cluster_group cluster = cg::this_cluster();
-      if (tid < kSums) cta_sums[tid] = total;
+      float* mine = cta_sums[it & 1];
+      if (tid < 32) mine[tid] = total;
       cluster.sync();
-      if (lead && tid < kSums) {
-        for (unsigned r = 1; r < cluster.num_blocks(); ++r) {
-          total += cluster.map_shared_rank(cta_sums, r)[tid];
+      if (tid < 32) {
+        // the ranks in rank order: every load first, then the adds
+        float part[kMaxSlabs];
+#pragma unroll
+        for (int r = 0; r < kMaxSlabs; ++r) {
+          part[r] = r < a.slabs ? cluster.map_shared_rank(mine, r)[tid] : 0.f;
+        }
+        total = part[0];
+#pragma unroll
+        for (int r = 1; r < kMaxSlabs; ++r) {
+          if (r < a.slabs) total += part[r];
         }
       }
     }
-    if (lead) {
-      if (tid < kSums) cta_sums[tid] = total;
-      __syncthreads();
-      if (tid == 0) {
-        if (g.coarse) {
-          coarse_tail(cta_sums, pose_state, step);
-        } else {
-          iteration_tail(cta_sums, pose_state, step, g.n_total[pose], it, g.max_iter, g.rf,
-                         g.rr);
-        }
+    if (tid < 32) {
+      if (g.coarse) {
+        coarse_tail(total, pose_state, step);
+      } else {
+        iteration_tail(total, pose_state, step, n_total, it, g.max_iter, g.rf, g.rr);
       }
     }
-    const float* st = step;
-    if (a.slabs > 1) {
-      cg::cluster_group cluster = cg::this_cluster();
-      cluster.sync();
-      st = cluster.map_shared_rank(step, 0);
-    } else {
-      __syncthreads();
-    }
-    if (st[12] == 0.f) break;  // done (or held, coarse): the pose moves no more
+    __syncthreads();
+    if (step[12] == 0.f) break;  // done (or held, coarse): the pose moves no more
     float u[12];
 #pragma unroll
-    for (int k = 0; k < 12; ++k) u[k] = st[k];
+    for (int k = 0; k < 12; ++k) u[k] = step[k];
     for (int p = begin + tid; p < end; p += kThreads) {
       float* c = cl + 3 * (p - cl_first);
       const float x = c[0], y = c[1], z = c[2];
@@ -642,12 +703,10 @@ __global__ void __launch_bounds__(kThreads) icp_iterate_kernel(const Args a, con
     }
   }
   if (g.handoff != nullptr) {
-    // the final T: rank 0's state, published by the last iteration's barrier
-    const float* T = pose_state;
-    if (a.slabs > 1) T = cg::this_cluster().map_shared_rank(pose_state, 0);
+    // the final T: this CTA's state, published by the last iteration's barrier
     float t[12];
 #pragma unroll
-    for (int k = 0; k < 12; ++k) t[k] = T[k];
+    for (int k = 0; k < 12; ++k) t[k] = pose_state[k];
     const int hp = g.handoff_points;
     const int per = (hp + a.slabs - 1) / a.slabs;
     const int hb = slab * per;
@@ -664,7 +723,7 @@ __global__ void __launch_bounds__(kThreads) icp_iterate_kernel(const Args a, con
       }
     }
   }
-  // rank 0's step and state stay readable until every rank has read them
+  // every rank's sums stay readable until every rank has read them
   if (a.slabs > 1) cg::this_cluster().sync();
   if (g.smem_cloud) {
     for (int p = begin + tid; p < end; p += kThreads) {
@@ -672,7 +731,7 @@ __global__ void __launch_bounds__(kThreads) icp_iterate_kernel(const Args a, con
       for (int c = 0; c < 3; ++c) pose_cloud[3 * p + c] = slab_cloud[3 * (p - begin) + c];
     }
   }
-  if (lead && tid < 19) {
+  if (slab == 0 && tid < 19) {
     if (tid < 16) {
       g.T[16 * pose + tid] = pose_state[tid];
     } else if (g.coarse) {
@@ -694,30 +753,11 @@ __global__ void sin_cos_kernel(const float* x, int n, float* s, float* c) {
   if (i < n) sin_cos(x[i], s[i], c[i]);
 }
 
-template <bool kProj, bool kP2P, typename Idx>
-int launch(const Args& a, int n_poses, cudaStream_t s) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)((long long)n_poses * a.slabs));
-  cfg.blockDim = dim3(kThreads);
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned)a.slabs;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return (int)cudaLaunchKernelEx(&cfg, assoc_reduce_kernel<kProj, kP2P, Idx>, a);
-}
-
-template <bool kProj, typename Idx>
-int launch_mode(const Args& a, int n_poses, bool p2p, cudaStream_t s) {
-  return p2p ? launch<kProj, true, Idx>(a, n_poses, s) : launch<kProj, false, Idx>(a, n_poses, s);
-}
-
-template <bool kProj, bool kP2P, typename Idx>
-int launch_iterate(const Args& a, const Iter& g, int n_poses, int smem_bytes, cudaStream_t s) {
-  auto kernel = icp_iterate_kernel<kProj, kP2P, Idx>;
+// `kernel` over n_poses x a.slabs CTAs of `threads`, a cluster of a.slabs a
+// pose, with smem_bytes of dynamic shared memory: the cudaError_t
+template <typename Kernel, typename... Params>
+int launch_clusters(Kernel kernel, int threads, const Args& a, int n_poses, int smem_bytes,
+                    cudaStream_t s, const Params&... params) {
   if (smem_bytes > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
@@ -725,7 +765,7 @@ int launch_iterate(const Args& a, const Iter& g, int n_poses, int smem_bytes, cu
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)((long long)n_poses * a.slabs));
-  cfg.blockDim = dim3(kThreads);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = (size_t)smem_bytes;
   cfg.stream = s;
   cudaLaunchAttribute attr[1];
@@ -735,23 +775,49 @@ int launch_iterate(const Args& a, const Iter& g, int n_poses, int smem_bytes, cu
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return (int)cudaLaunchKernelEx(&cfg, kernel, a, g);
+  return (int)cudaLaunchKernelEx(&cfg, kernel, a, params...);
+}
+
+template <bool kProj, bool kP2P, typename Idx>
+int launch(const Args& a, int n_poses, int threads, cudaStream_t s) {
+  return threads == kNarrow
+             ? launch_clusters(assoc_reduce_kernel<kNarrow, kProj, kP2P, Idx>, kNarrow, a,
+                               n_poses, 0, s)
+             : launch_clusters(assoc_reduce_kernel<kWide, kProj, kP2P, Idx>, kWide, a, n_poses,
+                               0, s);
 }
 
 template <bool kProj, typename Idx>
-int launch_iterate_mode(const Args& a, const Iter& g, int n_poses, int smem_bytes, bool p2p,
-                        cudaStream_t s) {
-  return p2p ? launch_iterate<kProj, true, Idx>(a, g, n_poses, smem_bytes, s)
-             : launch_iterate<kProj, false, Idx>(a, g, n_poses, smem_bytes, s);
+int launch_mode(const Args& a, int n_poses, int threads, bool p2p, cudaStream_t s) {
+  return p2p ? launch<kProj, true, Idx>(a, n_poses, threads, s)
+             : launch<kProj, false, Idx>(a, n_poses, threads, s);
+}
+
+template <bool kProj, bool kP2P, typename Idx>
+int launch_iterate(const Args& a, const Iter& g, int n_poses, int threads, int smem_bytes,
+                   cudaStream_t s) {
+  return threads == kNarrow
+             ? launch_clusters(icp_iterate_kernel<kNarrow, kProj, kP2P, Idx>, kNarrow, a,
+                               n_poses, smem_bytes, s, g)
+             : launch_clusters(icp_iterate_kernel<kWide, kProj, kP2P, Idx>, kWide, a, n_poses,
+                               smem_bytes, s, g);
+}
+
+template <bool kProj, typename Idx>
+int launch_iterate_mode(const Args& a, const Iter& g, int n_poses, int threads, int smem_bytes,
+                        bool p2p, cudaStream_t s) {
+  return p2p ? launch_iterate<kProj, true, Idx>(a, g, n_poses, threads, smem_bytes, s)
+             : launch_iterate<kProj, false, Idx>(a, g, n_poses, threads, smem_bytes, s);
 }
 
 // The arguments both entry points share, checked: 0 or a cudaError_t
 int fill_args(Args& a, const float* cloud, const void* valid, int n_poses, int points,
-              const float* table, long long rows, int slabs, const float* K, const float* gate,
+              const float* table, long long rows, int slabs, int threads, const float* K,
+              const float* gate,
               const long long* base, int height, int width, const void* idx, int idx_bytes,
               const float* dist_sq, float gate_sq, float robust_delta) {
   if (points <= 0 || rows <= 0 || slabs < 1 || slabs > kMaxSlabs || (slabs & (slabs - 1)) ||
-      (long long)n_poses * slabs >= (1LL << 31)) {
+      (threads != kWide && threads != kNarrow) || (long long)n_poses * slabs >= (1LL << 31)) {
     return (int)cudaErrorInvalidValue;
   }
   a.cloud = cloud;
@@ -785,29 +851,32 @@ int fill_args(Args& a, const float* cloud, const void* valid, int n_poses, int p
 
 // out (n_poses, 29) on `stream`. cloud (n_poses, points, 3) float32 and valid
 // (n_poses, points) bool, contiguous; table (rows, 8) float32, contiguous and
-// 16-byte aligned; slabs in {1, 2, 4, 8}, the CTAs a pose. idx == null
+// 16-byte aligned; slabs in {1, 2, 4, 8}, the CTAs a pose, and threads in
+// {256, 128}, the threads a CTA (with the slabs, the order of the sums;
+// ops/icp_reduce.py::geometry chooses both from the batch's shape). idx == null
 // selects the projective front end (K, gate and base are device pointers,
 // base (n_poses,) int64 or null), else the indexed one (idx int32 or int64 by
 // idx_bytes, dist_sq float32, both (n_poses, points)). robust_delta > 0
 // Huber-weights the terms; point_to_point != 0 takes the point-to-point
 // rows. Returns the cudaError_t of the launch (0 = ok).
 extern "C" int prt_assoc_reduce(const float* cloud, const void* valid, int n_poses, int points,
-                                const float* table, long long rows, int slabs, const float* K,
-                                const float* gate, const long long* base, int height, int width,
-                                const void* idx, int idx_bytes, const float* dist_sq,
-                                float gate_sq, float robust_delta, int point_to_point,
-                                float* out, void* stream) {
+                                const float* table, long long rows, int slabs, int threads,
+                                const float* K, const float* gate, const long long* base,
+                                int height, int width, const void* idx, int idx_bytes,
+                                const float* dist_sq, float gate_sq, float robust_delta,
+                                int point_to_point, float* out, void* stream) {
   if (n_poses <= 0) return 0;
   Args a = {};
-  const int bad = fill_args(a, cloud, valid, n_poses, points, table, rows, slabs, K, gate, base,
-                            height, width, idx, idx_bytes, dist_sq, gate_sq, robust_delta);
+  const int bad = fill_args(a, cloud, valid, n_poses, points, table, rows, slabs, threads, K,
+                            gate, base, height, width, idx, idx_bytes, dist_sq, gate_sq,
+                            robust_delta);
   if (bad != 0) return bad;
   a.out = out;
   const bool p2p = point_to_point != 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (idx == nullptr) return launch_mode<true, int>(a, n_poses, p2p, s);
-  return idx_bytes == 4 ? launch_mode<false, int>(a, n_poses, p2p, s)
-                        : launch_mode<false, long long>(a, n_poses, p2p, s);
+  if (idx == nullptr) return launch_mode<true, int>(a, n_poses, threads, p2p, s);
+  return idx_bytes == 4 ? launch_mode<false, int>(a, n_poses, threads, p2p, s)
+                        : launch_mode<false, long long>(a, n_poses, threads, p2p, s);
 }
 
 // Iterations it0 .. it_end - 1 (of 0 .. max_iter, the last scoring only) of
@@ -823,17 +892,19 @@ extern "C" int prt_assoc_reduce(const float* cloud, const void* valid, int n_pos
 // cloud, moved in place by each pose's T after the last iteration. Returns
 // the cudaError_t of the launch.
 extern "C" int prt_icp_iterate(float* cloud, const void* valid, int n_poses, int points,
-                               const float* table, long long rows, int slabs, const float* K,
-                               const float* gate, const long long* base, int height, int width,
-                               const void* idx, int idx_bytes, const float* dist_sq,
-                               float gate_sq, float robust_delta, int point_to_point, float* T,
+                               const float* table, long long rows, int slabs, int threads,
+                               const float* K, const float* gate, const long long* base,
+                               int height, int width, const void* idx, int idx_bytes,
+                               const float* dist_sq, float gate_sq, float robust_delta,
+                               int point_to_point, float* T,
                                float* fitness, float* rmse, void* done, const float* n_total,
                                int it0, int it_end, int max_iter, float rf, float rr, int coarse,
                                float* handoff, int handoff_points, void* stream) {
   if (n_poses <= 0 || it_end <= it0) return 0;
   Args a = {};
-  const int bad = fill_args(a, cloud, valid, n_poses, points, table, rows, slabs, K, gate, base,
-                            height, width, idx, idx_bytes, dist_sq, gate_sq, robust_delta);
+  const int bad = fill_args(a, cloud, valid, n_poses, points, table, rows, slabs, threads, K,
+                            gate, base, height, width, idx, idx_bytes, dist_sq, gate_sq,
+                            robust_delta);
   if (bad != 0) return bad;
   const bool scored = coarse == 0;
   if (T == nullptr || it0 < 0 || it_end > max_iter + 1 ||
@@ -862,17 +933,19 @@ extern "C" int prt_icp_iterate(float* cloud, const void* valid, int n_poses, int
   const int smem_bytes = g.smem_cloud ? (int)slab_bytes : 0;
   const bool p2p = point_to_point != 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (idx == nullptr) return launch_iterate_mode<true, int>(a, g, n_poses, smem_bytes, p2p, s);
+  if (idx == nullptr) {
+    return launch_iterate_mode<true, int>(a, g, n_poses, threads, smem_bytes, p2p, s);
+  }
   return idx_bytes == 4
-             ? launch_iterate_mode<false, int>(a, g, n_poses, smem_bytes, p2p, s)
-             : launch_iterate_mode<false, long long>(a, g, n_poses, smem_bytes, p2p, s);
+             ? launch_iterate_mode<false, int>(a, g, n_poses, threads, smem_bytes, p2p, s)
+             : launch_iterate_mode<false, long long>(a, g, n_poses, threads, smem_bytes, p2p, s);
 }
 
 // s, c (n,) = sinf, cosf of x (n,) float32 on `stream`: the tail's
 // trigonometry alone. Returns the cudaError_t of the launch.
 extern "C" int prt_sin_cos(const float* x, int n, float* s, float* c, void* stream) {
   if (n <= 0) return 0;
-  sin_cos_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
+  sin_cos_kernel<<<(n + kWide - 1) / kWide, kWide, 0,
                    static_cast<cudaStream_t>(stream)>>>(x, n, s, c);
   return (int)cudaGetLastError();
 }

@@ -44,8 +44,8 @@ of each cloud without scores or latch, then the hand-off, which moves the
 full cloud by the coarse phase's T (``icp_coarse_plain``,
 ``handoff_plain``).
 
-How a pose's points split into slabs, and so the order of its sums,
-depends on the batch's size (``slabs_for``). The iteration and its plain
+How a pose's points split into slabs and threads, and so the order of its
+sums, depends on the batch's size (``geometry``). The iteration and its plain
 version take an ``order_batch``: a shard of a batch split over devices
 (parallel/sharding.py) passes the whole batch's size, and then sums each
 pose as the whole batch does on one device.
@@ -69,7 +69,8 @@ from pose_refine_tpu_torch.scene import nn_flash
 PACKED = 29  # floats per pose: 21 AtA + 6 Atb + mse + count
 # jnp.triu_indices(6): the upper triangle of AtA, row-major
 _IU, _JU = (list(t) for t in zip(*((i, j) for i in range(6) for j in range(i, 6))))
-KERNEL_THREADS = 256  # csrc/icp_reduce.cu kThreads
+KERNEL_THREADS = 256  # csrc/icp_reduce.cu kWide: threads a CTA while two CTAs an SM hold the grid
+NARROW_THREADS = 128  # csrc/icp_reduce.cu kNarrow: threads a CTA beyond that (four an SM)
 MAX_SLABS = 8         # csrc/icp_reduce.cu kMaxSlabs, the portable cluster size
 FILL_CTAS = 132       # the H100's SMs: poses are split until as many CTAs run
 
@@ -154,22 +155,23 @@ def packed_terms(cloud, valid, dst, nrm, q_valid, robust_delta: float = 0.0,
 
 def ordered_sum(terms: torch.Tensor, order_batch: Optional[int] = None) -> torch.Tensor:
     """(..., P, 29) terms -> (..., 29) sums in the kernel's order, one
-    float add a step: a pose's points split into slabs_for(poses, P) slabs
-    (poses: ``order_batch`` where given, see the module note);
-    in a slab, thread t of 256 adds points t, t + 256, ... in rising order;
-    a warp's 32 sums merge by halving (what lane 0 of the kernel's xor
-    butterfly holds); the 8 warps are added in warp order; the slabs in slab
-    order. Float32 terms give the kernel's float32 sums bit for bit."""
+    float add a step: with (slabs, threads) = geometry(poses, P) (poses:
+    ``order_batch`` where given, see the module note), a pose's points
+    split into that many slabs; in a slab, thread t of ``threads`` adds
+    points t, t + threads, ... in rising order; a warp's 32 sums merge by
+    halving (the tree of the kernel's butterfly, whose lane l ends with sum
+    l); the warps are added in warp order; the slabs in slab order. Float32
+    terms give the kernel's float32 sums bit for bit."""
     lead, (p, k) = terms.shape[:-2], terms.shape[-2:]
     terms = terms.reshape(-1, p, k)
     n = terms.shape[0]
-    slabs = slabs_for(order_batch or n, p)
+    slabs, threads = geometry(order_batch or n, p)
     per_slab = -(-p // slabs)
     total = None
     for s in range(slabs):
         seg = terms[:, s * per_slab:min((s + 1) * per_slab, p)]
-        seg = torch.nn.functional.pad(seg, (0, 0, 0, (-seg.shape[1]) % KERNEL_THREADS))
-        seg = seg.reshape(n, -1, KERNEL_THREADS // 32, 32, k)
+        seg = torch.nn.functional.pad(seg, (0, 0, 0, (-seg.shape[1]) % threads))
+        seg = seg.reshape(n, -1, threads // 32, 32, k)
         acc = torch.zeros_like(seg[:, 0])
         for step in range(seg.shape[1]):
             acc = acc + seg[:, step]
@@ -254,6 +256,16 @@ def slabs_for(n_poses: int, points: int) -> int:
            and points >= 2 * slabs * KERNEL_THREADS):
         slabs *= 2
     return slabs
+
+
+def geometry(n_poses: int, points: int):
+    """(slabs, threads) of the kernel's grid: slabs_for's CTAs a pose, of
+    KERNEL_THREADS threads while the grid's CTAs fit two an SM (at most 128
+    registers a thread, every CTA resident at once), else of NARROW_THREADS,
+    four an SM: a 512-pose launch is then one wave, not two. A function of
+    the shapes alone, so the summation order is too."""
+    slabs = slabs_for(n_poses, points)
+    return slabs, (KERNEL_THREADS if n_poses * slabs <= 2 * FILL_CTAS else NARROW_THREADS)
 
 
 class ICPState(NamedTuple):
@@ -559,7 +571,7 @@ def _launch(cloud, valid, table, *, K=None, gate=None, base=None, height=0, widt
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.prt_assoc_reduce(
             cloud.data_ptr(), valid.data_ptr(), n_poses, points, table.data_ptr(),
-            table.shape[0], slabs_for(n_poses, points), *proj_ptrs, height, width, *idx_ptrs,
+            table.shape[0], *geometry(n_poses, points), *proj_ptrs, height, width, *idx_ptrs,
             gate_sq, float(robust_delta), int(bool(point_to_point)), out.data_ptr(), stream)
     _raise_on(err, lib, "assoc_reduce")
     launches += 1
@@ -616,10 +628,10 @@ class _IterateLaunch:
         self._keep = (valid.contiguous(), n_total.contiguous(), table, front)
         points = cloud.shape[-2]
         st = self.state
-        # the C interface's arguments; [12] idx and [14] dist_sq, [23] it0,
-        # [24] it_end and [29] the hand-off change from launch to launch
+        # the C interface's arguments; [13] idx and [15] dist_sq, [24] it0,
+        # [25] it_end and [30] the hand-off change from launch to launch
         self.args = [st.cloud.data_ptr(), self._keep[0].data_ptr(), n_poses, points,
-                     table.data_ptr(), table.shape[0], slabs_for(order_batch or n_poses, points),
+                     table.data_ptr(), table.shape[0], *geometry(order_batch or n_poses, points),
                      *proj_ptrs,
                      int(height), int(width), *idx_ptrs, float(gate_sq), float(robust_delta),
                      int(bool(point_to_point)), st.T.data_ptr(), st.fitness.data_ptr(),
@@ -636,11 +648,11 @@ class _IterateLaunch:
         global iterate_launches
         args = self.args
         if self.indexed:
-            args[12], args[14] = idx.data_ptr(), dist_sq.data_ptr()
+            args[13], args[15] = idx.data_ptr(), dist_sq.data_ptr()
         if handoff and self.handoff is None:
             raise ValueError("this launcher was bound without a hand-off cloud")
-        args[23], args[24] = it0, it_end
-        args[29] = self.handoff.data_ptr() if handoff else None
+        args[24], args[25] = it0, it_end
+        args[30] = self.handoff.data_ptr() if handoff else None
         with torch.cuda.device(self.dev):
             args[-1] = torch.cuda.current_stream(self.dev).cuda_stream
             err = self.lib.prt_icp_iterate(*args)

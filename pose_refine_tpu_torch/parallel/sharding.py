@@ -11,13 +11,14 @@ once: each entry is one shard (the CPU tests, and a one-card run of the
 split).
 
 Every per-pose computation is independent of the others, but two orders of
-summation depend on the batch's size: the ICP kernel's (``slabs_for``), so
+summation depend on the batch's size: the ICP kernel's (``geometry``), so
 each shard's iteration is handed the whole batch's size (``order_batch``),
 and on a card the information pass's torch reductions, so the covariance is
 computed once on the gathered clouds (``pipeline.refine_poses_split``). The
 split refine equals the single-device refine bit for bit. The cost of the
-first: a shard's launch takes the slabs of the whole batch, so on several
-cards a pose is split over fewer CTAs than its shard alone would give it.
+first: a shard's launch takes the slabs and threads of the whole batch, so
+on several cards a pose is split over fewer CTAs than its shard alone would
+give it.
 
 The scene, the mesh and the camera go to each card once: ``run_sharded``
 keeps their replicas in the caller's ``replicas`` memo (a PoseRefiner's)

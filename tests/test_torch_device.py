@@ -402,15 +402,16 @@ def reduce_case(card, case):
 def scene_case(card, case):
     """reduce_case's scene, its ids (None for a single scene), plain query,
     clouds and valid; "slabs16" is the tracking shape, 16 poses x 2,048
-    points (8-CTA clusters)."""
+    points (8-CTA clusters); "poses512" the serving ceiling's fine shape,
+    512 x 2,048 (128-thread CTAs, four an SM; two waves before they were)."""
     rng = np.random.default_rng(11)
     K = geometry.LINEMOD_K.copy()
     K[:2] *= 0.25
     depths = rng.integers(280, 320, (3, 120, 160)).astype(np.int32)
     depths[:, :, :12] = 0
     # 4 CTAs a pose; "slabs": 8 ragged slabs of 625; "one_slab": a full card
-    n, p = {"slabs": (3, 5000), "one_slab": (140, 300), "slabs16": (16, 2048)}.get(case,
-                                                                                 (5, 1500))
+    n, p = {"slabs": (3, 5000), "one_slab": (140, 300), "slabs16": (16, 2048),
+            "poses512": (512, 2048)}.get(case, (5, 1500))
     src = (rng.normal(size=(n, p, 3)) * [0.045, 0.035, 0.02] + [0, 0, 0.3]).astype(np.float32)
     src[0, :7] = [[0, 0, 0], [0.01, 0.01, -0.3], [np.nan, 0, 0.3], [0, np.inf, 0.3],
                   [1e30, 0, 1e-30], [0, 0, 0.9], [-3e9, 1, 1e-9]]
@@ -424,7 +425,7 @@ def scene_case(card, case):
     cloud = torch.as_tensor(src, device=card)
     valid = torch.as_tensor(valid, device=card)
     ids = torch.arange(n, device=card) % 5 - 1  # -1 and 3 clamp into the 3 frames
-    if case in ("projective", "slabs", "one_slab", "slabs16"):
+    if case in ("projective", "slabs", "one_slab", "slabs16", "poses512"):
         sc = SceneProjective.from_depth(depths[0], K, 0.03, device=card)
         return sc, None, lambda c: sc.query(c, plain=True), cloud, valid
     if case == "stacked":
@@ -878,7 +879,7 @@ def assert_same_icp(k_res, k_cloud, p_res, p_cloud):
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", list(MODES))
 @pytest.mark.parametrize("case", ["projective", "stacked", "slabs", "slabs16", "nn", "kd",
-                                  "nn_stacked"])
+                                  "nn_stacked", "poses512"])
 def test_icp_iterate_kernel_matches_plain_on_card(card, case, mode):
     """The iteration kernel against its plain version (icp_loop_plain over
     the scene's plain query), per front end and mode, 12 iterations: T,
@@ -886,7 +887,10 @@ def test_icp_iterate_kernel_matches_plain_on_card(card, case, mode):
     version's is NaN), including the pose with no valid point (done at
     once, T the identity) and pose 0's points at z = 0, behind the camera,
     overflowing and NaN; one launch a refine against a projective scene,
-    one a pass against an NN scene."""
+    one a pass against an NN scene. At 512 poses the kernel runs 128
+    threads a CTA (and its plain version adds in that order)."""
+    if case == "poses512":
+        assert IR.geometry(512, 2048) == (1, IR.NARROW_THREADS)
     crit = ptt.ICPConvergenceCriteria(max_iteration=12)
     k_res, k_cloud, p_res, p_cloud, n = iterate_both(card, case, crit, MODES[mode])
     assert_same_icp(k_res, k_cloud, p_res, p_cloud)
@@ -898,31 +902,74 @@ def test_icp_iterate_kernel_matches_plain_on_card(card, case, mode):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("edge", ["max_iteration_0", "done_at_start", "one_iteration"])
-@pytest.mark.parametrize("case", ["projective", "slabs16", "nn"])
+@pytest.mark.parametrize("edge", ["max_iteration_0", "done_at_start", "one_iteration",
+                                  "empty_pose", "done_at_iteration_0", "ill_conditioned"])
+@pytest.mark.parametrize("case", ["projective", "slabs16", "nn", "poses512"])
 def test_icp_iterate_kernel_edges_on_card(card, case, edge):
-    """The kernel's latch at the edges, bit for bit against the plain
-    version: max_iteration = 0 (the scoring pass alone: scores set, nothing
-    moves), a state whose every pose is done at the start (returned as it
-    came, scores 0), and one iteration and the scoring pass."""
+    """The kernel's latch and tail at the edges, bit for bit against the
+    plain version: max_iteration = 0 (the scoring pass alone: scores set,
+    nothing moves), a state whose every pose is done at the start (returned
+    as it came, scores 0), one iteration and the scoring pass; a pose with
+    no valid point beside pose 2's (T the identity, fitness 0); every pose
+    done at iteration 0 (thresholds no change can miss: scored, not moved;
+    pose 0 aside where its masked NaN point makes its rmse NaN, which no
+    threshold meets);
+    and pose 1's cloud on a line at z = 0.3 m, whose damped system is badly
+    conditioned (cond > 4e4: the rotation about the line is not seen), as
+    tests/test_torch_icp_iterate.py's witness for solve_damped_plain."""
     crit = ptt.ICPConvergenceCriteria(max_iteration=1 if edge == "one_iteration" else 0)
-    start = None
-    if edge == "done_at_start":
+    start, valid_map = None, None
+    if edge in ("done_at_start", "empty_pose", "ill_conditioned"):
         crit = ptt.ICPConvergenceCriteria(max_iteration=6)
+    if edge == "done_at_iteration_0":
+        crit = ptt.ICPConvergenceCriteria(relative_fitness=2.0, relative_rmse=1.0,
+                                          max_iteration=6)
+    if edge == "done_at_start":
 
         def start(state):
             state.done.fill_(True)
             return state
 
-    k_res, k_cloud, p_res, p_cloud, _n = iterate_both(card, case, crit, start=start)
+    if edge == "empty_pose":
+
+        def valid_map(valid):
+            valid = valid.clone()
+            valid[1] = False
+            return valid
+
+    if edge == "ill_conditioned":
+        _sc, _ids, plain_query, cloud, valid = scene_case(card, case)
+        p = cloud.shape[1]
+        line = torch.zeros((p, 3), device=card)
+        line[:, 0] = torch.linspace(-0.09, 0.09, p, device=card)
+        line[:, 2] = 0.3
+        cloud = cloud.clone()
+        cloud[1] = line
+        AtA, _Atb, count, _mse = IR.unpack_sums(IR.assoc_reduce_plain(cloud, valid, plain_query))
+        M = AtA[1].double().cpu().numpy() + 0.01 * np.eye(6)
+        assert float(count[1]) > 100 and np.linalg.cond(M) > 4e4
+
+        def start(state):
+            state.cloud[1] = line
+            return state
+
+    k_res, k_cloud, p_res, p_cloud, _n = iterate_both(card, case, crit, start=start,
+                                                      valid_map=valid_map)
     assert_same_icp(k_res, k_cloud, p_res, p_cloud)
     eye = torch.eye(4, device=card).expand_as(k_res.transformation)
-    if edge != "one_iteration":
+    if edge in ("max_iteration_0", "done_at_start"):
         assert torch.equal(k_res.transformation, eye)
+    if edge == "done_at_iteration_0":
+        assert torch.equal(k_res.transformation[1:], eye[1:])
     if edge == "done_at_start":
         assert not bool(k_res.fitness.any()) and not bool(k_res.inlier_rmse.any())
-    elif edge == "max_iteration_0":
+    elif edge in ("max_iteration_0", "done_at_iteration_0"):
         assert float(k_res.fitness.max()) > 0.0
+    elif edge == "empty_pose":
+        assert torch.equal(k_res.transformation[1:3], eye[1:3])
+        assert not bool(k_res.fitness[1:3].any())
+    elif edge == "ill_conditioned":
+        assert not torch.equal(k_res.transformation[1], eye[1])
 
 
 @pytest.mark.cuda

@@ -282,46 +282,73 @@ def test_unknown_reduction_raises():
                                 reduction="tree")
 
 
+def warp_merge(acc: torch.Tensor) -> torch.Tensor:
+    """(..., 32 lanes, 29) float32 -> (..., 29): a warp's merge as
+    csrc/icp_reduce.cu's slab_sums takes it, lane by lane. At step h (16, 8,
+    4, 2, 1) a lane holds 2h sums; it keeps the half whose index has the
+    lane's bit h, sends the other half to lane ^ h, and adds what it
+    receives to what it keeps (its own value first); lane l ends with sum l
+    (the 3 sums past 28 are 0). Asserted equal to the xor butterfly in which
+    every lane keeps all 29 sums and adds lane ^ h's (the tree
+    ordered_sum's halving writes)."""
+    lanes = torch.arange(32)
+    held = torch.nn.functional.pad(acc, (0, 3))  # lane l holds sums 0..31
+    index = torch.arange(32).expand(32, 32)       # held[..., l, c] is sum index[l, c]
+    for h in (16, 8, 4, 2, 1):
+        up = (lanes & h) != 0
+        lo, hi = held[..., :h], held[..., h:2 * h]
+        keep = torch.where(up[:, None], hi, lo)
+        send = torch.where(up[:, None], lo, hi)
+        held = keep + send[..., lanes ^ h, :]
+        index = torch.where(up[:, None], index[:, h:2 * h], index[:, :h])
+    assert torch.equal(index[:, 0], lanes)
+    butterfly = acc
+    for h in (16, 8, 4, 2, 1):
+        butterfly = butterfly + butterfly[..., lanes ^ h, :]
+    assert torch.equal(held[..., :29, 0], butterfly[..., 0, :])
+    return held[..., :29, 0]
+
+
 def emulate_kernel_order(terms: torch.Tensor) -> torch.Tensor:
     """The sums of (N, P, 29) float32 terms in the order of
     csrc/icp_reduce.cu, written after the kernel and apart from
-    ops/icp_reduce.py::ordered_sum: a pose's points split into
-    slabs_for(N, P) slabs; in a slab, thread t of 256 adds points t, t +
-    256, ... in rising order; a warp's 32 sums merge by an xor butterfly
-    (steps 16, 8, 4, 2, 1); the 8 warps are added in warp order; the slabs
-    in slab order. One float32 add a step."""
+    ops/icp_reduce.py::ordered_sum: with (slabs, threads) = geometry(N, P)
+    (threads 256 while N x slabs CTAs fit two an SM of the card, else 128),
+    a pose's points split into that many slabs; in a slab, thread t adds
+    points t, t + threads, ... in rising order; a warp's 32 sums merge as
+    warp_merge does; the warps are added in warp order; the slabs in slab
+    order. One float32 add a step."""
     n, p, k = terms.shape
-    slabs = IR.slabs_for(n, p)
+    slabs, threads = IR.geometry(n, p)
+    assert threads == (256 if n * slabs <= 2 * 132 else 128)
     per_slab = -(-p // slabs)
-    lanes = torch.arange(32)
     total = None
     for s in range(slabs):
         seg = terms[:, s * per_slab:min((s + 1) * per_slab, p)]
-        seg = torch.nn.functional.pad(seg, (0, 0, 0, (-seg.shape[1]) % IR.KERNEL_THREADS))
-        seg = seg.reshape(n, -1, IR.KERNEL_THREADS, k)
-        acc = torch.zeros((n, IR.KERNEL_THREADS, k))
+        seg = torch.nn.functional.pad(seg, (0, 0, 0, (-seg.shape[1]) % threads))
+        seg = seg.reshape(n, -1, threads, k)
+        acc = torch.zeros((n, threads, k))
         for step in range(seg.shape[1]):
             acc = acc + seg[:, step]
-        acc = acc.reshape(n, IR.KERNEL_THREADS // 32, 32, k)
-        for step in (16, 8, 4, 2, 1):
-            acc = acc + acc[:, :, lanes ^ step]
-        assert torch.equal(acc[:, :, 0], acc[:, :, 31])  # every lane ends with the warp's sum
+        warps = warp_merge(acc.reshape(n, threads // 32, 32, k))
         cta = torch.zeros((n, k))
-        for w in range(acc.shape[1]):
-            cta = cta + acc[:, w, 0]
+        for w in range(warps.shape[1]):
+            cta = cta + warps[:, w]
         total = cta if total is None else total + cta
     return total
 
 
 @pytest.mark.parametrize("n,p,slabs", [(4, 5000, 8), (16, 2048, 8), (5, 1500, 4),
-                                       (140, 300, 1), (256, 2048, 1)])
+                                       (140, 300, 1), (256, 2048, 1), (300, 600, 1),
+                                       (520, 300, 1)])
 def test_kernel_summation_order_against_float64(n, p, slabs):
     """The kernel's summation order on the terms of a projective
     association: the plain version's ordered_sum equals an emulation of the
-    kernel's butterfly bit for bit, and every sum lies within ORDER_BAR of
-    its float64 value relative to the sum of its absolute terms (a thread
-    adds at most a few points in a row before the tree takes over, so the
-    order is at least as accurate as a running sum), the count exactly."""
+    kernel's merge bit for bit (at 256 threads a CTA and, beyond two CTAs
+    an SM, at 128), and every sum lies within ORDER_BAR of its float64
+    value relative to the sum of its absolute terms (a thread adds at most
+    a few points in a row before the tree takes over, so the order is at
+    least as accurate as a running sum), the count exactly."""
     assert IR.slabs_for(n, p) == slabs
     depths, src, valid = frames_and_clouds(n=n, p=p, seed=n + p)
     scene = tproj.SceneProjective.from_depth(depths[0], small_K(), GATE, device="cpu")
@@ -336,6 +363,47 @@ def test_kernel_summation_order_against_float64(n, p, slabs):
     assert torch.equal(terms.sum(dim=1)[:, 28], sums[:, 28]) and float(sums[:, 28].sum()) > 0
     _, running_err = IR.sums_error(terms.cumsum(dim=1)[:, -1], cloud, mask, dst, nrm, q_valid)
     assert err <= max(running_err, 2e-7)
+
+
+def kernel_order_by_hand(terms: np.ndarray, threads: int) -> np.ndarray:
+    """(P, 29) float32 terms of one pose in one slab -> (29,): the order the
+    header of csrc/icp_reduce.cu states, one float32 add at a time in
+    Python: thread t adds points t, t + threads, ... from 0; in each warp,
+    for h = 16, 8, 4, 2, 1, every lane's value becomes its own plus lane
+    ^ h's; lane 0's sums of the warps are added in warp order from 0."""
+    f32 = np.float32
+    acc = np.zeros((threads, terms.shape[1]), f32)
+    for t in range(threads):
+        for q in range(t, terms.shape[0], threads):
+            acc[t] = (acc[t] + terms[q]).astype(f32)
+    total = np.zeros(terms.shape[1], f32)
+    for w in range(threads // 32):
+        lane = acc[32 * w:32 * (w + 1)].copy()
+        for h in (16, 8, 4, 2, 1):
+            lane = (lane + lane[np.arange(32) ^ h]).astype(f32)
+        total = (total + lane[0]).astype(f32)
+    return total
+
+
+def test_ordered_sum_takes_the_kernel_geometry():
+    """A hand-built case of ordered_sum against kernel_order_by_hand: terms
+    of mixed signs over 24 binades, where every change of order changes
+    bits. 300 poses of 300 points exceed two CTAs an SM, so the kernel (and
+    ordered_sum) take 128 threads a CTA; the same pose summed as part of a
+    100-pose batch (order_batch) takes 256, and the bits differ."""
+    rng = np.random.default_rng(5)
+    p = 300
+    mag = np.exp2(rng.integers(-12, 12, (2, p, IR.PACKED))).astype(np.float32)
+    terms = (mag * rng.choice([-1.0, 1.0], mag.shape) * (1 + rng.random(mag.shape) / 3))
+    terms = terms.astype(np.float32)
+    assert IR.geometry(300, p) == (1, 128) and IR.geometry(100, p) == (1, 256)
+    t = torch.as_tensor(terms)
+    narrow = IR.ordered_sum(t, order_batch=300)
+    wide = IR.ordered_sum(t, order_batch=100)
+    for i in range(2):
+        assert np.array_equal(narrow[i].numpy(), kernel_order_by_hand(terms[i], 128))
+        assert np.array_equal(wide[i].numpy(), kernel_order_by_hand(terms[i], 256))
+    assert not torch.equal(narrow, wide)
 
 
 def test_packed_terms_are_the_formulation_of_the_reference():
