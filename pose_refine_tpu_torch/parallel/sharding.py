@@ -40,6 +40,7 @@ import torch
 
 from pose_refine_tpu_torch import icp
 from pose_refine_tpu_torch.ops.rasterize_cuda import IndexedTris
+from pose_refine_tpu_torch.utils.profiling import span
 
 
 def canonical(device) -> torch.device:
@@ -181,36 +182,39 @@ def run_sharded(devices: Sequence, fn: Callable, tris, init_poses, shared: Seque
     size = poses.shape[0] // len(devices)
     outs, streams = [], []
     for i, dev in enumerate(devices):
-        rows = slice(i * size, (i + 1) * size)
-        if isinstance(tris, IndexedTris):
-            t = IndexedTris(_replica(replicas, "tris", tris.table, dev), tris.ids[rows].to(dev))
-        elif tris.dim() == 4:
-            t = tris[rows].to(dev)
-        else:
-            t = _replica(replicas, "tris", tris, dev)
-        args = [t, poses[rows].to(dev),
-                *(_replica(replicas, k, s, dev) for k, s in enumerate(shared))]
-        named = {name: None if x is None else x[rows].to(dev) for name, x in per_pose.items()}
-        stream = None
-        if dev.type == "cuda":
-            # the shard's stream starts behind what the caller enqueued
-            stream = _shard_stream(dev, i)
-            stream.wait_stream(torch.cuda.current_stream(dev))
-        on_stream = torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()
-        with on_stream:
-            out = fn(*args, **named, **kwargs)
-        for a in (*args, *named.values()):  # made on the caller's stream, read on the shard's
-            _record(a, stream)
-        outs.append(out if isinstance(out, tuple) else (out,))
-        streams.append((dev, stream))
-    for dev, stream in streams:
-        if stream is not None:
-            torch.cuda.current_stream(dev).wait_stream(stream)
-    for out, (dev, _s) in zip(outs, streams):
-        if dev.type == "cuda":  # outputs made on the shard's stream, read on dev's current
-            _record(out, torch.cuda.current_stream(dev))
-    gathered = tuple(_gather([o[j] for o in outs], home) for j in range(len(outs[0])))
-    gathered = unpad_results(n, *gathered)
+        with span("prt.shard"):
+            rows = slice(i * size, (i + 1) * size)
+            if isinstance(tris, IndexedTris):
+                t = IndexedTris(_replica(replicas, "tris", tris.table, dev), tris.ids[rows].to(dev))
+            elif tris.dim() == 4:
+                t = tris[rows].to(dev)
+            else:
+                t = _replica(replicas, "tris", tris, dev)
+            args = [t, poses[rows].to(dev),
+                    *(_replica(replicas, k, s, dev) for k, s in enumerate(shared))]
+            named = {name: None if x is None else x[rows].to(dev) for name, x in per_pose.items()}
+            stream = None
+            if dev.type == "cuda":
+                # the shard's stream starts behind what the caller enqueued
+                stream = _shard_stream(dev, i)
+                stream.wait_stream(torch.cuda.current_stream(dev))
+            on_stream = (torch.cuda.stream(stream) if stream is not None
+                         else contextlib.nullcontext())
+            with on_stream:
+                out = fn(*args, **named, **kwargs)
+            for a in (*args, *named.values()):  # made on the caller's stream, read on the shard's
+                _record(a, stream)
+            outs.append(out if isinstance(out, tuple) else (out,))
+            streams.append((dev, stream))
+    with span("prt.gather"):
+        for dev, stream in streams:
+            if stream is not None:
+                torch.cuda.current_stream(dev).wait_stream(stream)
+        for out, (dev, _s) in zip(outs, streams):
+            if dev.type == "cuda":  # outputs made on the shard's stream, read on dev's current
+                _record(out, torch.cuda.current_stream(dev))
+        gathered = tuple(_gather([o[j] for o in outs], home) for j in range(len(outs[0])))
+        gathered = unpad_results(n, *gathered)
     return gathered if len(gathered) > 1 else gathered[0]
 
 

@@ -52,12 +52,23 @@ from pose_refine_tpu_torch.scene.nn import (
     voxel_downsample,
 )
 from pose_refine_tpu_torch.scene.projective import SceneProjective, SceneProjectiveStack
+from pose_refine_tpu_torch.utils.profiling import span
 
 NN_SCENES = ("nn", "nn_kdtree", "nn_bruteforce")
 STACKS = (SceneProjectiveStack, SceneNNStack)
 
 logger = logging.getLogger("pose_refine_tpu_torch")
 LIFTS = ("window", "compact")
+
+# the refiner's requests, read through utils.profiling.counters(): scenes
+# set (set_scene_depth / set_scene_depths / set_scene_cloud), refines (a
+# schedule's levels and the cascade pre-pass count as their one refine),
+# tracked frames, and the hypotheses handed to a refine or a track. Plain
+# ints like the launch counters: exact where one thread issues the calls
+scenes = 0
+refines = 0
+tracked_frames = 0
+poses = 0
 
 
 def _scene_with_gate(scene, max_dist: float):
@@ -169,18 +180,21 @@ def _refine_clouds(tris, init_poses, scene, proj, K, query, *, width: int, heigh
     """refine_poses up to the ICP against ``query``: (refined, results, the
     final clouds, their valid masks)."""
     raster = rasterize if raster is None else raster
-    depth = raster(tris, init_poses, width, height, proj, roi=roi)
-    if lift == "window":
-        clouds, valids = _window_lift(depth, K, scene, max_points, window, stride, roi,
-                                      lifter)
-    else:
-        # the ROI render's pixel (0, 0) is image pixel (roi_x, roi_y)
-        pts, mask = depth_image_to_points(depth, K, tl_x=roi[0], tl_y=roi[1])
-        clouds, valids, _n = compact_points(pts, mask, max_points)
-
-    results, final = icp._icp_run(clouds, valids, query, criteria, robust_delta=robust_delta,
-                                  estimation=estimation, coarse_iters=coarse_iters,
-                                  coarse_stride=coarse_stride, chunk_iters=chunk_iters)
+    with span("prt.refine.render"):
+        depth = raster(tris, init_poses, width, height, proj, roi=roi)
+    with span("prt.refine.lift"):
+        if lift == "window":
+            clouds, valids = _window_lift(depth, K, scene, max_points, window, stride, roi,
+                                          lifter)
+        else:
+            # the ROI render's pixel (0, 0) is image pixel (roi_x, roi_y)
+            pts, mask = depth_image_to_points(depth, K, tl_x=roi[0], tl_y=roi[1])
+            clouds, valids, _n = compact_points(pts, mask, max_points)
+    with span("prt.refine.icp"):
+        results, final = icp._icp_run(clouds, valids, query, criteria,
+                                      robust_delta=robust_delta, estimation=estimation,
+                                      coarse_iters=coarse_iters, coarse_stride=coarse_stride,
+                                      chunk_iters=chunk_iters)
     # ICP acts on camera-space clouds in meters (common.h:53); poses carry
     # mm translations: scale t_icp to mm before left-composing
     T_mm = results.transformation.clone()
@@ -192,17 +206,19 @@ def _information(final, valids, query, K, robust_delta: float,
                  estimation: str) -> icp.PoseUncertainty:
     """The refined poses' uncertainty from one more association pass at the
     final clouds (JAX pipeline.py:193-226)."""
-    info, sigma2, count = icp.pose_information(final, valids, query, robust_delta=robust_delta,
-                                               estimation=estimation)
-    # render-calibrated, not the pure Laplace (icp.RENDER_COV_INFLATION):
-    # sigma2 is floored at the depth quantization and at the lateral pixel
-    # pitch at the RENDER intrinsics, ~coeff * mean z / fx
-    v = valids.to(torch.float32)
-    mean_z = (final[..., 2].abs() * v).sum(dim=-1) / v.sum(dim=-1).clamp(min=1.0)
-    lateral = icp.LATERAL_QUANT_COEFF * mean_z / K[0, 0]
-    cov = icp.pose_covariance(info, sigma2, inflation=icp.RENDER_COV_INFLATION,
-                              sigma2_floor=icp.DEPTH_QUANT_SIGMA_M ** 2 + lateral ** 2)
-    return icp.PoseUncertainty(info, sigma2, count, cov)
+    with span("prt.refine.info"):
+        info, sigma2, count = icp.pose_information(final, valids, query,
+                                                   robust_delta=robust_delta,
+                                                   estimation=estimation)
+        # render-calibrated, not the pure Laplace (icp.RENDER_COV_INFLATION):
+        # sigma2 is floored at the depth quantization and at the lateral pixel
+        # pitch at the RENDER intrinsics, ~coeff * mean z / fx
+        v = valids.to(torch.float32)
+        mean_z = (final[..., 2].abs() * v).sum(dim=-1) / v.sum(dim=-1).clamp(min=1.0)
+        lateral = icp.LATERAL_QUANT_COEFF * mean_z / K[0, 0]
+        cov = icp.pose_covariance(info, sigma2, inflation=icp.RENDER_COV_INFLATION,
+                                  sigma2_floor=icp.DEPTH_QUANT_SIGMA_M ** 2 + lateral ** 2)
+        return icp.PoseUncertainty(info, sigma2, count, cov)
 
 
 def _shard_clouds(tris, init_poses, scene, proj, K, scene_ids=None, plain: bool = False,
@@ -305,7 +321,9 @@ def track_poses(tris, init_poses, frame_depth, proj, K_render, K_full, max_dist:
     estimation, lift, coarse_iters, coarse_stride), and ``devices`` (with
     its ``replicas`` memo) to split the batch. pack_outputs=True returns the
     (N, 71) session buffer instead."""
-    scene = SceneProjective.from_depth(frame_depth, K_full, max_dist, device=frame_depth.device)
+    with span("prt.scene.build"):
+        scene = SceneProjective.from_depth(frame_depth, K_full, max_dist,
+                                           device=frame_depth.device)
     return _refine_frame(scene, tris, init_poses, proj, K_render, pack_outputs, plain, **kw)
 
 
@@ -315,8 +333,9 @@ def track_poses_nn(tris, init_poses, frame_depth, proj, K_render, K_full, max_di
     """One tracking step against an NN scene built on the device (JAX
     track_poses_nn_jit): SceneNN.from_depth_device with the grid's Morton
     permutation ``perm``, then refine (see track_poses)."""
-    scene = SceneNN.from_depth_device(frame_depth, K_full, max_dist, stride=scene_stride,
-                                      perm=perm, pool=scene_pool)
+    with span("prt.scene.build"):
+        scene = SceneNN.from_depth_device(frame_depth, K_full, max_dist, stride=scene_stride,
+                                          perm=perm, pool=scene_pool)
     return _refine_frame(scene, tris, init_poses, proj, K_render, pack_outputs, plain, **kw)
 
 
@@ -414,8 +433,9 @@ class PendingResult:
             self._event.record(torch.cuda.current_stream(device))
 
     def wait(self) -> tuple:
-        if self._event is not None:
-            self._event.synchronize()
+        with span("prt.wait"):
+            if self._event is not None:
+                self._event.synchronize()
         out = (self.refined,) if self.results is None else (self.refined, self.results)
         return out if self.uncertainty is None else out + (self.uncertainty,)
 
@@ -899,58 +919,63 @@ class PoseRefiner:
         if allow_device_skip and self._frame_planned and _on_card(scene_depth):
             self._check_saturation = True
             return
-        scene_depth = _host(scene_depth)
-        d_max = float(np.max(scene_depth))
-        if 0.0 < d_max <= 50.0:
-            # a depth image whose farthest point is 5 cm is almost certainly
-            # in METERS; everything here is mm
-            logger.warning(
-                "scene depth max is %.2f - values look like meters; this "
-                "pipeline expects millimeters (uint16/int32 mm)", d_max,
-            )
-        self._check_saturation = True
-        stats = self._object_stats(scene_depth)
-        ys, xs = stats
-        if len(xs):  # extent drives the crop warning, with or without auto_roi
-            self._obj_extent_px = int(
-                max(xs.max() - xs.min(), ys.max() - ys.min())
-            ) // self.render_scale
-        if self._auto_window or self._auto_points:
-            self._tune_lift(stats)
-        if self.auto_roi and not self._roi_still_fits(stats):
-            self.roi = self._compute_roi(stats)
-            logger.info("auto ROI (x, y, w, h) = %s (render px)", self.roi)
-        # the window lift crops a window x window region around the rendered
-        # object; a larger object loses boundary points without this check
-        if self.lift == "window" and self._obj_extent_px > self.window:
-            logger.warning(
-                "object extent ~%d render px exceeds the window lift "
-                "crop of %d px: boundary points will be cropped. "
-                "Enlarge window= or use lift='compact'.",
-                self._obj_extent_px, self.window,
-            )
-        self._frame_planned = True
+        with span("prt.plan"):
+            scene_depth = _host(scene_depth)
+            d_max = float(np.max(scene_depth))
+            if 0.0 < d_max <= 50.0:
+                # a depth image whose farthest point is 5 cm is almost certainly
+                # in METERS; everything here is mm
+                logger.warning(
+                    "scene depth max is %.2f - values look like meters; this "
+                    "pipeline expects millimeters (uint16/int32 mm)", d_max,
+                )
+            self._check_saturation = True
+            stats = self._object_stats(scene_depth)
+            ys, xs = stats
+            if len(xs):  # extent drives the crop warning, with or without auto_roi
+                self._obj_extent_px = int(
+                    max(xs.max() - xs.min(), ys.max() - ys.min())
+                ) // self.render_scale
+            if self._auto_window or self._auto_points:
+                self._tune_lift(stats)
+            if self.auto_roi and not self._roi_still_fits(stats):
+                self.roi = self._compute_roi(stats)
+                logger.info("auto ROI (x, y, w, h) = %s (render px)", self.roi)
+            # the window lift crops a window x window region around the rendered
+            # object; a larger object loses boundary points without this check
+            if self.lift == "window" and self._obj_extent_px > self.window:
+                logger.warning(
+                    "object extent ~%d render px exceeds the window lift "
+                    "crop of %d px: boundary points will be cropped. "
+                    "Enlarge window= or use lift='compact'.",
+                    self._obj_extent_px, self.window,
+                )
+            self._frame_planned = True
 
     def set_scene_depth(self, scene_depth):
         """Build the association structure from an (H, W) mm depth image
         (numpy or tensor). Happens once per frame, not per ICP iteration."""
-        host = _host(scene_depth)
-        self._prepare_frame(host)
-        if self.scene_kind == "projective":
-            self.scene = SceneProjective.from_depth(
-                host, self.K, self.max_dist_diff, device=self.device
-            )
-        else:
-            self.scene = SceneNN.from_depth(
-                host, self.K, self.max_dist_diff, backend=self._nn_backend(),
-                voxel_mm=self.scene_voxel_mm, device=self.device,
-            )
-            if self.scene_cascade is not None:
-                self._scene_coarse = SceneNN.from_depth(
-                    host, self.K, self.max_dist_diff, backend=self._nn_backend(),
-                    voxel_mm=self.scene_cascade[0], device=self.device,
-                )
-        logger.info("scene built: kind=%s, %s", self.scene_kind, type(self.scene).__name__)
+        global scenes
+        with span("prt.scene.set"):
+            host = _host(scene_depth)
+            self._prepare_frame(host)
+            with span("prt.scene.build"):
+                if self.scene_kind == "projective":
+                    self.scene = SceneProjective.from_depth(
+                        host, self.K, self.max_dist_diff, device=self.device
+                    )
+                else:
+                    self.scene = SceneNN.from_depth(
+                        host, self.K, self.max_dist_diff, backend=self._nn_backend(),
+                        voxel_mm=self.scene_voxel_mm, device=self.device,
+                    )
+                    if self.scene_cascade is not None:
+                        self._scene_coarse = SceneNN.from_depth(
+                            host, self.K, self.max_dist_diff, backend=self._nn_backend(),
+                            voxel_mm=self.scene_cascade[0], device=self.device,
+                        )
+            logger.info("scene built: kind=%s, %s", self.scene_kind, type(self.scene).__name__)
+        scenes += 1
         return self
 
     def set_scene_depths(self, scene_depths):
@@ -971,20 +996,24 @@ class PoseRefiner:
             raise ValueError(
                 "scene_cascade is per-frame (a coarse voxel twin); it does not compose with "
                 "stacked NN scenes - drop one of the two")
-        frames = _host(scene_depths)
-        if frames.ndim != 3 or frames.shape[0] < 1:
-            raise ValueError(f"set_scene_depths wants (K, H, W) frames, got {frames.shape}")
-        self._prepare_frame(frames.max(axis=0))
-        if self.scene_kind == "projective":
-            self.scene = SceneProjectiveStack.from_depths(frames, self.K, self.max_dist_diff,
+        global scenes
+        with span("prt.scene.set"):
+            frames = _host(scene_depths)
+            if frames.ndim != 3 or frames.shape[0] < 1:
+                raise ValueError(f"set_scene_depths wants (K, H, W) frames, got {frames.shape}")
+            self._prepare_frame(frames.max(axis=0))
+            with span("prt.scene.build"):
+                if self.scene_kind == "projective":
+                    self.scene = SceneProjectiveStack.from_depths(
+                        frames, self.K, self.max_dist_diff, device=self.device)
+                else:
+                    self.scene = SceneNNStack.from_depths(frames, self.K, self.max_dist_diff,
+                                                          voxel_mm=self.scene_voxel_mm,
                                                           device=self.device)
-        else:
-            self.scene = SceneNNStack.from_depths(frames, self.K, self.max_dist_diff,
-                                                  voxel_mm=self.scene_voxel_mm,
-                                                  device=self.device)
-        self._scene_coarse = None
-        logger.info("scene built: kind=%s x%d frames (stacked)", self.scene_kind,
-                    self.scene.n_scenes)
+            self._scene_coarse = None
+            logger.info("scene built: kind=%s x%d frames (stacked)", self.scene_kind,
+                        self.scene.n_scenes)
+        scenes += 1
         return self
 
     def set_scene_cloud(self, points, normals):
@@ -998,20 +1027,25 @@ class PoseRefiner:
                 "window='auto'/max_points='auto' require set_scene_depth; "
                 "pass explicit window/max_points to use set_scene_cloud"
             )
-        points, normals = (
-            x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
-            for x in (points, normals)
-        )
-        if self.scene_voxel_mm > 0.0:
-            points, normals = voxel_downsample(points, normals, self.scene_voxel_mm / 1000.0)
-        self.scene = SceneNN.from_cloud(points, normals, self.max_dist_diff,
-                                        backend=self._nn_backend(), device=self.device)
-        if self.scene_cascade is not None:
-            cp, cn = voxel_downsample(points, normals, self.scene_cascade[0] / 1000.0)
-            self._scene_coarse = SceneNN.from_cloud(cp, cn, self.max_dist_diff,
-                                                    backend=self._nn_backend(),
-                                                    device=self.device)
-        self._check_saturation = True
+        global scenes
+        with span("prt.scene.set"):
+            points, normals = (
+                x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+                for x in (points, normals)
+            )
+            with span("prt.scene.build"):
+                if self.scene_voxel_mm > 0.0:
+                    points, normals = voxel_downsample(points, normals,
+                                                       self.scene_voxel_mm / 1000.0)
+                self.scene = SceneNN.from_cloud(points, normals, self.max_dist_diff,
+                                                backend=self._nn_backend(), device=self.device)
+                if self.scene_cascade is not None:
+                    cp, cn = voxel_downsample(points, normals, self.scene_cascade[0] / 1000.0)
+                    self._scene_coarse = SceneNN.from_cloud(cp, cn, self.max_dist_diff,
+                                                            backend=self._nn_backend(),
+                                                            device=self.device)
+            self._check_saturation = True
+        scenes += 1
         return self
 
     def _scene_ids(self, scene, scene_ids, n_poses: int):
@@ -1078,42 +1112,48 @@ class PoseRefiner:
         """refine() rendering ``tris``: the refiner's (T, 3, 3) mesh, or
         MultiModelRefiner's per-pose meshes (an IndexedTris); a schedule's
         levels recurse here, so a subclass's refine() never sees them."""
+        global refines, poses
         scene = self.scene if _scene is None else _scene
         if scene is None:  # usage error: must survive python -O
             raise RuntimeError("set_scene_depth / set_scene_cloud first")
-        init = to_device(init_poses, self.device, torch.float32)
-        if tuple(init.shape[-2:]) != (4, 4) or init.dim() not in (2, 3):
-            raise ValueError(
-                f"init_poses must be (4, 4) or (N, 4, 4) model->camera transforms, "
-                f"got {tuple(init.shape)}"
-            )
-        squeeze = init.dim() == 2
-        if squeeze:
-            init = init[None]
-        ids = self._scene_ids(scene, scene_ids, init.shape[0])
-        if self._scene_coarse is not None and _scene is None:
-            coarse = icp.ICPConvergenceCriteria(
-                criteria.relative_fitness, criteria.relative_rmse, self.scene_cascade[1])
-            init, _ = self._refine(tris, init, coarse, _scene=self._scene_coarse)
-        if schedule:
-            self._check_schedule(schedule)
-            for level, (max_dist, iters) in enumerate(schedule):
-                out = self._refine(
-                    tris, init,
-                    icp.ICPConvergenceCriteria(criteria.relative_fitness,
-                                               criteria.relative_rmse, int(iters)),
-                    with_covariance=with_covariance and level == len(schedule) - 1,
-                    scene_ids=ids, _scene=_scene_with_gate(scene, max_dist))
-                init = out[0]
+        with span("prt.refine"):
+            init = to_device(init_poses, self.device, torch.float32)
+            if tuple(init.shape[-2:]) != (4, 4) or init.dim() not in (2, 3):
+                raise ValueError(
+                    f"init_poses must be (4, 4) or (N, 4, 4) model->camera transforms, "
+                    f"got {tuple(init.shape)}"
+                )
+            squeeze = init.dim() == 2
+            if squeeze:
+                init = init[None]
+            ids = self._scene_ids(scene, scene_ids, init.shape[0])
+            if _scene is None:
+                refines += 1
+                poses += init.shape[0]
+            if self._scene_coarse is not None and _scene is None:
+                coarse = icp.ICPConvergenceCriteria(
+                    criteria.relative_fitness, criteria.relative_rmse, self.scene_cascade[1])
+                init, _ = self._refine(tris, init, coarse, _scene=self._scene_coarse)
+            if schedule:
+                self._check_schedule(schedule)
+                for level, (max_dist, iters) in enumerate(schedule):
+                    out = self._refine(
+                        tris, init,
+                        icp.ICPConvergenceCriteria(criteria.relative_fitness,
+                                                   criteria.relative_rmse, int(iters)),
+                        with_covariance=with_covariance and level == len(schedule) - 1,
+                        scene_ids=ids, _scene=_scene_with_gate(scene, max_dist))
+                    init = out[0]
+                return tuple(map(_first, out)) if squeeze else out
+            kw = dict(self._pipeline_kw(criteria), with_information=with_covariance,
+                      scene_ids=ids)
+            if self.devices:
+                out = refine_poses_split(self.devices, tris, init, scene, self.proj,
+                                         self._K_render_t, replicas=self._replicas, **kw)
+            else:
+                out = refine_poses(tris, init, scene, self.proj, self._K_render_t, **kw)
+            self._warn_if_saturated(out[1])
             return tuple(map(_first, out)) if squeeze else out
-        kw = dict(self._pipeline_kw(criteria), with_information=with_covariance, scene_ids=ids)
-        if self.devices:
-            out = refine_poses_split(self.devices, tris, init, scene, self.proj,
-                                     self._K_render_t, replicas=self._replicas, **kw)
-        else:
-            out = refine_poses(tris, init, scene, self.proj, self._K_render_t, **kw)
-        self._warn_if_saturated(out[1])
-        return tuple(map(_first, out)) if squeeze else out
 
     def _check_schedule(self, schedule):
         """JAX pipeline.py:1115-1127: every level must run more iterations
@@ -1172,6 +1212,7 @@ class PoseRefiner:
                with_covariance: bool = False, _pack_outputs: bool = False,
                _plain: bool = False):
         """track() rendering ``tris`` (see _refine)."""
+        global tracked_frames, poses
         if self.scene_kind == "nn_kdtree":
             raise ValueError(
                 "track() cannot fuse a kd-tree scene build (host work); "
@@ -1196,29 +1237,32 @@ class PoseRefiner:
             # the buffer embeds the covariance and is batch-shaped
             raise ValueError(
                 "_pack_outputs needs with_covariance=True and a batched (N, 4, 4) init_poses")
-        self._prepare_frame(frame_depth, allow_device_skip=True)
-        init = to_device(init_poses, self.device, torch.float32)
-        if squeeze:
-            init = init[None]
-        frame = to_device(frame_depth, self.device)
-        kw = dict(self._pipeline_kw(criteria), with_information=with_covariance,
-                  pack_outputs=_pack_outputs, plain=_plain)
-        if self.devices:
-            kw.update(devices=self.devices, replicas=self._replicas)
-        args = (tris, init, frame, self.proj, self._K_render_t, self._K_t, self.max_dist_diff)
-        if self.scene_kind == "projective":
-            out = track_poses(*args, **kw)
-        else:
-            pool = self._resolve_scene_pool(frame_depth)
-            out = track_poses_nn(*args, self._scene_perm(frame_shape, pool),
-                                 scene_stride=self.scene_stride, scene_pool=pool, **kw)
-        if _pack_outputs:
-            # the session checks saturation from the buffer's n_points column
-            return out
-        self._warn_if_saturated(out[1])
-        if squeeze:
-            out = tuple(map(_first, out))
-        return out if with_covariance else (out[0], out[1])
+        with span("prt.track"):
+            self._prepare_frame(frame_depth, allow_device_skip=True)
+            init = to_device(init_poses, self.device, torch.float32)
+            if squeeze:
+                init = init[None]
+            frame = to_device(frame_depth, self.device)
+            tracked_frames += 1
+            poses += init.shape[0]
+            kw = dict(self._pipeline_kw(criteria), with_information=with_covariance,
+                      pack_outputs=_pack_outputs, plain=_plain)
+            if self.devices:
+                kw.update(devices=self.devices, replicas=self._replicas)
+            args = (tris, init, frame, self.proj, self._K_render_t, self._K_t, self.max_dist_diff)
+            if self.scene_kind == "projective":
+                out = track_poses(*args, **kw)
+            else:
+                pool = self._resolve_scene_pool(frame_depth)
+                out = track_poses_nn(*args, self._scene_perm(frame_shape, pool),
+                                     scene_stride=self.scene_stride, scene_pool=pool, **kw)
+            if _pack_outputs:
+                # the session checks saturation from the buffer's n_points column
+                return out
+            self._warn_if_saturated(out[1])
+            if squeeze:
+                out = tuple(map(_first, out))
+            return out if with_covariance else (out[0], out[1])
 
     def track_async(self, *args, **kwargs) -> PendingResult:
         """track() enqueued: returns a PendingResult, so a loop can enqueue
@@ -1238,11 +1282,12 @@ class PoseRefiner:
     def _pin(self, packed) -> PendingResult:
         """A PendingResult of a card buffer copied to pinned host memory
         behind the work that writes it (a host buffer as it is)."""
-        if packed.device.type == "cuda":
-            host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
-            host.copy_(packed, non_blocking=True)
-            packed = host
-        return PendingResult(packed, None, device=self.device)
+        with span("prt.track.pin"):
+            if packed.device.type == "cuda":
+                host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+                host.copy_(packed, non_blocking=True)
+                packed = host
+            return PendingResult(packed, None, device=self.device)
 
     @staticmethod
     def rank(results: icp.RegistrationResult):

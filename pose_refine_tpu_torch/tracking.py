@@ -35,6 +35,7 @@ import numpy as np
 from pose_refine_tpu_torch import icp
 from pose_refine_tpu_torch.pipeline import MultiModelRefiner, PendingResult, PoseRefiner
 from pose_refine_tpu_torch.utils.fusion import CHI2_6_99, PoseTracker, se3_log
+from pose_refine_tpu_torch.utils.profiling import span
 
 _MOTIONS = ("random_walk", "constant_velocity")
 
@@ -239,17 +240,18 @@ class _SessionLoop:
     def _fuse_all(self, packed) -> list:
         """Read the frame's buffer, slice it per object and gate/fuse each
         tracker; one TrackStep per object."""
-        refined_np, results_np, cov_np = _pull_packed(self.refiner, packed)
-        n = self.n_hypotheses
-        steps = []
-        for i, tracker in enumerate(self.trackers):
-            rows = slice(i * n, (i + 1) * n)
-            steps.append(_fuse_ranked_best(
-                tracker, refined_np[rows],
-                icp.RegistrationResult(*(None if f is None else f[rows] for f in results_np)),
-                cov_np[rows], self.gate_chi2, self.max_innovation, self.min_quality))
-        self.n_frames += 1
-        return steps
+        with span("prt.step.fuse"):
+            refined_np, results_np, cov_np = _pull_packed(self.refiner, packed)
+            n = self.n_hypotheses
+            steps = []
+            for i, tracker in enumerate(self.trackers):
+                rows = slice(i * n, (i + 1) * n)
+                steps.append(_fuse_ranked_best(
+                    tracker, refined_np[rows],
+                    icp.RegistrationResult(*(None if f is None else f[rows] for f in results_np)),
+                    cov_np[rows], self.gate_chi2, self.max_innovation, self.min_quality))
+            self.n_frames += 1
+            return steps
 
     def _restore(self, rng_state, tracker_states, inflight):
         if rng_state is not None:
@@ -266,17 +268,19 @@ class _SessionLoop:
         # track() validates the frame only after the filters predicted and
         # the rng stream moved: snapshot both and roll back on any failure,
         # so a corrected retry replays the exact same hypothesis stream
-        rng_state = self._rng.bit_generator.state
-        tracker_states = [t.state_dict() for t in self.trackers]
-        try:
-            hyp_blocks = []
-            for tracker, motion_mm in zip(self.trackers, motions):
-                self._advance(tracker, motion_mm)
-                hyp_blocks.append(self._sample(tracker))
-            return self._fuse_all(self._track(frame_depth, hyp_blocks, model_ids, async_=False))
-        except BaseException:
-            self._restore(rng_state, tracker_states, None)
-            raise
+        with span("prt.step"):
+            rng_state = self._rng.bit_generator.state
+            tracker_states = [t.state_dict() for t in self.trackers]
+            try:
+                with span("prt.step.sample"):
+                    hyp_blocks = []
+                    for tracker, motion_mm in zip(self.trackers, motions):
+                        self._advance(tracker, motion_mm)
+                        hyp_blocks.append(self._sample(tracker))
+                return self._fuse_all(self._track(frame_depth, hyp_blocks, model_ids, async_=False))
+            except BaseException:
+                self._restore(rng_state, tracker_states, None)
+                raise
 
     # -- pipelined (double-buffered) stepping ------------------------------
     # step() waits for each frame before it enqueues the next. step_async()
@@ -305,41 +309,44 @@ class _SessionLoop:
         # stream: roll the stream back (the filters are untouched: the
         # hypotheses extrapolate throwaway copies across the in-flight
         # frame plus this one)
-        rng_state = self._rng.bit_generator.state
-        try:
-            hyp_blocks = []
-            for i, (tracker, motion_mm) in enumerate(zip(self.trackers, motions)):
-                tmp = PoseTracker.from_state(tracker.state_dict())
-                if self._inflight is not None:
-                    self._advance(tmp, self._inflight[1][i])
-                self._advance(tmp, motion_mm)
-                hyp_blocks.append(self._sample(tmp))
-            packed = self._track(frame_depth, hyp_blocks, model_ids, async_=True)
-        except BaseException:
-            self._rng.bit_generator.state = rng_state
-            raise
-        # fusing the previous frame can fail too (e.g. LinAlgError in a
-        # filter update): restore rng, filters and the pending frame, and
-        # drop this frame's result; a corrected retry re-enqueues it with
-        # the same hypotheses
-        prev_inflight = self._inflight
-        tracker_states = [t.state_dict() for t in self.trackers]
-        try:
-            prev = self._fuse_inflight()
-        except BaseException:
-            self._restore(rng_state, tracker_states, prev_inflight)
-            raise
-        self._inflight = (packed, motions)
-        return prev
+        with span("prt.step"):
+            rng_state = self._rng.bit_generator.state
+            try:
+                with span("prt.step.sample"):
+                    hyp_blocks = []
+                    for i, (tracker, motion_mm) in enumerate(zip(self.trackers, motions)):
+                        tmp = PoseTracker.from_state(tracker.state_dict())
+                        if self._inflight is not None:
+                            self._advance(tmp, self._inflight[1][i])
+                        self._advance(tmp, motion_mm)
+                        hyp_blocks.append(self._sample(tmp))
+                packed = self._track(frame_depth, hyp_blocks, model_ids, async_=True)
+            except BaseException:
+                self._rng.bit_generator.state = rng_state
+                raise
+            # fusing the previous frame can fail too (e.g. LinAlgError in a
+            # filter update): restore rng, filters and the pending frame, and
+            # drop this frame's result; a corrected retry re-enqueues it with
+            # the same hypotheses
+            prev_inflight = self._inflight
+            tracker_states = [t.state_dict() for t in self.trackers]
+            try:
+                prev = self._fuse_inflight()
+            except BaseException:
+                self._restore(rng_state, tracker_states, prev_inflight)
+                raise
+            self._inflight = (packed, motions)
+            return prev
 
     def _flush(self) -> Optional[list]:
-        prev_inflight = self._inflight
-        tracker_states = [t.state_dict() for t in self.trackers]
-        try:
-            return self._fuse_inflight()
-        except BaseException:
-            self._restore(None, tracker_states, prev_inflight)
-            raise
+        with span("prt.step"):
+            prev_inflight = self._inflight
+            tracker_states = [t.state_dict() for t in self.trackers]
+            try:
+                return self._fuse_inflight()
+            except BaseException:
+                self._restore(None, tracker_states, prev_inflight)
+                raise
 
     # -- checkpoint/resume: the refiner is rebuilt by the caller; the
     # session state is the filters, the hypothesis rng stream and the loop
