@@ -54,6 +54,21 @@ non-zero without printing a result:
               equal, one launch a call. Times alone, with the wrapper and
               plain at the first two, the bound; pipeline._window_lift of
               the bench renders must be one device kernel.
+  4c. scene-table - the projective scene table's kernel
+              (csrc/scene_table.cu) against its plain version
+              (scene/projective.py::_build_projective_table_plain) on the
+              card: probes/scene_table_cases.py's frames (holes, steps of
+              exactly +-49 / +-50 mm, depths at and over 2,000 mm, the
+              interior's edges, random depths) at each of its shapes and
+              their stacks, bit for bit, one launch a call; at a rendered
+              640x480 frame and a stack of 4 the kernel alone, with its
+              wrapper, the plain version, the bound and its share, and the
+              host's whole build from a numpy frame (upload, allocation,
+              launch) against the same build through the plain version,
+              with the device kernels of each; the launch counter across
+              set_scene_depth, set_scene_depths, a tracked frame and two
+              session steps (1, 1, 1, 2). ``chip_smoke.py --scene-table``
+              runs [card], [build] and this phase alone.
   5. golden - the reference acceptance recipe (10 deg/axis + 20 mm) on a
               bumpy sphere at 640x480 recovers to under 1 degree, and agrees
               with the same refine through the plain versions.
@@ -289,8 +304,8 @@ work, from the bytes it must move and the operations it must do on this
 run's inputs at the H100's published peaks (see bound()).
 
 The two lines before the last are the card line from nvidia-smi and a JSON
-object of the nine kernels (rasterize with [renderer]'s renders,
-window_lift with its cases,
+object of the ten kernels (rasterize with [renderer]'s renders,
+window_lift with its cases, scene_table with its timed inputs,
 nn_flash_packed, nn_flash_gated with its stacked launches apart,
 gather_rows, assoc_reduce with its modes, icp_iterate with its cases and its
 coarse mode, nn_kdtree, nn_flash_mxu); the last line is
@@ -1072,6 +1087,155 @@ def lift_phase(torch, LC, window_lift, cases, timed):
             check(same and launched == 1, f"lift {key}: kernel != plain or {launched} launches")
             out[key] = st
     return out
+
+
+def scene_table_bound(frames):
+    """The scene table's bound at one input: the int32 frames and K read
+    once, 32 bytes a pixel written once (its ~70 operations a pixel are far
+    below the FP32 rate)."""
+    return bound(n_bytes=frames.numel() * (4 + 32) + 36)
+
+
+def scene_table_phase(torch, ptt, geometry, mesh, RC, dev):
+    """[scene-table]: the projective scene table's kernel
+    (ops/scene_table.py) against its plain version
+    (scene/projective.py::_build_projective_table_plain) on the card; see
+    the module docstring, phase 4c. Returns {"cases", "timed", "launches",
+    "device_kernels"}."""
+    from pose_refine_tpu_torch.ops import scene_table as ST
+    from pose_refine_tpu_torch.probes import scene_table_cases
+    from pose_refine_tpu_torch.scene import projective as SP
+
+    t0 = time.perf_counter()
+
+    def bits(a, b):
+        return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+    def host_ms(fn, reps=20):
+        """Medians of the call's own host time (what the prt.scene.build
+        span reads) and of the time to its end on the card, in ms."""
+        issue, done = [], []
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            a = time.perf_counter()
+            fn()
+            b = time.perf_counter()
+            torch.cuda.synchronize()
+            issue.append((b - a) * 1e3)
+            done.append((time.perf_counter() - a) * 1e3)
+        return float(np.median(issue[1:])), float(np.median(done[1:]))
+
+    K = torch.as_tensor(geometry.LINEMOD_K, dtype=torch.float32, device=dev)
+    n_frames = 0
+    for name, (h, w) in scene_table_cases.SHAPES.items():
+        frames = torch.as_tensor(scene_table_cases.stack(h, w, seed=11), device=dev)
+        for i, kind in enumerate(scene_table_cases.KINDS):
+            before = ST.launches
+            got = ST.scene_table_cuda(frames[i], K)
+            torch.cuda.synchronize()
+            launched = ST.launches - before
+            check(bits(got, SP._build_projective_table_plain(frames[i], K)) and launched == 1,
+                  f"scene table {name} {kind}: kernel != plain or {launched} launches")
+            n_frames += 1
+        check(bits(ST.scene_table_cuda(frames, K), SP._build_projective_table_plain(frames, K)),
+              f"scene table {name}, the stack: kernel != plain")
+    phase("scene-table", f"{n_frames} frames ({', '.join(scene_table_cases.KINDS)}) at shapes "
+          f"{list(scene_table_cases.SHAPES.values())} and their stacks: bit for bit with the "
+          f"plain version, one launch a call")
+
+    m = mesh.make_bumpy_sphere(radius=50.0, subdivisions=4)
+    proj = geometry.compute_proj(geometry.LINEMOD_K, WIDTH, HEIGHT, device=dev)
+    truths = np.stack([geometry.pose_from_Rt(R_REN, np.array([20 * i, 0, 300 + 15 * i],
+                                                             np.float32)).numpy()
+                       for i in range(4)])
+    renders = RC.rasterize(m.tris, truths, WIDTH, HEIGHT, proj, device="cuda")
+    timed_stats, kernels = {}, {}
+    for label, frames in (("frame", renders[0].contiguous()), ("stack4", renders)):
+        same = bits(ST.scene_table_cuda(frames, K), SP._build_projective_table_plain(frames, K))
+        st = dict(equal_bits=same, shape=[*frames.shape], **scene_table_bound(frames))
+        st["alone_ms"] = alone_ms(torch, lambda: ST.scene_table_cuda(frames, K))
+        st["ms"], _ = median_ms(torch, lambda: ST.scene_table_cuda(frames, K), 20)
+        st["plain_ms"], _ = median_ms(
+            torch, lambda: SP._build_projective_table_plain(frames, K), 5)
+        st["share_of_bound"] = st["bound_ms"] / st["alone_ms"]
+        host = frames.cpu().numpy()
+        build = (SP.SceneProjective.from_depth if frames.dim() == 2
+                 else SP.SceneProjectiveStack.from_depths)
+        run = lambda: build(host, geometry.LINEMOD_K, device=dev)  # noqa: E731
+        st["host_build_ms"], st["host_build_done_ms"] = host_ms(run)
+        kernels[label] = device_kernels(torch, run)
+        with unittest.mock.patch.object(SP, "_build_projective_table",
+                                        SP._build_projective_table_plain):
+            st["host_build_plain_ms"], st["host_build_plain_done_ms"] = host_ms(run)
+            kernels[label + " plain"] = device_kernels(torch, run)
+        st["device_kernels"] = sum(r[2] for r in kernels[label])
+        st["device_kernels_plain"] = sum(r[2] for r in kernels[label + " plain"])
+        phase("scene-table", f"{label} {tuple(frames.shape)}: equal_bits={same} "
+              f"kernel_alone_ms={st['alone_ms']} kernel_ms={st['ms']} "
+              f"plain_ms={st['plain_ms']} bound_ms={st['bound_ms']} ({st['bound_by']}) "
+              f"share_of_bound={st['share_of_bound']}; the build from a numpy frame "
+              f"(from_depth{'s' if frames.dim() == 3 else ''}): host {st['host_build_ms']} ms, "
+              f"to its end {st['host_build_done_ms']} ms, device kernels "
+              f"{st['device_kernels']} {[(r[0][:48], r[2]) for r in kernels[label]]}; through "
+              f"the plain version host {st['host_build_plain_ms']} ms, to its end "
+              f"{st['host_build_plain_done_ms']} ms, device kernels "
+              f"{st['device_kernels_plain']}")
+        check(same, f"scene table {label}: kernel != plain")
+        timed_stats[label] = st
+
+    ref = ptt.PoseRefiner(m, K=geometry.LINEMOD_K, device="cuda")
+    hyps = ptt.sample_hypotheses(truths[0], 16, rot_deg=6.0, trans_mm=10.0, rng=1)
+    host = renders.cpu().numpy()
+    session = ptt.TrackingSession(ref, truths[0], n_hypotheses=16, seed=1)
+    launches = {}
+    for what, fn in (("set_scene_depth", lambda: ref.set_scene_depth(host[0])),
+                     ("set_scene_depths", lambda: ref.set_scene_depths(host)),
+                     ("track", lambda: ref.track(renders[0], hyps)),
+                     ("session_2_steps", lambda: [session.step(renders[i]) for i in (0, 1)])):
+        before = ST.launches
+        fn()
+        torch.cuda.synchronize()
+        launches[what] = ST.launches - before
+    phase("scene-table", f"launches={launches}; phase seconds={time.perf_counter() - t0}")
+    check(list(launches.values()) == [1, 1, 1, 2],
+          f"the scene builds are not one launch each: {launches}")
+    return {"cases": n_frames, "timed": timed_stats, "launches": launches,
+            "device_kernels": {k: [(r[0], r[2]) for r in v] for k, v in kernels.items()}}
+
+
+def scene_table_main():
+    """``chip_smoke.py --scene-table``: [card], [build] and [scene-table]
+    alone; the phase's numbers as the last line's JSON."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    import pose_refine_tpu_torch as ptt
+    from pose_refine_tpu_torch import _build, geometry, mesh
+    from pose_refine_tpu_torch.ops import rasterize_cuda as RC
+
+    logging.getLogger("pose_refine_tpu_torch").setLevel(logging.ERROR)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    phase("card", f"{torch.cuda.get_device_name(0)}, torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}; nvidia-smi: {smi.stdout.strip()}")
+    t0 = time.perf_counter()
+    _lib, info = _build.load_kernels()
+    log = info["log"] or (pathlib.Path(info["path"]).parent / "nvcc.log").read_text()
+    regs, name = [], None
+    for ln in log.splitlines():
+        entry = re.search(r"entry function '(\S+)'", ln)
+        name = entry.group(1) if entry else name
+        if name and "scene_table" in name and "Used" in ln:
+            regs.append(ln.strip())
+    phase("build", f"ok in {time.perf_counter() - t0:.3f} s (nvcc {info['seconds']:.3f} s, "
+          f"built={info['built']}); scene table kernel: {regs}")
+    stats = scene_table_phase(torch, ptt, geometry, mesh, RC, torch.device("cuda"))
+    print(json.dumps({"ok": True, "scene_table": stats, "device": torch.cuda.get_device_name(0)}))
+    return 0
 
 
 def assoc_reduce_phase(torch, IR, cases):
@@ -2296,6 +2460,7 @@ def main():
     from pose_refine_tpu_torch.ops import icp_reduce as IR
     from pose_refine_tpu_torch.ops import lift_cuda as LC
     from pose_refine_tpu_torch.ops import rasterize_cuda as RC
+    from pose_refine_tpu_torch.ops import scene_table as ST
     from pose_refine_tpu_torch.ops.depth_to_cloud import window_lift
     from pose_refine_tpu_torch.pipeline import _window_lift, refine_poses
     from pose_refine_tpu_torch.probes import icp_tail, lift_cases, mxu_nn, nn_ties
@@ -2319,10 +2484,11 @@ def main():
     def reset_counts():
         RC.launches = NF.packed_launches = NF.gated_launches = G.launches = 0
         NF.stacked_launches = NM.launches = IR.launches = KD.launches = 0
-        IR.iterate_launches = LC.launches = 0
+        IR.iterate_launches = LC.launches = ST.launches = 0
 
     def counts():
         return {"rasterize": RC.launches, "window_lift": LC.launches,
+                "scene_table": ST.launches,
                 "nn_flash_packed": NF.packed_launches,
                 "nn_flash_gated": NF.gated_launches,
                 "nn_flash_gated_stacked": NF.stacked_launches, "gather_rows": G.launches,
@@ -2633,6 +2799,9 @@ def main():
     check(len(lift_kernels) == 1 and lift_kernels[0][2] == 1
           and "window_lift" in lift_kernels[0][0],
           f"the pipeline's lift is not one L1 launch: {lift_kernels}")
+
+    # 4c. the projective scene table's kernel against its plain version
+    scene_table_stats = scene_table_phase(torch, ptt, geometry, mesh, RC, dev)
 
     # 5. golden recovery (tests/test_icp.py:22-39 recipe) on the bumpy sphere
     ang = np.float32(10.0 / 180.0 * 3.14)
@@ -3758,6 +3927,23 @@ def main():
                         if k in st}
                   for key, st in lift_stats.items()},
     }, {
+        "name": "scene_table",
+        "route": "cuda",
+        "source": "pose_refine_tpu_torch/csrc/scene_table.cu",
+        # XLA code, not a Pallas kernel: dep2pcd, the LINEMOD normals and
+        # the zero pad as the JAX scene composes them
+        "replaces": "pose_refine_tpu/scene/projective.py:26",
+        # a set_scene_depth, set_scene_depths, a tracked frame, two session
+        # steps; one projective tracked session of [track]
+        "launches": scene_table_stats["launches"],
+        "launches_track": track_counts["projective"]["scene_table"],
+        "cases_bit_for_bit": scene_table_stats["cases"],
+        **{k: scene_table_stats["timed"]["frame"][k]
+           for k in ("ms", "alone_ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound")},
+        "library_ms": None,
+        "library": "none: no one PyTorch call computes the points and the LINEMOD normals",
+        "timed": scene_table_stats["timed"],
+    }, {
         "name": "nn_flash_packed", **nn_sources,
         "replaces": "pose_refine_tpu/scene/nn_pallas.py:101",
         "launches": nn_launches["nn_flash_packed"], **nn_stats["nn_flash_packed"],
@@ -3887,4 +4073,5 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(census_main() if sys.argv[1:] == ["--census"] else main())
+    sys.exit(census_main() if sys.argv[1:] == ["--census"]
+             else scene_table_main() if sys.argv[1:] == ["--scene-table"] else main())

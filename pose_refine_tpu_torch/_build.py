@@ -48,6 +48,7 @@ SIGNATURES = {
                          _F, _I, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P, _I, _P), _I),
     "prt_sin_cos": ((_P, _I, _P, _P, _P), _I),
     "prt_window_lift": ((_P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P), _I),
+    "prt_scene_table": ((_P, _I, _I, _I, _P, _P, _P), _I),
     "prt_error_string": ((_I,), ctypes.c_char_p),
 }
 

@@ -3,7 +3,8 @@ image via the camera intrinsics (PyTorch port of
 ``pose_refine_tpu/scene/projective.py``).
 
 The scene is one packed (H*W, 8) float32 table of
-[point xyz | normal xyz | 0 0] rows, so the per-point query is a single row
+[point xyz | normal xyz | 0 0] rows, built on a card by one launch of the
+kernel of ``ops/scene_table.py``, so the per-point query is a single row
 gather (depth_scene.h:7-49), the kernel of ``ops/gather.py`` on a card.
 ``SceneProjectiveStack`` holds K same-shape frames in one (K*H*W, 8) table
 and routes each pose to its frame by adding its frame's row offset to the
@@ -30,11 +31,25 @@ from pose_refine_tpu_torch.ops.icp_reduce import (
     unpack_sums,
 )
 from pose_refine_tpu_torch.ops.normals import estimate_normals
+from pose_refine_tpu_torch.ops.scene_table import check_frames, scene_table_cuda
 
 
 def _build_projective_table(depth: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
-    """Points + normals of an (H, W) depth image, or of a (K, H, W) stack
-    of them, as the packed (H*W, 8) or (K*H*W, 8) table."""
+    """Points + normals of an (H, W) mm depth image, or of a (K, H, W) stack
+    of them, as the packed (H*W, 8) or (K*H*W, 8) table: on a card one
+    launch of the kernel of ``ops/scene_table.py`` (a frame that is not
+    int32 is converted on the card first: depths are whole mm), on the CPU
+    the plain version. Raises for another rank."""
+    if depth.device.type == "cuda":
+        return scene_table_cuda(depth.to(torch.int32).contiguous(), K)
+    check_frames(depth, K)
+    return _build_projective_table_plain(depth, K)
+
+
+def _build_projective_table_plain(depth: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
+    """The table of ``_build_projective_table`` in plain PyTorch on any
+    device (the kernel's plain version): depth_image_to_points,
+    estimate_normals with its defaults, a zero pad."""
     pts, _mask = depth_image_to_points(depth, K)
     nrm = estimate_normals(depth, K)
     pts, nrm = pts.reshape(-1, 3), nrm.reshape(-1, 3)

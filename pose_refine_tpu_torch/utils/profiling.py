@@ -174,6 +174,7 @@ _COUNTERS = (
     ("pose_refine_tpu_torch.pipeline", ("scenes", "refines", "tracked_frames", "poses")),
     ("pose_refine_tpu_torch.ops.rasterize_cuda", ("launches",)),
     ("pose_refine_tpu_torch.ops.lift_cuda", ("launches",)),
+    ("pose_refine_tpu_torch.ops.scene_table", ("launches",)),
     ("pose_refine_tpu_torch.ops.icp_reduce", ("launches", "iterate_launches")),
     ("pose_refine_tpu_torch.ops.gather", ("launches",)),
     ("pose_refine_tpu_torch.scene.nn_flash",

@@ -23,12 +23,14 @@ from pose_refine_tpu_torch.ops import gather as G
 from pose_refine_tpu_torch.ops import icp_reduce as IR
 from pose_refine_tpu_torch.ops import lift_cuda as LC
 from pose_refine_tpu_torch.ops import rasterize_cuda as RC
+from pose_refine_tpu_torch.ops import scene_table as ST
 from pose_refine_tpu_torch.ops.depth_to_cloud import window_lift
-from pose_refine_tpu_torch.probes import lift_cases, nn_ties, raster_edges
+from pose_refine_tpu_torch.probes import lift_cases, nn_ties, raster_edges, scene_table_cases
 from pose_refine_tpu_torch.scene import nn_flash as NF
 from pose_refine_tpu_torch.scene import nn_kdtree as KD
 from pose_refine_tpu_torch.scene import nn_mxu as NM
 from pose_refine_tpu_torch.scene.nn import SceneNN, SceneNNStack
+from pose_refine_tpu_torch.scene import projective as SP
 from pose_refine_tpu_torch.scene.projective import SceneProjective, SceneProjectiveStack
 from pose_refine_tpu_torch.utils.metrics import rotation_angle_deg
 
@@ -135,7 +137,7 @@ def test_build_key_covers_sources_and_flags():
     assert len(key) == 16 and key == _build.build_info_key()
     assert [p.name for p in _build._sources()] == ["gather.cu", "icp_reduce.cu", "lift.cu",
                                                    "nn_flash.cu", "nn_kdtree.cu", "nn_mxu.cu",
-                                                   "rasterize.cu"]
+                                                   "rasterize.cu", "scene_table.cu"]
 
 
 def test_package_imports_without_jax():
@@ -1457,3 +1459,129 @@ def test_paths_through_lift_kernel_equal_the_plain_lift_on_card(card, path):
     for a, b in zip(got, want):
         for x, y in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
             assert (x is None and y is None) or torch.equal(x, y)
+
+
+def _table_bits_equal(got, want):
+    """Two scene tables equal bit for bit (signed zeros included)."""
+    return got.shape == want.shape and torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+# LINEMOD's camera and one with fractional entries everywhere
+_SCENE_TABLE_KS = (geometry.LINEMOD_K,
+                   np.array([[600.5, 0, 321.7], [0, 590.25, 239.3], [0, 0, 1]], np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(scene_table_cases.SHAPES))
+def test_scene_table_kernel_matches_plain_on_card(card, shape):
+    """The scene table kernel equals its plain version run on the card bit
+    for bit on scene_table_cases' frames (holes and negative pixels,
+    neighbour steps of exactly +-49 / +-50 / +-51 mm, depths around and over
+    the 2,000 mm gate, the interior's last rows and columns, random depths)
+    at every shape (640 x 480, odd sizes, a frame with one interior row,
+    none, a sliver), under two cameras; the stack of those frames equals
+    its plain version, a 1-frame stack the frame alone; one launch a call;
+    frames of another integer type are converted on the card."""
+    h, w = scene_table_cases.SHAPES[shape]
+    for cam in _SCENE_TABLE_KS:
+        K = torch.as_tensor(cam, dtype=torch.float32, device=card)
+        for kind in scene_table_cases.KINDS:
+            depth = torch.as_tensor(scene_table_cases.frame(kind, h, w, seed=5), device=card)
+            before = ST.launches
+            got = ST.scene_table_cuda(depth, K)
+            torch.cuda.synchronize()
+            assert ST.launches == before + 1
+            want = SP._build_projective_table_plain(depth, K)
+            assert _table_bits_equal(got, want), (shape, kind, int(
+                (got.view(torch.int32) != want.view(torch.int32)).any(1).sum()))
+        frames = torch.as_tensor(scene_table_cases.stack(h, w, seed=6), device=card)
+        got = ST.scene_table_cuda(frames, K)
+        assert _table_bits_equal(got, SP._build_projective_table_plain(frames, K))
+        one = ST.scene_table_cuda(frames[1:2].contiguous(), K)
+        assert _table_bits_equal(one, ST.scene_table_cuda(frames[1].contiguous(), K))
+        for dtype in (torch.int16, torch.int64):
+            cast = frames.to(dtype)
+            before = ST.launches
+            other = SP._build_projective_table(cast, K)
+            assert ST.launches == before + 1
+            assert _table_bits_equal(other, ST.scene_table_cuda(cast.to(torch.int32), K))
+        torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_scene_table_refuses_what_it_cannot_launch_on_card(card):
+    K = torch.as_tensor(geometry.LINEMOD_K, device=card)
+    depth = torch.zeros((48, 64), dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="contiguous int32"):
+        ST.scene_table_cuda(depth.to(torch.int64), K)
+    with pytest.raises(ValueError, match="contiguous int32"):
+        ST.scene_table_cuda(depth.t(), K)
+    with pytest.raises(ValueError, match="exceed the kernel's grid"):
+        ST.scene_table_cuda(torch.zeros((ST.MAX_FRAMES + 1, 1, 1), dtype=torch.int32,
+                                        device=card), K)
+    assert ST.scene_table_cuda(depth[:0], K).shape == (0, 8)
+
+
+@pytest.mark.cuda
+def test_scene_table_one_launch_a_scene_on_card(card):
+    """set_scene_depth, set_scene_depths, a tracked frame and each step of a
+    TrackingSession build their projective table in one launch of the
+    kernel, equal to the plain version's table on the card; a stack's
+    frames are the frames' own tables."""
+    m, frame, hyps = _bench_like_case(card)
+    ref = ptt.PoseRefiner(m, K=geometry.LINEMOD_K, device="cuda")
+    host = frame.cpu().numpy()
+    before = ST.launches
+    ref.set_scene_depth(host)
+    assert ST.launches == before + 1
+    assert _table_bits_equal(ref.scene.table,
+                             SP._build_projective_table_plain(frame, ref.scene.K))
+    ref.set_scene_depths(np.stack([host, host[::-1].copy(), host]))
+    assert ST.launches == before + 2
+    hw = host.size
+    assert _table_bits_equal(ref.scene.table[:hw], ref.scene.table[2 * hw:])
+    assert _table_bits_equal(ref.scene.lane(0).table,
+                             SP._build_projective_table_plain(frame, ref.scene.K))
+    ref.track(frame, hyps[:4])
+    assert ST.launches == before + 3
+    session = ptt.TrackingSession(ref, hyps[0], n_hypotheses=4, seed=1)
+    session.step(frame)
+    session.step(frame)
+    torch.cuda.synchronize()
+    assert ST.launches == before + 5
+
+
+@pytest.mark.cuda
+def test_refine_and_session_equal_with_the_plain_table_on_card(card, monkeypatch):
+    """PoseRefiner.refine against the kernel's table and against the plain
+    version's table of the same frame give equal outputs; so do the steps of
+    a TrackingSession with its scenes built by the kernel and by the plain
+    version (patched in: no kernel launches then)."""
+    m, frame, hyps = _bench_like_case(card, n=24)
+    crit = ptt.ICPConvergenceCriteria(max_iteration=20)
+    ref = ptt.PoseRefiner(m, K=geometry.LINEMOD_K, device="cuda")
+    ref.set_scene_depth(frame.cpu().numpy())
+    got = ref.refine(hyps, crit)
+    kernel_scene = ref.scene
+    ref.scene = SceneProjective(table=SP._build_projective_table_plain(frame, kernel_scene.K),
+                                K=kernel_scene.K, max_dist_diff=kernel_scene.max_dist_diff,
+                                height=kernel_scene.height, width=kernel_scene.width)
+    want = ref.refine(hyps, crit)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0])
+    for a, b in zip(got[1], want[1]):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+    def session_steps():
+        session = ptt.TrackingSession(ref, hyps[0], n_hypotheses=8, seed=3)
+        steps = [session.step(frame) for _ in range(3)]
+        return [np.asarray(x) for s in steps
+                for x in (s.pose, s.refined, s.covariance, s.results.fitness)]
+
+    kernel_steps = session_steps()
+    monkeypatch.setattr(SP, "_build_projective_table", SP._build_projective_table_plain)
+    before = ST.launches
+    plain_steps = session_steps()
+    assert ST.launches == before
+    for a, b in zip(kernel_steps, plain_steps):
+        assert np.array_equal(a, b)
