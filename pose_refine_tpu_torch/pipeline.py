@@ -28,7 +28,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import logging
-from typing import Callable, Optional, Union
+from typing import Callable, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -463,6 +463,20 @@ def _on_card(x) -> bool:
     return isinstance(x, torch.Tensor) and x.device.type == "cuda"
 
 
+class _ObjectStats(NamedTuple):
+    """A frame's observed object, all that host planning reads of it: the
+    count of its pixels, its box (inclusive full-resolution rows y0..y1 and
+    columns x0..x1; None when the frame is empty), the box's extent in
+    render pixels, and the frame's largest depth (the meters check)."""
+    count: int
+    y0: Optional[int]
+    y1: Optional[int]
+    x0: Optional[int]
+    x1: Optional[int]
+    extent: int
+    d_max: float
+
+
 def _resolve_devices(devices) -> Optional[list]:
     """PoseRefiner's ``devices=`` (JAX pipeline.py:477-487) as the list of
     the shards' devices, or None for one device: a sequence of devices is
@@ -809,66 +823,77 @@ class PoseRefiner:
                 self.max_points,
             )
 
-    def _object_stats(self, scene_depth):
-        """ONE host scan of the depth image: (ys, xs) of the object pixels,
-        shared by ROI planning and auto lift tuning."""
-        return np.nonzero(np.asarray(scene_depth) > 0)
+    def _object_stats(self, scene_depth) -> _ObjectStats:
+        """ONE bounded pass over the (H, W) depth image, shared by ROI
+        planning and auto lift tuning: the occupied rows from a row
+        reduction of the mask, then the count and the occupied columns from
+        that band of rows alone. No per-pixel coordinates: every planner
+        reads only the count and the box."""
+        d = np.asarray(scene_depth)
+        d_max = float(np.max(d))
+        mask = d > 0  # zero, negative and NaN pixels are empty
+        rows = np.flatnonzero(mask.any(axis=1))
+        if not rows.size:
+            return _ObjectStats(0, None, None, None, None, 0, d_max)
+        y0, y1 = int(rows[0]), int(rows[-1])
+        band = mask[y0:y1 + 1]
+        cols = np.flatnonzero(band.any(axis=0))
+        x0, x1 = int(cols[0]), int(cols[-1])
+        return _ObjectStats(int(np.count_nonzero(band)), y0, y1, x0, x1,
+                            max(x1 - x0, y1 - y0) // self.render_scale, d_max)
 
-    def _compute_roi(self, stats):
+    def _compute_roi(self, stats: _ObjectStats):
         """Crop-while-rendering window around the observed object (the
         reference's ROI, renderer.h:199-202, made automatic), in RENDER
         pixels: width a multiple of 128, height a multiple of 8."""
-        ys, xs = stats
-        if len(xs) == 0:
+        if stats.count == 0:
             self._obj_extent_px = 0
             return (0, 0, 0, 0)
         s = self.render_scale
-        self._obj_extent_px = int(max(xs.max() - xs.min(), ys.max() - ys.min())) // s
+        self._obj_extent_px = stats.extent
         rw, rh = self.render_w, self.render_h
         mx = int(self.roi_margin * self._obj_extent_px) + 16
-        x0 = max(int(xs.min()) // s - mx, 0)
-        y0 = max(int(ys.min()) // s - mx, 0)
-        x1 = min(int(xs.max()) // s + mx, rw)
-        y1 = min(int(ys.max()) // s + mx, rh)
+        x0 = max(stats.x0 // s - mx, 0)
+        y0 = max(stats.y0 // s - mx, 0)
+        x1 = min(stats.x1 // s + mx, rw)
+        y1 = min(stats.y1 // s + mx, rh)
         w = min(-(-(x1 - x0) // 128) * 128, rw)
         h = min(-(-(y1 - y0) // 8) * 8, rh)
         x0 = min(x0, rw - w)
         y0 = min(y0, rh - h)
         return (x0, y0, w, h)
 
-    def _lift_targets(self, stats, window=None):
+    def _lift_targets(self, stats: _ObjectStats, window=None):
         """(window, max_points) the auto formulas pick for this frame;
         non-auto knobs keep their configured values. ``window`` overrides
         the window used for the max_points candidate bound."""
-        ys, xs = stats
         s = self.render_scale
-        if len(xs) == 0:
+        if stats.count == 0:
             return (
                 self.window or min(256, self.render_w, self.render_h),
                 self.max_points or 4096,
             )
-        extent = int(max(xs.max() - xs.min(), ys.max() - ys.min())) // s
         if window is None:
             window = self.window
             if self._auto_window:
-                w = -(-int(extent * 1.15) // 32) * 32
+                w = -(-int(stats.extent * 1.15) // 32) * 32
                 window = int(np.clip(w, 32, min(self.render_w, self.render_h)))
         max_points = self.max_points
         if self._auto_points:
             if self.lift == "window":
                 # the window lift strides; budget = strided object pixels
-                n_obj = len(xs) // (s * s * self.stride * self.stride)
+                n_obj = stats.count // (s * s * self.stride * self.stride)
                 cand = (-(-window // self.stride)) ** 2
                 mp = min(-(-int(n_obj * 1.3) // 256) * 256, cand)
             else:
                 # the compact lift keeps every valid pixel (no window, no
                 # stride): the budget covers the whole object
-                n_obj = len(xs) // (s * s)
+                n_obj = stats.count // (s * s)
                 mp = -(-int(n_obj * 1.3) // 256) * 256
             max_points = int(max(mp, 256))
         return window, max_points
 
-    def _tune_lift(self, stats):
+    def _tune_lift(self, stats: _ObjectStats):
         """Apply the auto lift sizes with per-knob hysteresis: each knob
         grows immediately but shrinks only past one quantum (32 px / 256
         points), independently of the other."""
@@ -887,23 +912,21 @@ class PoseRefiner:
         self.window, self.max_points = new_w, new_mp
         logger.info("auto lift: window=%d, max_points=%d", self.window, self.max_points)
 
-    def _roi_still_fits(self, stats) -> bool:
+    def _roi_still_fits(self, stats: _ObjectStats) -> bool:
         """ROI hysteresis: keep the previous crop while the object still
         sits a guard margin inside it."""
         if self.roi == (0, 0, 0, 0):
             return False
-        ys, xs = stats
-        if len(xs) == 0:
+        if stats.count == 0:
             return True
         s = self.render_scale
         x0, y0, w, h = self.roi
-        extent = int(max(xs.max() - xs.min(), ys.max() - ys.min())) // s
-        guard = max(12, (int(self.roi_margin * extent) + 16) // 2)
+        guard = max(12, (int(self.roi_margin * stats.extent) + 16) // 2)
         return (
-            int(xs.min()) // s - guard >= x0
-            and int(ys.min()) // s - guard >= y0
-            and int(xs.max()) // s + guard <= x0 + w
-            and int(ys.max()) // s + guard <= y0 + h
+            stats.x0 // s - guard >= x0
+            and stats.y0 // s - guard >= y0
+            and stats.x1 // s + guard <= x0 + w
+            and stats.y1 // s + guard <= y0 + h
         )
 
     def _prepare_frame(self, scene_depth, allow_device_skip: bool = False):
@@ -920,22 +943,17 @@ class PoseRefiner:
             self._check_saturation = True
             return
         with span("prt.plan"):
-            scene_depth = _host(scene_depth)
-            d_max = float(np.max(scene_depth))
-            if 0.0 < d_max <= 50.0:
+            stats = self._object_stats(_host(scene_depth))
+            if 0.0 < stats.d_max <= 50.0:
                 # a depth image whose farthest point is 5 cm is almost certainly
                 # in METERS; everything here is mm
                 logger.warning(
                     "scene depth max is %.2f - values look like meters; this "
-                    "pipeline expects millimeters (uint16/int32 mm)", d_max,
+                    "pipeline expects millimeters (uint16/int32 mm)", stats.d_max,
                 )
             self._check_saturation = True
-            stats = self._object_stats(scene_depth)
-            ys, xs = stats
-            if len(xs):  # extent drives the crop warning, with or without auto_roi
-                self._obj_extent_px = int(
-                    max(xs.max() - xs.min(), ys.max() - ys.min())
-                ) // self.render_scale
+            if stats.count:  # extent drives the crop warning, with or without auto_roi
+                self._obj_extent_px = stats.extent
             if self._auto_window or self._auto_points:
                 self._tune_lift(stats)
             if self.auto_roi and not self._roi_still_fits(stats):
