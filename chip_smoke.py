@@ -39,10 +39,7 @@ non-zero without printing a result:
               iteration kernel. Wall and device time, poses/s. The same
               refine through the plain raster must agree; so must the one
               through the plain query and the iteration kernel's plain
-              version (hold_paths). The loop of before the iteration kernel
-              (an Association without iterate: a fused-pass launch a pass,
-              the solve in PyTorch) is printed beside it, verdicts held
-              (report_old_loop). The line prints the device kernels of one
+              version (hold_paths). The line prints the device kernels of one
               refine (torch.profiler); the lift must be one L1 launch.
   4b. lift  - the window lift L1 (csrc/lift.cu) against its plain version
               (ops.depth_to_cloud.window_lift) on the card, projective and
@@ -179,26 +176,10 @@ non-zero without printing a result:
               filter's default 5 deg / 20 mm prior over 8 seeds.
 
 A kernel path is held against a plain path (the plain version of every
-kernel, the fused ICP pass's among them) by hold_paths(): 100% verdict
+kernel, the ICP iteration's among them) by hold_paths(): 100% verdict
 agreement and every pose within 0.1 deg, 0.2 mm and 5e-3 of fitness. Misses
 are collected and fail the run at its end.
- 15. assoc-reduce - the fused association + reduction kernel of an ICP pass
-              (ops/icp_reduce.py) against its plain version at the slice
-              shape (256 x 2,048 against the 307,200-row table), the tracking
-              shape (16 x 2,048), a stacked projective table with a row
-              offset per pose (4 frames), the indexed front end on the gated
-              flash-NN kernel's output for the 2 mm and raw bench clouds and
-              a stacked NN table, and edge inputs (a pose with no valid
-              point, points at z = 0, behind the camera and NaN, border
-              pixels, a gate that rejects everything), the kd traversal's
-              output on the raw cloud, and the Huber, point-to-point and
-              point-to-point Huber modes at the slice shape and on the 2 mm
-              NN scene: every sum equal to
-              the plain version's bit for bit (so the count exactly), each
-              float sum within 2e-6 x the sum of its absolute terms of its
-              float64 value, two launches bit for bit. Times with the
-              wrapper and alone.
- 15b. icp-iterate - the ICP iteration kernel (ops/icp_reduce.py,
+ 15. icp-iterate - the ICP iteration kernel (ops/icp_reduce.py,
               icp_iterate_*) against its plain version (icp_iterate_plain
               over the front end's plain query): the whole projective loop
               at the slice shape (24 iterations) in every mode, at the
@@ -212,10 +193,10 @@ are collected and fail the run at its end.
               line holding the tail's sinf / cosf equal to torch.sin /
               torch.cos at the slice's solve angles and over [-40, 40].
               Times alone and with the wrapper (an indexed iteration also
-              with its checks, and beside it the fused pass kernel alone
-              and the scoring-only last iteration alone on the same
-              inputs), the plain version's, the bound: the bytes once a
-              launch, the operations of this run's pose-iterations; the
+              with its checks, and beside it the scoring-only last
+              iteration alone on the same inputs), the plain version's, the
+              bound: the bytes once a launch, the operations of this run's
+              pose-iterations; the
               kernel's registers, local bytes, threads, CTAs an SM and waves
               and its tail alone at the case's poses (probes/icp_tail.py,
               built beside the phases; [coarse] prints the same).
@@ -297,19 +278,18 @@ are collected and fail the run at its end.
               (hold_paths).
 
 Each kernel is timed by CUDA events (median of 20 launches, the wrapper's
-host time included; plain versions fewer; B1, P2 and the fused pass also
-alone, 20 launches between one pair of events behind a busy card) beside its
+host time included; plain versions fewer; B1, P2 and the iteration kernel
+also alone, 20 launches between one pair of events behind a busy card) beside its
 bound: the least time the card could take for the same
 work, from the bytes it must move and the operations it must do on this
 run's inputs at the H100's published peaks (see bound()).
 
 The two lines before the last are the card line from nvidia-smi and a JSON
-object of the ten kernels (rasterize with [renderer]'s renders,
+object of the nine kernels (rasterize with [renderer]'s renders,
 window_lift with its cases, scene_table with its timed inputs,
 nn_flash_packed, nn_flash_gated with its stacked launches apart,
-gather_rows, assoc_reduce with its modes, icp_iterate with its cases and its
-coarse mode, nn_kdtree, nn_flash_mxu); the last line is
-{"ok": true, "device": {...}}.
+gather_rows, icp_iterate with its cases and its coarse mode, nn_kdtree,
+nn_flash_mxu); the last line is {"ok": true, "device": {...}}.
 """
 
 import collections
@@ -378,9 +358,6 @@ MT_INIT_COV = np.diag([np.radians(1.0) ** 2] * 3 + [0.005 ** 2] * 3)
 # the card's peak rates (H100 SXM data sheet, 700 W): HBM bytes/s, FP32
 # lane instructions/s (67 TFLOP/s counts an FMA as 2), TF32 tensor flop/s
 HBM_BPS, FP32_IPS, TF32_FLOPS = 3.35e12, 67e12 / 2, 495e12
-# the fused ICP pass: each float sum against its float64 value, relative to
-# the sum of its absolute terms
-SUMS_BAR = 2e-6
 
 
 def check(ok, msg):
@@ -772,7 +749,7 @@ def hold_paths(name, what, stats, failures, extra=""):
     verdict agreement, the largest rotation delta within MAX_DROT_DEG, the
     largest translation delta within MAX_DT_MM, the largest fitness delta
     within MAX_DFIT. The plain version of every kernel computes its
-    kernel's function bit for bit or to the last bits (the fused ICP pass:
+    kernel's function bit for bit or to the last bits (the ICP iteration:
     term by term in the kernel's summation order), so the two paths run the
     same ICP, at the hypotheses that do not converge too. A miss is
     appended to ``failures``, so one run shows every comparison before it
@@ -782,24 +759,6 @@ def hold_paths(name, what, stats, failures, extra=""):
     if not (stats["agree"] == 1.0 and stats["rot"][1] <= MAX_DROT_DEG
             and stats["t"][1] <= MAX_DT_MM and stats["fit"][1] <= MAX_DFIT):
         failures.append(f"{name}: {what}: the two paths disagree")
-
-
-def report_old_loop(name, stats, failures, launches):
-    """Print how far the loop of before the iteration kernel (an
-    Association without ``iterate``: one fused-pass launch a pass, the
-    solve, twist and update in PyTorch - torch.linalg and matrix products)
-    lands from the default loop on the same hypotheses, and hold the
-    verdicts. Its pass sums equal the kernel's, but its solve and its
-    products round otherwise in the last bits, and an ICP turns that into
-    whole iterations at the hypotheses that do not converge (a pixel that
-    flips its association, the 1e-5 latch): the deltas are this workload's
-    sensitivity to rounding order, not an error of either."""
-    phase(name, f"the loop of before the iteration kernel (Association without iterate: a "
-          f"fused pass a launch, the solve in PyTorch) against the default: verdict_agreement="
-          f"{stats['agree']} (median, max) drot_deg={stats['rot']} dt_mm={stats['t']} "
-          f"dfit={stats['fit']} launches={launches}")
-    if stats["agree"] != 1.0:
-        failures.append(f"{name}: the loop of before the iteration kernel changes a verdict")
 
 
 def gate_band(queries, dist_sq, g2):
@@ -817,17 +776,16 @@ def gate_band(queries, dist_sq, g2):
 def first_pass_clouds(ptt, refine_poses, ref, scene, poses, scene_ids=None):
     """The (N, max_points, 3) lifted clouds and (N, max_points) valid masks
     that ``ref``'s refine of ``poses`` hands to its first ICP pass against
-    ``scene`` (captured through the association's fused reduce; 0 iterations
-    = the scoring pass alone)."""
+    ``scene`` (captured through the association's iterate, which returns
+    the start state: nothing iterates)."""
     from pose_refine_tpu_torch import icp
 
     seen = []
-    query, reduce = (scene.query, scene.reduce) if scene_ids is None else \
-        (scene.query_at(scene_ids), scene.reduce_at(scene_ids))
+    query = scene.query if scene_ids is None else scene.query_at(scene_ids)
 
-    def capture(cloud, valid, **modes):
-        seen.append((cloud.clone(), valid.clone()))
-        return reduce(cloud, valid, **modes)
+    def capture(state, valid, *_args, **_modes):
+        seen.append((state.cloud.clone(), valid.clone()))
+        return state
 
     refine_poses(ref.tris, poses, scene, ref.proj, ref._K_render_t, width=ref.render_w,
                  height=ref.render_h, max_points=ref.max_points,
@@ -1238,68 +1196,6 @@ def scene_table_main():
     return 0
 
 
-def assoc_reduce_phase(torch, IR, cases):
-    """The fused association + reduction kernel against its plain version
-    (bit for bit, and both against float64) on each case, a dict of: label; kernel(cloud, valid) -> (N, 29), a
-    binding of one of ops/icp_reduce.py's _cuda entry points; assoc(cloud)
-    -> (dst, normal, valid, row indices), the front end's plain version;
-    cloud, valid; the bytes the front end reads a point and a pose beyond
-    the 13 of cloud and mask; its FP32 instructions a point; the count it
-    must find (None: any but 0). Returns {label: stats}, the first with
-    max_abs_err and max_f64_err over all cases."""
-    out, max_abs, max_f64 = {}, 0.0, 0.0
-    for c in cases:
-        label, kernel, cloud, valid = c["label"], c["kernel"], c["cloud"], c["valid"]
-        n, p = cloud.shape[:2]
-
-        modes = c.get("modes", (0.0, False))
-
-        def plain():
-            dst, nrm, q_valid, rows = c["assoc"](cloud)
-            return (dst, nrm, q_valid), rows, IR.packed_sums_plain(cloud, valid, dst, nrm,
-                                                                   q_valid, *modes)
-
-        before = IR.launches
-        k_ms, k = median_ms(torch, lambda: kernel(cloud, valid), 20)
-        check(IR.launches == before + 21, f"assoc-reduce {label}: launches not counted")
-        again = kernel(cloud, valid)
-        a_ms = alone_ms(torch, lambda: kernel(cloud, valid))
-        p_ms, (assoc, rows, want) = median_ms(torch, plain, 3)
-        count_equal, k_err = IR.sums_error(k, cloud, valid, *assoc, *modes)
-        _, p_err = IR.sums_error(want, cloud, valid, *assoc, *modes)
-        counts_match = count_equal and torch.equal(k[:, 28], want[:, 28])
-        finite = torch.isfinite(k) & torch.isfinite(want)
-        abs_err = float((k - want)[finite].abs().max())
-        bits = torch.equal(k.view(torch.int32), again.view(torch.int32))
-        same = bool(((k == want) | (k.isnan() & want.isnan())).all())
-        n_rows = int(rows.unique().numel())
-        # the least traffic: cloud, mask and the front end's own inputs read
-        # once, each scene row that this run names read once, 29 sums a pose
-        r_bound = bound(n_bytes=n * p * (13 + c["point_bytes"]) + n * (116 + c["pose_bytes"])
-                        + n_rows * 32, n_instr=n * p * c["instr"])
-        total = float(k[:, 28].sum())
-        phase("assoc-reduce", f"{label}: {n} poses x {p} points, table "
-              f"{c['rows']} rows ({n_rows} named), {IR.slabs_for(n, p)} CTAs a pose: "
-              f"count_equal={counts_match} inliers={total} max_f64_err={k_err} "
-              f"(plain f32 {p_err}; bar {SUMS_BAR}) max_abs_err={abs_err} "
-              f"equals_plain_bit_for_bit={same} two_launches_bit_equal={bits} kernel_ms={k_ms} kernel_alone_ms={a_ms} "
-              f"plain_ms={p_ms} bound_ms={r_bound['bound_ms']} ({r_bound['bound_by']}) "
-              f"library=none")
-        check(counts_match, f"assoc-reduce {label}: the count differs from the plain version's")
-        check(k_err <= SUMS_BAR, f"assoc-reduce {label}: a sum lies {k_err} from its float64 "
-              f"value (plain float32: {p_err})")
-        check(same, f"assoc-reduce {label}: the kernel's sums are not the plain version's bit "
-              f"for bit (max_abs_err {abs_err})")
-        check(bits, f"assoc-reduce {label}: two launches differ")
-        want_count = c.get("count")
-        check(total > 0 if want_count is None else total == want_count,
-              f"assoc-reduce {label}: {total} inliers")
-        max_abs, max_f64 = max(max_abs, abs_err), max(max_f64, k_err)
-        out[label] = dict(ms=k_ms, alone_ms=a_ms, plain_ms=p_ms, library_ms=None, **r_bound)
-    out[cases[0]["label"]].update(max_abs_err=max_abs, max_f64_err=max_f64)
-    return out
-
-
 # the iteration kernel's tail a pose and iteration, FP32 operations
 # (csrc/icp_reduce.cu::iteration_tail, a division, a root and a sine count
 # one): the scores and latch 10, the damping 6, the Cholesky factor 91, two
@@ -1313,8 +1209,8 @@ STATE_IN_BYTES, STATE_OUT_BYTES = 64 + 4 + 4 + 1 + 4, 64 + 4 + 4 + 1
 
 def icp_registers(log):
     """{kernel<threads, front end, terms, index type>: registers} of
-    csrc/icp_reduce.cu's pass and iteration kernels, from ptxas's -v
-    report in the build log."""
+    csrc/icp_reduce.cu's iteration kernel, from ptxas's -v report in the
+    build log."""
     out, name = {}, None
     for ln in log.splitlines():
         entry = re.search(r"entry function '(\S+)'", ln)
@@ -1322,7 +1218,7 @@ def icp_registers(log):
             name = entry.group(1)
         used = re.search(r"Used (\d+) registers", ln)
         inst = used and name and re.search(
-            r"(assoc_reduce_kernel|icp_iterate_kernel)ILi(\d+)ELb([01])ELb([01])E([ix])E", name)
+            r"(icp_iterate_kernel)ILi(\d+)ELb([01])ELb([01])E([ix])E", name)
         if inst:
             kernel, threads, proj, p2p, idx = inst.groups()
             key = (f"{kernel}<{threads},{'proj' if proj == '1' else 'indexed'},"
@@ -1783,7 +1679,7 @@ def icp_residency(IR, icp_tail, probe, sms, n, rows, idx_bytes=0, iters=2):
     slabs, threads = IR.geometry(n, rows)
     slab_bytes = 12 * -(-rows // slabs)
     smem = slab_bytes if iters > 1 and slab_bytes <= 200 * 1024 else 0
-    res = icp_tail.residency(probe, True, idx_bytes, False, threads, smem)
+    res = icp_tail.residency(probe, idx_bytes, False, threads, smem)
     return dict(registers=res["registers"], local_bytes=res["local_bytes"], threads=threads,
                 slabs=slabs, ctas_per_sm=res["ctas_per_sm"],
                 waves=icp_tail.waves(n * slabs, res["ctas_per_sm"], sms))
@@ -1798,10 +1694,10 @@ def icp_iterate_phase(torch, IR, icp, cases, tail):
     iterations it runs (crit's max_iteration + 1 for a loop, 1 for an
     indexed step, which is iteration 0); make(state, valid, n_total) -> a
     launcher whose (0, 1, *nearest) call is the step, for the step's
-    per-launch times, and pass_(cloud, valid) -> the fused pass alone on
-    the same inputs (assoc_reduce); rows, the scene rows the first pass
-    names; point_bytes / pose_bytes / instr of the front end as for
-    [assoc-reduce]; launches, the kernel launches a kernel() call; timed
+    per-launch times; rows, the scene rows the first pass names;
+    point_bytes / pose_bytes, the bytes the front end reads a point and a
+    pose beyond the 13 of cloud and mask, and instr, its FP32 instructions
+    a point; launches, the kernel launches a kernel() call; timed
     False for a loop through the NN kernels (held, not timed). T,
     fitness, rmse, done and the cloud must equal the plain version's bit
     for bit, and two runs each other.
@@ -1876,17 +1772,13 @@ def icp_iterate_phase(torch, IR, icp, cases, tail):
             states = iter([fresh() for _ in range(25)])
             stats["first_ms"], _ = median_ms(
                 torch, lambda: c["make"](next(states), valid, n_total)(0, 1, *c["nearest"]), 20)
-            # where the iteration's time goes beyond the pass: the fused
-            # pass kernel alone on the same inputs, and the same iteration
-            # launch as the scoring-only last iteration (the pass, the
-            # scores and the latch in the iteration kernel's code and
-            # registers; no solve, twist, compose or move)
+            # where the iteration's time goes beyond the pass: the same
+            # iteration launch as the scoring-only last iteration (the pass,
+            # the scores and the latch; no solve, twist, compose or move)
             last = crit.max_iteration
             pool = iter([c["make"](fresh(), valid, n_total) for _ in range(150)])
             stats["score_only_alone_ms"] = alone_ms(
                 torch, lambda: next(pool)(last, last + 1, *c["nearest"]))
-            start = fresh()
-            stats["pass_alone_ms"] = alone_ms(torch, lambda: c["pass_"](start.cloud, valid))
         else:
             states = iter([fresh() for _ in range(150)])
             stats["alone_ms"] = alone_ms(torch, lambda: c["kernel"](next(states), valid, n_total))
@@ -1905,7 +1797,7 @@ def icp_iterate_phase(torch, IR, icp, cases, tail):
                      pose_iterations=active, moves=moving,
                      share_of_bound=stats["bound_ms"] / stats["alone_ms"])
         extra = "".join(f" {k}={stats[k]}" for k in (
-            "first_ms", "score_only_alone_ms", "pass_alone_ms") + RESIDENCY if k in stats)
+            "first_ms", "score_only_alone_ms") + RESIDENCY if k in stats)
         phase("icp-iterate", f"{label}: {n} poses x {p} points, {IR.slabs_for(n, p)} CTAs a "
               f"pose, {iters} iteration(s): {active} pose-iterations, {moving} moves; "
               f"equals_plain_bit_for_bit={same} two_runs_bit_equal={bits} launches={k} "
@@ -2483,7 +2375,7 @@ def main():
 
     def reset_counts():
         RC.launches = NF.packed_launches = NF.gated_launches = G.launches = 0
-        NF.stacked_launches = NM.launches = IR.launches = KD.launches = 0
+        NF.stacked_launches = NM.launches = KD.launches = 0
         IR.iterate_launches = LC.launches = ST.launches = 0
 
     def counts():
@@ -2492,35 +2384,8 @@ def main():
                 "nn_flash_packed": NF.packed_launches,
                 "nn_flash_gated": NF.gated_launches,
                 "nn_flash_gated_stacked": NF.stacked_launches, "gather_rows": G.launches,
-                "assoc_reduce": IR.launches, "icp_iterate": IR.iterate_launches,
+                "icp_iterate": IR.iterate_launches,
                 "nn_flash_mxu": NM.launches, "nn_kdtree": KD.launches}
-
-    reduce_cases = []
-
-    def projective_case(label, sc, cloud, valid, base=None, count=None, modes=(0.0, False)):
-        """An [assoc-reduce] case of the projective front end; ``modes`` =
-        (robust_delta, point_to_point) of the terms."""
-        def assoc(c):
-            seen = []
-
-            def gather(table, idx):
-                seen.append(idx)
-                return G.gather_rows_plain(table, idx)
-
-            out = _project_gate(sc.table, sc.K, sc.max_dist_diff, sc.height, sc.width, c,
-                                base=0 if base is None else base[:, None], gather=gather)
-            return (*out, seen[0])
-
-        reduce_cases.append(dict(
-            label=label, cloud=cloud, valid=valid, assoc=assoc, rows=sc.table.shape[0],
-            kernel=functools.partial(
-                IR.assoc_reduce_projective_cuda, table=sc.table, K=sc.K,
-                max_dist_diff=sc.max_dist_diff, height=sc.height, width=sc.width, base=base,
-                robust_delta=modes[0], point_to_point=modes[1]),
-            # pcd2dep (2 divides, 2 products, 4 sums), the gate (3) and the
-            # reduction body (see indexed_case)
-            point_bytes=0, pose_bytes=0 if base is None else 8, instr=11 + body_instr(modes),
-            count=count, modes=modes))
 
     def body_instr(modes):
         """FP32 instructions a point of the reduction body, no fused
@@ -2536,20 +2401,6 @@ def main():
         robust_delta, p2p = modes
         return (75 if p2p else 86) + ((7 if p2p else 6) if robust_delta > 0 else 0)
 
-    def indexed_case(label, table, gate, cloud, valid, nearest, modes=(0.0, False)):
-        """An [assoc-reduce] case of the indexed front end on the NN
-        kernels' ``nearest`` = (idx, dist_sq) of ``cloud`` (flash or kd)."""
-        idx, dist_sq = nearest
-        reduce_cases.append(dict(
-            label=label, cloud=cloud, valid=valid, rows=table.shape[0],
-            assoc=lambda c: (*_rows_in_gate(table, idx, dist_sq, gate, plain=True),
-                             idx.clamp(0, table.shape[0] - 1)),
-            kernel=functools.partial(IR.assoc_reduce_indexed_cuda, table=table, idx=idx,
-                                     dist_sq=dist_sq, gate_sq=NF.gate_sq(gate),
-                                     robust_delta=modes[0], point_to_point=modes[1]),
-            # the body and 1 gate
-            point_bytes=idx.element_size() + 4, pose_bytes=0, instr=1 + body_instr(modes),
-            modes=modes))
     iterate_cases = []
 
     def rows_named(s, cloud, base=None):
@@ -2593,8 +2444,6 @@ def main():
             launches=1, rows=int(idx.clamp(0, s.table.shape[0] - 1).unique().numel()),
             point_bytes=idx.element_size() + 4, pose_bytes=0, instr=1 + body_instr(modes),
             make=make, nearest=nearest,
-            pass_=lambda cl, v: IR.assoc_reduce_indexed_cuda(
-                cl, v, s.table, idx, dist_sq, NF.gate_sq(s.max_dist_diff), *modes),
             kernel=lambda st, v, nt: make(st, v, nt)(0, 1, idx, dist_sq)))
 
     def nn_loop_case(label, s, cloud, valid, iters=4):
@@ -2687,7 +2536,7 @@ def main():
     slice_counts = counts()
     launches = slice_counts["rasterize"]
     check(launches > 0 and slice_counts["icp_iterate"] == 1 and slice_counts["window_lift"] == 1
-          and slice_counts["assoc_reduce"] == 0 and slice_counts["gather_rows"] == 0,
+          and slice_counts["gather_rows"] == 0,
           f"refine did not launch the raster kernel, the lift as one L1 launch and the ICP loop "
           f"as one iteration-kernel launch: {slice_counts}")
     refined_np = refined.cpu().numpy()
@@ -2752,7 +2601,7 @@ def main():
     check(agree == 1.0 and d_rot <= MAX_DROT_DEG and d_t <= MAX_DT_MM and d_fit <= MAX_DFIT,
           "kernel path and plain path disagree")
     # the same refine through the plain versions of the association and of
-    # the fused pass, and through the loop of before the fused pass
+    # the iteration
     path_failures = []
     rp = functools.partial(
         refine_poses, refiner.tris, poses, refiner.scene, refiner.proj, refiner._K_render_t,
@@ -2760,17 +2609,9 @@ def main():
         window=refiner.window, stride=refiner.stride, roi=refiner.roi)
     plain_query = functools.partial(refiner.scene.query, plain=True)
     a_refined, a_res = rp(query=icp.plain_association(plain_query))
-    hold_paths("slice", "through the plain query and the plain fused pass",
+    hold_paths("slice", "through the plain query and the plain iteration",
                agreement(rotation_angle_deg, truth, refined_np, a_refined.cpu().numpy(), fit,
                          a_res.fitness.cpu().numpy()), path_failures)
-    reset_counts()
-    m_refined, m_res = rp(query=icp.Association(refiner.scene.query, refiner.scene.reduce))
-    torch.cuda.synchronize()
-    old_loop_counts = counts()
-    report_old_loop("slice", agreement(rotation_angle_deg, truth, refined_np,
-                                       m_refined.cpu().numpy(), fit,
-                                       m_res.fitness.cpu().numpy()), path_failures,
-                    old_loop_counts)
 
     # 4b. the window lift L1 against its plain version: the slice's renders
     # (the bench shape), the bench hypotheses at 640x480 under the auto
@@ -2822,7 +2663,7 @@ def main():
 
     def golden_plain(ref, criteria=ptt.ICPConvergenceCriteria()):
         """ref's refine of the golden start through the plain versions
-        (raster, NN, gather, fused pass), against ref.refine."""
+        (raster, NN, gather, the ICP iteration), against ref.refine."""
         k_pose, k_res = ref.refine(pose1[None], criteria)
         p_pose, p_res = refine_poses(
             ref.tris, torch.as_tensor(pose1[None], device=dev), ref.scene, ref.proj,
@@ -2870,7 +2711,7 @@ def main():
         nn_refined, nn_res = ref.refine(poses, crit_nn)
         torch.cuda.synchronize()
         c = counts()
-        check(c["nn_flash_gated"] > 0 and c["rasterize"] > 0 and c["assoc_reduce"] == 0
+        check(c["nn_flash_gated"] > 0 and c["rasterize"] > 0
               and c["icp_iterate"] == c["nn_flash_gated"],
               f"nn-slice {label}: launches {c}")
         if label == "2mm":
@@ -2908,17 +2749,10 @@ def main():
                               query=icp.plain_association(nn_plain))
         torch.cuda.synchronize()
         p_wall = (time.perf_counter() - t0) * 1e3
-        hold_paths("nn-slice", "2mm through the plain NN and the plain fused pass",
+        hold_paths("nn-slice", "2mm through the plain NN and the plain iteration",
                    agreement(rotation_angle_deg, truth, nn_np, p_refined.cpu().numpy(), nn_fit,
                              p_res.fitness.cpu().numpy()),
                    path_failures, extra=f"wall_ms={p_wall} ")
-        reset_counts()
-        m_refined, m_res = rp(scene=ref.scene,
-                              query=icp.Association(ref.scene.query, ref.scene.reduce))
-        torch.cuda.synchronize()
-        report_old_loop("nn-slice", agreement(
-            rotation_angle_deg, truth, nn_np, m_refined.cpu().numpy(), nn_fit,
-            m_res.fitness.cpu().numpy()), path_failures, counts())
         flash = SceneNN.from_depth(scene, K, ref.max_dist_diff, voxel_mm=2.0,
                                    backend="flash", device=dev)
         reset_counts()
@@ -2928,7 +2762,7 @@ def main():
         nn_launches["nn_flash_packed"] = c["nn_flash_packed"]
         check(c["nn_flash_packed"] > 0, f"nn-slice full-scan scene: launches {c}")
         f_wall, f_dev = refine_ms(torch, lambda: rp(scene=flash))
-        # both scenes feed equal neighbours to the same fused pass
+        # both scenes feed equal neighbours to the same iteration kernel
         hold_paths("nn-slice", "2mm against the full-scan scene (nn_flash_packed)",
                    agreement(rotation_angle_deg, truth, nn_np, f_refined.cpu().numpy(), nn_fit,
                              f_res.fitness.cpu().numpy()),
@@ -3000,7 +2834,7 @@ def main():
         kd_np, kd_fit, c, wall_ms, dev_ms = nn_refine_lines("kd-slice", f"{label} scene='nn'",
                                                             ref, build_ms)
         check(c["nn_kdtree"] == ITERS + 1 and c["icp_iterate"] == ITERS + 1
-              and c["assoc_reduce"] == 0 and c["nn_flash_gated"] == 0 and c["gather_rows"] == 0,
+              and c["nn_flash_gated"] == 0 and c["gather_rows"] == 0,
               f"kd-slice {label}: not one kd launch and one iteration launch an iteration: {c}")
         kd_slice[label] = dict(launches=c, wall_ms=wall_ms, device_ms=dev_ms)
         b_np, b_fit = nn_runs[label]
@@ -3023,8 +2857,8 @@ def main():
                               scene_voxel_mm=2.0, **kw, **CFG)
         ref.set_scene_depth(scene)
         _np, _fit, c, wall_ms, dev_ms = nn_refine_lines("p2p", label, ref, 0.0)
-        check(c["nn_flash_gated"] == ITERS + 1 and c["icp_iterate"] == ITERS + 1
-              and c["assoc_reduce"] == 0, f"p2p {label}: launches {c}")
+        check(c["nn_flash_gated"] == ITERS + 1 and c["icp_iterate"] == ITERS + 1,
+              f"p2p {label}: launches {c}")
         p2p_stats[label] = dict(wall_ms=wall_ms, device_ms=dev_ms)
     # tests/test_icp_p2p.py:121's criteria (point to point converges slower)
     p2p_crit = ptt.ICPConvergenceCriteria(1e-6, 1e-7, 120)
@@ -3112,9 +2946,8 @@ def main():
         ("raw NN scene", raw_nn.table, neighbours(raw_nn)),
         ("device-built 640x480 NN scene", frame_nn.table, neighbours(frame_nn)),
     ])
-    # the fused pass's cases at the slice shape ([assoc-reduce], below)
+    # the iteration kernel's cases at the slice shape ([icp-iterate], below)
     slice_cloud, slice_valid = first_pass_clouds(ptt, refine_poses, refiner, sc, poses)
-    projective_case("slice shape", sc, slice_cloud, slice_valid)
     slice_rows = rows_named(sc, slice_cloud)
     sc_plain = functools.partial(sc.query, plain=True)
     loop_case("slice shape, whole loop", sc.iterate, sc_plain, slice_cloud, slice_valid, crit,
@@ -3139,39 +2972,9 @@ def main():
     nn_loop_case("2 mm NN scene through B3, 64 poses", nn_ref.scene, nn_cloud[:64],
                  nn_valid[:64])
     nn_loop_case("2 mm NN scene through K1, 64 poses", kd2, nn_cloud[:64], nn_valid[:64])
-    for label, s_nn in (("2 mm NN scene", nn_ref.scene), ("raw NN scene", raw_nn)):
-        indexed_case(label, s_nn.table, s_nn.max_dist_diff, nn_cloud, nn_valid,
-                     s_nn._nearest(nn_cloud))
-    # the kd traversal's output, and the Huber and point-to-point modes
     raw_kd = dataclasses.replace(raw_nn, backend="kdtree")
-    indexed_case("raw NN scene, kd traversal", raw_kd.table, raw_kd.max_dist_diff, nn_cloud,
-                 nn_valid, raw_kd._nearest(nn_cloud))
     step_case("raw NN scene (K1), one iteration", raw_kd, nn_cloud, nn_valid,
               raw_kd._nearest(nn_cloud))
-    for m_label, modes in (("huber 5mm", (0.005, False)), ("point to point", (0.0, True)),
-                           ("point to point huber 5mm", (0.005, True))):
-        projective_case(f"slice shape, {m_label}", sc, slice_cloud, slice_valid, modes=modes)
-        indexed_case(f"2 mm NN scene, {m_label}", nn_ref.scene.table, nn_ref.scene.max_dist_diff,
-                     nn_cloud, nn_valid, nn_ref.scene._nearest(nn_cloud), modes=modes)
-    # edge inputs: a pose with no valid point, points at z = 0, behind the
-    # camera and NaN, points that project onto the frame's border pixels
-    # (trunc(v + 0.5) steps at -1 and at the frame's size), a masked row
-    edge_cloud, edge_valid = slice_cloud.clone(), slice_valid.clone()
-    edge_valid[0] = False
-    edge_cloud[1, :3] = torch.tensor([[0.01, 0.01, 0.0], [0.01, 0.01, -0.3],
-                                      [float("nan"), 0.0, 0.3]], device=dev)
-    edge_valid[1, :3] = True
-    fx, fy, cx, cy = (float(K[i, j]) for i, j in ((0, 0), (1, 1), (0, 2), (1, 2)))
-    for i, (u, v) in enumerate(((-1.0, 100.0), (-0.99999, 100.0), (WIDTH, 100.0),
-                                (WIDTH - 1e-4, 100.0), (100.0, -1.0), (100.0, -0.99999),
-                                (100.0, HEIGHT), (100.0, HEIGHT - 1e-4))):
-        edge_cloud[2, i] = torch.tensor([(u - 0.5 - cx) / fx * 0.3, (v - 0.5 - cy) / fy * 0.3,
-                                         0.3], device=dev)
-        edge_valid[2, i] = True
-    projective_case("edge inputs", sc, edge_cloud, edge_valid)
-    shut = SceneProjective(table=sc.table, K=sc.K, height=sc.height, width=sc.width,
-                           max_dist_diff=torch.full((), -1.0, device=dev))
-    projective_case("a gate that rejects everything", shut, slice_cloud, slice_valid, count=0.0)
 
     # 10. bench.py's tracking workload through TrackingSession
     control = sync_sites(torch, lambda: torch.ones(1, device=dev).item())
@@ -3213,7 +3016,7 @@ def main():
         # against the projective scene, one a pass - 30 iterations and the
         # scoring pass - against the NN scene), the information pass
         # through the row gather
-        check(c["rasterize"] > 0 and c["gather_rows"] == N_TRACK and c["assoc_reduce"] == 0
+        check(c["rasterize"] > 0 and c["gather_rows"] == N_TRACK
               and c["window_lift"] == N_TRACK
               and c["icp_iterate"] == (1 if label == "projective" else 31) * N_TRACK
               and (label == "projective" or c["nn_flash_gated"] > 0),
@@ -3246,7 +3049,6 @@ def main():
                                                      ref._K_t, ref.max_dist_diff, device=dev)
             track_cloud, track_valid = first_pass_clouds(
                 ptt, refine_poses, ref, track_scene, torch.as_tensor(hyps0, device=dev))
-            projective_case("tracking shape", track_scene, track_cloud, track_valid)
             # the session's criteria: 30 iterations and the scoring pass
             loop_case("tracking shape, whole loop", track_scene.iterate,
                       functools.partial(track_scene.query, plain=True), track_cloud,
@@ -3317,7 +3119,7 @@ def main():
         ms_refined, ms_res = ref.refine(ms_hyps_t, crit, scene_ids=ms_ids_t)
         torch.cuda.synchronize()
         c = ms_launches[label] = counts()
-        check(c["rasterize"] > 0 and c["assoc_reduce"] == 0
+        check(c["rasterize"] > 0
               and c["icp_iterate"] == (1 if label == "multiscene" else ITERS + 1)
               and (label == "multiscene" or c["nn_flash_gated_stacked"] > 0),
               f"{label}: launches {c}")
@@ -3343,18 +3145,13 @@ def main():
                                                scene_ids=ms_ids_t)
         if label == "multiscene-nn":
             stacked_stats = stacked_nn_kernel_phase(torch, NF, stack, ms_cloud, ms_ids_t)
-            indexed_case("stacked NN table, 4 frames", stack.table, stack.max_dist_diff,
-                         ms_cloud, ms_valid,
-                         stack._nearest_at(stack._frame_ids(ms_ids_t), ms_cloud))
         else:
-            projective_case("stacked projective table, 4 frames", stack, ms_cloud, ms_valid,
-                            base=stack._base(ms_ids_t))
             loop_case("stacked projective table, 4 frames, whole loop",
                       stack.iterate_at(ms_ids_t), stack.query_at(ms_ids_t, plain=True), ms_cloud,
                       ms_valid, crit, rows_named(stack, ms_cloud, stack._base(ms_ids_t)),
                       pose_bytes=8)
         # the same refine through the plain versions (raster, NN, gather,
-        # fused pass)
+        # the ICP iteration)
         t0 = time.perf_counter()
         p_refined, p_res = rp(criteria=crit, raster=RC.rasterize_plain,
                               lifter=window_lift,
@@ -3368,8 +3165,8 @@ def main():
         if label != "multiscene":
             continue
         # every frame's hypotheses refined against that frame alone (a lane
-        # of the stack; the same plan and the same batch, so the fused pass
-        # splits the poses over as many CTAs and sums in the same order)
+        # of the stack; the same plan and the same batch, so the iteration
+        # kernel splits the poses over as many CTAs and sums in the same order)
         lanes = np.empty_like(ms_np)
         lane_fit = np.empty_like(ms_fit)
         for k in range(MS_FRAMES):
@@ -3388,8 +3185,7 @@ def main():
     mm_refined, mm_res = mm_ref.refine(mm_ids, poses, criteria=crit)
     torch.cuda.synchronize()
     mm_launches = counts()
-    check(mm_launches["rasterize"] > 0 and mm_launches["icp_iterate"] == 1
-          and mm_launches["assoc_reduce"] == 0,
+    check(mm_launches["rasterize"] > 0 and mm_launches["icp_iterate"] == 1,
           f"multimodel: launches {mm_launches}")
     mm_np = mm_refined.cpu().numpy()
     mm_fit = mm_res.fitness.cpu().numpy()
@@ -3502,7 +3298,7 @@ def main():
           f"{[max(lost_mm(d)) for d in diffuse]} frames won by a hypothesis on the other "
           f"object per seed={[strayed(d) for d in diffuse]}")
     check(mt_launches["rasterize"] > 0 and mt_launches["gather_rows"] == MT_FRAMES
-          and mt_launches["icp_iterate"] == MT_FRAMES and mt_launches["assoc_reduce"] == 0,
+          and mt_launches["icp_iterate"] == MT_FRAMES,
           f"multi-track: launches {mt_launches}")
     stepped_ok = all(s.accepted for steps in stepped[0][1] for s in steps)
     check(all(map(all, accepted)) and stepped_ok and max(t_errs) < 6.0 and max(s_errs) < 6.0
@@ -3524,10 +3320,7 @@ def main():
         rotation_angle_deg, mt_truths[0][mt_ids], k_out[0].cpu().numpy(), p_out[0].cpu().numpy(),
         k_out[1].fitness.cpu().numpy(), p_out[1].fitness.cpu().numpy()), path_failures)
 
-    # 15. the fused association + reduction pass against its plain version
-    reduce_stats = assoc_reduce_phase(torch, IR, reduce_cases)
-
-    # 15b. the ICP iteration kernel against its plain version; its sinf /
+    # 15. the ICP iteration kernel against its plain version; its sinf /
     # cosf against torch's at the solve's angles of the slice's first pass
     t0 = time.perf_counter()
     st0, v0, _nt = icp._icp_start(slice_cloud, slice_valid)
@@ -3561,8 +3354,7 @@ def main():
     c_refined, c_res = coarse_ref.refine(poses512, crit)
     torch.cuda.synchronize()
     coarse_counts = counts()
-    check(coarse_counts["icp_iterate"] == 2 and coarse_counts["rasterize"] == 1
-          and coarse_counts["assoc_reduce"] == 0,
+    check(coarse_counts["icp_iterate"] == 2 and coarse_counts["rasterize"] == 1,
           f"coarse: not one render and two iteration launches a refine: {coarse_counts}")
     c_np, c_fit = c_refined.cpu().numpy(), c_res.fitness.cpu().numpy()
     check(np.isfinite(c_np).all() and float(c_fit.mean()) > 0.9,
@@ -3962,43 +3754,22 @@ def main():
         "source": "pose_refine_tpu_torch/csrc/gather.cu",
         "replaces": "scripts/probe_pallas_gather.py:29",
         # the information pass of every tracked frame; the ICP passes
-        # look their rows up inside assoc_reduce
+        # look their rows up inside icp_iterate
         "launches": track_counts["projective"]["gather_rows"],
         **gather_stats,
         # the tracked frame's information pass: the shape the main path
         # launches (1 a frame)
         "track": gather_track,
     }, {
-        "name": "assoc_reduce",
-        "route": "cuda",
-        "source": "pose_refine_tpu_torch/csrc/icp_reduce.cu",
-        # the port's own kernel: the row gather fused with the packed
-        # reduction of pose_refine_tpu/icp.py:215. Since the iteration
-        # kernel (icp_iterate, below) carries the pass, the main paths
-        # launch it no more (0 a refine); scene.reduce and the loop of an
-        # Association without iterate do ([slice]'s report_old_loop run)
-        "replaces": "scripts/probe_pallas_gather.py:29",
-        "launches": slice_counts["assoc_reduce"],
-        "launches_old_loop": old_loop_counts["assoc_reduce"],
-        **reduce_stats["slice shape"],
-        "launches_track": track_counts["projective"]["assoc_reduce"],
-        "track_ms": reduce_stats["tracking shape"]["ms"],
-        "track_alone_ms": reduce_stats["tracking shape"]["alone_ms"],
-        "track_bound_ms": reduce_stats["tracking shape"]["bound_ms"],
-        # the Huber and point-to-point modes at the slice shape and on the
-        # 2 mm NN scene: with the wrapper, alone, bound
-        "modes": {label: {k: st[k] for k in ("ms", "alone_ms", "bound_ms")}
-                  for label, st in reduce_stats.items() if "huber" in label or "point" in label},
-    }, {
         "name": "icp_iterate",
         "route": "cuda",
         "source": "pose_refine_tpu_torch/csrc/icp_reduce.cu",
-        # the port's own kernel: a whole ICP iteration - the fused pass of
-        # assoc_reduce, then the solve, twist, move and latch of JAX
+        # the port's own kernel: a whole ICP iteration - the row gather
+        # fused with the packed reduction of pose_refine_tpu/icp.py:215,
+        # then the solve, twist, move and latch of JAX
         # pose_refine_tpu/icp.py:398-428 (XLA code) - a refine's whole loop
         # in one launch against a projective scene
         "replaces": "pose_refine_tpu/icp.py:398",
-        "carries": "assoc_reduce (its body, unchanged)",
         "launches": slice_counts["icp_iterate"],
         "max_abs_err": max(st["max_abs_err"] for st in iterate_stats.values()),
         **{k: iterate_stats["slice shape, whole loop"][k]
@@ -4029,7 +3800,7 @@ def main():
         # every timed case: alone, with the wrapper, the bound, the tail
         # alone and the residency
         "cases": {label: {k: st[k] for k in ("alone_ms", "ms", "first_ms", "score_only_alone_ms",
-                                             "pass_alone_ms", "bound_ms", "bound_by",
+                                             "bound_ms", "bound_by",
                                              "share_of_bound") + RESIDENCY if k in st}
                   for label, st in iterate_stats.items() if "alone_ms" in st},
     }, {

@@ -30,10 +30,9 @@ local bytes, CTAs an SM and waves (probes/icp_tail.py), and whether its
 outputs equal this checkout's bit for bit (this checkout's are also held
 to their plain version). The split of this shape's time: the launch alone
 (chip_smoke.alone_ms), the iterations until the last pose is done (from the
-plain version), the fused pass kernel alone on the first pass's input, and
-the tail alone at as many poses (the probe, one CTA a pose); the rest of an
-iteration is its frame (merges, barriers, the move, the latch's exits) and
-whatever of the pass does not overlap. Then rounds of the launch alone in
+plain version), and the tail alone at as many poses (the probe, one CTA a
+pose); the rest of an iteration is its pass and its frame (merges,
+barriers, the move, the latch's exits). Then rounds of the launch alone in
 turns (other, this, this, other for every OTHER), each build's median, min
 and max, and this / other. Imports no JAX.
 """
@@ -56,7 +55,7 @@ SHAPES = ("slice", "fine512", "track", "coarse", "indexed")
 
 def build_lib(src: str):
     """``src`` alone, with this checkout's flags, as a library with the
-    pass's and the iteration's C signatures: (library, takes_threads)."""
+    iteration's C signature: (library, takes_threads)."""
     from pose_refine_tpu_torch import _build
 
     key = hashlib.sha256(open(src, "rb").read()).hexdigest()[:12]
@@ -72,11 +71,10 @@ def build_lib(src: str):
         tmp.replace(lib)
     dll = ctypes.CDLL(str(lib))
     takes_threads = b"int slabs, int threads" in open(src, "rb").read()
-    for name in ("prt_assoc_reduce", "prt_icp_iterate"):
-        fn = getattr(dll, name)
-        argtypes, fn.restype = _build.SIGNATURES[name]
-        # the interface of before has no threads argument after the slabs
-        fn.argtypes = argtypes if takes_threads else argtypes[:7] + argtypes[8:]
+    fn = dll.prt_icp_iterate
+    argtypes, fn.restype = _build.SIGNATURES["prt_icp_iterate"]
+    # the interface of before has no threads argument after the slabs
+    fn.argtypes = argtypes if takes_threads else argtypes[:7] + argtypes[8:]
     return dll, takes_threads
 
 
@@ -89,9 +87,6 @@ class _Without:
 
     def prt_icp_iterate(self, *args):
         return self.lib.prt_icp_iterate(*args[:7], *args[8:])
-
-    def prt_assoc_reduce(self, *args):
-        return self.lib.prt_assoc_reduce(*args[:7], *args[8:])
 
 
 def make_shapes(torch, wanted):
@@ -274,7 +269,6 @@ def main():
         print(f"[compare] {b.name} = {b.src}", flush=True)
     print(f"[compare] built in {time.perf_counter() - t0:.1f} s", flush=True)
     shapes = make_shapes(torch, args.shape)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     same_all = True
     for name, sh in shapes.items():
         n, p = sh["n"], sh["p"]
@@ -300,6 +294,9 @@ def main():
               f"the last pose done after {last}, {active} pose-iterations; this equals its plain "
               f"version bit for bit: {plain_ok}", flush=True)
         idx_bytes = 0 if sh["nearest"] is None else sh["nearest"][0].element_size()
+        # the tail's input: the first pass's sums of the launch's own cloud
+        run, _go = builds[0].launcher(IR, sh)
+        sums = IR.assoc_reduce_plain(run.state.cloud, run._keep[0], sh["plain_query"])
         for b in builds:
             st, full = results[b.name]
             eq = all(CS.same_bits(a, c) for a, c in zip(st, this_state))
@@ -309,13 +306,7 @@ def main():
             slabs, threads = b.geometry(n, rows)
             slab_bytes = 12 * -(-rows // slabs)
             smem = slab_bytes if sh["iters"] > 1 and slab_bytes <= 200 * 1024 else 0
-            res = icp_tail.residency(b.probe, True, idx_bytes, False, threads, smem)
-            run, go = b.launcher(IR, sh)
-            out = torch.empty((n, IR.PACKED), dtype=torch.float32, device=dev)
-            pass_args = run.args[:19]
-            pass_ms = CS.alone_ms(torch, lambda: b.lib.prt_assoc_reduce(
-                *pass_args, out.data_ptr(), stream))
-            sums = out.clone()
+            res = icp_tail.residency(b.probe, idx_bytes, False, threads, smem)
             state19 = icp_tail.start_state(n, dev)
             tail = icp_tail.tail_ms(b.probe, sums, state19, coarse=bool(sh["coarse"]))
             pool = iter([b.launcher(IR, sh)[1] for _ in range(45)])
@@ -326,8 +317,8 @@ def main():
                   f"{res['registers']} local_bytes={res['local_bytes']} threads={res['threads']} "
                   f"ctas_per_sm={res['ctas_per_sm']} (dynamic smem {smem}) waves="
                   f"{icp_tail.waves(n * slabs, res['ctas_per_sm'], sms)} | alone_ms={alone} "
-                  f"per_iteration_ms={per_it} pass_alone_ms={pass_ms} tail_alone_ms={tail} "
-                  f"frame_ms={per_it - pass_ms - tail}", flush=True)
+                  f"per_iteration_ms={per_it} tail_alone_ms={tail} "
+                  f"pass_and_frame_ms={per_it - tail}", flush=True)
         times = {b.name: [] for b in builds}
         order = [b for b in builds if b.name != "this"]
         this = builds[0]

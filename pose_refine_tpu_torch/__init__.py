@@ -5,8 +5,9 @@ Batch depth rasterization of pose hypotheses (a hand-written CUDA kernel,
 optionally Huber-weighted, against a projective scene or a
 nearest-neighbour scene (exact NN by the stackless kd traversal,
 ``csrc/nn_kdtree.cu``, or the flash-NN kernels, ``csrc/nn_flash.cu``; the
-association's row gather, ``csrc/gather.cu``; every ICP pass's association
-and 29-float reduction in one kernel, ``csrc/icp_reduce.cu``), with its pose
+association's row gather, ``csrc/gather.cu``; every ICP iteration's
+association, 29-float reduction and update in one kernel,
+``csrc/icp_reduce.cu``), with its pose
 uncertainty, stacked scenes (``set_scene_depths``), several
 meshes in one batch (``MultiModelRefiner``), per-frame tracking
 (``PoseRefiner.track``), the filtered ``TrackingSession`` and

@@ -8,6 +8,10 @@ Nothing includes PyTorch's headers, so a build takes seconds. The library lands 
 sources and the flags, so an edited kernel rebuilds and an unchanged one
 loads from disk. Only sources in the repository are compiled, and a failed
 build raises with nvcc's own messages.
+
+Every launch from Python goes through ``launch``: it decides the device and
+the stream a kernel runs on (the device's current stream) and turns a C
+entry's error code into an exception.
 """
 
 from __future__ import annotations
@@ -19,6 +23,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+import torch
 
 PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -42,8 +48,6 @@ SIGNATURES = {
     "prt_nn_mxu": ((_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P), _I),
     "prt_nn_kdtree": ((_P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P), _I),
     "prt_gather_rows": ((_P, _L, _P, _I, _L, _P, _P), _I),
-    "prt_assoc_reduce": ((_P, _P, _I, _I, _P, _L, _I, _I, _P, _P, _P, _I, _I, _P, _I, _P, _F,
-                          _F, _I, _P, _P), _I),
     "prt_icp_iterate": ((_P, _P, _I, _I, _P, _L, _I, _I, _P, _P, _P, _I, _I, _P, _I, _P, _F,
                          _F, _I, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P, _I, _P), _I),
     "prt_sin_cos": ((_P, _I, _P, _P, _P), _I),
@@ -135,3 +139,16 @@ def load_kernels():
             fn.restype = restype
         _loaded = (lib, info)
         return _loaded
+
+
+def launch(lib, entry: str, device, args, what: str) -> None:
+    """Call the C entry ``entry`` of ``lib`` (load_kernels' library, or a
+    library of another build with the same interface) with ``args`` and,
+    appended, the current stream of ``device``, inside that device, without
+    synchronising. Raises RuntimeError("<what> kernel launch failed: CUDA
+    error N (message)") on a non-zero return."""
+    with torch.cuda.device(device):
+        err = getattr(lib, entry)(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        msg = lib.prt_error_string(err).decode()
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err} ({msg})")

@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from pose_refine_tpu_torch._build import launch, load_kernels
+
 ROW = 8  # floats per table row: [xyz | normal xyz | 0 0]
 
 # kernel launches by gather_rows_cuda (chip_smoke.py resets and reads it to
@@ -56,17 +58,10 @@ def gather_rows_cuda(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"too many indices for one launch: {n}")
     if flat.data_ptr() % flat.element_size():
         raise ValueError("idx must be aligned to its element size")
-    from pose_refine_tpu_torch._build import load_kernels
-
-    lib, _info = load_kernels()
     out = torch.empty((n, ROW), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.prt_gather_rows(table.data_ptr(), table.shape[0], flat.data_ptr(),
-                                  flat.element_size(), n, out.data_ptr(), stream)
-    if err != 0:
-        msg = lib.prt_error_string(err).decode()
-        raise RuntimeError(f"gather_rows kernel launch failed: CUDA error {err} ({msg})")
+    launch(load_kernels()[0], "prt_gather_rows", dev,
+           (table.data_ptr(), table.shape[0], flat.data_ptr(), flat.element_size(), n,
+            out.data_ptr()), "gather_rows")
     launches += 1
     return out.reshape(*idx.shape, ROW)
 

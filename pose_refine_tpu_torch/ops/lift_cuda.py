@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from pose_refine_tpu_torch._build import launch, load_kernels
 from pose_refine_tpu_torch.ops.depth_to_cloud import window_grid
 
 # a CTA keeps its two P-entry int arrays (rank buckets and lists) in shared
@@ -83,19 +84,9 @@ def window_lift_cuda(depth: torch.Tensor, K, *, window: int, stride: int, max_po
         return clouds, valid
     extra = scratch_ints(p, max_points)
     scratch = torch.empty((n, extra), dtype=torch.int32, device=dev) if extra else None
-    from pose_refine_tpu_torch._build import load_kernels
-
-    lib, _info = load_kernels()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.prt_window_lift(depth.data_ptr(), n, h, w, K.data_ptr(), window, stride,
-                                  rows, int(bool(morton)), int(tl_x), int(tl_y),
-                                  clouds.data_ptr(), valid.data_ptr(),
-                                  None if scratch is None else scratch.data_ptr(), stream)
-    if err != 0:
-        msg = lib.prt_error_string(err).decode()
-        raise RuntimeError(f"window lift kernel launch failed for {n} renders of {h} x {w}, "
-                           f"window {window} / stride {stride} (P = {p}), max_points "
-                           f"{max_points}: CUDA error {err} ({msg})")
+    launch(load_kernels()[0], "prt_window_lift", dev,
+           (depth.data_ptr(), n, h, w, K.data_ptr(), window, stride, rows, int(bool(morton)),
+            int(tl_x), int(tl_y), clouds.data_ptr(), valid.data_ptr(),
+            None if scratch is None else scratch.data_ptr()), "window lift")
     launches += 1
     return clouds, valid

@@ -25,6 +25,7 @@ from typing import NamedTuple
 
 import torch
 
+from pose_refine_tpu_torch._build import launch, load_kernels
 from pose_refine_tpu_torch.device import DeviceLike, resolve_device
 from pose_refine_tpu_torch.ops.rasterize import (
     ROI,
@@ -185,21 +186,12 @@ def _launch(entry: str, out: torch.Tensor, table, ids, poses, proj, width, heigh
     """Call the C entry ``entry`` of csrc/rasterize.cu on the current stream
     with the render's arguments, ``out`` and ``extra``; raise on a CUDA
     error."""
-    from pose_refine_tpu_torch._build import load_kernels
-
-    lib, _info = load_kernels()
     out_w, out_h = roi_shape(width, height, roi)
     m, t = table.shape[:2]
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream(table.device).cuda_stream
-        err = getattr(lib, entry)(
-            table.data_ptr(), None if ids is None else ids.data_ptr(), m, t, poses.data_ptr(),
+    launch(load_kernels()[0], entry, table.device,
+           (table.data_ptr(), None if ids is None else ids.data_ptr(), m, t, poses.data_ptr(),
             poses.shape[0], proj.data_ptr(), width, height, int(roi[0]), int(roi[1]), out_w,
-            out_h, out.data_ptr(), *extra, stream,
-        )
-    if err != 0:
-        msg = lib.prt_error_string(err).decode()
-        raise RuntimeError(f"{entry} launch failed: CUDA error {err} ({msg})")
+            out_h, out.data_ptr(), *extra), entry)
 
 
 def raster_cuda(table: torch.Tensor, ids, poses: torch.Tensor, proj: torch.Tensor,

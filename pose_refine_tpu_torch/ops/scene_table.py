@@ -20,6 +20,8 @@ from __future__ import annotations
 
 import torch
 
+from pose_refine_tpu_torch._build import launch, load_kernels
+
 # the kernel's grid: frames on its z axis, 16-row tiles on its y axis
 MAX_FRAMES = 65535
 MAX_ROWS = 16 * 65535
@@ -63,16 +65,7 @@ def scene_table_cuda(depth: torch.Tensor, K) -> torch.Tensor:
     table = torch.empty((k * h * w, 8), dtype=torch.float32, device=dev)
     if table.shape[0] == 0:
         return table
-    from pose_refine_tpu_torch._build import load_kernels
-
-    lib, _info = load_kernels()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.prt_scene_table(frames.data_ptr(), k, h, w, K.data_ptr(), table.data_ptr(),
-                                  stream)
-    if err != 0:
-        msg = lib.prt_error_string(err).decode()
-        raise RuntimeError(f"scene table kernel launch failed for {k} frames of {h} x {w}: "
-                           f"CUDA error {err} ({msg})")
+    launch(load_kernels()[0], "prt_scene_table", dev,
+           (frames.data_ptr(), k, h, w, K.data_ptr(), table.data_ptr()), "scene table")
     launches += 1
     return table

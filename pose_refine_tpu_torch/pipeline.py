@@ -113,14 +113,13 @@ def refine_poses(tris, init_poses, scene: Union[SceneProjective, SceneNN, SceneP
     the kernel on CUDA tensors), ``lifter`` the window lift (default: the
     kernel L1 on CUDA renders, see _window_lift; ops.depth_to_cloud.window_lift
     is its plain version on any device) and ``query`` the association. By default
-    the ICP loop gets the scene's icp.Association (query, reduce and, on a
-    card, iterate; or query_at, reduce_at and iterate_at of scene_ids): on a
-    card the loop is the iteration kernel of ops/icp_reduce.py, one launch a
-    refine against a projective scene, an NN launch and an iteration launch
-    a pass against an NN scene. An Association without iterate runs the
-    loop with one fused pass a launch and the solve in PyTorch; a bare
-    ``query`` callable handed in is queried and then reduced by matrix
-    products on any device (the loop of before the fused kernel);
+    the ICP loop gets the scene's icp.Association (query and, on a card,
+    iterate; or query_at and iterate_at of scene_ids): on a card the loop is
+    the iteration kernel of ops/icp_reduce.py, one launch a refine against a
+    projective scene, an NN launch and an iteration launch a pass against an
+    NN scene. An Association without iterate, or a bare ``query`` callable
+    handed in, is queried and then reduced by matrix products on any device,
+    with the solve and update in PyTorch;
     ``icp.plain_association(plain_query)`` is the plain version of the
     default, which a kernel path is held against.
     ``estimation`` ("point_to_plane" / "point_to_point") and
@@ -152,8 +151,8 @@ def refine_poses(tris, init_poses, scene: Union[SceneProjective, SceneNN, SceneP
 def _association(scene, scene_ids, card: bool, plain: bool = False,
                  order_batch: Optional[int] = None) -> icp.Association:
     """The scene's ICP association (bound to per-pose ``scene_ids`` for a
-    stacked scene): query and reduce, and on a card the iteration kernel's
-    iterate; plain=True the plain versions' association on any device.
+    stacked scene): query, and on a card the iteration kernel's iterate;
+    plain=True the plain versions' association on any device.
     ``order_batch``: the iterate sums each pose as a batch of that size
     does (a shard of a split refine; ops/icp_reduce.py's note)."""
     if plain:
@@ -161,9 +160,9 @@ def _association(scene, scene_ids, card: bool, plain: bool = False,
              else scene.query_at(scene_ids, plain=True))
         assoc = icp.plain_association(q)
     elif scene_ids is None:
-        assoc = icp.Association(scene.query, scene.reduce, scene.iterate if card else None)
+        assoc = icp.Association(scene.query, scene.iterate if card else None)
     else:
-        assoc = icp.Association(scene.query_at(scene_ids), scene.reduce_at(scene_ids),
+        assoc = icp.Association(scene.query_at(scene_ids),
                                 scene.iterate_at(scene_ids) if card else None)
     if order_batch is None or assoc.iterate is None:
         return assoc
@@ -300,7 +299,7 @@ def _refine_frame(scene, tris, init_poses, proj, K_render, pack_outputs: bool = 
                   plain: bool = False, devices=None, replicas: Optional[dict] = None, **kw):
     """The refine of one tracked frame against its freshly built scene;
     plain=True runs the kernels' plain versions (raster, lift, NN, gather,
-    the fused ICP pass); ``devices`` splits the batch (refine_poses_split)."""
+    the ICP iteration); ``devices`` splits the batch (refine_poses_split)."""
     if devices:
         out = refine_poses_split(devices, tris, init_poses, scene, proj, K_render, plain=plain,
                                  replicas=replicas, **kw)
@@ -1222,7 +1221,7 @@ class PoseRefiner:
 
         ``_pack_outputs`` (sessions) returns the (N, 71) session buffer
         instead; ``_plain`` runs the kernels' plain versions (raster, lift,
-        NN, gather, the fused ICP pass), the reference a kernel path is held against."""
+        NN, gather, the ICP iteration), the reference a kernel path is held against."""
         return self._track(self.tris, frame_depth, init_poses, criteria, with_covariance,
                            _pack_outputs, _plain)
 

@@ -20,8 +20,8 @@
 //  * prt_probe_residency: cudaFuncGetAttributes (registers, local bytes a
 //    thread, static shared memory) and
 //    cudaOccupancyMaxActiveBlocksPerMultiprocessor (CTAs an SM at the given
-//    dynamic shared memory) of one instantiation of the pass kernel or the
-//    iteration kernel, at a thread count where the source has two.
+//    dynamic shared memory) of one instantiation of the iteration kernel, at
+//    a thread count where the source has two.
 
 namespace {
 
@@ -80,31 +80,24 @@ int residency_of(K kernel, int threads, int smem_bytes, int* out) {
 #ifdef PRT_PROBE_THREADS_TEMPLATE
 // a source whose kernels take their thread count as a template parameter
 template <bool kProj, bool kP2P, typename Idx>
-int residency_mode(int iterate, int threads, int smem_bytes, int* out) {
-  if (threads == kNarrow) {
-    return iterate ? residency_of(icp_iterate_kernel<kNarrow, kProj, kP2P, Idx>, kNarrow,
-                                  smem_bytes, out)
-                   : residency_of(assoc_reduce_kernel<kNarrow, kProj, kP2P, Idx>, kNarrow,
-                                  smem_bytes, out);
-  }
-  return iterate ? residency_of(icp_iterate_kernel<kWide, kProj, kP2P, Idx>, kWide, smem_bytes,
-                                out)
-                 : residency_of(assoc_reduce_kernel<kWide, kProj, kP2P, Idx>, kWide, smem_bytes,
-                                out);
+int residency_mode(int threads, int smem_bytes, int* out) {
+  return threads == kNarrow
+             ? residency_of(icp_iterate_kernel<kNarrow, kProj, kP2P, Idx>, kNarrow, smem_bytes,
+                            out)
+             : residency_of(icp_iterate_kernel<kWide, kProj, kP2P, Idx>, kWide, smem_bytes, out);
 }
 #else
 // a source of one thread count, kThreads
 template <bool kProj, bool kP2P, typename Idx>
-int residency_mode(int iterate, int, int smem_bytes, int* out) {
-  return iterate ? residency_of(icp_iterate_kernel<kProj, kP2P, Idx>, kThreads, smem_bytes, out)
-                 : residency_of(assoc_reduce_kernel<kProj, kP2P, Idx>, kThreads, smem_bytes, out);
+int residency_mode(int, int smem_bytes, int* out) {
+  return residency_of(icp_iterate_kernel<kProj, kP2P, Idx>, kThreads, smem_bytes, out);
 }
 #endif
 
 template <bool kProj, typename Idx>
-int residency_front(int iterate, int p2p, int threads, int smem_bytes, int* out) {
-  return p2p ? residency_mode<kProj, true, Idx>(iterate, threads, smem_bytes, out)
-             : residency_mode<kProj, false, Idx>(iterate, threads, smem_bytes, out);
+int residency_front(int p2p, int threads, int smem_bytes, int* out) {
+  return p2p ? residency_mode<kProj, true, Idx>(threads, smem_bytes, out)
+             : residency_mode<kProj, false, Idx>(threads, smem_bytes, out);
 }
 
 }  // namespace
@@ -122,13 +115,12 @@ extern "C" int prt_probe_tail(const float* sums, const float* state, int n, int 
 
 // out[5] = registers a thread, local bytes a thread, CTAs an SM at
 // smem_bytes of dynamic shared memory, static shared bytes, threads a CTA
-// of the pass kernel (iterate = 0) or the iteration kernel (1), by front end
-// (projective: idx_bytes 0; indexed: 4 or 8), terms (p2p) and threads a CTA
-// (a source of one thread count ignores it). Returns a cudaError_t.
-extern "C" int prt_probe_residency(int iterate, int idx_bytes, int p2p, int threads,
-                                   int smem_bytes, int* out) {
-  if (idx_bytes == 0) return residency_front<true, int>(iterate, p2p, threads, smem_bytes, out);
-  return idx_bytes == 4
-             ? residency_front<false, int>(iterate, p2p, threads, smem_bytes, out)
-             : residency_front<false, long long>(iterate, p2p, threads, smem_bytes, out);
+// of the iteration kernel, by front end (projective: idx_bytes 0; indexed:
+// 4 or 8), terms (p2p) and threads a CTA (a source of one thread count
+// ignores it). Returns a cudaError_t.
+extern "C" int prt_probe_residency(int idx_bytes, int p2p, int threads, int smem_bytes,
+                                   int* out) {
+  if (idx_bytes == 0) return residency_front<true, int>(p2p, threads, smem_bytes, out);
+  return idx_bytes == 4 ? residency_front<false, int>(p2p, threads, smem_bytes, out)
+                        : residency_front<false, long long>(p2p, threads, smem_bytes, out);
 }

@@ -1,6 +1,6 @@
-"""Probe: the ICP iteration kernel's pose tail alone, and the residency of
-the kernels of ``csrc/icp_reduce.cu`` (or of another revision of that
-source with the same C interface).
+"""Probe: the ICP iteration kernel's pose tail alone, and its residency,
+of ``csrc/icp_reduce.cu`` (or of another revision of that source with the
+same C interface).
 
     python -m pose_refine_tpu_torch.probes.icp_tail [--source FILE] [--poses N ...]
 
@@ -31,7 +31,7 @@ PROBE = Path(__file__).resolve().parent / "icp_tail.cu"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "prt_probe_tail": ((_P, _P, _I, _I, _I, _P, _P), _I),
-    "prt_probe_residency": ((_I, _I, _I, _I, _I, _P), _I),
+    "prt_probe_residency": ((_I, _I, _I, _I, _P), _I),
 }
 
 
@@ -70,16 +70,15 @@ def build(source=None) -> ctypes.CDLL:
     return dll
 
 
-def residency(lib, iterate: bool = True, idx_bytes: int = 0, p2p: bool = False,
-              threads: int = 256, smem_bytes: int = 0) -> dict:
+def residency(lib, idx_bytes: int = 0, p2p: bool = False, threads: int = 256,
+              smem_bytes: int = 0) -> dict:
     """Registers and local bytes a thread, CTAs an SM at ``smem_bytes`` of
     dynamic shared memory, static shared bytes and threads a CTA of the
-    iteration kernel (``iterate``) or the pass kernel, projective front end
-    (``idx_bytes`` 0) or indexed (4 / 8), plane or point-to-point terms, at
-    ``threads`` a CTA (a source of one thread count has only its own)."""
+    iteration kernel, projective front end (``idx_bytes`` 0) or indexed (4 /
+    8), plane or point-to-point terms, at ``threads`` a CTA (a source of one
+    thread count has only its own)."""
     out = (ctypes.c_int * 5)()
-    err = lib.prt_probe_residency(int(iterate), int(idx_bytes), int(p2p), int(threads),
-                                  int(smem_bytes), out)
+    err = lib.prt_probe_residency(int(idx_bytes), int(p2p), int(threads), int(smem_bytes), out)
     if err:
         raise RuntimeError(f"prt_probe_residency failed: CUDA error {err}")
     return dict(registers=out[0], local_bytes=out[1], ctas_per_sm=out[2], static_smem=out[3],
@@ -164,12 +163,11 @@ def main(argv=None) -> int:
               f"coarse_tail_ms={tail_ms(lib, sums, state, coarse=True)}")
     from pose_refine_tpu_torch.ops import icp_reduce as IR
 
-    for iterate in (True, False):
-        for n in (256, 512):
-            slabs, threads = IR.geometry(n, 2048)
-            res = residency(lib, iterate, threads=threads, smem_bytes=24576 if iterate else 0)
-            print(f"[icp-tail] {'iteration' if iterate else 'pass'} kernel, projective, {n} x "
-                  f"2,048: {res}, {sms} SMs, {waves(n * slabs, res['ctas_per_sm'], sms)} wave(s)")
+    for n in (256, 512):
+        slabs, threads = IR.geometry(n, 2048)
+        res = residency(lib, threads=threads, smem_bytes=24576)
+        print(f"[icp-tail] iteration kernel, projective, {n} x 2,048: {res}, {sms} SMs, "
+              f"{waves(n * slabs, res['ctas_per_sm'], sms)} wave(s)")
     return 0
 
 

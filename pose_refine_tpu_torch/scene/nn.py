@@ -18,11 +18,10 @@ query is exact NN by one of three backends, then one row gather
   * ``"flash"``: the full flash scan.
 
 A neighbour is accepted iff dist^2 < max_dist_diff^2 (pcd_scene.h:127).
-``reduce`` / ``reduce_at`` are a whole ICP pass: the same NN kernel, then
-the row lookup and the normal-equation sums fused in the kernel of
-``ops/icp_reduce.py``; ``iterate`` / ``iterate_at`` a refine's ICP loop,
-each iteration one NN launch and one launch of that source's iteration
-kernel (the NN runs on the moved cloud in between).
+``iterate`` / ``iterate_at`` are a refine's ICP loop, each iteration one
+NN launch and one launch of the iteration kernel of ``ops/icp_reduce.py``,
+which looks the rows up and reduces them without writing them out (the NN
+runs on the moved cloud in between).
 
 ``SceneNNStack`` stacks K frames into one set of tables; its query windows
 the gated kernel to each pose's frame (no kd backend: the traversal binds
@@ -41,11 +40,7 @@ import torch
 from pose_refine_tpu_torch.device import DeviceLike, resolve_device
 from pose_refine_tpu_torch.ops.depth_to_cloud import depth_image_to_points
 from pose_refine_tpu_torch.ops.gather import gather_rows, gather_rows_plain
-from pose_refine_tpu_torch.ops.icp_reduce import (
-    assoc_reduce_indexed_cuda,
-    icp_iterate_indexed_cuda,
-    unpack_sums,
-)
+from pose_refine_tpu_torch.ops.icp_reduce import icp_iterate_indexed_cuda
 from pose_refine_tpu_torch.ops.normals import _OFFSETS, estimate_normals
 from pose_refine_tpu_torch.scene import nn_flash
 from pose_refine_tpu_torch.scene.kdtree import KDTreeDevice, build_kdtree
@@ -216,19 +211,6 @@ class SceneNN:
         (the reference a kernel path is held against)."""
         idx, dist_sq = self._nearest(src, plain)
         return _rows_in_gate(self.table, idx, dist_sq, self.max_dist_diff, plain)
-
-    def reduce(self, cloud: torch.Tensor, valid: torch.Tensor, robust_delta: float = 0.0,
-               point_to_point: bool = False):
-        """One ICP pass against this scene: (..., P, 3) CUDA clouds and
-        (..., P) valid -> (AtA, Atb, count, mse_sum), with the terms of
-        robust_delta and point_to_point (ops.icp_reduce.packed_terms). The NN
-        kernel's (idx, dist_sq) feed the kernel of ops/icp_reduce.py, which
-        looks the rows up and reduces them without writing them out. Raises
-        for CPU tensors; its plain version is
-        ``ops.icp_reduce.assoc_reduce_plain`` over ``query(plain=True)``."""
-        return unpack_sums(assoc_reduce_indexed_cuda(
-            cloud, valid, self.table, *self._nearest(cloud),
-            nn_flash.gate_sq(self.max_dist_diff), robust_delta, point_to_point))
 
     def iterate(self, state, valid, n_total, criteria, robust_delta: float = 0.0,
                 point_to_point: bool = False, coarse_iters: int = 0, coarse_stride: int = 2,
@@ -413,21 +395,6 @@ class SceneNNStack:
         return nn_flash.nn_flash_gated(
             src, self.flash_table, self.flash_boxes, self.flash_balls, self.max_dist_diff,
             frame_id=sids, frames=self.n_scenes)
-
-    def reduce_at(self, sid):
-        """``SceneNN.reduce`` bound to per-pose scene ids (see query_at):
-        returns reduce(cloud (N, P, 3), valid (N, P), robust_delta=0.0,
-        point_to_point=False) -> (AtA, Atb, count, mse_sum); the stacked gated
-        kernel's indices are rows of the stacked
-        table, so the fused kernel needs no per-pose offset."""
-        sids = self._frame_ids(sid)
-
-        def reduce(cloud, valid, robust_delta=0.0, point_to_point=False):
-            return unpack_sums(assoc_reduce_indexed_cuda(
-                cloud, valid, self.table, *self._nearest_at(sids, cloud),
-                nn_flash.gate_sq(self.max_dist_diff), robust_delta, point_to_point))
-
-        return reduce
 
     def iterate_at(self, sid):
         """``SceneNN.iterate`` bound to per-pose scene ids (see query_at):

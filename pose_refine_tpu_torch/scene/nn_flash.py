@@ -32,6 +32,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pose_refine_tpu_torch._build import launch, load_kernels
+
 S_CHUNK = 128   # scene points per chunk (the kernels' shared-memory stage)
 BIG = 3.0e38    # score / dist^2 sentinel
 IBIG = 2 ** 30
@@ -279,25 +281,16 @@ def _launch(flat, scene_table, boxes, balls, gate2: float, prune: bool, scanned=
                                  or frame_id.shape[0] > 65535):
         raise ValueError(f"{frame_id.shape[0]} poses of {per_pose} queries do not cover "
                          f"{nq} queries in at most 65535 poses")
-    from pose_refine_tpu_torch._build import load_kernels
-
-    lib, _info = load_kernels()
     idx = torch.empty(nq, dtype=torch.int32, device=dev)
     dist = torch.empty(nq, dtype=torch.float32, device=dev)
     if nq == 0:
         return idx, dist
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.prt_nn_flash(
-            flat.data_ptr(), nq, scene_table.data_ptr(), s_pad,
+    launch(load_kernels()[0], "prt_nn_flash", dev,
+           (flat.data_ptr(), nq, scene_table.data_ptr(), s_pad,
             boxes.data_ptr() if prune else None, balls.data_ptr() if prune else None,
             n_balls, gate2, int(prune), None if frame_id is None else frame_id.data_ptr(),
             frames, per_pose, idx.data_ptr(), dist.data_ptr(),
-            None if scanned is None else scanned.data_ptr(), stream,
-        )
-    if err != 0:
-        msg = lib.prt_error_string(err).decode()
-        raise RuntimeError(f"nn_flash kernel launch failed: CUDA error {err} ({msg})")
+            None if scanned is None else scanned.data_ptr()), "nn_flash")
     return idx, dist
 
 

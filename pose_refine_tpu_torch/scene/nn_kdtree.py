@@ -20,8 +20,8 @@ bit in idx, dist^2 and steps on the CPU (tests/test_torch_kdtree.py), and
 the kernel equals the plain version on the card.
 
 Output: int32 idx and float32 dist^2 of every query, as the flash-NN
-kernels return them, so ``scene.nn._rows_in_gate`` and the fused ICP pass
-take them unchanged. A query with no point at a finite distance (NaN, or
+kernels return them, so ``scene.nn._rows_in_gate`` and the ICP iteration
+kernel take them unchanged. A query with no point at a finite distance (NaN, or
 so far that every dist^2 overflows) keeps the initial state: idx 0,
 dist^2 FLT_MAX, which every gate rejects.
 
@@ -34,6 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pose_refine_tpu_torch._build import launch, load_kernels
 from pose_refine_tpu_torch.scene.kdtree import KDTreeDevice
 from pose_refine_tpu_torch.scene.nn_flash import _flat, _fma
 
@@ -172,19 +173,17 @@ class KDLaunch:
         nq = int(np.prod(self.shape, dtype=np.int64))
         if nq >= 2 ** 31:
             raise ValueError(f"too many queries for int32 sizes: {nq}")
-        from pose_refine_tpu_torch._build import load_kernels
-
         self.lib, _info = load_kernels()
         self.tree, self.dev, self.nq = tree, dev, nq
         self.whole = 16 * t.shape[0] <= STAGE_CAP_BYTES
         self.idx = torch.empty(self.shape, dtype=torch.int32, device=dev)
         self.dist = torch.empty(self.shape, dtype=torch.float32, device=dev)
         self.counters = torch.zeros(2, dtype=torch.int32, device=dev)
-        # the C interface's arguments; [0] the queries, [10] steps and [11]
-        # the stream change from launch to launch
+        # the C interface's arguments but the stream; [0] the queries and
+        # [10] steps change from launch to launch
         self.args = [None, nq, t.data_ptr(), m, t.shape[0] - 3 * m, tree.max_steps,
                      int(self.whole), self.counters.data_ptr(), self.idx.data_ptr(),
-                     self.dist.data_ptr(), None, None]
+                     self.dist.data_ptr(), None]
 
     def __call__(self, queries, steps=None):
         """idx and dist^2 of ``queries`` ((..., 3) contiguous float32 of the
@@ -208,12 +207,7 @@ class KDLaunch:
         args = self.args
         args[0] = queries.data_ptr()
         args[10] = None if steps is None else steps.data_ptr()
-        with torch.cuda.device(self.dev):
-            args[11] = torch.cuda.current_stream(self.dev).cuda_stream
-            err = self.lib.prt_nn_kdtree(*args)
-        if err != 0:
-            msg = self.lib.prt_error_string(err).decode()
-            raise RuntimeError(f"nn_kdtree kernel launch failed: CUDA error {err} ({msg})")
+        launch(self.lib, "prt_nn_kdtree", self.dev, args, "nn_kdtree")
         launches += 1
         return self.idx, self.dist
 

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import torch
 
+from pose_refine_tpu_torch._build import launch, load_kernels
 from pose_refine_tpu_torch.scene.nn_flash import (BIG, S_CHUNK, _flat, _sum_sq,
                                                    nn_flash_packed_plain, pack_scene)
 
@@ -81,19 +82,12 @@ def split_scene_cuda(scene_table):
     if dev.type != "cuda":
         raise ValueError(f"the nn_mxu kernel needs CUDA tensors, got {dev}")
     _check_table(scene_table, dev)
-    from pose_refine_tpu_torch._build import load_kernels
-
-    lib, _info = load_kernels()
     s_pad = scene_table.shape[1]
     split = torch.empty((s_pad // S_CHUNK, 4, S_CHUNK, 2), dtype=torch.int32, device=dev)
     smax2 = torch.empty(1, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.prt_nn_mxu_split(scene_table.data_ptr(), s_pad, split.data_ptr(),
-                                   smax2.data_ptr(), stream)
-    if err != 0:
-        msg = lib.prt_error_string(err).decode()
-        raise RuntimeError(f"nn_mxu prologue launch failed: CUDA error {err} ({msg})")
+    launch(load_kernels()[0], "prt_nn_mxu_split", dev,
+           (scene_table.data_ptr(), s_pad, split.data_ptr(), smax2.data_ptr()),
+           "nn_mxu prologue")
     return split, smax2
 
 
@@ -122,18 +116,11 @@ def nn_flash_mxu_cuda(flat, scene_table, stats: bool = False):
     if nq == 0:
         return (idx, dist, rescored, ratio) if stats else (idx, dist)
     split, smax2 = split_scene_cuda(scene_table)
-    from pose_refine_tpu_torch._build import load_kernels
-
-    lib, _info = load_kernels()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.prt_nn_mxu(flat.data_ptr(), nq, scene_table.data_ptr(), s_pad,
-                             split.data_ptr(), smax2.data_ptr(), idx.data_ptr(),
-                             dist.data_ptr(), None if rescored is None else rescored.data_ptr(),
-                             None if ratio is None else ratio.data_ptr(), stream)
-    if err != 0:
-        msg = lib.prt_error_string(err).decode()
-        raise RuntimeError(f"nn_mxu kernel launch failed: CUDA error {err} ({msg})")
+    launch(load_kernels()[0], "prt_nn_mxu", dev,
+           (flat.data_ptr(), nq, scene_table.data_ptr(), s_pad, split.data_ptr(),
+            smax2.data_ptr(), idx.data_ptr(), dist.data_ptr(),
+            None if rescored is None else rescored.data_ptr(),
+            None if ratio is None else ratio.data_ptr()), "nn_mxu")
     launches += 1
     return (idx, dist, rescored, ratio) if stats else (idx, dist)
 

@@ -8,11 +8,10 @@ kernel of ``ops/scene_table.py``, so the per-point query is a single row
 gather (depth_scene.h:7-49), the kernel of ``ops/gather.py`` on a card.
 ``SceneProjectiveStack`` holds K same-shape frames in one (K*H*W, 8) table
 and routes each pose to its frame by adding its frame's row offset to the
-gather index. ``reduce`` / ``reduce_at`` are a whole ICP pass - this query
-and the normal-equation sums - in the one kernel of ``ops/icp_reduce.py``;
-``iterate`` / ``iterate_at`` a refine's whole ICP loop in one launch of its
-iteration kernel (the table, K and the gate do not change between
-iterations).
+gather index. ``iterate`` / ``iterate_at`` run a refine's whole ICP loop
+(this query, the normal-equation sums and the update) in one launch of the
+iteration kernel of ``ops/icp_reduce.py``: the table, K and the gate do not
+change between iterations.
 """
 
 from __future__ import annotations
@@ -25,11 +24,7 @@ from pose_refine_tpu_torch import geometry
 from pose_refine_tpu_torch.device import DeviceLike, resolve_device
 from pose_refine_tpu_torch.ops.depth_to_cloud import depth_image_to_points
 from pose_refine_tpu_torch.ops.gather import gather_rows, gather_rows_plain
-from pose_refine_tpu_torch.ops.icp_reduce import (
-    assoc_reduce_projective_cuda,
-    icp_iterate_projective_cuda,
-    unpack_sums,
-)
+from pose_refine_tpu_torch.ops.icp_reduce import icp_iterate_projective_cuda
 from pose_refine_tpu_torch.ops.normals import estimate_normals
 from pose_refine_tpu_torch.ops.scene_table import check_frames, scene_table_cuda
 
@@ -116,19 +111,6 @@ class SceneProjective:
             self.table, self.K, self.max_dist_diff, self.height, self.width, src,
             gather=gather_rows_plain if plain else gather_rows,
         )
-
-    def reduce(self, cloud: torch.Tensor, valid: torch.Tensor, robust_delta: float = 0.0,
-               point_to_point: bool = False):
-        """One ICP pass against this scene: (..., P, 3) CUDA clouds and
-        (..., P) valid -> (AtA, Atb, count, mse_sum), with the terms of
-        robust_delta and point_to_point (ops.icp_reduce.packed_terms), the
-        query and the reduction fused in the kernel of ops/icp_reduce.py
-        (the rows are never written out). Raises for CPU tensors; its plain
-        version is ``ops.icp_reduce.assoc_reduce_plain`` over
-        ``query(plain=True)``."""
-        return unpack_sums(assoc_reduce_projective_cuda(
-            cloud, valid, self.table, self.K, self.max_dist_diff, self.height, self.width,
-            robust_delta=robust_delta, point_to_point=point_to_point))
 
     def iterate(self, state, valid, n_total, criteria, robust_delta: float = 0.0,
                 point_to_point: bool = False, coarse_iters: int = 0, coarse_stride: int = 2,
@@ -241,22 +223,6 @@ class SceneProjectiveStack:
                                  self.width, src, base=b, gather=gather)
 
         return query
-
-    def reduce_at(self, sid):
-        """``SceneProjective.reduce`` bound to per-pose scene ids (see
-        query_at): returns reduce(cloud (N, P, 3), valid (N, P),
-        robust_delta=0.0, point_to_point=False) -> (AtA, Atb, count,
-        mse_sum). The kernel takes each pose's row offset; the
-        ids never leave the card."""
-        base = self._base(sid)
-
-        def reduce(cloud, valid, robust_delta=0.0, point_to_point=False):
-            return unpack_sums(assoc_reduce_projective_cuda(
-                cloud, valid, self.table, self.K, self.max_dist_diff, self.height, self.width,
-                base=base.expand(cloud.shape[:-2]) if base.dim() == 0 else base,
-                robust_delta=robust_delta, point_to_point=point_to_point))
-
-        return reduce
 
     def iterate_at(self, sid):
         """``SceneProjective.iterate`` bound to per-pose scene ids (see

@@ -175,7 +175,7 @@ _COUNTERS = (
     ("pose_refine_tpu_torch.ops.rasterize_cuda", ("launches",)),
     ("pose_refine_tpu_torch.ops.lift_cuda", ("launches",)),
     ("pose_refine_tpu_torch.ops.scene_table", ("launches",)),
-    ("pose_refine_tpu_torch.ops.icp_reduce", ("launches", "iterate_launches")),
+    ("pose_refine_tpu_torch.ops.icp_reduce", ("iterate_launches",)),
     ("pose_refine_tpu_torch.ops.gather", ("launches",)),
     ("pose_refine_tpu_torch.scene.nn_flash",
      ("packed_launches", "gated_launches", "stacked_launches")),

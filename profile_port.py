@@ -13,7 +13,7 @@ CUDA-event ms (median of 5), the raster, lift (the pipeline's
 ``_window_lift``: the kernel L1 on the card) and ICP stages each timed
 alone by CUDA events (median of 5; a cascade's ICP stage is its
 full-resolution pass) with the raster's device kernel count, one
-association pass, and, from ``torch.profiler``
+association query, and, from ``torch.profiler``
 around one refine, the number of device kernels, their summed time and
 its share of the unprofiled wall time (the device busy share); then the
 eight kernels with the most device time. A kd cell also prints a
@@ -31,19 +31,6 @@ voxel): the whole track() (with the covariance and the packed session
 buffer) as above, and its stages timed alone: the scene build on the card,
 raster, lift, ICP (30 iterations, the session's default) and the
 information pass (pose_information + pose_covariance).
-
-Every cell also prints a ``[loops]`` line: the same refine (or tracked
-frame: scene build, refine with the information pass, packed buffer)
-through ``refine_poses`` with the ICP loop of before the iteration kernel
-- an ``icp.Association`` of the scene's query and reduce without
-``iterate``, so every pass is one launch of the fused pass followed by the
-solve, twist and update in PyTorch - and with the default loop, the
-iteration kernel of ``ops/icp_reduce.py`` (one launch a refine against a
-projective scene, an NN launch and an iteration launch a pass against an
-NN scene). The two alternate in one process (old, new, new, old, ...), 6
-timed calls each: wall median, min and max, and from ``torch.profiler``
-around one call of each the device kernel count, their summed time and the
-busy share.
 
 Then ``[async]`` lines for slice-bench-256 and a tracked projective frame:
 how long ``refine_async`` / ``track_async`` take to return, against the
@@ -87,31 +74,6 @@ def print_kernels(torch, cell, fn, wall_ms, line):
           f"kernel_sum_ms={kernel_ms} busy_share={kernel_ms / wall_ms}", flush=True)
     for name, ms, calls in rows[:8]:
         print(f"[profile]   {ms:.3f} ms {calls:5d}x {name[:90]}", flush=True)
-
-
-def print_loops(torch, cell, old, new, rounds=6):
-    """The [loops] line of one cell: old() and new() alternating, ``rounds``
-    timed calls each after a warm one, then one profiled call of each."""
-    fns = {"old": old, "new": new}
-    walls = {"old": [], "new": []}
-    for fn in fns.values():
-        fn()
-    for r in range(rounds):
-        for name in ("old", "new") if r % 2 == 0 else ("new", "old"):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fns[name]()
-            torch.cuda.synchronize()
-            walls[name].append((time.perf_counter() - t0) * 1e3)
-    parts = []
-    for name, fn in fns.items():
-        rows = CS.device_kernels(torch, fn)
-        kernel_ms, med = sum(r[1] for r in rows), float(np.median(walls[name]))
-        parts.append(f"{name} loop wall_ms median={med} min={min(walls[name])} "
-                     f"max={max(walls[name])} device_kernels={sum(r[2] for r in rows)} "
-                     f"kernel_sum_ms={kernel_ms} busy_share={kernel_ms / med}")
-    ratio = float(np.median(walls["new"])) / float(np.median(walls["old"]))
-    print(f"[loops] {cell}: {' | '.join(parts)} | new/old wall={ratio}", flush=True)
 
 
 def print_passes(torch, cell, key, fn):
@@ -163,7 +125,7 @@ def main():
     import pose_refine_tpu_torch as ptt
     from pose_refine_tpu_torch import geometry, icp, mesh
     from pose_refine_tpu_torch.ops import rasterize_cuda as RC
-    from pose_refine_tpu_torch.pipeline import _pack_track_outputs, _window_lift, refine_poses
+    from pose_refine_tpu_torch.pipeline import _window_lift
     from pose_refine_tpu_torch.scene.nn import SceneNN
     from pose_refine_tpu_torch.scene.projective import SceneProjective
 
@@ -187,14 +149,8 @@ def main():
     cells += [("kd-2mm-256", dict(scene="nn", scene_voxel_mm=2.0), CS.ITERS),
               ("kd-raw-256", dict(scene="nn"), CS.ITERS)]
 
-    def plan(ref, crit, **kw):
-        """refine_poses' keywords of ``ref``'s standing plan."""
-        return dict(width=ref.render_w, height=ref.render_h, max_points=ref.max_points,
-                    criteria=crit, window=ref.window, stride=ref.stride, roi=ref.roi, **kw)
-
     def refine_cell(cell, ref, build_ms, refine, tris, hyps, query, crit, scene_ids=None):
-        """One refine cell's lines: wall, device span, stages, profile; then
-        the loop of before the fused pass against the default one."""
+        """One refine cell's lines: wall, device span, stages, profile."""
         refine()  # warm
         wall_ms, span_ms = CS.refine_ms(torch, refine)
         rw, rh = ref.render_w, ref.render_h
@@ -204,14 +160,10 @@ def main():
         raster_ms, depth = event_ms(torch, raster)
         raster_kernels = sum(calls for _n, _ms, calls in CS.device_kernels(torch, raster))
         lift_ms, (clouds, valids) = event_ms(torch, lift_fn(ref, ref.scene, depth))
-        if scene_ids is None:
-            assoc = icp.Association(query, ref.scene.reduce, ref.scene.iterate)
-        else:
-            assoc = icp.Association(query, ref.scene.reduce_at(scene_ids),
-                                    ref.scene.iterate_at(scene_ids))
+        iterate = ref.scene.iterate if scene_ids is None else ref.scene.iterate_at(scene_ids)
+        assoc = icp.Association(query, iterate)
         icp_ms, _ = event_ms(torch, lambda: icp._icp_run(clouds, valids, assoc, crit))
         query_ms, _ = event_ms(torch, lambda: query(clouds), reps=10)
-        pass_ms, _ = event_ms(torch, lambda: assoc.reduce(clouds, valids), reps=10)
         pts = getattr(ref.scene, "points", None)
         size = f"{pts.shape[0]} points" if pts is not None else "projective"
         print_kernels(torch, cell, refine, wall_ms,
@@ -219,14 +171,7 @@ def main():
                       f"device_span_ms={span_ms} poses_per_s={hyps.shape[0] / wall_ms * 1e3} "
                       f"raster_ms={raster_ms} raster_kernels={raster_kernels} "
                       f"lift_ms={lift_ms} icp_ms={icp_ms} "
-                      f"one_query_ms={query_ms} one_fused_pass_ms={pass_ms}")
-
-        def through(own_query):
-            return refine_poses(tris, hyps, ref.scene, ref.proj, ref._K_render_t,
-                                **plan(ref, crit, scene_ids=scene_ids), query=own_query)
-
-        print_loops(torch, cell, lambda: through(assoc._replace(iterate=None)),
-                    lambda: through(None))
+                      f"one_query_ms={query_ms}")
 
     def built(ref, build):
         """(refiner, host ms of build(refiner), its scene build)."""
@@ -306,7 +251,7 @@ def main():
         raster_kernels = sum(calls for _n, _ms, calls in CS.device_kernels(torch, raster))
         lift_ms, (clouds, valids) = event_ms(torch, lift_fn(ref, sc, depth))
         icp_ms, (_res, final) = event_ms(torch, lambda: icp._icp_run(
-            clouds, valids, icp.Association(sc.query, sc.reduce, sc.iterate), crit))
+            clouds, valids, icp.Association(sc.query, sc.iterate), crit))
 
         def information():
             info, sigma2, _count = icp.pose_information(final, valids, sc.query)
@@ -319,22 +264,6 @@ def main():
                       f"raster_ms={raster_ms} raster_kernels={raster_kernels} lift_ms={lift_ms} "
                       f"icp_ms={icp_ms} information_ms={info_ms}")
 
-        def tracked(old_loop: bool):
-            """track()'s device work on the standing plan: scene build,
-            refine with the information pass, the packed session buffer;
-            old_loop: through an Association without iterate."""
-            if nn:
-                scn = SceneNN.from_depth_device(frame_t, ref._K_t, ref.max_dist_diff,
-                                                perm=perm, pool=pool)
-            else:
-                scn = SceneProjective.from_depth(frame_t, ref._K_t, ref.max_dist_diff,
-                                                 device=dev)
-            return _pack_track_outputs(*refine_poses(
-                ref.tris, hyps, scn, ref.proj, ref._K_render_t,
-                **plan(ref, crit, with_information=True),
-                query=icp.Association(scn.query, scn.reduce) if old_loop else None))
-
-        print_loops(torch, cell, lambda: tracked(True), lambda: tracked(False))
         if not nn:
             print_async(torch, cell, lambda: ref.track_async(frame, hyps, crit,
                                                              with_covariance=True))

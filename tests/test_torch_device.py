@@ -104,14 +104,6 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         G.gather_rows_cuda(torch.zeros((4, 8)), torch.zeros(3, dtype=torch.int64))
     with pytest.raises(ValueError, match="CUDA tensors"):
         NM.nn_flash_mxu_cuda(torch.zeros((3, 3)), NM.pack_scene_mxu(torch.zeros((5, 3))))
-    cloud, valid = torch.zeros((2, 4, 3)), torch.ones((2, 4), dtype=torch.bool)
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        IR.assoc_reduce_projective_cuda(cloud, valid, torch.zeros((12, 8)), torch.eye(3),
-                                        torch.tensor(0.1), 3, 4)
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        IR.assoc_reduce_indexed_cuda(cloud, valid, torch.zeros((12, 8)),
-                                     torch.zeros((2, 4), dtype=torch.int32),
-                                     torch.zeros((2, 4)), 0.01)
     with pytest.raises(ValueError, match="CUDA tensors"):
         LC.window_lift_cuda(torch.zeros((2, 8, 8), dtype=torch.int32), torch.eye(3), window=4,
                             stride=2, max_points=3, morton=False)
@@ -387,25 +379,15 @@ def test_gather_kernel_matches_plain_on_card(card, rows, dtype, n, offset):
     assert torch.equal(got, G.gather_rows_plain(table, idx))
 
 
-# the fused pass's float sums against float64 (chip_smoke.py's bar): a
-# thread adds at most 16 points in a row before the tree takes over
-SUMS_BAR = 2e-6
-
-
-def reduce_case(card, case):
-    """(scene reduce, plain query, clouds (N, P, 3), valid (N, P)) of one
-    front end of the fused kernel: a 120x160 depth frame around 0.3 m, and
-    clouds around it with points at z = 0, behind the camera, NaN, outside
-    the frame, on its border pixels, beyond the gate, and masked rows."""
-    sc, ids, plain_query, cloud, valid = scene_case(card, case)
-    return (sc.reduce if ids is None else sc.reduce_at(ids)), plain_query, cloud, valid
-
-
 def scene_case(card, case):
-    """reduce_case's scene, its ids (None for a single scene), plain query,
-    clouds and valid; "slabs16" is the tracking shape, 16 poses x 2,048
-    points (8-CTA clusters); "poses512" the serving ceiling's fine shape,
-    512 x 2,048 (128-thread CTAs, four an SM; two waves before they were)."""
+    """The scene of one front end of the iteration kernel, its ids (None for
+    a single scene), plain query, clouds (N, P, 3) and valid (N, P): a
+    120x160 depth frame around 0.3 m, and clouds around it with points at
+    z = 0, behind the camera, NaN, outside the frame, on its border pixels,
+    beyond the gate, and masked rows. "slabs16" is the tracking shape, 16
+    poses x 2,048 points (8-CTA clusters); "poses512" the serving ceiling's
+    fine shape, 512 x 2,048 (128-thread CTAs, four an SM; two waves before
+    they were)."""
     rng = np.random.default_rng(11)
     K = geometry.LINEMOD_K.copy()
     K[:2] *= 0.25
@@ -445,66 +427,12 @@ def scene_case(card, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["projective", "stacked", "slabs", "one_slab", "nn",
-                                  "nn_stacked", "kd"])
-def test_assoc_reduce_kernel_matches_plain_on_card(card, case):
-    """The fused association + reduction kernel against its plain version,
-    per front end: every sum bit for bit (NaN where the plain version's is
-    NaN), so the count (the association) exactly; the 28 float sums within
-    SUMS_BAR of their float64 values relative to the sum of their absolute
-    terms, two launches bit for bit, one launch counted a call."""
-    reduce, plain_query, cloud, valid = reduce_case(card, case)
-    before = IR.launches
-    got = reduce(cloud, valid)
-    again = reduce(cloud, valid)
-    torch.cuda.synchronize()
-    assert IR.launches == before + 2
-    for a, b in zip(got, again):
-        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
-    plain = IR.assoc_reduce_plain(cloud, valid, plain_query)
-    packed = IR.pack_sums(*got)
-    assert bool(((packed == plain) | (packed.isnan() & plain.isnan())).all())
-    want = IR.unpack_sums(plain)
-    assert torch.equal(got[2], want[2]) and 0 < float(got[2].sum())
-    assert float(got[2][2]) == 0.0 and not bool(got[0][2].any())
-    assert torch.equal(got[0][1:], got[0][1:].transpose(-1, -2))  # pose 0 holds NaN points
-    dst, nrm, q_valid = plain_query(cloud)
-    count_equal, err = IR.sums_error(IR.pack_sums(*got), cloud, valid, dst, nrm, q_valid)
-    assert count_equal and err <= SUMS_BAR
-    assert IR.slabs_for(*cloud.shape[:2]) == {"slabs": 8, "one_slab": 1}.get(case, 4)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("mode", [(0.004, False), (0.0, True), (0.004, True)],
-                         ids=["huber", "p2p", "p2p-huber"])
-@pytest.mark.parametrize("case", ["projective", "stacked", "slabs", "nn", "kd"])
-def test_assoc_reduce_modes_match_plain_on_card(card, case, mode):
-    """The fused kernel's Huber and point-to-point modes against their plain
-    version, per front end: every sum bit for bit (NaN where the plain
-    version's is NaN), the count exactly, the float sums within SUMS_BAR of
-    float64; Huber weights change the sums of the plain mode."""
-    robust_delta, p2p = mode
-    reduce, plain_query, cloud, valid = reduce_case(card, case)
-    got = IR.pack_sums(*reduce(cloud, valid, robust_delta=robust_delta, point_to_point=p2p))
-    torch.cuda.synchronize()
-    plain = IR.assoc_reduce_plain(cloud, valid, plain_query, robust_delta, p2p)
-    assert bool(((got == plain) | (got.isnan() & plain.isnan())).all())
-    base = IR.pack_sums(*reduce(cloud, valid, point_to_point=p2p))
-    assert torch.equal(got[:, 27:].view(torch.int32), base[:, 27:].view(torch.int32))
-    if robust_delta:
-        assert not torch.equal(got[1, :27], base[1, :27])
-    dst, nrm, q_valid = plain_query(cloud)
-    count_equal, err = IR.sums_error(got, cloud, valid, dst, nrm, q_valid, robust_delta, p2p)
-    assert count_equal and err <= SUMS_BAR
-
-
-@pytest.mark.cuda
 @pytest.mark.parametrize("n_scene", [5, 20000])
 def test_nn_kdtree_matches_plain_on_card(card, n_scene):
     """The kd traversal kernel against its plain version: idx, dist^2 and
     the step count bit for bit on every query (clustered queries, scene
     points, NaN and overflowing ones; a single-leaf tree at 5 points), one
-    launch counted; the scene query and the fused pass take its output."""
+    launch counted; the scene query takes its output."""
     rng = np.random.default_rng(n_scene)
     pts = (rng.normal(size=(n_scene, 3)) * [0.05, 0.05, 0.02] + [0, 0, 0.3]).astype(np.float32)
     scene = SceneNN.from_cloud(pts, pts, 0.005, device=card)
@@ -623,27 +551,6 @@ def test_nn_scene_refine_takes_kd_on_card(card):
 
 
 @pytest.mark.cuda
-def test_assoc_reduce_refuses_what_it_cannot_launch_on_card(card):
-    cloud = torch.zeros((2, 300, 3), device=card)
-    valid = torch.ones((2, 300), dtype=torch.bool, device=card)
-    table = torch.zeros((120 * 160, 8), device=card)
-    K, gate = torch.eye(3, device=card), torch.tensor(0.1, device=card)
-    with pytest.raises(ValueError, match="valid must be torch.bool"):
-        IR.assoc_reduce_projective_cuda(cloud, valid.to(torch.uint8), table, K, gate, 120, 160)
-    with pytest.raises(ValueError, match="one row offset per pose"):
-        IR.assoc_reduce_projective_cuda(cloud, valid, table, K, gate, 120, 160,
-                                        base=torch.zeros(3, dtype=torch.int64, device=card))
-    with pytest.raises(ValueError, match="K must be torch.float32 on cuda"):
-        IR.assoc_reduce_projective_cuda(cloud, valid, table, K.cpu(), gate, 120, 160)
-    with pytest.raises(ValueError, match="int32 or int64"):
-        IR.assoc_reduce_indexed_cuda(cloud, valid, table, torch.zeros((2, 300), device=card),
-                                     torch.zeros((2, 300), device=card), 0.01)
-    flat = torch.zeros(8 * 64 + 1, device=card)
-    with pytest.raises(ValueError, match="16-byte aligned"):
-        IR.assoc_reduce_projective_cuda(cloud, valid, flat[1:].view(64, 8), K, gate, 8, 8)
-
-
-@pytest.mark.cuda
 @pytest.mark.parametrize("scene", ["projective", "nn_bruteforce"])
 def test_track_through_kernels_on_card(card, scene):
     """One track() per scene kind on the card: the raster, the iteration
@@ -665,15 +572,15 @@ def test_track_through_kernels_on_card(card, scene):
                                  truth[:3, 3] + rng.uniform(-5, 5, (8, 3)).astype(np.float32))
     ref = ptt.PoseRefiner(m, K=geometry.LINEMOD_K, device="cuda", scene=scene,
                           scene_voxel_mm=2.0 if scene != "projective" else 0.0)
-    before = (RC.launches, G.launches, NF.gated_launches, IR.launches, IR.iterate_launches)
+    before = (RC.launches, G.launches, NF.gated_launches, IR.iterate_launches)
     refined, res, unc = ref.track(frame.cpu().numpy(), hyps, with_covariance=True)
     torch.cuda.synchronize()
-    after = (RC.launches, G.launches, NF.gated_launches, IR.launches, IR.iterate_launches)
+    after = (RC.launches, G.launches, NF.gated_launches, IR.iterate_launches)
     # the ICP loop through the iteration kernel: one launch for the
     # projective scene, one a pass (30 iterations and the scoring pass) for
     # the NN scene; the information pass through the row gather
-    assert after[0] > before[0] and after[1] == before[1] + 1 and after[3] == before[3]
-    assert after[4] == before[4] + (1 if scene == "projective" else 31)
+    assert after[0] > before[0] and after[1] == before[1] + 1
+    assert after[3] == before[3] + (1 if scene == "projective" else 31)
     assert (after[2] > before[2]) == (scene != "projective")
     assert refined.is_cuda and bool(torch.isfinite(refined).all())
     assert float(res.fitness.min()) > 0.7 and bool(torch.isfinite(unc.covariance).all())
@@ -849,7 +756,6 @@ def iterate_both(card, case, crit, mode=(0.0, False), start=None, coarse=(0, 2),
     if valid_map is not None:
         valid = valid_map(valid)
     iterate = sc.iterate if ids is None else sc.iterate_at(ids)
-    reduce = sc.reduce if ids is None else sc.reduce_at(ids)
     query = sc.query if ids is None else sc.query_at(ids)
     kw = dict(robust_delta=mode[0], estimation="point_to_point" if mode[1] else "point_to_plane",
               coarse_iters=coarse[0], coarse_stride=coarse[1])
@@ -860,8 +766,8 @@ def iterate_both(card, case, crit, mode=(0.0, False), start=None, coarse=(0, 2),
         return lambda state, *args, **modes: fn(start(state), *args, **modes)
 
     before = IR.iterate_launches
-    k_res, k_cloud = icp._icp_run(cloud, valid, icp.Association(query, reduce, wrap(iterate)),
-                                  crit, **kw)
+    k_res, k_cloud = icp._icp_run(cloud, valid, icp.Association(query, wrap(iterate)), crit,
+                                  **kw)
     torch.cuda.synchronize()
     n = IR.iterate_launches - before
     plain = icp.plain_association(plain_query)
@@ -1190,12 +1096,10 @@ def test_refine_is_one_iteration_launch_on_card(card):
     for scene in ("projective", "nn_bruteforce"):
         ref = ptt.PoseRefiner(m, K=geometry.LINEMOD_K, device="cuda", scene=scene)
         ref.set_scene_depth(frame)
-        before = (IR.iterate_launches, IR.launches, NF.gated_launches)
+        before = (IR.iterate_launches, NF.gated_launches)
         refined, res = ref.refine(hyps, crit)
         torch.cuda.synchronize()
-        it, passes, nn = (a - b for a, b in zip(
-            (IR.iterate_launches, IR.launches, NF.gated_launches), before))
-        assert passes == 0
+        it, nn = (a - b for a, b in zip((IR.iterate_launches, NF.gated_launches), before))
         assert (it, nn) == ((1, 0) if scene == "projective" else (21, 21))
         p_refined, p_res = refine_poses(
             ref.tris, torch.as_tensor(hyps, device=card), ref.scene, ref.proj,
@@ -1209,9 +1113,10 @@ def test_refine_is_one_iteration_launch_on_card(card):
 
 @pytest.mark.cuda
 def test_icp_iterate_refuses_what_it_cannot_launch_on_card(card):
-    """The iteration kernel's wrapper checks the state as well as the
-    pass's arguments: shapes, dtypes and the device of T, the scores, the
-    latch and the divisors."""
+    """The iteration kernel's wrappers check the pass's arguments (valid's
+    dtype, a row offset per pose, K's device, idx's dtype, the table's 16-byte
+    alignment) and the state: shapes, dtypes and the device of T, the
+    scores, the latch and the divisors."""
     from pose_refine_tpu_torch.ops.icp_reduce import ICPState
 
     sc, _ids, _q, cloud, valid = scene_case(card, "projective")
@@ -1231,6 +1136,49 @@ def test_icp_iterate_refuses_what_it_cannot_launch_on_card(card):
         sc.iterate(good, valid, n_total[:2], crit)
     with pytest.raises(ValueError, match="valid must be"):
         sc.iterate(good, valid[:, 1:], n_total, crit)
+    front = (crit, sc.table, sc.K, sc.max_dist_diff, sc.height, sc.width)
+    with pytest.raises(ValueError, match="valid must be torch.bool"):
+        IR.icp_iterate_projective_cuda(good, valid.to(torch.uint8), n_total, *front)
+    with pytest.raises(ValueError, match="one row offset per pose"):
+        IR.icp_iterate_projective_cuda(good, valid, n_total, *front,
+                                       base=torch.zeros(n + 1, dtype=torch.int64, device=card))
+    with pytest.raises(ValueError, match="K must be torch.float32 on cuda"):
+        IR.icp_iterate_projective_cuda(good, valid, n_total, crit, sc.table, sc.K.cpu(),
+                                       sc.max_dist_diff, sc.height, sc.width)
+    with pytest.raises(ValueError, match="int32 or int64"):
+        IR.icp_iterate_indexed_cuda(good, valid, n_total, crit, sc.table,
+                                    lambda c: (torch.zeros(c.shape[:-1], device=card),
+                                               torch.zeros(c.shape[:-1], device=card)), 0.01)
+    flat = torch.zeros(8 * 64 + 1, device=card)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        IR.icp_iterate_projective_cuda(good, valid, n_total, crit, flat[1:].view(64, 8), sc.K,
+                                       sc.max_dist_diff, 8, 8)
+
+
+@pytest.mark.cuda
+def test_launch_raises_on_an_error_code_on_card(card):
+    """A C entry that refuses its arguments returns a CUDA error code, and
+    the launch raises a RuntimeError that names the kernel and the error:
+    prt_icp_iterate asked through a bound launcher for iterations past the
+    scoring pass (it_end > max_iteration + 1), which only the entry checks.
+    Nothing runs and nothing is counted."""
+    from pose_refine_tpu_torch.ops.icp_reduce import ICPState
+
+    sc, _ids, _q, cloud, valid = scene_case(card, "projective")
+    n = cloud.shape[0]
+    crit = ptt.ICPConvergenceCriteria(max_iteration=3)
+    eye = torch.eye(4, device=card).expand(n, 4, 4)
+    state = ICPState(cloud.clone(), eye.clone(), torch.zeros(n, device=card),
+                     torch.zeros(n, device=card), torch.zeros(n, dtype=torch.bool, device=card))
+    run = IR._IterateLaunch(state, valid, valid.sum(dim=-1).float(), crit, sc.table, K=sc.K,
+                            gate=sc.max_dist_diff, height=sc.height, width=sc.width)
+    before = IR.iterate_launches
+    with pytest.raises(RuntimeError, match=r"^icp_iterate kernel launch failed: CUDA error 1 "
+                                           r"\(invalid argument\)$"):
+        run(0, crit.max_iteration + 2)
+    torch.cuda.synchronize()
+    assert IR.iterate_launches == before
+    assert torch.equal(run.state.T, eye) and same_bits(run.state.cloud, cloud)
 
 
 @pytest.mark.cuda

@@ -7,7 +7,7 @@ JAX's and against the port's "matmul"; and a torch emulation of the kernel's
 summation order (thread, warp butterfly, warps, slabs) against the float64
 sums - it tests the order's accuracy, not the compiled kernel, whose gate is
 the ``cuda``-marked cases of tests/test_torch_device.py and chip_smoke.py's
-``[assoc-reduce]``."""
+``[icp-iterate]``."""
 
 import functools
 
@@ -37,7 +37,8 @@ GATE = 0.03
 # the two packages sum the same float32 terms in different orders: each sum
 # against the other relative to the sum of its absolute terms
 SUM_RTOL = 1e-5
-# the kernel's order against float64 (chip_smoke.py's bar on the card)
+# the kernel's order against float64 (the kernel's sums equal this order's
+# bit for bit)
 ORDER_BAR = 2e-6
 
 
@@ -106,11 +107,6 @@ def test_plain_matches_jax_projective():
     cloud, mask = torch.as_tensor(src), torch.as_tensor(valid)
     sums, scale = plain_and_scale(cloud, mask, functools.partial(scene.query, plain=True))
     check_against_jax(sums, scale, [jscene.query] * len(src), src, valid)
-    # the scene's reduce is the kernel alone: CPU tensors raise and count no launch
-    before = IR.launches
-    with pytest.raises(ValueError, match="CUDA"):
-        scene.reduce(cloud, mask)
-    assert IR.launches == before
 
 
 def test_plain_matches_jax_stacked_projective():
@@ -124,8 +120,6 @@ def test_plain_matches_jax_stacked_projective():
     cloud, mask = torch.as_tensor(src), torch.as_tensor(valid)
     sums, scale = plain_and_scale(cloud, mask, stack.query_at(torch.as_tensor(ids), plain=True))
     check_against_jax(sums, scale, [jstack.query_at(int(i)) for i in ids], src, valid)
-    with pytest.raises(ValueError, match="CUDA"):
-        stack.reduce_at(torch.as_tensor(ids))(cloud, mask)
     # a pose routed to frame 2 differs from the same pose against frame 0
     other = IR.assoc_reduce_plain(cloud, mask, stack.query_at(0, plain=True))
     assert not torch.equal(other[1], sums[1]) and torch.equal(other[0], sums[0])
@@ -141,8 +135,6 @@ def test_plain_matches_jax_nn():
     cloud, mask = torch.as_tensor(src), torch.as_tensor(valid)
     sums, scale = plain_and_scale(cloud, mask, functools.partial(scene.query, plain=True))
     check_against_jax(sums, scale, [jscene.query] * len(src), src, valid)
-    with pytest.raises(ValueError, match="CUDA"):
-        scene.reduce(cloud, mask)
 
 
 def test_pack_and_unpack_are_inverse():
@@ -156,26 +148,22 @@ def test_pack_and_unpack_are_inverse():
 
 
 def test_association_on_cpu_takes_the_query():
-    """An Association on CPU tensors reduces its query by the chosen plain
-    formulation, bit for bit what the bare callable gives; its fused reduce
-    is for CUDA tensors alone."""
+    """An Association reduces its query by the chosen plain formulation,
+    bit for bit what the bare callable gives."""
     depths, src, valid = frames_and_clouds(n=3, p=200)
     scene = tproj.SceneProjective.from_depth(depths[0], small_K(), GATE, device="cpu")
     cloud, mask = torch.as_tensor(src), torch.as_tensor(valid)
 
-    def no_kernel(_cloud, _valid):
-        raise AssertionError("the fused reduce was called for CPU tensors")
-
-    assoc = ticp.Association(scene.query, no_kernel)
+    assoc = ticp.Association(scene.query)
+    assert ticp.Association._fields == ("query", "iterate") and assoc.iterate is None
     for reduction in ticp.REDUCTIONS:
         for a, b in zip(ticp._normal_equations(cloud, mask, assoc, reduction),
                         ticp._normal_equations(cloud, mask, scene.query, reduction)):
             assert torch.equal(a, b)
-    # "packed" is the fused pass's plain version, which plain_association
-    # hands to the loop as its reduce
+    # "packed" is the kernel's plain pass over the query of plain_association
     packed = ticp._normal_equations(cloud, mask, scene.query, "packed")
     plain = ticp.plain_association(functools.partial(scene.query, plain=True))
-    for a, b in zip(packed, plain.reduce(cloud, mask)):
+    for a, b in zip(packed, IR.unpack_sums(IR.assoc_reduce_plain(cloud, mask, plain.query))):
         assert torch.equal(a, b)
 
 

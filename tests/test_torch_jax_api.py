@@ -548,8 +548,7 @@ def test_query_at_sid_keyword_matches_jax(setup):
         np.testing.assert_array_equal(got[2].numpy(), v)
         for g, w in zip(got[:2], want[:2]):
             np.testing.assert_allclose(g.numpy()[v], np.asarray(w)[v], rtol=0, atol=atol)
-        for name in ("reduce_at", "iterate_at"):
-            assert list(inspect.signature(getattr(tstack, name)).parameters) == ["sid"]
+        assert list(inspect.signature(tstack.iterate_at).parameters) == ["sid"]
 
 
 # ---------------------------------------------------- PendingResult, sharding

@@ -1,6 +1,6 @@
 """Point-to-point ICP and Huber weights (robust_delta) in the port against
 the JAX package on the CPU: icp_point_to_point, _p2p_equations,
-pose_information, the fused pass's plain version in its four modes, and
+pose_information, the iteration kernel's plain pass in its four modes, and
 PoseRefiner(estimation=..., robust_delta=...), on tests/test_icp_p2p.py's
 inputs (fixed correspondences, a Kabsch anchor, a gross outlier) and
 tests/test_torch_nn_slice.py's refine workload."""
@@ -99,7 +99,7 @@ def test_p2p_equations_match_jax(robust_delta):
     mm off its target with a 0.5 m outlier: count and mse equal, J^T J and
     J^T e within 1e-5 of their largest entry (float32 sums in another
     order); Huber weights shrink the outlier's pull. The packed form (the
-    fused kernel's plain version) agrees with the matrix products to the
+    iteration kernel's plain pass) agrees with the matrix products to the
     same bar."""
     pts, target, nrm, _ = fixed_case(1, n=300, outlier=True)
     rng = np.random.default_rng(2)
@@ -184,9 +184,9 @@ def test_p2p_pose_information_matches_jax(robust_delta):
 
 @pytest.mark.parametrize("mode", MODES, ids=MODE_IDS)
 def test_packed_terms_modes_against_float64(mode):
-    """The fused pass's plain version in each mode: the ordered float32 sums
-    within 2e-6 of float64 (relative to the sum of absolute terms; the bar
-    chip_smoke.py holds the kernel to), equal to the matrix-product
+    """The iteration kernel's plain pass in each mode: the ordered float32
+    sums within 2e-6 of float64 (relative to the sum of absolute terms; the
+    kernel's sums equal them bit for bit), equal to the matrix-product
     formulation within 1e-5 of its largest entry, with masked points, NaN
     coordinates under the mask and points with no neighbour."""
     robust_delta, p2p = mode

@@ -95,7 +95,7 @@ def test_shard_pose_batch_and_mesh():
 
 
 def test_order_batch_keeps_the_whole_batch_order():
-    """The fused pass's sums depend on the batch's size (slabs_for: 40
+    """The iteration kernel's sums depend on the batch's size (slabs_for: 40
     poses of 4,096 points sum in 4 slabs, 20 in 8); a shard summed with
     order_batch=40 equals the whole batch's sums bit for bit, and without
     it does not."""
