@@ -19,7 +19,9 @@ nearest-neighbour scenes (``scene="nn"`` / ``"nn_kdtree"`` /
 ROI, auto lift sizes, warnings), ``refine`` (with the gate ``schedule=``),
 ``track`` and their enqueueing twins with ``fence``, and stacked scenes
 (``set_scene_depths`` + ``refine(scene_ids=)``), with ``devices=`` data
-parallelism over the pose batch (``parallel/sharding.py``).
+parallelism over the pose batch (``parallel/sharding.py``); on a card a
+refine against a standing scene is replayed as one CUDA graph while its
+arguments repeat (``_GraphSlot``).
 ``MultiModelRefiner`` refines hypotheses of several meshes in one batch.
 """
 
@@ -52,6 +54,7 @@ from pose_refine_tpu_torch.scene.nn import (
     voxel_downsample,
 )
 from pose_refine_tpu_torch.scene.projective import SceneProjective, SceneProjectiveStack
+from pose_refine_tpu_torch.utils import profiling
 from pose_refine_tpu_torch.utils.profiling import span
 
 NN_SCENES = ("nn", "nn_kdtree", "nn_bruteforce")
@@ -69,6 +72,10 @@ scenes = 0
 refines = 0
 tracked_frames = 0
 poses = 0
+# refines served by a CUDA graph (_GraphSlot): captures, and replays of a
+# captured graph (a capture's own run is not counted as a replay)
+graph_captures = 0
+graph_replays = 0
 
 
 def _scene_with_gate(scene, max_dist: float):
@@ -492,6 +499,122 @@ def _resolve_devices(devices) -> Optional[list]:
     return out if len(out) > 1 else None
 
 
+def _card_stream(device: torch.device) -> Optional[int]:
+    """The handle of ``device``'s current stream, on which a graph would
+    replay; None off the card."""
+    if device.type != "cuda":
+        return None
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _graph_key(scene, generation: int, tris, init, kw: dict, proj, K) -> Optional[tuple]:
+    """The key under which a refine replays a captured graph: everything
+    the graph freezes but the hypotheses' values - the scene (its identity
+    and the refiner's scene generation), the mesh (pointer and shape), the
+    batch's shape and dtype, the camera, every keyword of refine_poses, the
+    device and its current stream. None for a refine that stays eager: off
+    the card, against a stack (scene_ids), with the information pass, with
+    a per-pose mesh (an IndexedTris) or with the scatter raster
+    (use_pallas=False, which reads its extent back)."""
+    stream = _card_stream(init.device)
+    if (stream is None or kw["scene_ids"] is not None or kw["with_information"]
+            or kw["raster"] is not None or not isinstance(tris, torch.Tensor)):
+        return None
+    return (id(scene), generation, tris.data_ptr(), tuple(tris.shape), tris.dtype,
+            tuple(init.shape), init.dtype, init.device, stream, proj.data_ptr(), K.data_ptr(),
+            tuple(kw.items()))
+
+
+class _GraphSlot:
+    """One refine_poses call captured as a CUDA graph and replayed while its
+    key repeats (PoseRefiner._refine_graphed). The rule, ``decide``: the
+    first refine of a key runs eagerly and remembers the key, the second in
+    a row captures, every later one replays; another key, or None (a refine
+    out of scope), drops the graph and its memory pool. A replay copies the
+    hypotheses into the graph's input, launches the graph, and copies its
+    packed outputs [refined | T | fitness | rmse | n_points] out in one
+    copy: what a refine returns never lives in the graph's memory. The same
+    kernels run with the same arguments in the same order, so a replay
+    returns the eager refine's bits."""
+
+    __slots__ = ("key", "graph", "hyps", "packed", "launches", "keep")
+
+    def __init__(self):
+        self.graph = None
+        self.drop()
+
+    def drop(self, key=None):
+        """Release the graph and its memory pool; remember ``key``."""
+        if self.graph is not None:
+            self.graph.reset()
+        self.graph = self.hyps = self.packed = self.launches = self.keep = None
+        self.key = key
+
+    def decide(self, key) -> str:
+        """"eager", "capture" or "replay" for a refine of ``key``."""
+        if key is None or key != self.key:
+            self.drop(key)
+            return "eager"
+        return "capture" if self.graph is None else "replay"
+
+    def run(self, key, refine: Callable, init, keep: tuple = ()):
+        """``refine(init)`` -> (refined, RegistrationResult), eagerly or
+        through the graph of ``key``; ``keep`` holds what the graph reads
+        (the scene, the mesh, the camera) alive while it stands."""
+        mode = self.decide(key)
+        if mode == "eager":
+            return refine(init)
+        if mode == "capture":
+            self._capture(refine, init, keep)
+        return self._replay(init, first=mode == "capture")
+
+    def _capture(self, refine: Callable, init, keep: tuple):
+        """Capture ``refine`` of a static input shaped as ``init``; nothing
+        runs. The capture is on a side stream of init's card (the legacy
+        default stream cannot capture); a replay runs on the current
+        stream. The wrappers count the launches they issue here, once: a
+        later replay adds the same (profiling.advance). A capture that
+        fails raises."""
+        global graph_captures
+        with span("prt.refine.capture"):
+            before = profiling.counters()
+            graph = torch.cuda.CUDAGraph()
+            hyps = torch.empty_like(init)
+            try:
+                with torch.cuda.graph(graph, stream=torch.cuda.Stream(init.device),
+                                      capture_error_mode="thread_local"):
+                    refined, res = refine(hyps)
+                    packed = torch.cat([refined.reshape(-1), res.transformation.reshape(-1),
+                                        res.fitness, res.inlier_rmse, res.n_points])
+            except BaseException:
+                graph.reset()
+                self.drop()
+                raise
+            after = profiling.counters()
+        self.graph, self.hyps, self.packed, self.keep = graph, hyps, packed, keep
+        self.launches = {k: n - before[k] for k, n in after.items()
+                         if n != before[k] and not k.startswith("pipeline.")}
+        graph_captures += 1
+
+    def _replay(self, init, first: bool = False):
+        """The graph on ``init``: (refined, RegistrationResult) views of one
+        fresh copy of the packed outputs. ``first``: the capture's own run,
+        whose launches the wrappers counted."""
+        global graph_replays
+        with span("prt.refine.replay"):
+            self.hyps.copy_(init)
+            with span("prt.refine.icp"):
+                self.graph.replay()
+            out = self.packed.clone()
+        if not first:
+            profiling.advance(self.launches)
+            graph_replays += 1
+        n = init.shape[0]
+        scores = out[32 * n:].view(3, n)
+        return out[:16 * n].view(n, 4, 4), icp.RegistrationResult(
+            out[16 * n:32 * n].view(n, 4, 4), scores[0], scores[1], scores[2])
+
+
 class PoseRefiner:
     """Refine batches of pose hypotheses of one model against a scene depth
     (``scene="projective"``) or a scene cloud searched by exact nearest
@@ -605,6 +728,12 @@ class PoseRefiner:
             scene_cascade = (float(cv), int(ci))
         self.scene_cascade = scene_cascade
         self._scene_coarse = None
+        # a CUDA graph slot for each standing scene the refiner holds, its
+        # scene and the cascade's twin (_refine_graphed); set_scene_* bumps
+        # the generation and drops both
+        self._scene_generation = 0
+        self._graph = _GraphSlot()
+        self._graph_coarse = _GraphSlot()
         # robust_delta (m): Huber-IRLS inlier width of the ICP terms (0 =
         # the reference's least squares); the scores stay unweighted
         self.robust_delta = float(robust_delta)
@@ -969,10 +1098,17 @@ class PoseRefiner:
                 )
             self._frame_planned = True
 
+    def _new_scene(self):
+        """A scene is being set: the graphs of the old one go."""
+        self._scene_generation += 1
+        self._graph.drop()
+        self._graph_coarse.drop()
+
     def set_scene_depth(self, scene_depth):
         """Build the association structure from an (H, W) mm depth image
         (numpy or tensor). Happens once per frame, not per ICP iteration."""
         global scenes
+        self._new_scene()
         with span("prt.scene.set"):
             host = _host(scene_depth)
             self._prepare_frame(host)
@@ -1014,6 +1150,7 @@ class PoseRefiner:
                 "scene_cascade is per-frame (a coarse voxel twin); it does not compose with "
                 "stacked NN scenes - drop one of the two")
         global scenes
+        self._new_scene()
         with span("prt.scene.set"):
             frames = _host(scene_depths)
             if frames.ndim != 3 or frames.shape[0] < 1:
@@ -1045,6 +1182,7 @@ class PoseRefiner:
                 "pass explicit window/max_points to use set_scene_cloud"
             )
         global scenes
+        self._new_scene()
         with span("prt.scene.set"):
             points, normals = (
                 x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
@@ -1120,7 +1258,21 @@ class PoseRefiner:
         the scene runs first (before the schedule); ``criteria`` then
         governs the full-resolution pass, which alone computes the
         covariance. ``_scene`` (internal) refines against that scene instead
-        of the refiner's, with no pre-pass."""
+        of the refiner's, with no pre-pass.
+
+        On a card, refines against a standing scene replay a CUDA graph:
+        the first refine of a key (the scene and every argument but the
+        hypotheses' values, _graph_key) runs eagerly, the second in a row
+        captures the whole refine (render, lift, ICP loop, compose) as one
+        graph, and each later one copies its hypotheses in, launches the
+        graph and copies the results out, with the eager refine's bits; the
+        returned tensors never live in the graph's memory. The refiner's
+        scene and the cascade's twin each keep one graph; another key or
+        ``set_scene_*`` drops it. These refines stay eager, as before: on
+        the CPU, with ``devices=``, with ``scene_ids`` (stacks), with
+        ``schedule`` (its gate scenes are new each call), with
+        ``with_covariance=True``, with ``use_pallas=False``, with
+        MultiModelRefiner's per-pose meshes, and every ``track*``."""
         return self._refine(self.tris, init_poses, criteria, schedule, with_covariance,
                             scene_ids, _scene)
 
@@ -1152,6 +1304,7 @@ class PoseRefiner:
                     criteria.relative_fitness, criteria.relative_rmse, self.scene_cascade[1])
                 init, _ = self._refine(tris, init, coarse, _scene=self._scene_coarse)
             if schedule:
+                self._graph.drop()
                 self._check_schedule(schedule)
                 for level, (max_dist, iters) in enumerate(schedule):
                     out = self._refine(
@@ -1168,9 +1321,27 @@ class PoseRefiner:
                 out = refine_poses_split(self.devices, tris, init, scene, self.proj,
                                          self._K_render_t, replicas=self._replicas, **kw)
             else:
-                out = refine_poses(tris, init, scene, self.proj, self._K_render_t, **kw)
+                out = self._refine_graphed(tris, init, scene, _scene, kw)
             self._warn_if_saturated(out[1])
             return tuple(map(_first, out)) if squeeze else out
+
+    def _refine_graphed(self, tris, init, scene, _scene, kw: dict):
+        """refine_poses of ``init`` against ``scene`` on one device,
+        replayed from a CUDA graph while the call's key repeats (_GraphSlot,
+        _graph_key): the refiner's scene and the cascade's twin each have a
+        slot; any other scene (a schedule level's gate, a caller's
+        ``_scene``) refines eagerly."""
+        proj, K = self.proj, self._K_render_t
+
+        def refine(hyps):
+            return refine_poses(tris, hyps, scene, proj, K, **kw)
+
+        slot = (self._graph if _scene is None
+                else self._graph_coarse if _scene is self._scene_coarse else None)
+        if slot is None:
+            return refine(init)
+        key = _graph_key(scene, self._scene_generation, tris, init, kw, proj, K)
+        return slot.run(key, refine, init, keep=(scene, tris, proj, K))
 
     def _check_schedule(self, schedule):
         """JAX pipeline.py:1115-1127: every level must run more iterations

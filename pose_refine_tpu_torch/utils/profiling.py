@@ -6,8 +6,9 @@ caching allocator's statistics, and a rolling step timer.
 Spans. The port opens a named span at each boundary between its layers
 (``prt.scene.set``, ``prt.plan``, ``prt.scene.build``, ``prt.refine``,
 ``prt.refine.render`` / ``.lift`` / ``.icp`` / ``.info``, ``prt.shard``,
-``prt.gather``, ``prt.track``, ``prt.track.pin``, ``prt.wait``,
-``prt.step``, ``prt.step.sample``, ``prt.step.fuse``; README lists what each
+``prt.refine.capture`` / ``.replay``, ``prt.gather``, ``prt.track``,
+``prt.track.pin``, ``prt.wait``, ``prt.step``, ``prt.step.sample``,
+``prt.step.fuse``; README lists what each
 covers). A closed span is one record (name, request id, parent's name,
 thread id, start ns, end ns) on ``time.perf_counter_ns``'s clock, kept in a
 ring of the last ``SPAN_CAPACITY`` records. A span opened with no open span
@@ -20,7 +21,9 @@ no device work and synchronises nothing.
 
 Counters. ``counters()`` reads every counter of the port where it lives:
 the kernels' launch counters in ``ops/`` and ``scene/`` and the pipeline's
-requests (``pipeline.scenes``, ``refines``, ``tracked_frames``, ``poses``).
+requests (``pipeline.scenes``, ``refines``, ``tracked_frames``, ``poses``)
+and the refines served by a CUDA graph (``graph_captures``,
+``graph_replays``); ``advance`` adds a replayed graph's launches.
 """
 
 from __future__ import annotations
@@ -171,7 +174,8 @@ def clear_spans():
 
 # every counter of the port: (module, its module-level int counters)
 _COUNTERS = (
-    ("pose_refine_tpu_torch.pipeline", ("scenes", "refines", "tracked_frames", "poses")),
+    ("pose_refine_tpu_torch.pipeline", ("scenes", "refines", "tracked_frames", "poses",
+                                         "graph_captures", "graph_replays")),
     ("pose_refine_tpu_torch.ops.rasterize_cuda", ("launches",)),
     ("pose_refine_tpu_torch.ops.lift_cuda", ("launches",)),
     ("pose_refine_tpu_torch.ops.scene_table", ("launches",)),
@@ -182,6 +186,7 @@ _COUNTERS = (
     ("pose_refine_tpu_torch.scene.nn_kdtree", ("launches",)),
     ("pose_refine_tpu_torch.scene.nn_mxu", ("launches",)),
 )
+_MODULES = {module.rsplit(".", 1)[1]: module for module, _names in _COUNTERS}
 
 
 def counters() -> dict:
@@ -194,6 +199,15 @@ def counters() -> dict:
         short = module.rsplit(".", 1)[1]
         out.update((f"{short}.{n}", int(getattr(mod, n))) for n in names)
     return out
+
+
+def advance(counts: dict) -> None:
+    """Add ``counts`` (keyed as counters() keys them) to the counters: the
+    launches of a replayed CUDA graph, which no wrapper counts."""
+    for key, n in counts.items():
+        short, name = key.rsplit(".", 1)
+        mod = importlib.import_module(_MODULES[short])
+        setattr(mod, name, getattr(mod, name) + n)
 
 
 @contextlib.contextmanager

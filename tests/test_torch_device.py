@@ -1359,7 +1359,10 @@ def test_paths_through_lift_kernel_equal_the_plain_lift_on_card(card, path):
     """Each path that reaches the window lift takes L1 once a refine or
     tracked frame, and equals the same path with the plain lift in L1's
     place bit for bit (every other kernel as it is): L1's order feeds B3's
-    pruning and the ICP's sums, so a difference in any row would show."""
+    pruning and the ICP's sums, so a difference in any row would show. A
+    single-scene refine's second run is its CUDA graph's capture, and its
+    plain-lift twin runs eagerly (``_scene=ref.scene``): a replay would run
+    the lift it captured."""
     import unittest.mock
 
     from pose_refine_tpu_torch import pipeline
@@ -1399,7 +1402,7 @@ def test_paths_through_lift_kernel_equal_the_plain_lift_on_card(card, path):
     torch.cuda.synchronize()
     assert LC.launches == before + 1
     with unittest.mock.patch.object(pipeline, "window_lift_cuda", window_lift):
-        want = run()
+        want = ref.refine(hyps, crit, _scene=ref.scene) if path in ("slice", "nn") else run()
     torch.cuda.synchronize()
     assert LC.launches == before + 1
     got = got if isinstance(got, tuple) else (got,)
@@ -1533,3 +1536,155 @@ def test_refine_and_session_equal_with_the_plain_table_on_card(card, monkeypatch
     assert ST.launches == before
     for a, b in zip(kernel_steps, plain_steps):
         assert np.array_equal(a, b)
+
+
+def _graph_refiner(card, scene, frame, m, **kw):
+    """The benchmark cells' refiner (half-resolution renders, 4 mm
+    decimation, window 128, stride 2, 2,048 points) on ``frame``."""
+    return ptt.PoseRefiner(m, K=geometry.LINEMOD_K, device="cuda", scene=scene, render_scale=2,
+                           decimate_mm=4.0, window=128, stride=2, max_points=2048,
+                           scene_voxel_mm=0.0 if scene == "projective" else 2.0,
+                           **kw).set_scene_depth(frame)
+
+
+def _graph_batches(card, k, n=256):
+    """The mesh, its frame and ``k`` batches of ``n`` hypotheses about it."""
+    m, frame, _ = _bench_like_case(card, n=1)
+    batches = [_bench_like_case(card, n=n, seed=10 + i)[2] for i in range(k)]
+    return m, frame, batches
+
+
+def _same_refine(got, want):
+    """(refined, RegistrationResult) pairs equal bit for bit, every field."""
+    return same_bits(got[0], want[0]) and all(
+        a is None and b is None or same_bits(a, b) for a, b in zip(got[1], want[1]))
+
+
+def _eager(ref, hyps, crit):
+    """The eager refine of ``hyps``: a refine against the refiner's scene
+    handed in as ``_scene``, which no graph slot serves."""
+    return ref.refine(hyps, crit, _scene=ref.scene)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", ["nn", "nn_bruteforce", "projective"])
+def test_graph_replay_equals_eager_refine_on_card(card, scene):
+    """Six batches of 256 hypotheses at 2,048 points and 24 iterations: the
+    first refine runs eagerly, the second captures the refine as a CUDA
+    graph, the four after it replay it; each result (refined, T, fitness,
+    rmse, n_points) equals the eager refine of its batch bit for bit, and
+    the results returned earlier are unchanged by the later replays."""
+    from pose_refine_tpu_torch import pipeline
+
+    m, frame, batches = _graph_batches(card, 6)
+    ref = _graph_refiner(card, scene, frame, m)
+    crit = ptt.ICPConvergenceCriteria(max_iteration=24)
+    before = (pipeline.graph_captures, pipeline.graph_replays)
+    kept = []
+    for b in batches:
+        got = ref.refine(b, crit)
+        assert _same_refine(got, _eager(ref, b, crit))
+        kept.append((got, (got[0].clone(), [t.clone() for t in got[1]])))
+    assert (pipeline.graph_captures - before[0], pipeline.graph_replays - before[1]) == (1, 4)
+    assert ref._graph.graph is not None
+    for got, copy in kept:
+        assert _same_refine(got, (copy[0], copy[1]))
+    packed = ref._graph.packed.untyped_storage().data_ptr()
+    for got, _copy in kept[1:]:
+        assert all(t.untyped_storage().data_ptr() != packed for t in (got[0], *got[1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("change", ["scene", "roi", "N", "criteria"])
+def test_graph_miss_refines_as_a_fresh_refiner_on_card(card, change):
+    """After a graph stands, a refine with another scene, ROI, batch size
+    or criteria misses: it runs eagerly (no replay, the graph dropped) and
+    equals a fresh refiner's refine bit for bit."""
+    from pose_refine_tpu_torch import pipeline
+
+    m, frame, batches = _graph_batches(card, 4)
+    ref = _graph_refiner(card, "nn", frame, m)
+    crit = ptt.ICPConvergenceCriteria(max_iteration=24)
+    for b in batches[:3]:
+        ref.refine(b, crit)
+    assert ref._graph.graph is not None
+    hyps, other = batches[3], crit
+    fresh_frame = frame
+    if change == "scene":
+        fresh_frame = torch.roll(frame, 6, dims=1)
+        ref.set_scene_depth(fresh_frame)
+    elif change == "N":
+        hyps = hyps[:200]
+    elif change == "criteria":
+        other = ptt.ICPConvergenceCriteria(max_iteration=16)
+    fresh = _graph_refiner(card, "nn", fresh_frame, m)
+    if change == "roi":
+        x, y, w, h = ref.roi
+        ref.roi = fresh.roi = (max(x - 8, 0), y, w, h)
+        assert ref.roi != (x, y, w, h)
+    replays = pipeline.graph_replays
+    got = ref.refine(hyps, other)
+    assert pipeline.graph_replays == replays and ref._graph.graph is None
+    assert _same_refine(got, fresh.refine(hyps, other))
+
+
+@pytest.mark.cuda
+def test_graph_replay_through_refine_async_on_card(card):
+    """refine_async through replays, then one fence: every batch's result
+    equals its eager refine bit for bit, the earlier PendingResults intact
+    after the later replays."""
+    from pose_refine_tpu_torch import pipeline
+
+    m, frame, batches = _graph_batches(card, 6)
+    ref = _graph_refiner(card, "nn", frame, m)
+    crit = ptt.ICPConvergenceCriteria(max_iteration=24)
+    replays = pipeline.graph_replays
+    out = ptt.fence(*[ref.refine_async(b, crit) for b in batches])
+    assert pipeline.graph_replays - replays == 4
+    for b, got in zip(batches, out):
+        assert _same_refine(got, _eager(ref, b, crit))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", ["nn", "nn_bruteforce", "projective"])
+def test_graph_replay_counts_the_eager_launches_on_card(card, scene):
+    """A replay advances every launch counter (rasterize_cuda, lift_cuda,
+    icp_reduce.iterate_launches, nn_kdtree / nn_flash) by exactly what the
+    eager refine advances them by, and so does the capture's refine."""
+    from pose_refine_tpu_torch.utils import profiling
+
+    m, frame, batches = _graph_batches(card, 4)
+    ref = _graph_refiner(card, scene, frame, m)
+    crit = ptt.ICPConvergenceCriteria(max_iteration=24)
+
+    def launched(fn):
+        before = profiling.counters()
+        fn()
+        after = profiling.counters()
+        return {k: v - before[k] for k, v in after.items()
+                if v != before[k] and not k.startswith("pipeline.")}
+
+    eager = launched(lambda: _eager(ref, batches[0], crit))
+    if scene == "nn":
+        assert eager == {"rasterize_cuda.launches": 1, "lift_cuda.launches": 1,
+                         "icp_reduce.iterate_launches": 25, "nn_kdtree.launches": 25}
+    for b in batches:  # eager, capture, replay, replay
+        assert launched(lambda: ref.refine(b, crit)) == eager
+
+
+@pytest.mark.cuda
+def test_graph_cascade_replays_both_scenes_on_card(card):
+    """scene_cascade: the coarse twin's refine and the scene's each keep a
+    graph; from the third refine on both replay, and every result equals a
+    fresh refiner's (eager) refine of its batch bit for bit."""
+    from pose_refine_tpu_torch import pipeline
+
+    m, frame, batches = _graph_batches(card, 5)
+    kw = dict(scene_cascade=(6.0, 8))
+    ref = _graph_refiner(card, "nn", frame, m, **kw)
+    crit = ptt.ICPConvergenceCriteria(max_iteration=24)
+    replays = pipeline.graph_replays
+    for b in batches:
+        got = ref.refine(b, crit)
+        assert _same_refine(got, _graph_refiner(card, "nn", frame, m, **kw).refine(b, crit))
+    assert pipeline.graph_replays - replays == 2 * 3

@@ -237,17 +237,18 @@ def test_spans_in_the_trace_on_its_clock(tmp_path):
 
 def test_counters_name_every_counter_of_the_port():
     """counters() holds every module-level launch counter of the port under
-    <module>.<name>, read where it lives, and the pipeline's four."""
+    <module>.<name>, read where it lives, and the pipeline's six (four
+    requests, and the refines a CUDA graph served)."""
     found = set()
     for path in PORT.rglob("*.py"):
         for name in re.findall(r"^(\w*launches) = 0", path.read_text(), re.M):
             found.add(f"{path.stem}.{name}")
     c = profiling.counters()
     assert found and found <= set(c)
-    assert {"pipeline.scenes", "pipeline.refines", "pipeline.tracked_frames",
-            "pipeline.poses"} <= set(c)
-    assert set(c) - found == {"pipeline.scenes", "pipeline.refines",
-                              "pipeline.tracked_frames", "pipeline.poses"}
+    pipeline = {"pipeline.scenes", "pipeline.refines", "pipeline.tracked_frames",
+                "pipeline.poses", "pipeline.graph_captures", "pipeline.graph_replays"}
+    assert pipeline <= set(c)
+    assert set(c) - found == pipeline
     from pose_refine_tpu_torch.ops import rasterize_cuda
     assert c["rasterize_cuda.launches"] == rasterize_cuda.launches
     assert all(isinstance(v, int) for v in c.values())
