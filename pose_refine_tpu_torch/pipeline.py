@@ -76,6 +76,13 @@ poses = 0
 # captured graph (a capture's own run is not counted as a replay)
 graph_captures = 0
 graph_replays = 0
+# MultiModelRefiner's per-pose meshes (_per_pose_tris): the poses handed
+# over with a model id, the (pose, triangle) slots B1 sets up for them
+# (every pose walks the table's padded count), and the padding among
+# those, N * T_max less the sum of T[id]
+model_poses = 0
+model_slots = 0
+padded_slots = 0
 
 
 def _scene_with_gate(scene, max_dist: float):
@@ -1071,7 +1078,8 @@ class PoseRefiner:
             self._check_saturation = True
             return
         with span("prt.plan"):
-            stats = self._object_stats(_host(scene_depth))
+            host = _host(scene_depth)
+            stats = self._object_stats(host)
             if 0.0 < stats.d_max <= 50.0:
                 # a depth image whose farthest point is 5 cm is almost certainly
                 # in METERS; everything here is mm
@@ -1090,13 +1098,21 @@ class PoseRefiner:
             # the window lift crops a window x window region around the rendered
             # object; a larger object loses boundary points without this check
             if self.lift == "window" and self._obj_extent_px > self.window:
-                logger.warning(
-                    "object extent ~%d render px exceeds the window lift "
-                    "crop of %d px: boundary points will be cropped. "
-                    "Enlarge window= or use lift='compact'.",
-                    self._obj_extent_px, self.window,
-                )
+                widest = self._widest_object_px(host, stats)
+                if widest > self.window:
+                    logger.warning(
+                        "object extent ~%d render px exceeds the window lift "
+                        "crop of %d px: boundary points will be cropped. "
+                        "Enlarge window= or use lift='compact'.",
+                        widest, self.window,
+                    )
             self._frame_planned = True
+
+    def _widest_object_px(self, depth: np.ndarray, stats: _ObjectStats) -> int:
+        """The widest one object of the frame can be (render px), which the
+        window warning holds against the window: the frame holds one
+        object, so its extent."""
+        return self._obj_extent_px
 
     def _new_scene(self):
         """A scene is being set: the graphs of the old one go."""
@@ -1515,22 +1531,52 @@ class MultiModelRefiner(PoseRefiner):
         padded = [np.concatenate([t, np.broadcast_to(t[:1, :1, :], (tmax - len(t), 3, 3))])
                   for t in tables]
         self.tris_table = torch.as_tensor(np.stack(padded), device=self.device)  # (M, T, 3, 3)
+        # each model's own triangle count, before the padding
+        self.model_tris = np.array([len(t) for t in tables], np.int64)
+        # the largest model's diameter (mm), bounded by twice its farthest
+        # vertex from its box's centre: the window warning's one object
+        self._diameter_mm = max(
+            2.0 * float(np.linalg.norm(v - 0.5 * (v.min(0) + v.max(0)), axis=1).max())
+            for v in (np.asarray(m.vertices, np.float64) for m in models))
+
+    def _widest_object_px(self, depth: np.ndarray, stats: _ObjectStats) -> int:
+        """The frame's box holds every object at once, so one object is at
+        most as wide as the box, and at most the largest model's diameter
+        seen at the frame's nearest depth (render px). The nearest depth is
+        read at every 4th pixel of the box each way: an object as wide as a
+        128-pixel window at render_scale 2 spans 64 samples a side."""
+        if not stats.count:
+            return self._obj_extent_px
+        band = depth[stats.y0:stats.y1 + 1:4, stats.x0:stats.x1 + 1:4]
+        hit = band[band > 0]
+        if not hit.size:
+            return self._obj_extent_px
+        near = float(hit.min())
+        seen = int(max(self.K[0, 0], self.K[1, 1]) * self._diameter_mm / near)
+        return min(self._obj_extent_px, seen // self.render_scale)
 
     def _per_pose_tris(self, model_ids, init_poses):
         """Validate (model_ids, poses): (IndexedTris of the table and the
         ids, poses (N, 4, 4), squeeze). Ids are read on the host (a card
-        tensor is read back) and range-checked."""
-        ids = np.asarray(_host(model_ids), np.int64).reshape(-1)
-        if ids.size and (ids.min() < 0 or ids.max() >= len(self.models)):
-            raise ValueError(f"model_ids must be in [0, {len(self.models)}), got "
-                             f"[{ids.min()}, {ids.max()}]")
-        poses = to_device(init_poses, self.device, torch.float32)
-        squeeze = poses.dim() == 2
-        if squeeze:
-            poses = poses[None]
-        if poses.shape[0] != ids.shape[0]:
-            raise ValueError(f"{ids.shape[0]} model ids for {poses.shape[0]} poses")
-        tris = IndexedTris(self.tris_table, to_device(ids.astype(np.int32), self.device))
+        tensor is read back) and range-checked, in the span
+        ``prt.refine.models``, which also counts the poses and B1's slots."""
+        global model_poses, model_slots, padded_slots
+        with span("prt.refine.models"):
+            ids = np.asarray(_host(model_ids), np.int64).reshape(-1)
+            if ids.size and (ids.min() < 0 or ids.max() >= len(self.models)):
+                raise ValueError(f"model_ids must be in [0, {len(self.models)}), got "
+                                 f"[{ids.min()}, {ids.max()}]")
+            poses = to_device(init_poses, self.device, torch.float32)
+            squeeze = poses.dim() == 2
+            if squeeze:
+                poses = poses[None]
+            if poses.shape[0] != ids.shape[0]:
+                raise ValueError(f"{ids.shape[0]} model ids for {poses.shape[0]} poses")
+            tris = IndexedTris(self.tris_table, to_device(ids.astype(np.int32), self.device))
+            slots = ids.size * self.tris_table.shape[1]
+            model_poses += ids.size
+            model_slots += slots
+            padded_slots += slots - int(self.model_tris[ids].sum())
         return tris, poses, squeeze
 
     def refine(self, model_ids, init_poses=None, **kwargs):

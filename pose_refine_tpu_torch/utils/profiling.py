@@ -6,7 +6,7 @@ caching allocator's statistics, and a rolling step timer.
 Spans. The port opens a named span at each boundary between its layers
 (``prt.scene.set``, ``prt.plan``, ``prt.scene.build``, ``prt.refine``,
 ``prt.refine.render`` / ``.lift`` / ``.icp`` / ``.info``, ``prt.shard``,
-``prt.refine.capture`` / ``.replay``, ``prt.gather``, ``prt.track``,
+``prt.refine.capture`` / ``.replay``, ``prt.refine.models``, ``prt.gather``, ``prt.track``,
 ``prt.track.pin``, ``prt.wait``, ``prt.step``, ``prt.step.sample``,
 ``prt.step.fuse``; README lists what each
 covers). A closed span is one record (name, request id, parent's name,
@@ -21,9 +21,11 @@ no device work and synchronises nothing.
 
 Counters. ``counters()`` reads every counter of the port where it lives:
 the kernels' launch counters in ``ops/`` and ``scene/`` and the pipeline's
-requests (``pipeline.scenes``, ``refines``, ``tracked_frames``, ``poses``)
-and the refines served by a CUDA graph (``graph_captures``,
-``graph_replays``); ``advance`` adds a replayed graph's launches.
+requests (``pipeline.scenes``, ``refines``, ``tracked_frames``, ``poses``),
+the refines served by a CUDA graph (``graph_captures``,
+``graph_replays``) and MultiModelRefiner's per-pose meshes
+(``model_poses``, ``model_slots``, ``padded_slots``); ``advance`` adds a
+replayed graph's launches.
 """
 
 from __future__ import annotations
@@ -175,7 +177,8 @@ def clear_spans():
 # every counter of the port: (module, its module-level int counters)
 _COUNTERS = (
     ("pose_refine_tpu_torch.pipeline", ("scenes", "refines", "tracked_frames", "poses",
-                                         "graph_captures", "graph_replays")),
+                                         "graph_captures", "graph_replays", "model_poses",
+                                         "model_slots", "padded_slots")),
     ("pose_refine_tpu_torch.ops.rasterize_cuda", ("launches",)),
     ("pose_refine_tpu_torch.ops.lift_cuda", ("launches",)),
     ("pose_refine_tpu_torch.ops.scene_table", ("launches",)),

@@ -284,6 +284,53 @@ def test_raster_kernel_reads_an_indexed_table_on_card(card):
     assert torch.equal(got, gathered)
 
 
+def _lmo_frame512_case(card):
+    """The lmo-frame512 cell's refiner on the card (``benchmark/configs/
+    lmo-proj.json``: 8 stand-ins, 4 mm decimation, the padded table) with
+    one of its frames set, and its 512 hypotheses with their model ids, made
+    by the cell's kind from a seed."""
+    import importlib.util
+    import json
+
+    bench = REPO / "benchmark"
+    sys.path.insert(0, str(bench))
+    spec = importlib.util.spec_from_file_location("bench_kind_multirefine",
+                                                  bench / "kinds" / "multirefine.py")
+    kind = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(kind)
+    cfg = json.loads((bench / "configs" / "lmo-proj.json").read_text())
+    mix = json.loads((bench / "mixes" / "lmo8x64.json").read_text())
+    tr = kind.Traffic(ptt, cfg, dict(mix, frames=1, hypothesis_batches=1), 3_000_000_513,
+                      [str(card)])
+    tr.refiner.set_scene_depth(tr.frames[0])
+    return tr
+
+
+@pytest.mark.cuda
+def test_indexed_raster_at_the_lmo_cell_matches_gathered_on_card(card):
+    """B1 through the lmo-frame512 cell's padded (8, T_max, 3, 3) table with
+    a model id a pose, at its 512 poses in its ROI: bit for bit the kernel's
+    render of the gathered (512, T_max, 3, 3) per-pose table, and at two
+    poses of each model the plain version's; every model's pixels drawn."""
+    tr = _lmo_frame512_case(card)
+    ref = tr.refiner
+    table = ref.tris_table
+    ids = torch.as_tensor(tr.ids, device=card)
+    poses = torch.as_tensor(tr.batches[0], device=card)
+    assert table.shape[0] == 8 and len(set(ref.model_tris.tolist())) == 8 and len(ids) == 512
+    w, h = ref.render_w, ref.render_h
+    got = RC.rasterize(RC.IndexedTris(table, ids), poses, w, h, ref.proj, ref.roi)
+    gathered = RC.rasterize(table[ids.long()].contiguous(), poses, w, h, ref.proj, ref.roi)
+    torch.cuda.synchronize()
+    assert torch.equal(got, gathered)
+    some = torch.arange(0, 512, 32, device=card)
+    plain = RC.rasterize_plain(RC.IndexedTris(table, ids[some]), poses[some], w, h, ref.proj,
+                               ref.roi)
+    assert torch.equal(got[some], plain)
+    drawn = (got > 0).flatten(1).sum(1).reshape(8, 64)
+    assert bool((drawn > 0).all())
+
+
 @pytest.mark.cuda
 def test_raster_kernel_refuses_what_it_cannot_launch_on_card(card):
     table = torch.zeros((2, 8, 3, 3), device=card)

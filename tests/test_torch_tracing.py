@@ -237,8 +237,9 @@ def test_spans_in_the_trace_on_its_clock(tmp_path):
 
 def test_counters_name_every_counter_of_the_port():
     """counters() holds every module-level launch counter of the port under
-    <module>.<name>, read where it lives, and the pipeline's six (four
-    requests, and the refines a CUDA graph served)."""
+    <module>.<name>, read where it lives, and the pipeline's nine (four
+    requests, the refines a CUDA graph served, and MultiModelRefiner's
+    poses, B1 slots and padded slots)."""
     found = set()
     for path in PORT.rglob("*.py"):
         for name in re.findall(r"^(\w*launches) = 0", path.read_text(), re.M):
@@ -246,7 +247,8 @@ def test_counters_name_every_counter_of_the_port():
     c = profiling.counters()
     assert found and found <= set(c)
     pipeline = {"pipeline.scenes", "pipeline.refines", "pipeline.tracked_frames",
-                "pipeline.poses", "pipeline.graph_captures", "pipeline.graph_replays"}
+                "pipeline.poses", "pipeline.graph_captures", "pipeline.graph_replays",
+                "pipeline.model_poses", "pipeline.model_slots", "pipeline.padded_slots"}
     assert pipeline <= set(c)
     assert set(c) - found == pipeline
     from pose_refine_tpu_torch.ops import rasterize_cuda
